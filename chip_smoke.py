@@ -7,16 +7,21 @@ Run from the root of a checkout, on a machine with one NVIDIA H100::
 
 Phases (any failure exits non-zero without the final line):
 
-1. build   — nvcc builds every kernel of the serving path from
-             ``mxnet_tpu_torch/csrc`` (one process per source, in parallel);
+1. build   — nvcc builds every kernel of the serving and training paths
+             from ``mxnet_tpu_torch/csrc`` (one process per source, in
+             parallel);
 2. kernels — each kernel's wrapper against its plain PyTorch version on
              the card, fp32, inputs from a numpy seed: flash-attention
              forward at GPT-2 prefill shapes (causal + segment ids with
              right-padded tails and a fully masked row; Tq != Tk
              non-causal), max |diff| <= 1e-4 on out and LSE; LayerNorm at
-             (rows, 768), max |diff| <= 1e-5; kernel, plain and library
-             (SDPA with a boolean mask, F.layer_norm) times, medians of
-             CUDA-event timings;
+             (rows, 768), max |diff| <= 1e-5; the two flash-attention
+             backward kernels (dK/dV, dQ) at GPT-2 training shapes (4*12,
+             1024, 64) causal, 512 with padding ids and a fully masked
+             row, ragged 384 and 1000, Tq=384/Tk=1000 non-causal), max
+             |diff| <= 1e-4 on dq, dk, dv; kernel, plain and library
+             (SDPA with a boolean mask, its autograd backward,
+             F.layer_norm) times, medians of CUDA-event timings;
 3. serve   — GPT-2 small (12 x 768, 12 heads, vocab 50257, max_length
              1024, fp32, weights from a numpy seed loaded through
              ``params_from_mxnet_tpu``) served by ``DecodeEngine`` (8 slots,
@@ -27,7 +32,22 @@ Phases (any failure exits non-zero without the final line):
              last-token prefill logits against the same weights on the
              CPU (relative max |diff| <= 1e-3), and the engine's greedy
              tokens against ``generate(use_cache=False)`` on the card up to
-             the first near tie (top-2 logit margin < 1e-3).
+             the first near tie (top-2 logit margin < 1e-3);
+4. train   — GPT-2 small (the same width and depth, GPT-2's N(0, 0.02)
+             initialisation from a numpy seed, loaded through
+             ``params_from_mxnet_tpu``) trained through
+             ``autograd.record`` / ``autograd.backward`` /
+             ``gluon.Trainer("adamw").step``: one step's gradients of every
+             parameter at B=2, T=128 (one row right-padded through
+             ``valid_length``, dropout 0) against the same weights on the
+             CPU (relative max |diff| <= 1e-3); then 30 steps at B=4,
+             T=1024 (AdamW with warm-up and a cosine schedule) with
+             dropout 0.1 from ``mxnet_tpu_torch.random`` on a
+             cyclic-sequence task made from the seed, whose loss must fall
+             below half its first value, with 12 launches each of the
+             flash forward, dK/dV and dQ kernels and 25 LayerNorm launches
+             in every step; prints step ms, training tokens/s and peak
+             device memory.
 
 The lines before the last give the card's name and power limit and a JSON
 object of every kernel's numbers; the last line is
@@ -49,7 +69,13 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FLASH_TOL = 1e-4
 LN_TOL = 1e-5
 LOGIT_RTOL = 1e-3
+GRAD_RTOL = 1e-3
 NEAR_TIE = 1e-3
+TRAIN_STEPS = 30
+TRAIN_LR = 3e-4            # AdamW peak, GPT-3's beta2 = 0.95, 5 warm-up
+TRAIN_WARMUP = 5           # steps, then a cosine to TRAIN_LR / 10
+TRAIN_SHAPE = (4, 1024)    # batch rows x tokens: GPT-2's own context
+DEV = "cuda"
 
 
 class SmokeError(Exception):
@@ -267,6 +293,99 @@ def phase_kernels():
         "library_ms": main[2], "bound_ms": main[3], "bound_by": main[4],
         "device_ms": main[5],
         "shape": "x (4*512, 768) fp32, gamma/beta (768,) fp32"}
+    results.update(_flash_bwd_rows(rng, dev))
+    return results
+
+
+def _flash_bwd_rows(rng, dev):
+    """The two flash-attention backward kernels against the plain backward
+    at GPT-2 training shapes; the training shape (4*12, 1024, 64) causal
+    gives the JSON rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, H, D = 4, 12, 64
+    scale = 1.0 / D ** 0.5
+    err = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
+    rows = {}
+    for Tq, Tk, causal, seg in [(1024, 1024, True, False),
+                                (512, 512, True, True),
+                                (384, 384, True, True),
+                                (1000, 1000, True, True),
+                                (384, 1000, False, False)]:
+        q, k, v, qs, ks = _flash_inputs(rng, dev, B, H, Tq, Tk, D, seg)
+        g = torch.from_numpy(rng.randn(B, H, Tq, D).astype("float32")) \
+            .to(dev)
+        out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
+        dq, dk, dv = ck.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale,
+                                       causal)
+        rq, rk, rv = ck.attention_bwd_plain(q, k, v, out, lse, g, qs, ks,
+                                            scale, causal)
+        torch.cuda.synchronize()
+        e_dkv = max(float((dk - rk).abs().max()),
+                    float((dv - rv).abs().max()))
+        e_dq = float((dq - rq).abs().max())
+        check(max(e_dkv, e_dq) <= FLASH_TOL,
+              f"flash_bwd T=({Tq},{Tk}) causal={causal} seg={seg}: max "
+              f"|diff| dk/dv {e_dkv:.3g}, dq {e_dq:.3g} > {FLASH_TOL}")
+        if seg:
+            check(float(dq[B - 1, :, 0].abs().max()) == 0.0,
+                  "flash_bwd: the fully masked row has a gradient")
+        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
+        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
+        delta = (g * out).sum(dim=-1)
+        args = (q, k, v, g, lse, delta, qs, ks, scale, causal)
+        mask, pairs = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)
+        plain_ms = time_ms(lambda: ck.attention_bwd_plain(
+            q, k, v, out, lse, g, qs, ks, scale, causal), reps=10)
+        # the library's backward: autograd through SDPA with the same
+        # boolean mask, less SDPA's forward alone
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_mask = mask[:, None]
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg,
+                                               attn_mask=sdpa_mask,
+                                               scale=scale)
+            torch.autograd.grad(o, (qg, kg, vg), g)
+
+        lib_ms = time_ms(lib_fwd_bwd, reps=20) - time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, scale=scale), reps=20)
+        n_in = 4 * (q.numel() + k.numel() + v.numel() + g.numel()
+                    + lse.numel() + delta.numel()) + (
+            4 * (qs.numel() + ks.numel()) if seg else 0)
+        for name, fn, n_out, flops_per_pair in (
+                ("flash_bwd_dkv", ck.flash_bwd_dkv_cuda, 2 * k.numel(), 8),
+                ("flash_bwd_dq", ck.flash_bwd_dq_cuda, q.numel(), 6)):
+            ms = time_ms(lambda: fn(*args))
+            dev_ms = device_ms(lambda: fn(*args), name + "_kernel")
+            bms, by = bound_ms(n_in + 4 * n_out, flops_per_pair * D * pairs)
+            log(f"[kernels] {name} B*H={B * H} Tq={Tq} Tk={Tk} D={D} "
+                f"causal={causal} seg={seg}: max|diff| "
+                f"{e_dkv if name.endswith('dkv') else e_dq:.3g}; kernel "
+                f"{ms:.4f} ms (device {dev_ms}), bound {bms:.4f} ms ({by}, "
+                f"{pairs} visible pairs)")
+            if (Tq, Tk) == (1024, 1024):
+                rows[name] = (ms, plain_ms, lib_ms, bms, by, dev_ms)
+        log(f"[kernels] flash_bwd plain (dq, dk, dv together) {plain_ms:.4f}"
+            f" ms; SDPA backward (autograd.grad through "
+            f"scaled_dot_product_attention with the boolean mask, less its "
+            f"forward) {lib_ms:.4f} ms")
+    results = {}
+    for name, line in (("flash_bwd_dkv", 529), ("flash_bwd_dq", 587)):
+        ms, plain_ms, lib_ms, bms, by, dev_ms = rows[name]
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "device_ms": dev_ms,
+            "shape": "q/k/v/g (4*12, 1024, 64) fp32, causal; plain and "
+                     "library times cover dq, dk and dv together"}
     return results
 
 
@@ -432,6 +551,141 @@ def phase_serve():
 
 
 # ---------------------------------------------------------------------------
+# phase 4: GPT-2 small trained by the eager Trainer
+# ---------------------------------------------------------------------------
+def train_weights(shapes, seed):
+    """GPT-2's initialisation from numpy's ``default_rng(seed)``: N(0, 0.02)
+    matrices and embeddings, LayerNorm gains 1, zero biases."""
+    rs = onp.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith("gamma"):
+            a = onp.ones(shape, "float32")
+        elif name.endswith(("beta", "bias")):
+            a = onp.zeros(shape, "float32")
+        else:
+            a = 0.02 * rs.standard_normal(shape, dtype="float32")
+        out[name] = a
+    return out
+
+
+def cyclic_batches(rng, vocab, B, T, steps, period=97):
+    """A learnable task from the seed: each row walks one fixed cycle of
+    ``period`` distinct tokens from its own random offset, so every next
+    token follows from the current one."""
+    cycle = rng.choice(vocab, size=period, replace=False)
+    for _ in range(steps):
+        off = rng.randint(0, period, size=(B, 1))
+        seq = cycle[(off + onp.arange(T + 1)[None]) % period].astype("int32")
+        yield seq[:, :-1], seq[:, 1:]
+
+
+def make_trainer(model):
+    """AdamW through ``gluon.Trainer``: peak lr TRAIN_LR after TRAIN_WARMUP
+    linear warm-up steps, then a cosine down to a tenth of it at the last
+    step; beta2 0.95 and weight decay 0.01 (GPT-3's settings)."""
+    from mxnet_tpu_torch import lr_scheduler
+    from mxnet_tpu_torch.gluon import Trainer
+
+    sched = lr_scheduler.CosineScheduler(
+        max_update=TRAIN_STEPS, base_lr=TRAIN_LR, final_lr=TRAIN_LR / 10,
+        warmup_steps=TRAIN_WARMUP)
+    return Trainer(model.collect_params(), "adamw",
+                   {"learning_rate": TRAIN_LR, "beta2": 0.95, "wd": 0.01,
+                    "lr_scheduler": sched})
+
+
+def phase_train(smi_line):
+    import torch
+
+    from mxnet_tpu_torch import autograd, params_from_mxnet_tpu
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    model = gpt2_small(dropout=0.0)
+    shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
+    arrays = train_weights(shapes, SEED)
+    model.load_dict(params_from_mxnet_tpu(arrays, model))
+
+    # -- (i) one step's gradients: the card against the CPU ----------------
+    cpu = gpt2_small(dropout=0.0, device="cpu")
+    cpu.load_dict(arrays)
+    rng = onp.random.RandomState(SEED + 2)
+    toks = torch.from_numpy(rng.randint(0, model.vocab_size, (2, 128))
+                            .astype("int32"))
+    tgt = torch.from_numpy(rng.randint(0, model.vocab_size, (2, 128))
+                           .astype("int32"))
+    valid = torch.tensor([128, 77], dtype=torch.int32)   # row 1 padded
+    for net, dev in ((model, DEV), (cpu, "cpu")):
+        with autograd.record():
+            loss = loss_fn(net(toks.to(dev), valid.to(dev)), tgt.to(dev))
+        autograd.backward(loss)
+    worst, worst_name = 0.0, None
+    cpu_params = cpu.collect_params()
+    for name, p in model.collect_params().items():
+        want = cpu_params[name].grad
+        rel = float((p.grad.cpu() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[train] one step at B=2, T=128 (row 1 right-padded to 77): "
+        f"gradients of all {len(cpu_params)} parameters, card vs CPU, "
+        f"worst relative max |diff| {worst:.3g} ({worst_name}; limit "
+        f"{GRAD_RTOL})")
+    check(worst <= GRAD_RTOL, f"card vs CPU gradients differ: {worst:.3g} "
+          f"at {worst_name}")
+    del model, cpu, cpu_params, net, loss
+
+    # -- (ii) a training run: AdamW through Trainer, dropout 0.1 ------------
+    B, T = TRAIN_SHAPE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mxrandom.seed(SEED)
+    model = gpt2_small(dropout=0.1)
+    model.load_dict(params_from_mxnet_tpu(arrays, model))
+    trainer = make_trainer(model)
+    losses, step_ms, per_step = [], [], []
+    ck.reset_launch_counts()
+    for x, y in cyclic_batches(rng, model.vocab_size, B, T, TRAIN_STEPS):
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = loss_fn(model(torch.from_numpy(x).to(DEV)),
+                           torch.from_numpy(y).to(DEV))
+        autograd.backward(loss)
+        trainer.step(B)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach().mean()))
+        after = ck.launch_counts()
+        per_step.append({n: after[n] - before[n] for n in after})
+    counts = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[2:])
+    log(f"[train] gpt2_small B={B} T={T} AdamW (peak lr {TRAIN_LR}, "
+        f"{TRAIN_WARMUP} warm-up steps, cosine), dropout 0.1: loss by step "
+        f"{[round(v, 3) for v in losses]}")
+    log(f"[train] step {med:.2f} ms (median of steps 3-{TRAIN_STEPS}; first "
+        f"two {step_ms[0]:.1f}, {step_ms[1]:.1f} ms), {B * T / med * 1e3:.0f} "
+        f"training tokens/s, peak device memory {peak / 2**20:.1f} MiB; "
+        f"card {smi_line}")
+    log(f"[train] kernel launches in {TRAIN_STEPS} steps: {counts}; per "
+        f"step {per_step[-1]}")
+    check(all(onp.isfinite(losses)), "a training loss is not finite")
+    check(losses[-1] < 0.5 * losses[0],
+          f"the loss did not fall below half its first value: {losses[0]:.3f}"
+          f" -> {losses[-1]:.3f}")
+    want = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
+            "layer_norm": 25}
+    bad = [(i, ps) for i, ps in enumerate(per_step) if ps != want]
+    check(not bad, f"launches per step: step {bad[:1]} != {want}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -454,23 +708,27 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
     try:
         t0 = time.perf_counter()
         phase_build()
         kernels = phase_kernels()
-        counts = phase_serve()
+        serve_counts = phase_serve()
+        train_counts = phase_train(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
         log("chip_smoke: FAIL")
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    log(smi[0] if smi else "nvidia-smi: no output")
+    log(smi_line)
     for name, row in kernels.items():
-        row["launches"] = counts[name]
+        row["launches"] = serve_counts[name] + train_counts[name]
+        row["launches_by_path"] = {"serve": serve_counts[name],
+                                   "train": train_counts[name]}
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

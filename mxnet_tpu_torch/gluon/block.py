@@ -7,9 +7,10 @@ joined by dots, own parameters before children's, in registration order
 (``blocks.0.attn_qkv.weight``, ``ln_f.gamma``, ...).
 
 Execution is eager; ``hybridize`` is accepted for API parity and changes
-nothing. A block starts in inference mode (``training`` False), as the
-reference runs outside ``autograd.record``: dropout is the identity until
-``train()`` is called.
+nothing. A block starts in inference mode (``training`` False). Dropout is
+active inside ``autograd.record()`` (which sets the training flag, as in the
+reference) or after the torch idiom ``block.train()``; elsewhere it is the
+identity, so serving never drops units.
 """
 from __future__ import annotations
 
@@ -20,17 +21,17 @@ import torch
 
 from .. import initializer as init_mod
 from ..base import MXNetError
+from .parameter import Parameter
 
 __all__ = ["Block", "HybridBlock", "new_parameter"]
 
 
-def new_parameter(shape, dtype, device, init=None):
-    """A parameter of ``shape`` filled with zeros until ``initialize`` or
-    ``load_parameters``; ``init`` is its own initializer (the block's
-    default applies when None)."""
-    p = torch.nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
-    p.mx_init = init_mod.create(init)
-    return p
+def new_parameter(shape, dtype, device, init=None, grad_req="write"):
+    """A :class:`~mxnet_tpu_torch.gluon.parameter.Parameter` of ``shape``
+    filled with zeros until ``initialize`` or ``load_parameters``; ``init``
+    is its own initializer (the block's default applies when None)."""
+    return Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                     grad_req=grad_req, init=init_mod.create(init))
 
 
 class Block(torch.nn.Module):

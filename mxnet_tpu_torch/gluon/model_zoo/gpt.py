@@ -13,6 +13,14 @@ fused LayerNorm kernel. The paged join and decode paths pass masks with
 Tq != Tk and so take the dense masked attention branch, as in the
 reference.
 
+Training runs through ``forward(tokens, valid_length)`` under
+``autograd.record()``: the backward of the flash attention runs the two
+backward kernels (right-padded rows again through segment ids), and the
+tied LM head's embedding takes the gradients of both its uses. Dropout is
+active inside ``record()`` (or after ``train()``), drawing from the device
+generator of :mod:`mxnet_tpu_torch.random`, and the identity elsewhere, so
+the serving paths never drop units.
+
 Paged pools are written IN PLACE by index scatter, where the reference
 scatters through one-hot einsums and returns new pools: this saves a copy
 of the pool per program run. Writes aimed at the sentinel page id

@@ -82,11 +82,11 @@ class LayerNorm(HybridBlock):
         self._axis = axis
         self._eps = epsilon
         self.gamma = new_parameter((in_channels,), dtype, device,
-                                   gamma_initializer)
+                                   gamma_initializer,
+                                   "write" if scale else "null")
         self.beta = new_parameter((in_channels,), dtype, device,
-                                  beta_initializer)
-        self.gamma.requires_grad_(scale)
-        self.beta.requires_grad_(center)
+                                  beta_initializer,
+                                  "write" if center else "null")
 
     def forward(self, x):
         return F.layer_norm(x, self.gamma, self.beta, axis=self._axis,

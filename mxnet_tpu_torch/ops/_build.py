@@ -2,11 +2,11 @@
 
 Each source in ``mxnet_tpu_torch/csrc/`` is compiled on its own, for
 ``sm_90a``, into a shared library with a plain C interface, at first use,
-into ``mxnet_tpu_torch/_build/`` (listed in ``.gitignore``). A library's
-file name carries a digest of its source, the shared header and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
-Several sources build in parallel: one ``nvcc`` per source, all started
-together.
+into ``mxnet_tpu_torch/_build/`` (listed in ``.gitignore``); one source may
+hold several kernels, each with its own C entry point. A library's file
+name carries a digest of its source, the shared header and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. Several
+sources build in parallel: one ``nvcc`` per source, all started together.
 
 Nothing here runs at import time, so ``import mxnet_tpu_torch`` works on a
 machine without ``nvcc`` or a GPU; a wrapper that launches a kernel on a
@@ -42,6 +42,10 @@ SOURCES = {
     "flash_fwd": ("flash_fwd.cu", "mxtt_flash_fwd",
                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                    _I, _P]),
+    "flash_bwd_dkv": ("flash_bwd.cu", "mxtt_flash_bwd_dkv",
+                      [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]),
+    "flash_bwd_dq": ("flash_bwd.cu", "mxtt_flash_bwd_dq",
+                     [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]),
     "layer_norm": ("layer_norm.cu", "mxtt_layer_norm_fwd",
                    [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P]),
 }
@@ -73,18 +77,22 @@ def _lib_path(name):
     for p in (src, CSRC / "common.cuh"):
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name, out=None):
-    """The nvcc command line that builds kernel ``name``."""
+    """The nvcc command line that builds the source of kernel ``name``."""
     out = out or _lib_path(name)
     return [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out),
             str(CSRC / SOURCES[name][0])]
 
 
 def _build_missing(names):
-    todo = [n for n in names if not _lib_path(n).is_file()]
+    # one build per source, named after its first kernel
+    todo = {}
+    for n in names:
+        todo.setdefault(SOURCES[n][0], n)
+    todo = [n for n in todo.values() if not _lib_path(n).is_file()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

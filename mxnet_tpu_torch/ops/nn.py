@@ -1,9 +1,10 @@
 """Neural-network operators of the port: plain functions on tensors.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT serving
-path calls. The matrix products and elementwise work stay plain PyTorch, as
-the reference leaves them to XLA; LayerNorm and masked attention route to
-the hand-written kernels in :mod:`.cuda_kernels`.
+Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT training
+and serving paths call. The matrix products and elementwise work stay plain
+PyTorch, as the reference leaves them to XLA; LayerNorm and masked
+attention (forward and backward) route to the hand-written kernels in
+:mod:`.cuda_kernels`.
 """
 from __future__ import annotations
 
@@ -12,12 +13,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import autograd as _ag
+from .. import random as _random
 from ..base import MXNetError
 from . import cuda_kernels as _kern
 
 __all__ = ["fully_connected", "layer_norm", "embedding", "leaky_relu",
-           "dropout", "softmax", "one_hot", "multihead_attention",
-           "flash_attention"]
+           "dropout", "softmax", "log_softmax", "pick", "one_hot",
+           "multihead_attention", "flash_attention"]
 
 _NEG_INF = -1e30
 
@@ -70,10 +73,15 @@ def leaky_relu(x, alpha=None, act_type="leaky", slope=0.25):
 
 
 def dropout(x, p=0.5, training=False, generator=None):
-    """Inverted dropout (reference :403). The identity outside training
-    or at p <= 0; in training the keep mask is drawn from ``generator``."""
-    if not training or p <= 0.0:
+    """Inverted dropout (reference :403). Active when ``training`` is True
+    or the autograd training flag is set — inside ``autograd.record()``, as
+    the reference's ``npx.dropout`` (numpy_extension:161-163); the identity
+    otherwise and at p <= 0. The keep mask is drawn from ``generator``, by
+    default the generator of x's device in :mod:`mxnet_tpu_torch.random`."""
+    if p <= 0.0 or not (training or _ag.is_training()):
         return x
+    if generator is None:
+        generator = _random.generator(x.device)
     keep = 1.0 - p
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
@@ -93,6 +101,20 @@ def softmax(x, axis=-1, temperature=None, length=None):
         z = torch.where(idx < length.reshape(lshape), z,
                         torch.full_like(z, float("-inf")))
     return torch.softmax(z, dim=axis)
+
+
+def log_softmax(x, axis=-1):
+    """Log-softmax over ``axis`` (reference :369)."""
+    return torch.log_softmax(x, dim=axis)
+
+
+def pick(x, index, axis=-1, keepdims=False):
+    """``x``'s entries at ``index`` along ``axis`` (reference :476);
+    ``index`` has x's shape without that axis and is clamped into range
+    (the reference's default mode, ``"clip"``)."""
+    idx = index.long().clamp(0, x.shape[axis] - 1)
+    out = torch.gather(x, axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)
 
 
 def one_hot(indices, depth, dtype=torch.float32):

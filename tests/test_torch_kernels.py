@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port: the two kernel modules and the attention op against
-the JAX package.
+"""PyTorch/CUDA port: the kernel modules and the attention op against the
+JAX package.
 
 The same numpy inputs (from ``RandomState(seed)``) go through the JAX
 function and the port's. On the CPU the port's wrappers run their plain
@@ -120,6 +120,108 @@ def test_flash_attention_matches_reference_ragged(B, H, Tq, Tk, D, causal,
     assert float(onp.abs(got.numpy() - onp.asarray(want)).max()) <= TOL
     if seg == "empty":
         assert float(got[1].abs().max()) == 0.0
+
+
+# -- flash-attention backward: the Pallas kernels in interpret mode ---------
+def _seg_ids(kind, B, Tq, Tk):
+    if kind == "pad":
+        qs = onp.ones((B, Tq), "int32")
+        qs[1, 200:] = 0
+        return qs, qs.copy()
+    if kind == "empty":
+        qs = onp.ones((B, Tq), "int32")
+        ks = onp.ones((B, Tk), "int32")
+        ks[1] = 0
+        return qs, ks
+    return None, None
+
+
+def _port_bwd(q, k, v, g, causal, qs, ks):
+    """(plain backward, CPU autograd of the wrapper) of the port, each
+    (dq, dk, dv) as numpy."""
+    D = q.shape[-1]
+    tq, tk_, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    tqs = None if qs is None else _t(qs)
+    tks = None if ks is None else _t(ks)
+    out, lse = tk.flash_attention(tq, tk_, tv, None, causal, tqs, tks,
+                                  return_lse=True)
+    auto = torch.autograd.grad(out, (tq, tk_, tv), _t(g))
+    plain = tk.attention_bwd_plain(_t(q), _t(k), _t(v), out.detach(),
+                                   lse.detach(), _t(g), tqs, tks,
+                                   1.0 / D ** 0.5, causal)
+    return ([a.numpy() for a in plain], [a.numpy() for a in auto])
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,causal,seg", [
+    (1, 2, 256, 256, False, None),
+    (1, 2, 256, 256, True, None),
+    (1, 2, 128, 256, False, None),     # Tq != Tk, both tiles
+    (1, 2, 128, 256, True, None),      # Tq != Tk causal: offset Tk - Tq
+    (2, 2, 256, 256, True, "pad"),     # causal + right-padded tail
+    (2, 1, 128, 128, False, "empty"),  # batch row 1: every key masked
+])
+def test_flash_bwd_matches_pallas_kernel(monkeypatch, B, H, Tq, Tk, causal,
+                                         seg):
+    import jax
+    import jax.numpy as jnp
+
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    from mxnet_tpu.ops import pallas_kernels as pk
+
+    D = 64
+    rng = onp.random.RandomState(13)
+    q, k, v = _qkv(rng, B, H, Tq, Tk, D)
+    g = rng.randn(B, H, Tq, D).astype("float32")
+    qs, ks = _seg_ids(seg, B, Tq, Tk)
+    jqs = None if qs is None else jnp.asarray(qs)
+    jks = None if ks is None else jnp.asarray(ks)
+    _, vjp = jax.vjp(lambda a, b, c: pk.flash_attention(
+        a, b, c, causal=causal, q_segment_ids=jqs, kv_segment_ids=jks),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [onp.asarray(a) for a in vjp(jnp.asarray(g))]
+    plain, auto = _port_bwd(q, k, v, g, causal, qs, ks)
+    for got in (plain, auto):
+        for a, b in zip(got, want):
+            assert float(onp.abs(a - b).max()) <= TOL
+    if seg == "empty":   # the masked row passes no gradient anywhere
+        assert float(onp.abs(plain[0][1]).max()) == 0.0
+        assert float(onp.abs(plain[1][1]).max()) == 0.0
+
+
+# -- flash-attention backward: ragged shapes, the JAX blockwise backward -----
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,seg", [
+    (1, 2, 384, 384, 64, True, None),      # BERT-length, causal
+    (1, 2, 384, 384, 64, False, "pad"),    # ragged + padding ids
+    (1, 1, 300, 700, 16, False, None),     # ragged cross lengths
+    (1, 1, 300, 700, 16, True, None),      # ... causal, offset 400
+    (2, 1, 100, 100, 32, True, "empty"),   # a fully masked batch row
+])
+def test_flash_bwd_matches_blockwise_ragged(B, H, Tq, Tk, D, causal, seg):
+    import jax.numpy as jnp
+
+    from mxnet_tpu.ops import pallas_kernels as pk
+
+    rng = onp.random.RandomState(31)
+    q, k, v = _qkv(rng, B, H, Tq, Tk, D)
+    g = rng.randn(B, H, Tq, D).astype("float32")
+    qs = ks = None
+    if seg == "pad":
+        qs = onp.ones((B, Tq), "int32")
+        qs[:, 350:] = 0
+        ks = qs.copy()
+    elif seg == "empty":
+        qs = onp.ones((B, Tq), "int32")
+        qs[1] = 5   # no key shares id 5: the row sees nothing
+        ks = onp.ones((B, Tk), "int32")
+    want = pk._attention_bwd_blockwise(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g),
+        1.0 / D ** 0.5, causal,
+        q_seg=None if qs is None else jnp.asarray(qs),
+        k_seg=None if ks is None else jnp.asarray(ks))
+    plain, auto = _port_bwd(q, k, v, g, causal, qs, ks)
+    for got in (plain, auto):
+        for a, b in zip(got, want):
+            assert float(onp.abs(a - onp.asarray(b)).max()) <= TOL
 
 
 def test_flash_attention_one_id_side_copies_the_other():
@@ -277,9 +379,17 @@ def test_cuda_wrappers_never_fall_back_to_the_host():
     q = torch.randn(1, 1, 4, 8)
     with pytest.raises(MXNetError, match="CUDA device"):
         tk.flash_fwd_cuda(q, q, q, None, None, 1.0, False)
+    lse = torch.zeros(1, 1, 4, 1)
+    with pytest.raises(MXNetError, match="CUDA device"):
+        tk.flash_bwd_cuda(q, q, q, q, lse, q, None, None, 1.0, True)
+    for fn in (tk.flash_bwd_dkv_cuda, tk.flash_bwd_dq_cuda):
+        with pytest.raises(MXNetError, match="CUDA device"):
+            fn(q, q, q, q, lse, lse, None, None, 1.0, True)
     before = tk.launch_counts()
     tk.fused_layer_norm(x, g, b)
-    tk.flash_attention(q, q, q)
+    qg = q.clone().requires_grad_()
+    tk.flash_attention(qg, qg, qg, causal=True).sum().backward()
+    assert qg.grad is not None
     assert tk.launch_counts() == before   # the plain versions count nothing
 
 
@@ -316,6 +426,71 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda, dtype, tol, Tq, Tk,
     ref, ref_lse = tk.attention_plain(q, k, v, 1 / 8, causal, qs, ks)
     assert float((out.float() - ref.float()).abs().max()) <= tol
     assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Tq,Tk,D,causal,seg", [
+    (2, 3, 128, 128, 64, True, True),
+    (1, 2, 100, 333, 64, False, False),
+    (1, 2, 100, 333, 64, True, True),     # causal offset Tk - Tq
+    (2, 2, 1000, 1000, 64, True, True),
+    (1, 2, 77, 77, 128, True, False),
+    (1, 1, 40, 60, 16, False, True),
+])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, B, H, Tq, Tk,
+                                               D, causal, seg):
+    rng = onp.random.RandomState(9)
+    q, k, v = (_t(a).to(cuda, dtype) for a in _qkv(rng, B, H, Tq, Tk, D))
+    g = _t(rng.randn(B, H, Tq, D).astype("float32")).to(cuda, dtype)
+    qs = ks = None
+    if seg:
+        ks = onp.ones((B, Tk), "int32")
+        ks[-1, Tk // 2:] = 0
+        qs = onp.ones((B, Tq), "int32")
+        qs[0, 0] = 9           # a row that sees nothing
+        qs, ks = _t(qs).to(cuda), _t(ks).to(cuda)
+    scale = 1 / D ** 0.5
+    out, lse = tk.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
+    n0 = tk.launch_counts()
+    got = tk.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale, causal)
+    torch.cuda.synchronize()
+    n1 = tk.launch_counts()
+    assert n1["flash_bwd_dkv"] == n0["flash_bwd_dkv"] + 1
+    assert n1["flash_bwd_dq"] == n0["flash_bwd_dq"] + 1
+    want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale,
+                                  causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        ref = float(b.float().abs().max())
+        # fp32: 1e-4 absolute (sum order only); bf16: both round one fp32
+        # value to 8 bits, so one bf16 step of the largest value
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7 * max(ref, 1.0)
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    if seg:
+        assert float(got[0][0, :, 0].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_backward_kernels_on_card(cuda):
+    rng = onp.random.RandomState(10)
+    q, k, v = (_t(a).to(cuda).requires_grad_()
+               for a in _qkv(rng, 2, 2, 96, 96, 32))
+    g = _t(rng.randn(2, 2, 96, 32).astype("float32")).to(cuda)
+    # a transposed (non-contiguous) output gradient, as the heads merge
+    # hands it over
+    g = g.transpose(1, 2).contiguous().transpose(1, 2)
+    n0 = tk.launch_counts()
+    out = tk.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    n1 = tk.launch_counts()
+    assert [n1[n] - n0[n] for n in ("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq")] == [1, 1, 1]
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(tk.flash_attention(qc, kc, vc, causal=True),
+                               (qc, kc, vc), g.cpu())
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -1,21 +1,31 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch/CUDA port's serving path, on one GPU.
+"""Where the time goes in the PyTorch/CUDA port's main paths, on one GPU.
 
 Builds GPT-2 small (fp32, random weights from numpy seed 0, as
-``chip_smoke.py``) and a ``DecodeEngine`` (8 slots, 1024 positions,
-128-token pages), then runs the engine's program families directly on
-fixed operands and reports for each:
+``chip_smoke.py``) and reports, per program family:
 
 - wall ms per run (host clock around a synchronised run, median of 10);
 - device-busy ms per run (sum of CUDA kernel durations, torch.profiler)
   and the device's idle share (1 - busy / wall);
-- kernel launches per run and the kernels that take the most device time.
+- kernel launches per run and the kernels that take the most device time;
+- the host operators that take the most CPU time.
 
-Families: ``prefill`` at the largest bucket (4 x 512, rows of 512, 400,
-300 and 200 valid tokens) and ``decode`` (8 live slots at 300-500 cached
-positions). Run from the repository root::
+Families:
 
-    python3 tools/port_profile.py
+- ``serve`` (the default): a ``DecodeEngine`` (8 slots, 1024 positions,
+  128-token pages) runs its program families directly on fixed operands:
+  ``prefill`` at the largest bucket (4 x 512, rows of 512, 400, 300 and 200
+  valid tokens) and ``decode`` (8 live slots at 300-500 cached positions);
+- ``train``: one training step as ``chip_smoke.py``'s train phase runs it
+  (B = 4, T = 1024, dropout 0.1, AdamW with its schedule through
+  ``gluon.Trainer`` on the cyclic task), split into its forward, backward
+  and optimizer parts with a synchronisation after each, so each part's
+  kernels fall inside its own host interval; the whole step is reported
+  too.
+
+Run from the repository root::
+
+    python3 tools/port_profile.py [serve|train|all]
 """
 import os
 import statistics
@@ -64,6 +74,11 @@ def profile_family(name, fn, top=12):
         print(f"[{name}]   {tot / reps / 1e3:8.4f} ms  x{cnt / reps:5.0f}  "
               f"{kname[:100]}")
     # the host side: operators by their own CPU time (dispatch included)
+    _host_ops(name, prof, reps, top)
+    return wall, busy_us / 1e3
+
+
+def _host_ops(name, prof, reps, top):
     ops = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     host_us = sum(e.self_cpu_time_total for e in ops) / reps
     print(f"[{name}] host: {host_us / 1e3:.3f} ms/run of operator self "
@@ -71,24 +86,109 @@ def profile_family(name, fn, top=12):
     for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"[{name}]   {e.self_cpu_time_total / reps / 1e3:8.4f} ms  "
               f"x{e.count / reps:5.0f}  {e.key[:60]}")
-    return wall, busy_us / 1e3
 
 
-def main():
+def profile_train(top=12):
+    """One training step of GPT-2 small, split into forward, backward and
+    optimizer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from chip_smoke import SEED, TRAIN_SHAPE, cyclic_batches, make_trainer, \
+        train_weights
+    from mxnet_tpu_torch import autograd, params_from_mxnet_tpu
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+
+    B, T = TRAIN_SHAPE
+    mxrandom.seed(SEED)
+    model = gpt2_small(dropout=0.1)
+    shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
+    model.load_dict(params_from_mxnet_tpu(train_weights(shapes, SEED),
+                                          model))
+    trainer = make_trainer(model)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    batches = cyclic_batches(onp.random.RandomState(SEED + 2),
+                             model.vocab_size, B, T, 20)
+    phases = ("forward", "backward", "optimizer")
+
+    def step(walls=None):
+        x, y = (torch.from_numpy(a).cuda() for a in next(batches))
+        marks = [time.perf_counter()]
+        with record_function("forward"):
+            with autograd.record():
+                loss = loss_fn(model(x), y)
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        with record_function("backward"):
+            autograd.backward(loss)
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        with record_function("optimizer"):
+            trainer.step(B)
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if walls is not None:
+            for i, ph in enumerate(phases):
+                walls[ph].append((marks[i + 1] - marks[i]) * 1e3)
+
+    for _ in range(2):
+        step()
+    walls = {ph: [] for ph in phases}
+    for _ in range(10):
+        step(walls)
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+    events = prof.events()
+    ranges = {ph: [(e.time_range.start, e.time_range.end) for e in events
+                   if e.name == ph and e.device_type ==
+                   torch.autograd.DeviceType.CPU] for ph in phases}
+    # the profiler mirrors each record_function range on the device as a
+    # user annotation; only kernels count as device work
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in phases]
+    name = f"train b{B} t{T}"
+    total_wall = total_busy = 0.0
+    for ph in phases:
+        mine = [e for e in kernels if any(a <= e.time_range.start < b
+                                          for a, b in ranges[ph])]
+        busy = sum(e.time_range.elapsed_us() for e in mine) / reps / 1e3
+        wall = statistics.median(walls[ph])
+        total_wall += wall
+        total_busy += busy
+        print(f"[{name}] {ph}: wall {wall:.3f} ms (median of 10); device "
+              f"busy {busy:.3f} ms; idle share "
+              f"{max(0.0, 1 - busy / wall):.3f}; "
+              f"{len(mine) / reps:.0f} kernel launches")
+    print(f"[{name}] step: wall {total_wall:.3f} ms; device busy "
+          f"{total_busy:.3f} ms; idle share "
+          f"{max(0.0, 1 - total_busy / total_wall):.3f}; "
+          f"{len(kernels) / reps:.0f} kernel launches; "
+          f"{B * T / total_wall * 1e3:.0f} training tokens/s")
+    by_name = {}
+    for e in kernels:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    for kname, (tot, cnt) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
+        print(f"[{name}]   {tot / reps / 1e3:8.4f} ms  x{cnt / reps:5.0f}  "
+              f"{kname[:100]}")
+    _host_ops(name, prof, reps, top)
+
+
+def profile_serve():
     import torch
 
-    if not torch.cuda.is_available():
-        print("port_profile: FAIL: no CUDA device visible")
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import numpy_weights
-
     from mxnet_tpu_torch import params_from_mxnet_tpu
     from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
     from mxnet_tpu_torch.serve.decode import DecodeEngine
 
-    print(f"[device] {torch.cuda.get_device_name(0)}, torch "
-          f"{torch.__version__}, allow_tf32=False")
     model = gpt2_small(dropout=0.0)
     shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
     model.load_dict(params_from_mxnet_tpu(numpy_weights(shapes, 0), model))
@@ -124,6 +224,25 @@ def main():
         profile_family("decode s8 k1", lambda: progs.run(
             ("decode", 1), [dtoks, pos, dtab, cache.k, cache.v]))
     eng.close()
+
+
+def main():
+    import torch
+
+    family = sys.argv[1] if len(sys.argv) > 1 else "serve"
+    if family not in ("serve", "train", "all"):
+        print(f"port_profile: unknown family {family!r} (serve, train, all)")
+        return 2
+    if not torch.cuda.is_available():
+        print("port_profile: FAIL: no CUDA device visible")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[device] {torch.cuda.get_device_name(0)}, torch "
+          f"{torch.__version__}, allow_tf32=False")
+    if family in ("serve", "all"):
+        profile_serve()
+    if family in ("train", "all"):
+        profile_train()
     return 0
 
 
