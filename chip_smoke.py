@@ -7,51 +7,76 @@ Run from the root of a checkout, on a machine with one NVIDIA H100::
 
 Phases (any failure exits non-zero without the final line):
 
-1. build   — nvcc builds every kernel of the serving and training paths
-             from ``mxnet_tpu_torch/csrc`` (one process per source, in
-             parallel);
+1. build   — nvcc builds every kernel of the serving, training and tuning
+             paths from ``mxnet_tpu_torch/csrc`` (one process per source,
+             in parallel, every legal tile instantiated), printing each
+             source's seconds;
 2. kernels — each kernel's wrapper against its plain PyTorch version on
-             the card, fp32, inputs from a numpy seed: flash-attention
-             forward at GPT-2 prefill shapes (causal + segment ids with
-             right-padded tails and a fully masked row; Tq != Tk
-             non-causal), max |diff| <= 1e-4 on out and LSE; LayerNorm at
-             (rows, 768), max |diff| <= 1e-5; the two flash-attention
-             backward kernels (dK/dV, dQ) at GPT-2 training shapes (4*12,
-             1024, 64) causal, 512 with padding ids and a fully masked
-             row, ragged 384 and 1000, Tq=384/Tk=1000 non-causal), max
-             |diff| <= 1e-4 on dq, dk, dv; kernel, plain and library
-             (SDPA with a boolean mask, its autograd backward,
-             F.layer_norm) times, medians of CUDA-event timings;
+             the card, inputs from a numpy seed: flash-attention forward at
+             GPT-2 prefill shapes (causal + segment ids with right-padded
+             tails and a fully masked row; Tq != Tk non-causal), max |diff|
+             <= 1e-4 on out and LSE; LayerNorm at (rows, 768), max |diff|
+             <= 1e-5; the two flash-attention backward kernels (dK/dV, dQ)
+             at GPT-2 training shapes (4*12, 1024, 64) causal, 512 with
+             padding ids and a fully masked row, ragged 384 and 1000,
+             Tq=384/Tk=1000 non-causal), max |diff| <= 1e-4 on dq, dk, dv;
+             softmax at (4096, 768), (64, 50257) and ragged row counts, fp32
+             max |diff| <= 1e-6, bf16 <= 1e-2; then every kernel once at
+             each tile of its legal set (flash (block_q, block_k) in
+             {16, 32, 64}^2 at (4*12, 512, 64) causal + ids; LayerNorm and
+             softmax block_rows in {1, 2, 4, 8, 16, 32} at (2000, 768)) at
+             the same tolerances; kernel, plain and library (SDPA with a
+             boolean mask, its autograd backward, F.layer_norm,
+             torch.softmax) times, medians of CUDA-event timings;
 3. serve   — GPT-2 small (12 x 768, 12 heads, vocab 50257, max_length
              1024, fp32, weights from a numpy seed loaded through
              ``params_from_mxnet_tpu``) served by ``DecodeEngine`` (8 slots,
-             128-token pages, prefix cache): 8 ragged prompts of 16-500
-             tokens, 32 new tokens each, two sharing a 300-token prefix so
-             the prefix-join program runs. Checks: the launch counts of the
-             kernels against the engine's program runs, each request's
-             last-token prefill logits against the same weights on the
-             CPU (relative max |diff| <= 1e-3), and the engine's greedy
-             tokens against ``generate(use_cache=False)`` on the card up to
-             the first near tie (top-2 logit margin < 1e-3);
+             128-token pages, prefix cache), tuning off: 8 ragged prompts of
+             16-500 tokens, 32 new tokens each, two sharing a 300-token
+             prefix so the prefix-join program runs. Checks: the launch
+             counts of the kernels against the engine's program runs, every
+             launch at the default tile, each request's last-token prefill
+             logits against the same weights on the CPU (relative max |diff|
+             <= 1e-3), and the engine's greedy tokens against
+             ``generate(use_cache=False)`` on the card up to the first near
+             tie (top-2 logit margin < 1e-3);
 4. train   — GPT-2 small (the same width and depth, GPT-2's N(0, 0.02)
              initialisation from a numpy seed, loaded through
              ``params_from_mxnet_tpu``) trained through
              ``autograd.record`` / ``autograd.backward`` /
-             ``gluon.Trainer("adamw").step``: one step's gradients of every
-             parameter at B=2, T=128 (one row right-padded through
-             ``valid_length``, dropout 0) against the same weights on the
-             CPU (relative max |diff| <= 1e-3); then 30 steps at B=4,
-             T=1024 (AdamW with warm-up and a cosine schedule) with
-             dropout 0.1 from ``mxnet_tpu_torch.random`` on a
+             ``gluon.Trainer("adamw").step``, tuning off: one step's
+             gradients of every parameter at B=2, T=128 (one row
+             right-padded through ``valid_length``, dropout 0) against the
+             same weights on the CPU (relative max |diff| <= 1e-3); then 30
+             steps at B=4, T=1024 (AdamW with warm-up and a cosine schedule)
+             with dropout 0.1 from ``mxnet_tpu_torch.random`` on a
              cyclic-sequence task made from the seed, whose loss must fall
              below half its first value, with 12 launches each of the
              flash forward, dK/dV and dQ kernels and 25 LayerNorm launches
-             in every step; prints step ms, training tokens/s and peak
-             device memory.
+             in every step, all at the default tile; prints step ms,
+             training tokens/s and peak device memory;
+5. tune    — the tuning workflow at GPT-2 small's width with
+             ``MXTPU_TUNE=1`` and a temporary cache file: warm phase 3's
+             engine (same weights and arguments) with an empty cache, read
+             ``tune.missed()`` (flash_fwd and layer_norm keys), tune exactly
+             those plus the flash_bwd and softmax specs of
+             ``ladder_specs((1, 4, 8), (128, 512, 1024), 12, 64, 768)``
+             (3 trials, 2 tiles an axis, device time from CUDA-graph
+             replays), ``save()``; then ``tune.reset()``, a fresh engine,
+             ``warmup()`` (which preloads) and phase 3's 8 requests. Checks:
+             no cache miss after the preload, ``tune.measurements`` flat
+             while serving, the tokens equal to phase 3's up to each
+             request's first near tie; prints each spec's winner with its
+             default, best and library (``"xla"``) µs, their geometric mean
+             default/best, and the library calls;
+6. rtc     — the JAX package's rtc test kernel (axpy) as CUDA C through
+             ``rtc.CudaModule``, launched at n = 4 and n = 2**24 and held to
+             torch's ``2 * x + y`` (relative 1e-6); compile seconds, launch
+             ms and the bytes bound.
 
 The lines before the last give the card's name and power limit and a JSON
-object of every kernel's numbers; the last line is
-``{"ok": true, "device": {...}}``.
+object of every kernel's numbers with its launches on each path (serve,
+train, tune, rtc); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -68,6 +93,9 @@ PEAK_FP32_FLOPS = 67e12    # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FLASH_TOL = 1e-4
 LN_TOL = 1e-5
+SOFTMAX_TOL = 1e-6
+BF16_TOL = 1e-2
+RTC_RTOL = 1e-6
 LOGIT_RTOL = 1e-3
 GRAD_RTOL = 1e-3
 NEAR_TIE = 1e-3
@@ -154,9 +182,22 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
     for name, cmd, secs, report in _build.build_log:
         log(f"[build] {name}: {secs:.2f} s: {' '.join(cmd)}")
+        # ptxas -v: "Function properties for <entry>", then its stack and
+        # spill line, then "Used N registers"
+        entry, regs, spills = None, [], []
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Function properties for" in line:
+                entry = line.split("for", 1)[1].strip()
+            elif "spill stores" in line and \
+                    " 0 bytes spill stores" not in line:
+                spills.append(f"{entry}: {line.strip()}")
+            elif "Used" in line and "registers" in line:
+                regs.append(int(line.split("Used", 1)[1].split()[0]))
+        log(f"[build]   {len(regs)} kernel instances, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, "
+            f"{len(spills)} spill")
+        for sp in spills:
+            log(f"[build]   spills: {sp}")
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +335,126 @@ def phase_kernels():
         "device_ms": main[5],
         "shape": "x (4*512, 768) fp32, gamma/beta (768,) fp32"}
     results.update(_flash_bwd_rows(rng, dev))
+    results["softmax"] = _softmax_row(rng, dev)
+    _every_tile(rng, dev)
     return results
+
+
+def _softmax_row(rng, dev):
+    """The softmax kernel against its plain version: GPT-2 width and
+    vocabulary width, f32 and bf16, ragged row counts; times at
+    (4096, 768) f32 give the JSON row."""
+    import torch
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    err = 0.0
+    main = None
+    for rows, d in ((4096, 768), (64, 50257), (1, 768), (1001, 768)):
+        for dtype, tol in ((torch.float32, SOFTMAX_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            x = torch.from_numpy(rng.randn(rows, d).astype("float32")).to(
+                dev, dtype)
+            out = ck.softmax_cuda(x)
+            ref = ck.softmax_plain(x)
+            torch.cuda.synchronize()
+            e = float((out.float() - ref.float()).abs().max())
+            check(e <= tol, f"softmax ({rows}, {d}) {dtype}: max |diff| "
+                  f"{e:.3g} > {tol}")
+            if dtype == torch.float32:
+                err = max(err, e)
+            if dtype != torch.float32 or rows not in (4096, 64):
+                log(f"[kernels] softmax rows={rows} d={d} {dtype}: max|diff|"
+                    f" {e:.3g}")
+                continue
+
+            def kernel():
+                ck.softmax_cuda(x)
+
+            ms = time_ms(kernel)
+            dev_ms = device_ms(kernel, "softmax_kernel")
+            plain_ms = time_ms(lambda: ck.softmax_plain(x))
+            lib_ms = time_ms(lambda: torch.softmax(x, dim=-1))
+            bms, by = bound_ms(2 * rows * d * 4, 4 * rows * d)
+            log(f"[kernels] softmax rows={rows} d={d} fp32: max|diff| "
+                f"{e:.3g}; kernel {ms:.4f} ms (device {dev_ms}), plain "
+                f"{plain_ms:.4f} ms, torch.softmax {lib_ms:.4f} ms, bound "
+                f"{bms:.5f} ms ({by})")
+            if rows == 4096:
+                main = (ms, plain_ms, lib_ms, bms, by, dev_ms)
+    return {"name": "softmax", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/softmax.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:971",
+            "max_abs_err": err, "ms": main[0], "plain_ms": main[1],
+            "library_ms": main[2], "bound_ms": main[3], "bound_by": main[4],
+            "device_ms": main[5], "shape": "x (4096, 768) fp32"}
+
+
+def _every_tile(rng, dev):
+    """Every kernel once at each tile of its legal set, at one shape,
+    against its plain version: a tile the tuner may pick is held to the
+    math before it can win. Flash: q/k/v/g (4*12, 512, 64) fp32 causal with
+    padding ids and a fully masked row; row kernels: (2000, 768) fp32."""
+    import torch
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, H, T, D = 4, 12, 512, 64
+    scale = 1.0 / D ** 0.5
+    q, k, v, qs, ks = _flash_inputs(rng, dev, B, H, T, T, D, True)
+    g = torch.from_numpy(rng.randn(B, H, T, D).astype("float32")).to(dev)
+    ref, ref_lse = ck.attention_plain(q, k, v, scale, True, qs, ks)
+    times = {}
+    for bq in ck.FLASH_BLOCKS:
+        for bk in ck.FLASH_BLOCKS:
+            out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, True, bq, bk)
+            grads = ck.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale,
+                                      True, bq, bk)
+            want = ck.attention_bwd_plain(q, k, v, out, lse, g, qs, ks,
+                                          scale, True)
+            torch.cuda.synchronize()
+            e_fwd = max(float((out - ref).abs().max()),
+                        float((lse - ref_lse).abs().max()))
+            e_bwd = max(float((a - b).abs().max())
+                        for a, b in zip(grads, want))
+            check(max(e_fwd, e_bwd) <= FLASH_TOL,
+                  f"flash tile (block_q={bq}, block_k={bk}): max |diff| "
+                  f"fwd {e_fwd:.3g}, bwd {e_bwd:.3g} > {FLASH_TOL}")
+            delta = (g * out).sum(dim=-1)
+            args = (q, k, v, g, lse, delta, qs, ks, scale, True, bq, bk)
+            times[(bq, bk)] = [
+                time_ms(lambda: ck.flash_fwd_cuda(q, k, v, qs, ks, scale,
+                                                  True, bq, bk), reps=20,
+                        rounds=3),
+                time_ms(lambda: ck.flash_bwd_dkv_cuda(*args), reps=20,
+                        rounds=3),
+                time_ms(lambda: ck.flash_bwd_dq_cuda(*args), reps=20,
+                        rounds=3), e_fwd, e_bwd]
+    for (bq, bk), (f, dkv, dq, e_fwd, e_bwd) in times.items():
+        log(f"[kernels] tile block_q={bq} block_k={bk} at (48, 512, 64) "
+            f"causal + ids: max|diff| fwd {e_fwd:.3g}, bwd {e_bwd:.3g}; ms "
+            f"flash_fwd {f:.4f}, flash_bwd_dkv {dkv:.4f}, flash_bwd_dq "
+            f"{dq:.4f}")
+    rows, d = 2000, 768
+    x = torch.from_numpy(rng.randn(rows, d).astype("float32")).to(dev)
+    gam = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
+    bet = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
+    ln_ref = ck.layer_norm_plain(x, gam, bet, 1e-5)
+    sm_ref = ck.softmax_plain(x)
+    for br in ck.ROW_BLOCKS:
+        e_ln = float((ck.layer_norm_cuda(x, gam, bet, 1e-5, br) - ln_ref)
+                     .abs().max())
+        e_sm = float((ck.softmax_cuda(x, br) - sm_ref).abs().max())
+        check(e_ln <= LN_TOL and e_sm <= SOFTMAX_TOL,
+              f"row tile block_rows={br}: max |diff| layer_norm {e_ln:.3g}"
+              f" (limit {LN_TOL}), softmax {e_sm:.3g} (limit "
+              f"{SOFTMAX_TOL})")
+        t_ln = time_ms(lambda: ck.layer_norm_cuda(x, gam, bet, 1e-5, br),
+                       reps=20, rounds=3)
+        t_sm = time_ms(lambda: ck.softmax_cuda(x, br), reps=20, rounds=3)
+        log(f"[kernels] tile block_rows={br} at (2000, 768): max|diff| "
+            f"layer_norm {e_ln:.3g}, softmax {e_sm:.3g}; ms layer_norm "
+            f"{t_ln:.4f}, softmax {t_sm:.4f}")
 
 
 def _flash_bwd_rows(rng, dev):
@@ -420,34 +580,37 @@ def make_prompts(rng, vocab):
     return prompts, first, second
 
 
-def phase_serve():
-    import torch
+SERVE_ARGS = dict(num_slots=8, max_len=1024, max_prompt_len=512,
+                  prefill_batch=4, page_tokens=128, prefix_cache=True)
+MAX_NEW = 32
 
+
+def serve_model():
+    """GPT-2 small on the card with the serve phase's weights; returns
+    (model, the numpy weights)."""
     from mxnet_tpu_torch import params_from_mxnet_tpu
     from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
-    from mxnet_tpu_torch.ops import cuda_kernels as ck
-    from mxnet_tpu_torch.serve.decode import DecodeEngine
 
-    max_new = 32
-    torch.cuda.reset_peak_memory_stats()
     model = gpt2_small(dropout=0.0)                # the GPU: no device arg
     check(model.device.type == "cuda", f"model on {model.device}")
     shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
-    t0 = time.perf_counter()
     arrays = numpy_weights(shapes, SEED)
     model.load_dict(params_from_mxnet_tpu(arrays, model))
-    n_params = sum(int(onp.prod(s)) for s in shapes.values())
-    log(f"[serve] gpt2_small: {len(shapes)} tensors, {n_params} parameters "
-        f"from numpy default_rng({SEED}) in {time.perf_counter() - t0:.1f} s")
+    return model, arrays
 
-    eng = DecodeEngine(model, num_slots=8, max_len=1024, max_prompt_len=512,
-                       prefill_batch=4, page_tokens=128, prefix_cache=True)
-    eng.warmup()
-    # per-family device time: the engine syncs right after each run, so a
-    # synchronize after the call adds nothing to what it waits for
+
+def drive_engine(eng, model):
+    """The serve phase's 8 requests through a warmed engine: 6 ragged
+    prompts and two sharing a 300-token prefix, the second submitted once
+    the first has its first token. Returns (requests [(prompt, stream)],
+    outputs, seconds, per-family program ms)."""
+    import torch
+
     fam_ms = {"prefill": [], "prefill_ext": [], "decode": []}
     run = eng.programs.run
 
+    # per-family device time: the engine syncs right after each run, so a
+    # synchronize after the call adds nothing to what it waits for
     def timed_run(key, datas):
         t = time.perf_counter()
         outs = run(key, datas)
@@ -456,27 +619,60 @@ def phase_serve():
         return outs
 
     eng.programs.run = timed_run
-
     rng = onp.random.RandomState(SEED + 1)
     prompts, first, second = make_prompts(rng, model.vocab_size)
-    ck.reset_launch_counts()
     t_serve = time.perf_counter()
-    streams = [eng.submit(p, max_new_tokens=max_new) for p in prompts[:3]]
-    s_first = eng.submit(first, max_new_tokens=max_new)
-    streams += [eng.submit(p, max_new_tokens=max_new) for p in prompts[3:]]
+    streams = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts[:3]]
+    s_first = eng.submit(first, max_new_tokens=MAX_NEW)
+    streams += [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts[3:]]
     deadline = time.perf_counter() + 300
     while not s_first.tokens:        # the tree holds a prompt once prefilled
         check(time.perf_counter() < deadline, "first token never arrived")
         check(not s_first.done or s_first.tokens, "shared request failed")
         time.sleep(0.001)
-    s_second = eng.submit(second, max_new_tokens=max_new)
+    s_second = eng.submit(second, max_new_tokens=MAX_NEW)
     reqs = list(zip(prompts, streams)) + [(first, s_first),
                                           (second, s_second)]
     outs = [s.result(timeout=600) for _, s in reqs]
     serve_s = time.perf_counter() - t_serve
+    eng.programs.run = run
+    return reqs, outs, serve_s, fam_ms
+
+
+def check_default_tiles(phase):
+    """Every launch since the last reset used the default tile."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    want = {"flash_fwd": (32, 32), "flash_bwd_dkv": (32, 32),
+            "flash_bwd_dq": (32, 32), "layer_norm": (4,), "softmax": (4,)}
+    tiles = ck.tile_counts()
+    bad = {k: n for k, n in tiles.items() if want[k[0]] != k[1]}
+    check(not bad, f"[{phase}] launches with other than the default tiles:"
+          f" {bad}")
+    log(f"[{phase}] every launch used the default tile: {tiles}")
+
+
+def phase_serve():
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.serve.decode import DecodeEngine
+
+    max_new = MAX_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, arrays = serve_model()
+    n_params = sum(int(a.size) for a in arrays.values())
+    log(f"[serve] gpt2_small: {len(arrays)} tensors, {n_params} parameters "
+        f"from numpy default_rng({SEED}) in {time.perf_counter() - t0:.1f} s")
+
+    eng = DecodeEngine(model, **SERVE_ARGS)
+    eng.warmup()
+    ck.reset_launch_counts()
+    reqs, outs, serve_s, fam_ms = drive_engine(eng, model)
     counts = ck.launch_counts()
     st = eng.stats()
-    eng.programs.run = run
     eng.close()
     peak = torch.cuda.max_memory_allocated()
 
@@ -506,6 +702,7 @@ def phase_serve():
     check(counts["layer_norm"] == 25 * n_runs,
           f"layer_norm launches {counts['layer_norm']} != 25 x {n_runs} "
           f"program runs")
+    check_default_tiles("serve")
 
     # -- last-token prefill logits: the card against the CPU ---------------
     cpu = gpt2_small(dropout=0.0, device="cpu")
@@ -547,7 +744,12 @@ def phase_serve():
     log(f"[serve] engine tokens == generate(use_cache=False) for all "
         f"{len(reqs)} requests (near ties at (request, step): "
         f"{ties or 'none'})")
-    return counts
+    # the tune phase holds its tuned engine to these tokens, each up to its
+    # first near tie
+    agree = [(got, dict(ties).get(i, max_new)) for i, got in enumerate(outs)]
+    return counts, agree
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -679,10 +881,176 @@ def phase_train(smi_line):
           f"the loss did not fall below half its first value: {losses[0]:.3f}"
           f" -> {losses[-1]:.3f}")
     want = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
-            "layer_norm": 25}
+            "layer_norm": 25, "softmax": 0}
     bad = [(i, ps) for i, ps in enumerate(per_step) if ps != want]
     check(not bad, f"launches per step: step {bad[:1]} != {want}")
+    check_default_tiles("train")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the tuning path (discover, tune, save, preload, serve)
+# ---------------------------------------------------------------------------
+def phase_tune(agree):
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch import tune
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.serve.decode import DecodeEngine
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxtpu_tune_smoke_")
+    os.environ["MXTPU_TUNE"] = "1"
+    os.environ["MXTPU_TUNE_CACHE"] = os.path.join(tmp, "tuning.json")
+
+    def n(name):
+        return int(tm.counter(name).value)
+
+    try:
+        tune.reset()
+        ck.reset_launch_counts()
+        model, _ = serve_model()
+        # (1) discovery: warm the phase-3 engine with an empty cache
+        eng = DecodeEngine(model, **SERVE_ARGS)
+        eng.warmup()
+        eng.close()
+        worklist = tune.missed()
+        fams = sorted({kern for kern, _ in worklist})
+        log(f"[tune] discovery warmup: {len(worklist)} missed keys "
+            f"({fams}), {n('tune.cache_misses')} misses, library calls "
+            f"{ck.library_counts()}")
+        check({"flash_fwd", "layer_norm"} <= set(fams),
+              f"discovery missed no flash_fwd/layer_norm keys: {fams}")
+        # (2) tune exactly those, plus the training-shaped ladder
+        specs = [tune.spec_from_key(k) for _, k in worklist]
+        specs += tune.ladder_specs((1, 4, 8), (128, 512, 1024), 12, 64, 768,
+                                   families=("flash_bwd", "softmax"))
+        t0 = time.perf_counter()
+        results = tune.autotune(specs, trials=3, max_per_axis=2)
+        tune_s = time.perf_counter() - t0
+        check(os.path.exists(os.environ["MXTPU_TUNE_CACHE"]),
+              "tune.save() wrote no cache file")
+        for r in results:
+            log(f"[tune] {r['key']}: winner {r['winner']} "
+                f"{json.dumps(r['config'])}, default {r['default_us']:.2f} "
+                f"us, best {r['best_us']:.2f} us, xla {r['xla_us']:.2f} us")
+        gm = statistics.geometric_mean(
+            [r["default_us"] / r["best_us"] for r in results])
+        wins = {}
+        for r in results:
+            w = "xla" if r["winner"] == "xla" else (
+                "default" if r["winner"] == "default" else "other tile")
+            wins[w] = wins.get(w, 0) + 1
+        log(f"[tune] {len(results)} specs in {tune_s:.1f} s, "
+            f"{n('tune.measurements')} measurements; geometric mean of "
+            f"default/best {gm:.4f}; winners {wins}")
+        # (3) a fresh process's view: drop the in-process tier, preload
+        tune.reset()
+        eng = DecodeEngine(model, **SERVE_ARGS)
+        m0, h0 = n("tune.cache_misses"), n("tune.cache_hits")
+        eng.warmup()
+        m1, meas1 = n("tune.cache_misses"), n("tune.measurements")
+        log(f"[tune] fresh engine warmup after preload: "
+            f"{tune.status()['entries']} entries, {n('tune.cache_hits') - h0}"
+            f" hits, {m1 - m0} misses")
+        check(m1 == m0, f"{m1 - m0} cache misses after the preload")
+        lib0 = ck.library_counts()
+        reqs, outs, serve_s, fam_ms = drive_engine(eng, model)
+        eng.close()
+        lib = {f: c - lib0[f] for f, c in ck.library_counts().items()}
+        check(n("tune.measurements") == meas1,
+              "the serving engine measured candidates online")
+        check(n("tune.cache_misses") == m1, "cache misses while serving")
+        n_tok = sum(len(o) for o in outs)
+        med = {f: statistics.median(x) for f, x in fam_ms.items() if x}
+        log(f"[tune] tuned engine: {len(reqs)} requests, {n_tok} tokens in "
+            f"{serve_s:.3f} s ({n_tok / serve_s:.1f} tokens/s); median ms "
+            f"{ {f: round(v, 3) for f, v in med.items()} }; library-lowering"
+            f" calls while serving {lib}")
+        for i, (got, (want, upto)) in enumerate(zip(outs, agree)):
+            check(got[:upto] == want[:upto],
+                  f"request {i}: tuned tokens differ from the untuned "
+                  f"engine's before step {upto}: {got} vs {want}")
+        log(f"[tune] tuned engine tokens == untuned engine tokens up to "
+            f"each request's first near tie")
+        counts = ck.launch_counts()
+        log(f"[tune] kernel launches on the path: {counts}; library calls "
+            f"{ck.library_counts()}; tiles {ck.tile_counts()}")
+        check(counts["softmax"] > 0, "the tune path launched no softmax")
+        secs = time.perf_counter() - t_phase
+        log(f"[tune] phase {secs:.1f} s")
+        return counts, results
+    finally:
+        os.environ.pop("MXTPU_TUNE", None)
+        os.environ.pop("MXTPU_TUNE_CACHE", None)
+        tune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: runtime-compiled CUDA (rtc.CudaModule)
+# ---------------------------------------------------------------------------
+AXPY = r'''
+extern "C" __global__ void axpy(const float* x, const float* y, float* out,
+                                int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = 2.0f * x[i] + y[i];
+}
+'''
+
+
+def phase_rtc():
+    """The JAX package's rtc test kernel (tests/test_contrib.py:150-159) as
+    CUDA C, compiled at run time and launched at n = 4 and n = 2**24 on
+    the path; held to torch's 2 * x + y."""
+    import torch
+
+    from mxnet_tpu_torch import rtc
+
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(AXPY)
+    compile_s = time.perf_counter() - t0
+    sig = "const float* x, const float* y, float* out, int n"
+    dev = torch.device("cuda")
+    rng = onp.random.RandomState(SEED + 3)
+    inputs = {}
+    for n in (4, 1 << 24):
+        inputs[n] = tuple(torch.from_numpy(rng.randn(n).astype("float32"))
+                          .to(dev) for _ in range(2))
+    kernels = {n: mod.get_kernel("axpy", sig, out_shapes=[(n,)])
+               for n in inputs}
+    rtc.reset_launch_count()
+    outs = {n: kernels[n].launch([x, y, n]) for n, (x, y) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = rtc.launch_count()
+    err = 0.0
+    for n, (x, y) in inputs.items():
+        want = 2 * x + y
+        rel = float(((outs[n] - want).abs()
+                     / want.abs().clamp_min(1e-30)).max())
+        check(rel <= RTC_RTOL, f"rtc axpy n={n}: relative |diff| {rel:.3g}")
+        err = max(err, float((outs[n] - want).abs().max()))
+    n = 1 << 24
+    x, y = inputs[n]
+    ms = time_ms(lambda: kernels[n].launch([x, y, n]))
+    dev_ms = device_ms(lambda: kernels[n].launch([x, y, n]), "axpy")
+    plain_ms = time_ms(lambda: 2 * x + y)
+    lib_ms = time_ms(lambda: torch.add(y, x, alpha=2))
+    bms, by = bound_ms(12 * n, 2 * n)
+    log(f"[rtc] axpy compiled in {compile_s:.2f} s; launches on the path "
+        f"{launches}; n=2^24: max|diff| {err:.3g}; kernel {ms:.4f} ms "
+        f"(device {dev_ms}), plain 2 * x + y {plain_ms:.4f} ms, "
+        f"torch.add(alpha=2) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    check(launches == 2, f"rtc launches on the path {launches} != 2")
+    return {"name": "rtc_axpy", "route": "cuda",
+            "source": "mxnet_tpu_torch/rtc.py",
+            "replaces": "mxnet_tpu/rtc.py:35",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "device_ms": dev_ms, "launches": launches,
+            "shape": "x, y (2^24,) fp32, axpy compiled by rtc.CudaModule"}
 
 
 # ---------------------------------------------------------------------------
@@ -713,12 +1081,16 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     smi_line = smi[0] if smi else "nvidia-smi: no output"
+    for var in ("MXTPU_TUNE", "MXTPU_FLASH_BLOCK_Q", "MXTPU_FLASH_BLOCK_K"):
+        os.environ.pop(var, None)            # phases 1-4 run untuned
     try:
         t0 = time.perf_counter()
         phase_build()
         kernels = phase_kernels()
-        serve_counts = phase_serve()
+        serve_counts, agree = phase_serve()
         train_counts = phase_train(smi_line)
+        tune_counts, _ = phase_tune(agree)
+        rtc_row = phase_rtc()
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -726,10 +1098,13 @@ def main():
         return 1
     log(smi_line)
     for name, row in kernels.items():
-        row["launches"] = serve_counts[name] + train_counts[name]
-        row["launches_by_path"] = {"serve": serve_counts[name],
-                                   "train": train_counts[name]}
-    log(json.dumps({"kernels": list(kernels.values())}))
+        by_path = {"serve": serve_counts[name], "train": train_counts[name],
+                   "tune": tune_counts[name], "rtc": 0}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    rtc_row["launches_by_path"] = {"serve": 0, "train": 0, "tune": 0,
+                                   "rtc": rtc_row["launches"]}
+    log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

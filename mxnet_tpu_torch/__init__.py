@@ -8,12 +8,15 @@ Every entry point runs on ``cuda`` unless the caller passes
 :class:`MXNetError`.
 
 The TPU kernels on the ported paths (GPT training through the eager
-``gluon.Trainer``, GPT serving through the paged decode engine) are
-hand-written CUDA kernels for ``sm_90a`` (``csrc/``), built with nvcc at
-first use; see :mod:`mxnet_tpu_torch.ops.cuda_kernels`.
+``gluon.Trainer``, GPT serving through the paged decode engine, the kernel
+autotuner ``tune``) are hand-written CUDA kernels for ``sm_90a``
+(``csrc/``), built with nvcc at first use; see
+:mod:`mxnet_tpu_torch.ops.cuda_kernels`. ``rtc.CudaModule`` compiles CUDA C
+given at run time.
 """
 from . import (autograd, base, context, convert, gluon, initializer,
-               lr_scheduler, ops, optimizer, random, serve)
+               lr_scheduler, ops, optimizer, random, rtc, serve, telemetry,
+               tune)
 from .base import MXNetError
 from .context import cpu, gpu, resolve_device
 from .convert import params_from_mxnet_tpu, trainer_states_from_mxnet_tpu
@@ -23,4 +26,5 @@ __version__ = "0.1.0"
 __all__ = ["MXNetError", "cpu", "gpu", "resolve_device",
            "params_from_mxnet_tpu", "trainer_states_from_mxnet_tpu",
            "autograd", "base", "context", "convert", "gluon", "initializer",
-           "lr_scheduler", "ops", "optimizer", "random", "serve"]
+           "lr_scheduler", "ops", "optimizer", "random", "rtc", "serve",
+           "telemetry", "tune"]

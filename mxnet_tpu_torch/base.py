@@ -16,7 +16,9 @@ class MXNetError(RuntimeError):
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64,
+           "int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
+           "uint8": torch.uint8, "bool": torch.bool}
 
 
 def to_dtype(dtype):

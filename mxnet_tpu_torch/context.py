@@ -1,7 +1,10 @@
 """Devices: ``cpu()``/``gpu()`` as ``torch.device`` and the placement rule.
 
-Counterpart of ``mxnet_tpu/context.py:123-139``. The TPU backend probe of
-the reference has no analog: the port targets one NVIDIA GPU.
+Counterpart of ``mxnet_tpu/context.py:123-139``, plus the kernel tuning
+cache's location (:func:`tuning_cache_path`, reference :629) and the
+environment signature it is keyed by (reference ``_probe_env_signature``,
+:253). The TPU backend probe of the reference has no analog: the port
+targets one NVIDIA GPU.
 
 The placement rule every entry point of the port follows: it runs on
 ``cuda`` unless the caller passes ``device="cpu"``. It never drops to the
@@ -10,11 +13,21 @@ a device raises :class:`MXNetError`.
 """
 from __future__ import annotations
 
+import functools
+import hashlib
+import os
+import sys
+import tempfile
+from pathlib import Path
+
 import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "resolve_device"]
+__all__ = ["cpu", "gpu", "resolve_device", "env_signature",
+           "tuning_cache_path"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
 
 def cpu(device_id: int = 0) -> torch.device:
@@ -48,3 +61,41 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def env_signature() -> str:
+    """Hash of everything a tuned kernel winner depends on: the interpreter,
+    ``torch.__version__`` and ``torch.version.cuda``, the card's name (or
+    ``cpu`` where none is visible) and a digest of the kernel sources in
+    ``mxnet_tpu_torch/csrc/``. Winners tuned under one signature are never
+    replayed under another: a new card, toolkit or tile code re-tunes."""
+    h = hashlib.sha256()
+    for src in sorted(_CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode() + b"\0" + src.read_bytes())
+    card = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+            else "cpu")
+    parts = [sys.executable, torch.__version__, str(torch.version.cuda),
+             card, h.hexdigest()]
+    return hashlib.sha256("\0".join(parts).encode()).hexdigest()[:16]
+
+
+def tuning_cache_path() -> str | None:
+    """On-disk kernel tuning cache (``tune/``) for this environment, or
+    None when persistence is disabled.
+
+    Default: ``<TMPDIR>/mxtpu_torch_tune_<uid>/<env signature>/
+    tuning_cache.json``, one directory per :func:`env_signature`.
+    ``MXTPU_TUNE_CACHE`` overrides the full path (the tune layer still
+    refuses a file whose recorded signature differs);
+    ``MXTPU_TUNE_CACHE=off`` disables persistence while leaving the
+    in-process tier working."""
+    override = os.environ.get("MXTPU_TUNE_CACHE", "")
+    if override.lower() in ("0", "off", "none", "disabled"):
+        return None
+    if override:
+        return override
+    return os.path.join(tempfile.gettempdir(),
+                        f"mxtpu_torch_tune_{os.getuid()}", env_signature(),
+                        "tuning_cache.json")

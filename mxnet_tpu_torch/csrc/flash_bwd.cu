@@ -24,19 +24,21 @@
 // same reason, :565-568 and :623-624).
 //
 // Two kernels and no atomics, as the reference: flash_bwd_dkv_kernel gives
-// each block 32 keys and loops over all query tiles that can see them;
-// flash_bwd_dq_kernel gives each block 32 queries and loops over key tiles.
+// each block kRows keys and loops over all query tiles that can see them;
+// flash_bwd_dq_kernel gives each block kRows queries and loops over key
+// tiles.
 // Every gradient row is summed by one thread group in a fixed order, so the
 // result is deterministic from run to run.
 //
 // What bounds it on this card: per visible (query, key) pair the dK/dV
 // kernel does 8*D FLOPs (s, dp, dV, dK) and the dQ kernel 6*D (s, dp, dQ),
-// while each operand row is read from device memory once per 32-row tile:
+// while each operand row is read from device memory once per kRows-row
+// block:
 // at GPT-2 training shapes (D = 64, T = 1024) both are bound by arithmetic.
 // This first version does it in fp32 on the CUDA cores (67 TFLOP/s peak),
 // not on the tensor cores (no wgmma or TMA yet: later work). What the design
 // does about it: the tile that the loop walks is staged once per block in
-// shared memory as fp32 and reused by all 32 rows the block owns; each row
+// shared memory as fp32 and reused by all kRows rows the block owns; each row
 // belongs to a quad of 4 threads that keep their slices of the row's
 // operands and fp32 accumulators in registers and read the staged tile as
 // 16-byte float4 chunks, so one shared-memory load feeds four FMAs of each
@@ -44,6 +46,14 @@
 // no bank conflict); the two dot products of a pair share one pass over
 // the chunks and are summed across the quad by two shuffles each; causal
 // blocks skip the tiles that no row of theirs can see.
+//
+// Tiles are call parameters (the tuner picks them, ROADMAP B's rule): the
+// rows a block owns (kRows) and the rows of the other side's shared-memory
+// tile (kTile), each from {16, 32, 64}; (32, 32) is the default. For dK/dV
+// the owned rows are block_k keys and the tile block_q queries; for dQ the
+// owned rows are block_q queries and the tile block_k keys. The staged
+// tiles live in dynamic shared memory (64 KiB at a 64-row tile and
+// D = 128, over the 48 KiB static limit).
 #include <math.h>
 
 #include "common.cuh"
@@ -53,10 +63,14 @@ namespace {
 using mxtt::from_f32;
 using mxtt::to_f32;
 
-constexpr int kGroup = 4;                  // threads per owned row
-constexpr int kRows = 32;                  // owned rows per block
-constexpr int kThreads = kRows * kGroup;   // 128
-constexpr int kTile = 32;                  // rows of a shared-memory tile
+constexpr int kGroup = 4;  // threads per owned row
+
+// Dynamic shared memory of one block: two staged fp32 tiles plus three
+// per-row words (lse, delta, segment id for dK/dV; the segment id for dQ).
+template <int kTile, int kDPad>
+constexpr size_t smem_bytes() {
+  return 2 * sizeof(float) * kTile * kDPad + 3 * sizeof(float) * kTile;
+}
 
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
@@ -107,7 +121,7 @@ __device__ __forceinline__ void store_row(T* base, int row, int D, int t,
 
 // Stage rows r0 .. r0+kTile-1 of two (rows, D) operands into shared memory
 // as fp32, zero past ``rows`` and past D.
-template <typename T, int kDPad>
+template <typename T, int kDPad, int kTile, int kThreads>
 __device__ __forceinline__ void stage_tile(const T* a, const T* b, int r0,
                                            int rows, int D, float* as,
                                            float* bs, int tid) {
@@ -121,10 +135,10 @@ __device__ __forceinline__ void stage_tile(const T* a, const T* b, int r0,
   }
 }
 
-// dK, dV: one block per (32 keys, bh); loops over query tiles.
+// dK, dV: one block per (kRows keys, bh); loops over kTile-query tiles.
 // V float4 chunks per thread: head dims up to 16 * V.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int V, int kRows, int kTile>
+__global__ void __launch_bounds__(kRows * kGroup)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
                          const float* __restrict__ lse,
@@ -134,11 +148,14 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dv, int H, int Tq, int Tk, int D,
                          float scale, int causal) {
   constexpr int kDPad = 16 * V;
-  __shared__ float4 q_s[kTile][kDPad / 4];
-  __shared__ float4 g_s[kTile][kDPad / 4];
-  __shared__ float lse_s[kTile];
-  __shared__ float dl_s[kTile];
-  __shared__ int qs_s[kTile];
+  constexpr int kThreads = kRows * kGroup;
+  extern __shared__ float4 smem[];
+  float4(*q_s)[kDPad / 4] = reinterpret_cast<float4(*)[kDPad / 4]>(smem);
+  float4(*g_s)[kDPad / 4] =
+      reinterpret_cast<float4(*)[kDPad / 4]>(smem + kTile * kDPad / 4);
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * kTile * kDPad / 4);
+  float* dl_s = lse_s + kTile;
+  int* qs_s = reinterpret_cast<int*>(dl_s + kTile);
 
   const int tid = threadIdx.x;
   const int t = tid % kGroup;
@@ -164,16 +181,16 @@ __global__ void __launch_bounds__(kThreads)
   const T* gbase = g + (size_t)bh * Tq * D;
   for (int qb = qbeg; qb < Tq; qb += kTile) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_tile<T, kDPad>(qbase, gbase, qb, Tq, D,
-                         reinterpret_cast<float*>(&q_s[0][0]),
-                         reinterpret_cast<float*>(&g_s[0][0]), tid);
-    if (tid < kTile) {
-      const int i = qb + tid;
+    stage_tile<T, kDPad, kTile, kThreads>(
+        qbase, gbase, qb, Tq, D, reinterpret_cast<float*>(&q_s[0][0]),
+        reinterpret_cast<float*>(&g_s[0][0]), tid);
+    for (int ii = tid; ii < kTile; ii += kThreads) {
+      const int i = qb + ii;
       const bool in = i < Tq;
       const size_t r = (size_t)bh * Tq + i;
-      lse_s[tid] = in ? lse[r] : 0.f;
-      dl_s[tid] = in ? delta[r] : 0.f;
-      qs_s[tid] = (use_seg && in) ? qseg[(size_t)b * Tq + i] : 0;
+      lse_s[ii] = in ? lse[r] : 0.f;
+      dl_s[ii] = in ? delta[r] : 0.f;
+      qs_s[ii] = (use_seg && in) ? qseg[(size_t)b * Tq + i] : 0;
     }
     __syncthreads();
 
@@ -210,9 +227,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dQ: one block per (32 queries, bh); loops over key tiles.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+// dQ: one block per (kRows queries, bh); loops over kTile-key tiles.
+template <typename T, int V, int kRows, int kTile>
+__global__ void __launch_bounds__(kRows * kGroup)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ g,
                         const float* __restrict__ lse,
@@ -222,9 +239,12 @@ __global__ void __launch_bounds__(kThreads)
                         int H, int Tq, int Tk, int D, float scale,
                         int causal) {
   constexpr int kDPad = 16 * V;
-  __shared__ float4 k_s[kTile][kDPad / 4];
-  __shared__ float4 v_s[kTile][kDPad / 4];
-  __shared__ int ks_s[kTile];
+  constexpr int kThreads = kRows * kGroup;
+  extern __shared__ float4 smem[];
+  float4(*k_s)[kDPad / 4] = reinterpret_cast<float4(*)[kDPad / 4]>(smem);
+  float4(*v_s)[kDPad / 4] =
+      reinterpret_cast<float4(*)[kDPad / 4]>(smem + kTile * kDPad / 4);
+  int* ks_s = reinterpret_cast<int*>(smem + 2 * kTile * kDPad / 4);
 
   const int tid = threadIdx.x;
   const int t = tid % kGroup;
@@ -256,12 +276,12 @@ __global__ void __launch_bounds__(kThreads)
   const T* vbase = v + (size_t)bh * Tk * D;
   for (int kb = 0; kb < kend; kb += kTile) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_tile<T, kDPad>(kbase, vbase, kb, Tk, D,
-                         reinterpret_cast<float*>(&k_s[0][0]),
-                         reinterpret_cast<float*>(&v_s[0][0]), tid);
-    if (tid < kTile) {
-      const int j = kb + tid;
-      ks_s[tid] = (use_seg && j < Tk) ? kseg[(size_t)b * Tk + j] : 0;
+    stage_tile<T, kDPad, kTile, kThreads>(
+        kbase, vbase, kb, Tk, D, reinterpret_cast<float*>(&k_s[0][0]),
+        reinterpret_cast<float*>(&v_s[0][0]), tid);
+    for (int jj = tid; jj < kTile; jj += kThreads) {
+      const int j = kb + jj;
+      ks_s[jj] = (use_seg && j < Tk) ? kseg[(size_t)b * Tk + j] : 0;
     }
     __syncthreads();
 
@@ -301,10 +321,25 @@ struct Args {
   int causal;
 };
 
-template <typename T, int V>
+// Raise a kernel's dynamic shared-memory limit where it needs more than
+// the 48 KiB default. The callers keep the result in a static of their own
+// instantiation, so it runs once per kernel, before its first launch.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// kRows: the rows a block owns; kTile: the other side's tile.
+template <typename T, int V, int kRows, int kTile>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_kernel<T, V, kRows, kTile>;
+  constexpr size_t kSmem = smem_bytes<kTile, 16 * V>();
+  static const cudaError_t attr = allow_smem(kernel, kSmem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((a.Tk + kRows - 1) / kRows, a.BH);
-  flash_bwd_dkv_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kRows * kGroup, kSmem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
       a.qseg, a.kseg, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H,
@@ -312,10 +347,14 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int V>
+template <typename T, int V, int kRows, int kTile>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<T, V, kRows, kTile>;
+  constexpr size_t kSmem = smem_bytes<kTile, 16 * V>();
+  static const cudaError_t attr = allow_smem(kernel, kSmem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((a.Tq + kRows - 1) / kRows, a.BH);
-  flash_bwd_dq_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kRows * kGroup, kSmem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
       a.qseg, a.kseg, static_cast<T*>(a.out0), a.H, a.Tq, a.Tk, a.D,
@@ -323,33 +362,61 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kDKV, typename T, int V>
+template <bool kDKV, typename T, int V, int kRows, int kTile>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   if constexpr (kDKV) {
-    return launch_dkv<T, V>(a, s);
+    return launch_dkv<T, V, kRows, kTile>(a, s);
   } else {
-    return launch_dq<T, V>(a, s);
+    return launch_dq<T, V, kRows, kTile>(a, s);
   }
 }
 
-template <bool kDKV, typename T>
-cudaError_t dispatch_d(const Args& a, cudaStream_t s) {
-  if (a.D <= 16) return launch<kDKV, T, 1>(a, s);
-  if (a.D <= 32) return launch<kDKV, T, 2>(a, s);
-  if (a.D <= 64) return launch<kDKV, T, 4>(a, s);
-  if (a.D <= 128) return launch<kDKV, T, 8>(a, s);
+template <bool kDKV, typename T, int V, int kRows>
+cudaError_t dispatch_tile(const Args& a, int tile, cudaStream_t s) {
+  switch (tile) {
+    case 16: return launch<kDKV, T, V, kRows, 16>(a, s);
+    case 32: return launch<kDKV, T, V, kRows, 32>(a, s);
+    case 64: return launch<kDKV, T, V, kRows, 64>(a, s);
+  }
   return cudaErrorInvalidValue;
 }
 
+template <bool kDKV, typename T, int V>
+cudaError_t dispatch_rows(const Args& a, int rows, int tile,
+                          cudaStream_t s) {
+  switch (rows) {
+    case 16: return dispatch_tile<kDKV, T, V, 16>(a, tile, s);
+    case 32: return dispatch_tile<kDKV, T, V, 32>(a, tile, s);
+    case 64: return dispatch_tile<kDKV, T, V, 64>(a, tile, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool kDKV, typename T>
+cudaError_t dispatch_d(const Args& a, int rows, int tile, cudaStream_t s) {
+  if (a.D <= 16) return dispatch_rows<kDKV, T, 1>(a, rows, tile, s);
+  if (a.D <= 32) return dispatch_rows<kDKV, T, 2>(a, rows, tile, s);
+  if (a.D <= 64) return dispatch_rows<kDKV, T, 4>(a, rows, tile, s);
+  if (a.D <= 128) return dispatch_rows<kDKV, T, 8>(a, rows, tile, s);
+  return cudaErrorInvalidValue;
+}
+
+// For dK/dV the block owns block_k keys and tiles block_q queries; for dQ
+// it owns block_q queries and tiles block_k keys.
 template <bool kDKV>
-int dispatch(const Args& a, int dtype, void* stream) {
+int dispatch(const Args& a, int dtype, int block_q, int block_k,
+             void* stream) {
   if (a.BH < 1 || a.H < 1 || a.Tq < 1 || a.Tk < 1 || a.D < 1 ||
       a.BH % a.H != 0 || a.BH > 65535 ||
       (a.qseg == nullptr) != (a.kseg == nullptr))
     return cudaErrorInvalidValue;
+  const int rows = kDKV ? block_k : block_q;
+  const int tile = kDKV ? block_q : block_k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mxtt::kFloat32) return dispatch_d<kDKV, float>(a, s);
-  if (dtype == mxtt::kBFloat16) return dispatch_d<kDKV, __nv_bfloat16>(a, s);
+  if (dtype == mxtt::kFloat32)
+    return dispatch_d<kDKV, float>(a, rows, tile, s);
+  if (dtype == mxtt::kBFloat16)
+    return dispatch_d<kDKV, __nv_bfloat16>(a, rows, tile, s);
   return cudaErrorInvalidValue;
 }
 
@@ -357,8 +424,9 @@ int dispatch(const Args& a, int dtype, void* stream) {
 
 // Both entry points take, contiguous and of one dtype: q, g (BH, Tq, D);
 // k, v (BH, Tk, D); float32 lse and delta (BH, Tq); qseg (BH / H, Tq) and
-// kseg (BH / H, Tk) int32, or both null. Each launches one kernel on
-// ``stream`` and returns cudaGetLastError() (0 on success).
+// kseg (BH / H, Tk) int32, or both null; the tile block_q, block_k, each
+// 16, 32 or 64. Each launches one kernel on ``stream`` and returns
+// cudaGetLastError() (0 on success).
 
 // dk, dv: (BH, Tk, D) in the operands' dtype.
 extern "C" int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -366,10 +434,11 @@ extern "C" int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const float* delta, const int* qseg,
                                   const int* kseg, void* dk, void* dv, int BH,
                                   int H, int Tq, int Tk, int D, float scale,
-                                  int causal, int dtype, void* stream) {
+                                  int causal, int dtype, int block_q,
+                                  int block_k, void* stream) {
   const Args a{q, k, v, g, lse, delta, qseg, kseg, dk, dv,
                BH, H, Tq, Tk, D, scale, causal};
-  return dispatch<true>(a, dtype, stream);
+  return dispatch<true>(a, dtype, block_q, block_k, stream);
 }
 
 // dq: (BH, Tq, D) in the operands' dtype.
@@ -378,8 +447,9 @@ extern "C" int mxtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const float* delta, const int* qseg,
                                  const int* kseg, void* dq, int BH, int H,
                                  int Tq, int Tk, int D, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 int causal, int dtype, int block_q,
+                                 int block_k, void* stream) {
   const Args a{q, k, v, g, lse, delta, qseg, kseg, dq, nullptr,
                BH, H, Tq, Tk, D, scale, causal};
-  return dispatch<false>(a, dtype, stream);
+  return dispatch<false>(a, dtype, block_q, block_k, stream);
 }

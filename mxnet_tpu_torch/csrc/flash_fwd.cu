@@ -18,16 +18,22 @@
 //
 // What bounds it on this card: at GPT-2 prefill shapes (D = 64, T up to
 // 1024) the kernel does 4*D FLOPs per visible (query, key) pair and reads
-// each K/V row once per block of 32 queries, so it is bound by arithmetic,
-// not by device memory. This first version does the arithmetic in fp32 on
-// the CUDA cores (67 TFLOP/s peak), not on the tensor cores (no wgmma or
-// TMA yet: that is later work). What the design does about it: K/V tiles
-// are staged once per block in shared memory and reused by all 32 query
-// rows; each row belongs to a quad of 4 threads that read 16-byte float4
-// chunks, so one shared-memory load feeds four FMAs and the 8 quads of a
-// warp read one address (a broadcast, no bank conflict); a tile's scores
-// stay in registers; a causal block stops at the last key any of its rows
-// can see.
+// each K/V row once per block of kRows queries, so it is bound by
+// arithmetic, not by device memory. This first version does the arithmetic
+// in fp32 on the CUDA cores (67 TFLOP/s peak), not on the tensor cores (no
+// wgmma or TMA yet: that is later work). What the design does about it: K/V
+// tiles are staged once per block in shared memory and reused by all kRows
+// query rows; each row belongs to a quad of 4 threads that read 16-byte
+// float4 chunks, so one shared-memory load feeds four FMAs and the 8 quads
+// of a warp read one address (a broadcast, no bank conflict); a tile's
+// scores stay in registers; a causal block stops at the last key any of its
+// rows can see.
+//
+// Tiles are call parameters (the tuner picks them, ROADMAP B's rule):
+// kRows = block_q query rows a block and kBlockK = block_k keys a
+// shared-memory tile, each from {16, 32, 64}; (32, 32) is the default.
+// The K/V tiles live in dynamic shared memory: at block_k = 64 and
+// D = 128 they take 64 KiB, over the 48 KiB static limit.
 #include <math.h>
 
 #include "common.cuh"
@@ -37,23 +43,31 @@ namespace {
 using mxtt::from_f32;
 using mxtt::to_f32;
 
-constexpr int kGroup = 4;                  // threads per query row
-constexpr int kRows = 32;                  // query rows per block
-constexpr int kThreads = kRows * kGroup;   // 128
-constexpr int kBlockK = 32;                // keys per shared-memory tile
+constexpr int kGroup = 4;  // threads per query row
 
-// V float4 chunks per thread: head dims up to 16 * V.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of one block: the K and V tiles (fp32) and the
+// tile's key segment ids.
+template <int kBlockK, int kDPad>
+constexpr size_t smem_bytes() {
+  return 2 * sizeof(float) * kBlockK * kDPad + sizeof(int) * kBlockK;
+}
+
+// V float4 chunks per thread: head dims up to 16 * V. kRows query rows a
+// block (kRows * 4 threads), kBlockK keys a shared-memory tile.
+template <typename T, int V, int kRows, int kBlockK>
+__global__ void __launch_bounds__(kRows * kGroup)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ qseg,
                      const int* __restrict__ kseg, T* __restrict__ out,
                      float* __restrict__ lse, int H, int Tq, int Tk, int D,
                      float scale, int causal) {
   constexpr int kDPad = 16 * V;
-  __shared__ float4 k_s[kBlockK][kDPad / 4];
-  __shared__ float4 v_s[kBlockK][kDPad / 4];
-  __shared__ int ks_s[kBlockK];
+  constexpr int kThreads = kRows * kGroup;
+  extern __shared__ float4 smem[];
+  float4(*k_s)[kDPad / 4] = reinterpret_cast<float4(*)[kDPad / 4]>(smem);
+  float4(*v_s)[kDPad / 4] =
+      reinterpret_cast<float4(*)[kDPad / 4]>(smem + kBlockK * kDPad / 4);
+  int* ks_s = reinterpret_cast<int*>(smem + 2 * kBlockK * kDPad / 4);
 
   const float kNegInf = __int_as_float(0xff800000);
   const int tid = threadIdx.x;
@@ -104,9 +118,9 @@ __global__ void __launch_bounds__(kThreads)
       kf[idx] = in ? to_f32(kbase[g]) : 0.f;
       vf[idx] = in ? to_f32(vbase[g]) : 0.f;
     }
-    if (tid < kBlockK) {
-      const int key = kb + tid;
-      ks_s[tid] = (use_seg && key < Tk) ? kseg[(size_t)b * Tk + key] : 0;
+    for (int j = tid; j < kBlockK; j += kThreads) {
+      const int key = kb + j;
+      ks_s[j] = (use_seg && key < Tk) ? kseg[(size_t)b * Tk + key] : 0;
     }
     __syncthreads();
 
@@ -169,36 +183,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int V>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* qseg, const int* kseg, void* out, float* lse,
-                   int BH, int H, int Tq, int Tk, int D, float scale,
-                   int causal, cudaStream_t stream) {
-  const dim3 grid((Tq + kRows - 1) / kRows, BH);
-  flash_fwd_kernel<T, V><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qseg, kseg, static_cast<T*>(out), lse, H, Tq,
-      Tk, D, scale, causal);
+struct Args {
+  const void *q, *k, *v;
+  const int *qseg, *kseg;
+  void* out;
+  float* lse;
+  int BH, H, Tq, Tk, D;
+  float scale;
+  int causal;
+};
+
+template <typename T, int V, int kRows, int kBlockK>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, V, kRows, kBlockK>;
+  constexpr size_t kSmem = smem_bytes<kBlockK, 16 * V>();
+  if (kSmem > 48 * 1024) {
+    // once per instantiation, before its first launch
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (attr != cudaSuccess) return attr;
+  }
+  const dim3 grid((a.Tq + kRows - 1) / kRows, a.BH);
+  kernel<<<grid, kRows * kGroup, kSmem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.qseg, a.kseg, static_cast<T*>(a.out),
+      a.lse, a.H, a.Tq, a.Tk, a.D, a.scale, a.causal);
   return cudaGetLastError();
 }
 
+template <typename T, int V, int kRows>
+cudaError_t dispatch_k(const Args& a, int block_k, cudaStream_t s) {
+  switch (block_k) {
+    case 16: return launch<T, V, kRows, 16>(a, s);
+    case 32: return launch<T, V, kRows, 32>(a, s);
+    case 64: return launch<T, V, kRows, 64>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int V>
+cudaError_t dispatch_q(const Args& a, int block_q, int block_k,
+                       cudaStream_t s) {
+  switch (block_q) {
+    case 16: return dispatch_k<T, V, 16>(a, block_k, s);
+    case 32: return dispatch_k<T, V, 32>(a, block_k, s);
+    case 64: return dispatch_k<T, V, 64>(a, block_k, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int* qseg, const int* kseg, void* out, float* lse,
-                     int BH, int H, int Tq, int Tk, int D, float scale,
-                     int causal, cudaStream_t stream) {
-  if (D <= 16)
-    return launch<T, 1>(q, k, v, qseg, kseg, out, lse, BH, H, Tq, Tk, D,
-                        scale, causal, stream);
-  if (D <= 32)
-    return launch<T, 2>(q, k, v, qseg, kseg, out, lse, BH, H, Tq, Tk, D,
-                        scale, causal, stream);
-  if (D <= 64)
-    return launch<T, 4>(q, k, v, qseg, kseg, out, lse, BH, H, Tq, Tk, D,
-                        scale, causal, stream);
-  if (D <= 128)
-    return launch<T, 8>(q, k, v, qseg, kseg, out, lse, BH, H, Tq, Tk, D,
-                        scale, causal, stream);
+cudaError_t dispatch(const Args& a, int block_q, int block_k,
+                     cudaStream_t s) {
+  if (a.D <= 16) return dispatch_q<T, 1>(a, block_q, block_k, s);
+  if (a.D <= 32) return dispatch_q<T, 2>(a, block_q, block_k, s);
+  if (a.D <= 64) return dispatch_q<T, 4>(a, block_q, block_k, s);
+  if (a.D <= 128) return dispatch_q<T, 8>(a, block_q, block_k, s);
   return cudaErrorInvalidValue;
 }
 
@@ -207,21 +247,21 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // q: (BH, Tq, D); k, v: (BH, Tk, D), contiguous, all of one dtype.
 // qseg: (BH / H, Tq) and kseg: (BH / H, Tk) int32, or both null.
 // out: (BH, Tq, D) in the operands' dtype; lse: (BH, Tq) float32.
+// block_q, block_k: the tile, each 16, 32 or 64.
 // Launches on ``stream`` and returns cudaGetLastError() (0 on success).
 extern "C" int mxtt_flash_fwd(const void* q, const void* k, const void* v,
                               const int* qseg, const int* kseg, void* out,
                               float* lse, int BH, int H, int Tq, int Tk,
                               int D, float scale, int causal, int dtype,
-                              void* stream) {
+                              int block_q, int block_k, void* stream) {
   if (BH < 1 || H < 1 || Tq < 1 || Tk < 0 || D < 1 || BH % H != 0 ||
       BH > 65535 || (qseg == nullptr) != (kseg == nullptr))
     return cudaErrorInvalidValue;
+  const Args a{q, k, v, qseg, kseg, out, lse, BH, H, Tq, Tk, D, scale,
+               causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mxtt::kFloat32)
-    return dispatch<float>(q, k, v, qseg, kseg, out, lse, BH, H, Tq, Tk, D,
-                           scale, causal, s);
+  if (dtype == mxtt::kFloat32) return dispatch<float>(a, block_q, block_k, s);
   if (dtype == mxtt::kBFloat16)
-    return dispatch<__nv_bfloat16>(q, k, v, qseg, kseg, out, lse, BH, H, Tq,
-                                   Tk, D, scale, causal, s);
+    return dispatch<__nv_bfloat16>(a, block_q, block_k, s);
   return cudaErrorInvalidValue;
 }

@@ -8,6 +8,9 @@ name carries a digest of its source, the shared header and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. Several
 sources build in parallel: one ``nvcc`` per source, all started together.
 
+:func:`compile_source` builds CUDA C given at run time (``rtc.CudaModule``)
+the same way, cached by a digest of the text and the flags.
+
 Nothing here runs at import time, so ``import mxnet_tpu_torch`` works on a
 machine without ``nvcc`` or a GPU; a wrapper that launches a kernel on a
 CUDA tensor calls :func:`load`, which raises :class:`MXNetError` when the
@@ -26,7 +29,8 @@ from pathlib import Path
 
 from ..base import MXNetError
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_command"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_command",
+           "compile_source"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,14 +44,15 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 SOURCES = {
     "flash_fwd": ("flash_fwd.cu", "mxtt_flash_fwd",
-                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                   _I, _P]),
+                  [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd.cu", "mxtt_flash_bwd_dkv",
-                      [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]),
+                      [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
     "flash_bwd_dq": ("flash_bwd.cu", "mxtt_flash_bwd_dq",
-                     [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]),
+                     [_P] * 9 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
     "layer_norm": ("layer_norm.cu", "mxtt_layer_norm_fwd",
-                   [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _P]),
+                   [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P]),
+    "softmax": ("softmax.cu", "mxtt_softmax_fwd",
+                [_P, _P, _LL, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -142,3 +147,33 @@ def load(name):
             fn.restype = ctypes.c_int
             _funcs[name] = fn
     return _funcs[name]
+
+
+def compile_source(text, stem, options=()):
+    """Compile the CUDA C ``text`` into a shared library with the kernels'
+    flags (plus ``options``) and return its path. The file name carries a
+    digest of the text and the flags, so a text built before is loaded as
+    it is. A failed compile raises :class:`MXNetError` with nvcc's log."""
+    flags = ARCH_FLAGS + NVCC_FLAGS + tuple(options)
+    h = hashlib.sha256(text.encode())
+    h.update("\0".join(flags).encode())
+    final = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    with _lock:
+        if final.is_file():
+            return final
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = final.with_suffix(".cu")
+        src.write_text(text)
+        tmp = final.with_name(f"{final.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise MXNetError(
+                f"CUDA compile of {stem} failed: {' '.join(cmd)}\n"
+                f"{proc.stdout}")
+        os.replace(tmp, final)
+        build_log.append((stem, cmd, time.perf_counter() - t0, proc.stdout))
+    return final

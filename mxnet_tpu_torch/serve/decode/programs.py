@@ -24,6 +24,7 @@ import torch
 
 from ...base import MXNetError
 from ...ops import _build
+from ...tune import preload as _tune_preload
 from ..bucketing import bucket_ladder
 
 __all__ = ["DecodePrograms"]
@@ -150,7 +151,11 @@ class DecodePrograms:
         Given the engine's pools, also run every bucket once with page
         tables that hold only the sentinel — every pool write drops, so the
         pools are left as they were — so that no request pays a first-call
-        cost (library handles, lazily loaded device code)."""
+        cost (library handles, lazily loaded device code). Tuned kernel
+        tiles (``MXTPU_TUNE=1``) preload first, so every bucket resolves
+        its tiles from the persisted winners — the engine never tunes
+        online."""
+        _tune_preload()
         if self.device.type == "cuda":
             _build.build()
         keys = [("decode", self.speculate_k)]

@@ -506,3 +506,176 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda, rows, d):
     assert tk.layer_norm_launches == n0 + 1
     ref = tk.layer_norm_plain(x, g, b, 1e-5)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+# -- fused softmax: the Pallas kernel in interpret mode / jax.nn.softmax ----
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape", [
+    (200, 256),        # d % 128 == 0: the Pallas kernel, ragged rows padded
+    (4, 50, 128),      # 3-D, the Pallas kernel
+    (37, 100),         # d % 128 != 0: the reference takes jax.nn.softmax
+    (7, 1000),
+])
+def test_fused_softmax_matches_reference(monkeypatch, shape, dtype, tol):
+    import jax
+    import jax.numpy as jnp
+
+    monkeypatch.setenv("MXTPU_PALLAS_INTERPRET", "1")
+    from mxnet_tpu.ops.pallas_kernels import fused_softmax
+
+    rng = onp.random.RandomState(11)
+    x = (rng.randn(*shape) * 3).astype("float32")
+    gy = rng.randn(*shape).astype("float32")
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want, vjp = jax.vjp(fused_softmax, jnp.asarray(x, jdt))
+    (want_g,) = vjp(jnp.asarray(gy, jdt))
+    tdt = getattr(torch, dtype)
+    xt = _t(x).to(tdt).requires_grad_()
+    got = tk.fused_softmax(xt)
+    assert got.dtype == tdt
+    plain = tk.softmax_plain(_t(x).to(tdt))
+    (got_g,) = torch.autograd.grad(got, xt, _t(gy).to(tdt))
+    want = onp.asarray(want, "float32")
+    for a in (got, plain):
+        assert float(onp.abs(a.detach().float().numpy() - want).max()) <= tol
+    assert float(onp.abs(got_g.float().numpy()
+                         - onp.asarray(want_g, "float32")).max()) <= tol
+
+
+def test_softmax_wrapper_refuses_host_tensors_and_counts_nothing_on_cpu():
+    x = torch.randn(4, 8)
+    with pytest.raises(MXNetError, match="CUDA device"):
+        tk.softmax_cuda(x)
+    before = tk.launch_counts()
+    y = tk.fused_softmax(x)
+    assert torch.allclose(y.sum(-1), torch.ones(4))
+    assert tk.launch_counts() == before
+    # a pinned tile outside the legal set is refused on either device
+    with pytest.raises(MXNetError, match="block_rows"):
+        tk.fused_layer_norm(x, torch.ones(8), torch.zeros(8), block_rows=3)
+    with pytest.raises(MXNetError, match="block_rows"):
+        tk.fused_softmax(x, block_rows=64)
+    with pytest.raises(MXNetError, match="block_q=128"):
+        tk.flash_attention(x[None, None], x[None, None], x[None, None],
+                           block_q=128)
+
+
+# -- on the card: every legal tile of every kernel against its plain version --
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block_k", tk.FLASH_BLOCKS)
+@pytest.mark.parametrize("block_q", tk.FLASH_BLOCKS)
+def test_flash_kernels_match_plain_at_every_tile_on_card(cuda, block_q,
+                                                         block_k, D):
+    # ragged T = 100 (no tile divides it), causal, padding ids and a row
+    # that sees no key; D = 128 with 64-row tiles needs 64 KiB of dynamic
+    # shared memory
+    rng = onp.random.RandomState(12)
+    B, H, T = 2, 3, 100
+    q, k, v = (_t(a).to(cuda) for a in _qkv(rng, B, H, T, T, D))
+    g = _t(rng.randn(B, H, T, D).astype("float32")).to(cuda)
+    ks = onp.ones((B, T), "int32")
+    ks[1, 70:] = 0
+    qs = ks.copy()
+    qs[0, 5] = 9
+    qs, ks = _t(qs).to(cuda), _t(ks).to(cuda)
+    scale = 1 / D ** 0.5
+    tk.reset_launch_counts()
+    out, lse = tk.flash_fwd_cuda(q, k, v, qs, ks, scale, True, block_q,
+                                 block_k)
+    got = tk.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale, True,
+                            block_q, block_k)
+    torch.cuda.synchronize()
+    tile = (block_q, block_k)
+    assert tk.tile_counts() == {("flash_fwd", tile): 1,
+                                ("flash_bwd_dkv", tile): 1,
+                                ("flash_bwd_dq", tile): 1}
+    ref, ref_lse = tk.attention_plain(q, k, v, scale, True, qs, ks)
+    assert float((out - ref).abs().max()) <= 1e-4
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale, True)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", tk.ROW_BLOCKS)
+def test_row_kernels_match_plain_at_every_tile_on_card(cuda, block_rows):
+    rng = onp.random.RandomState(13)
+    tk.reset_launch_counts()
+    for rows, d in ((37, 768), (1, 100)):
+        x = _t(rng.randn(rows, d).astype("float32") * 2).to(cuda)
+        g = _t(rng.randn(d).astype("float32")).to(cuda)
+        b = _t(rng.randn(d).astype("float32")).to(cuda)
+        out = tk.layer_norm_cuda(x, g, b, 1e-5, block_rows)
+        sm = tk.softmax_cuda(x, block_rows)
+        torch.cuda.synchronize()
+        assert float((out - tk.layer_norm_plain(x, g, b, 1e-5)).abs()
+                     .max()) <= 1e-5
+        assert float((sm - tk.softmax_plain(x)).abs().max()) <= 1e-6
+    assert tk.tile_counts() == {("layer_norm", (block_rows,)): 2,
+                                ("softmax", (block_rows,)): 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("rows,d", [(4096, 768), (64, 50257), (1, 768),
+                                    (1001, 768), (3, 5)])
+def test_softmax_kernel_matches_plain_on_card(cuda, dtype, tol, rows, d):
+    rng = onp.random.RandomState(14)
+    x = _t(rng.randn(rows, d).astype("float32") * 4).to(cuda, dtype) \
+        .requires_grad_()
+    gy = _t(rng.randn(rows, d).astype("float32")).to(cuda, dtype)
+    n0 = tk.softmax_launches
+    y = tk.fused_softmax(x)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    torch.cuda.synchronize()
+    assert tk.softmax_launches == n0 + 1 and y.dtype == dtype
+    ref = tk.softmax_plain(x.detach())
+    assert float((y.detach().float() - ref.float()).abs().max()) <= tol
+    yr = ref.float()
+    want = (gy.float() - (gy.float() * yr).sum(-1, keepdim=True)) * yr
+    assert float((gx.float() - want).abs().max()) <= tol * 10
+
+
+@pytest.mark.cuda
+def test_library_lowering_is_taken_only_when_the_tier_chooses_it(cuda):
+    from mxnet_tpu_torch import tune
+
+    rng = onp.random.RandomState(15)
+    q, k, v = (_t(a).to(cuda).requires_grad_()
+               for a in _qkv(rng, 2, 2, 64, 64, 32))
+    qs = torch.ones((2, 64), dtype=torch.int32, device=cuda)
+    qs[0, 3] = 7                         # a row that sees no key
+    ks = torch.ones_like(qs)
+    x = _t(rng.randn(37, 96).astype("float32")).to(cuda)
+    gam, bet = torch.ones(96, device=cuda), torch.zeros(96, device=cuda)
+    with torch.no_grad():
+        want = [tk.flash_attention(q, k, v, causal=True, q_segment_ids=qs,
+                                   kv_segment_ids=ks),
+                tk.fused_layer_norm(x, gam, bet), tk.fused_softmax(x)]
+    tk.reset_launch_counts()
+    with tune.override("flash_fwd", "xla"), \
+            tune.override("layer_norm", "xla"), \
+            tune.override("softmax", "xla"):
+        out = tk.flash_attention(q, k, v, causal=True, q_segment_ids=qs,
+                                 kv_segment_ids=ks)
+        got = [out, tk.fused_layer_norm(x, gam, bet), tk.fused_softmax(x)]
+    assert tk.library_counts() == {"flash_fwd": 1, "flash_bwd": 0,
+                                   "layer_norm": 1, "softmax": 1}
+    assert sum(tk.launch_counts().values()) == 0
+    for a, b in zip(got, want):
+        assert float((a.detach() - b).abs().max()) <= 1e-4
+    assert float(out[0, :, 3].abs().max()) == 0.0
+    # the backward's own family: kernel forward, library backward
+    with tune.override("flash_bwd", "xla"):
+        out = tk.flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out.sum(), (q, k, v))
+    assert tk.library_counts()["flash_bwd"] == 1
+    assert tk.launch_counts()["flash_fwd"] == 1
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(
+        tk.flash_attention(qc, kc, vc, causal=True).sum(), (qc, kc, vc))
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
