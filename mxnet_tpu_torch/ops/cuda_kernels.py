@@ -167,6 +167,14 @@ def _row_tile(name, block_rows):
     return br
 
 
+# Device types whose calls resolve through the tuning tier. Only a CUDA call
+# can launch a kernel or take the library lowering, so a CPU process logs no
+# misses and moves no tune.* counter (the reference resolves only where
+# Pallas runs). The CPU tests of the tuning loop add "cpu" to drive it
+# through the plain versions.
+_TUNED_DEVICES = ("cuda",)
+
+
 def _resolve_attention_blocks(kernel, q, k, causal, seg):
     """(block_q, block_k) for this call, or None for the library lowering.
 
@@ -530,7 +538,8 @@ def flash_attention(q, k, v, scale=None, causal=False, q_segment_ids=None,
     env default). Where autograd records a kernel call, the backward's tile
     resolves here too (``flash_bwd``), so the backward, which autograd runs
     on a thread of its own, uses the decision of the caller's thread (and
-    its tuning overrides). On the CPU the tiles are inert.
+    its tuning overrides). On the CPU the tiles are inert and nothing
+    resolves.
     """
     if kv_segment_ids is None:
         kv_segment_ids = q_segment_ids
@@ -544,12 +553,13 @@ def flash_attention(q, k, v, scale=None, causal=False, q_segment_ids=None,
         raise MXNetError(
             f"flash_attention: unsupported device {q.device}")
     seg = q_segment_ids is not None
-    if block_q is None and block_k is None:
+    tuned = q.device.type in _TUNED_DEVICES
+    if block_q is None and block_k is None and tuned:
         blocks = _resolve_attention_blocks("flash_fwd", q, k, causal, seg)
     else:
         blocks = _flash_tile("flash_attention", block_q, block_k)
     bwd_blocks = None
-    if blocks is not None and torch.is_grad_enabled() and (
+    if tuned and blocks is not None and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         bwd_blocks = _resolve_attention_blocks("flash_bwd", q, k, causal,
                                                seg)
@@ -649,10 +659,11 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5, block_rows=None):
 
     ``block_rows=None`` resolves through the tuning tier (4 when tuning is
     off; the library lowering ``F.layer_norm`` where the tier chooses
-    ``"xla"``); a value pins it. On the CPU it is inert."""
+    ``"xla"``); a value pins it. On the CPU it is inert and nothing
+    resolves."""
     if x.device.type not in ("cpu", "cuda"):
         raise MXNetError(f"fused_layer_norm: unsupported device {x.device}")
-    if block_rows is None:
+    if block_rows is None and x.device.type in _TUNED_DEVICES:
         rows, d = _rows_of(x)
         block_rows = _resolve_block_rows("layer_norm", rows, d, x.dtype)
     else:
@@ -726,10 +737,11 @@ def fused_softmax(x, block_rows=None):
 
     ``block_rows=None`` resolves through the tuning tier (4 when tuning is
     off; the library lowering ``torch.softmax`` where the tier chooses
-    ``"xla"``); a value pins it. On the CPU it is inert."""
+    ``"xla"``); a value pins it. On the CPU it is inert and nothing
+    resolves."""
     if x.device.type not in ("cpu", "cuda"):
         raise MXNetError(f"fused_softmax: unsupported device {x.device}")
-    if block_rows is None:
+    if block_rows is None and x.device.type in _TUNED_DEVICES:
         rows, d = _rows_of(x)
         block_rows = _resolve_block_rows("softmax", rows, d, x.dtype)
     else:

@@ -1,42 +1,21 @@
 """mxnet_tpu_torch.telemetry — the process-wide metric registry.
 
 Counterpart of the registry half of ``mxnet_tpu/telemetry/__init__.py``:
-``counter``, ``gauge``, ``metrics``, ``reset`` and the gate (``enable``,
-``disable``, ``is_enabled``, ``MXNET_TELEMETRY=1`` at import), with the
-reference's names. Metrics registered by a layer (the tuning tier's
-``tune.*`` counters) move whether or not the gate is on, as in the
-reference; the gate is for instrumentation sites that check ``ON``. The
-event log, step accounting, watchdog, exporter and memory ledger come with
-a later slice.
+``counter``, ``gauge``, ``metrics`` and ``reset``, with the reference's
+names. Metrics registered by a layer (the tuning tier's ``tune.*``
+counters) move whether or not the reference's gate is on, so the port needs
+no gate yet: ``enable``/``disable``/``MXNET_TELEMETRY`` come with the first
+instrumentation site that reads them, as do timers, histograms, the event
+log, step accounting, watchdog, exporter and memory ledger.
 """
 from __future__ import annotations
 
-import os
+from .registry import Counter, Gauge, Registry
 
-from .registry import Counter, Gauge, Histogram, Registry, Timer
-
-__all__ = ["enable", "disable", "is_enabled", "reset", "counter", "gauge",
-           "metrics", "Counter", "Gauge", "Timer", "Histogram", "Registry"]
-
-# THE gate: instrumentation sites read this module attribute directly
-ON = False
+__all__ = ["reset", "counter", "gauge", "metrics", "Counter", "Gauge",
+           "Registry"]
 
 REGISTRY = Registry()
-
-
-def enable():
-    """Turn telemetry on process-wide (idempotent)."""
-    global ON
-    ON = True
-
-
-def disable():
-    global ON
-    ON = False
-
-
-def is_enabled():
-    return ON
 
 
 def reset():
@@ -56,7 +35,3 @@ def gauge(name) -> Gauge:
 def metrics() -> dict:
     """Plain-value snapshot of every metric."""
     return REGISTRY.snapshot()
-
-
-if os.environ.get("MXNET_TELEMETRY", "").lower() in ("1", "true", "on"):
-    enable()

@@ -27,7 +27,9 @@ Two tiers:
   wrappers go through :func:`lookup`, a per-process memo that stands in for
   the trace: a key resolves, and moves the counters, once. ``reset()`` and
   ``record()`` clear it; an :func:`override` bypasses it. With tuning off a
-  call costs one environment read.
+  call costs one environment read. The wrappers resolve CUDA calls only
+  (``cuda_kernels._TUNED_DEVICES``), as the reference resolves only where
+  Pallas runs, so a CPU process logs no misses.
 - **Versioned JSON file** (``save``/``preload``): at
   ``context.tuning_cache_path()``, keyed by ``context.env_signature()``
   (interpreter, torch and CUDA versions, card name, a digest of the kernel

@@ -536,10 +536,22 @@ def test_fused_softmax_matches_reference(monkeypatch, shape, dtype, tol):
     plain = tk.softmax_plain(_t(x).to(tdt))
     (got_g,) = torch.autograd.grad(got, xt, _t(gy).to(tdt))
     want = onp.asarray(want, "float32")
+    want_g = onp.asarray(want_g, "float32")
     for a in (got, plain):
-        assert float(onp.abs(a.detach().float().numpy() - want).max()) <= tol
-    assert float(onp.abs(got_g.float().numpy()
-                         - onp.asarray(want_g, "float32")).max()) <= tol
+        err = onp.abs(a.detach().float().numpy() - want)
+        assert float(err.max()) <= tol
+        if dtype == "bfloat16":
+            # also relative to each row's largest value: at wide rows the
+            # values are far below 1e-2, so the absolute limit alone would
+            # pass zeros (the reference's jax.nn.softmax path computes in
+            # bf16 itself, hence a row scale and not an elementwise one)
+            assert float((err / onp.abs(want).max(-1, keepdims=True))
+                         .max()) <= 1e-2
+    err_g = onp.abs(got_g.float().numpy() - want_g)
+    assert float(err_g.max()) <= tol
+    if dtype == "bfloat16":
+        assert float((err_g / onp.abs(want_g).max(-1, keepdims=True))
+                     .max()) <= 2e-2
 
 
 def test_softmax_wrapper_refuses_host_tensors_and_counts_nothing_on_cpu():
@@ -633,7 +645,12 @@ def test_softmax_kernel_matches_plain_on_card(cuda, dtype, tol, rows, d):
     torch.cuda.synchronize()
     assert tk.softmax_launches == n0 + 1 and y.dtype == dtype
     ref = tk.softmax_plain(x.detach())
-    assert float((y.detach().float() - ref.float()).abs().max()) <= tol
+    diff = (y.detach().float() - ref.float()).abs()
+    assert float(diff.max()) <= tol
+    if dtype == torch.bfloat16:
+        # one bf16 ulp of the value: the absolute limit alone would pass a
+        # kernel that wrote zeros at vocabulary width
+        assert bool((diff <= 8e-3 * ref.float().abs() + 1e-7).all())
     yr = ref.float()
     want = (gy.float() - (gy.float() * yr).sum(-1, keepdim=True)) * yr
     assert float((gx.float() - want).abs().max()) <= tol * 10

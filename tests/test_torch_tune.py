@@ -36,6 +36,9 @@ def clean_tuning(monkeypatch, tmp_path):
                 "MXTPU_TUNE_TRIALS"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("MXTPU_TUNE_CACHE", str(tmp_path / "tuning.json"))
+    # the wrappers resolve only CUDA calls; these tests opt the CPU in to
+    # drive the tier through the plain versions
+    monkeypatch.setattr(tk, "_TUNED_DEVICES", ("cuda", "cpu"))
     tune.reset()
     tm.reset()
     yield
@@ -163,6 +166,25 @@ def test_miss_resolves_to_xla_with_counters_and_runs_the_plain_version_on_cpu(
     # version and counts no library call
     assert torch.equal(got, tk.layer_norm_plain(x, gamma, beta, 1e-5))
     assert tk.library_counts()["layer_norm"] == 0
+
+
+def test_cpu_calls_resolve_nothing_without_the_opt_in(monkeypatch):
+    monkeypatch.setenv("MXTPU_TUNE", "1")
+    monkeypatch.setattr(tk, "_TUNED_DEVICES", ("cuda",))
+    rng = onp.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(2, 2, 12, 16).astype("float32"))
+    gamma, beta = torch.ones(16), torch.zeros(16)
+    assert torch.equal(tk.fused_layer_norm(x, gamma, beta),
+                       tk.layer_norm_plain(x, gamma, beta, 1e-5))
+    assert torch.equal(tk.fused_softmax(x), tk.softmax_plain(x))
+    xg = x.clone().requires_grad_()
+    tk.flash_attention(xg, xg, xg, causal=True).sum().backward()
+    assert tune.missed() == []
+    assert all(v == 0 for n, v in tm.metrics().items()
+               if n.startswith("tune."))
+    # a pinned tile is still validated on the CPU
+    with pytest.raises(MXNetError, match="block_rows=3"):
+        tk.fused_softmax(x, block_rows=3)
 
 
 def test_override_scoping_and_validation():
@@ -337,10 +359,6 @@ def test_telemetry_registry_matches_the_reference_names():
         tm.gauge("tune.cache_hits")
     tm.reset()
     assert c.value == 0 and tm.counter("tune.cache_hits") is c
-    assert not tm.is_enabled()
-    tm.enable()
-    assert tm.is_enabled() and tm.ON
-    tm.disable()
     # the tune tier registers the reference's counter names
     names = {n for n in tm.metrics() if n.startswith("tune.")}
     jnames = {n for n in jtm.metrics() if n.startswith("tune.")}
