@@ -10,12 +10,18 @@ Phases (any failure exits non-zero without the final line):
 1. build   — nvcc builds every kernel of the serving, training and tuning
              paths from ``mxnet_tpu_torch/csrc`` (one process per source,
              in parallel, every legal tile instantiated), printing each
-             source's seconds;
+             source's seconds, ptxas's registers and spill bytes of the
+             flash_fwd instances at head dim 64 and the tensor-core (HMMA)
+             instructions cuobjdump finds in the flash_fwd library;
 2. kernels — each kernel's wrapper against its plain PyTorch version on
              the card, inputs from a numpy seed: flash-attention forward at
-             GPT-2 prefill shapes (causal + segment ids with right-padded
-             tails and a fully masked row; Tq != Tk non-causal), max |diff|
-             <= 1e-4 on out and LSE; LayerNorm at (rows, 768), max |diff|
+             GPT-2 prefill and training shapes (causal + segment ids with
+             right-padded tails and a fully masked row, T up to 1024;
+             Tq != Tk non-causal), fp32 max |diff| <= 1e-4 on out and LSE,
+             bf16 at (4*12, 512) within one bf16 step of the largest value;
+             its times also from CUDA-graph replays, beside SDPA's, and its
+             bound at the tensor cores' 3xTF32 (fp32) or bf16 rate with the
+             CUDA-core bound beside it; LayerNorm at (rows, 768), max |diff|
              <= 1e-5; the two flash-attention backward kernels (dK/dV, dQ)
              at GPT-2 training shapes (4*12, 1024, 64) causal, 512 with
              padding ids and a fully masked row, ragged 384 and 1000,
@@ -86,6 +92,7 @@ train, tune, rtc); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -96,6 +103,8 @@ import numpy as onp
 
 SEED = 0
 PEAK_FP32_FLOPS = 67e12    # H100 SXM, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM tensor cores, TF32, dense
+PEAK_BF16_FLOPS = 989e12   # H100 SXM tensor cores, bf16, dense
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FLASH_TOL = 1e-4
 LN_TOL = 1e-5
@@ -173,13 +182,59 @@ def device_ms(fn, kernel_name, reps=20):
     return us / n / 1e3 if us > 0 else None
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, peak=PEAK_FP32_FLOPS):
     """Least time on the card: bytes at the memory rate or operations at
-    the fp32 peak, whichever is longer."""
+    ``peak`` (default the fp32 CUDA-core rate), whichever is longer."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def attention_bound_ms(n_bytes, n_flops, dtype):
+    """The least time for attention at its dtype's accuracy: fp32-accurate
+    products on the tensor cores take three TF32 products each (3xTF32),
+    bf16 one bf16 product. Returns (ms, "bytes" or "operations", the
+    CUDA-core bound of the same work at the fp32 rate)."""
+    import torch
+
+    if dtype == torch.float32:
+        ms, by = bound_ms(n_bytes, 3 * n_flops, PEAK_TF32_FLOPS)
+    else:
+        ms, by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
+    return ms, by, bound_ms(n_bytes, n_flops)[0]
+
+
+def graph_ms(fn, reps=20, rounds=5):
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed between CUDA events, the median of ``rounds``
+    replays. The host's launch cost is out of it, so a kernel faster than
+    the host launches it reads at its own time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
 
 
 # ---------------------------------------------------------------------------
@@ -189,27 +244,70 @@ def phase_build():
     from mxnet_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build()
+    libs = _build.build()
     log(f"[build] {len(_build.SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
     for name, cmd, secs, report in _build.build_log:
         log(f"[build] {name}: {secs:.2f} s: {' '.join(cmd)}")
-        # ptxas -v: "Function properties for <entry>", then its stack and
-        # spill line, then "Used N registers"
-        entry, regs, spills = None, [], []
-        for line in report.splitlines():
-            if "Function properties for" in line:
-                entry = line.split("for", 1)[1].strip()
-            elif "spill stores" in line and \
-                    " 0 bytes spill stores" not in line:
-                spills.append(f"{entry}: {line.strip()}")
-            elif "Used" in line and "registers" in line:
-                regs.append(int(line.split("Used", 1)[1].split()[0]))
+        entries = _ptxas_entries(report)
+        regs = [r for _, r, _ in entries]
+        spills = [f"{e}: {sp}" for e, _, sp in entries
+                  if sp and " 0 bytes spill stores" not in sp]
         log(f"[build]   {len(regs)} kernel instances, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{len(spills)} spill")
         for sp in spills:
             log(f"[build]   spills: {sp}")
+        if name == "flash_fwd":
+            _flash_fwd_build_report(entries, libs["flash_fwd"])
+
+
+def _ptxas_entries(report):
+    """(entry, registers, spill line) of each kernel in a ptxas -v report:
+    "Function properties for <entry>", then its stack and spill line, then
+    "Used N registers"."""
+    entries, entry, spill = [], None, ""
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            entry, spill = line.split("for", 1)[1].strip(), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            entries.append((entry, int(line.split("Used", 1)[1].split()[0]),
+                            spill))
+    return entries
+
+
+_FWD_ENTRY = re.compile(
+    r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def _flash_fwd_build_report(entries, lib):
+    """ptxas's registers and spill bytes of the flash_fwd instances at head
+    dim 64, and the tensor-core (HMMA) instructions cuobjdump finds in the
+    built library, where the toolkit has cuobjdump."""
+    from pathlib import Path
+
+    from mxnet_tpu_torch.ops import _build
+
+    for entry, regs, spill in entries:
+        m = _FWD_ENTRY.search(entry or "")
+        if m and m.group(2) == "64":
+            dtype, _, bq, bk = m.groups()
+            log(f"[build]   flash_fwd {'fp32' if dtype == 'f' else 'bf16'} "
+                f"D=64 block_q={bq} block_k={bk}: {regs} registers; {spill}")
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        log(f"[build]   flash_fwd: no cuobjdump beside nvcc ({tool}): the "
+            f"tensor-core instructions are not counted")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma = re.findall(r"\bHMMA\.\S+", sass)
+    log(f"[build]   flash_fwd library: {len(hmma)} tensor-core (HMMA) "
+        f"instructions, {sorted(set(hmma))}, in "
+        f"{sass.count('Function : ')} kernel instances")
+    check(hmma, "flash_fwd: no tensor-core instruction in the library")
 
 
 # ---------------------------------------------------------------------------
@@ -254,64 +352,13 @@ def phase_kernels():
 
     dev = torch.device("cuda")
     rng = onp.random.RandomState(SEED)
-    B, H, D = 4, 12, 64
     results = {}
 
-    # -- flash-attention forward ------------------------------------------
-    flash_err = 0.0
-    main = None
-    for Tq, Tk, causal, seg in [(128, 128, True, True),
-                                (384, 384, True, True),
-                                (512, 512, True, True),
-                                (1000, 1000, True, True),
-                                (384, 1000, False, False)]:
-        q, k, v, qs, ks = _flash_inputs(rng, dev, B, H, Tq, Tk, D, seg)
-        scale = 1.0 / D ** 0.5
-        out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
-        ref, ref_lse = ck.attention_plain(q, k, v, scale, causal, qs, ks)
-        torch.cuda.synchronize()
-        err = max(float((out - ref).abs().max()),
-                  float((lse - ref_lse).abs().max()))
-        check(err <= FLASH_TOL,
-              f"flash_fwd T=({Tq},{Tk}) causal={causal}: max |diff| "
-              f"{err:.3g} > {FLASH_TOL}")
-        if seg:
-            check(float(out[B - 1, :, 0].abs().max()) == 0.0,
-                  "flash_fwd: the fully masked row is not zero")
-        flash_err = max(flash_err, err)
-        mask, pairs = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)
-        sdpa_mask = mask[:, None]
-        def kernel():
-            ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
-
-        ms = time_ms(kernel)
-        dev_ms = device_ms(kernel, "flash_fwd_kernel")
-        plain_ms = time_ms(lambda: ck.attention_plain(q, k, v, scale,
-                                                      causal, qs, ks))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask, scale=scale))
-        n_bytes = 4 * (q.numel() + k.numel() + v.numel() + out.numel()
-                       + lse.numel()) + (4 * (qs.numel() + ks.numel())
-                                         if seg else 0)
-        bms, by = bound_ms(n_bytes, 4 * D * pairs)
-        log(f"[kernels] flash_fwd B*H={B * H} Tq={Tq} Tk={Tk} D={D} "
-            f"causal={causal} seg={seg}: max|diff| {err:.3g}; kernel "
-            f"{ms:.4f} ms (device {dev_ms}), plain {plain_ms:.4f} ms, sdpa "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, {pairs} visible "
-            f"pairs)")
-        if (Tq, Tk) == (512, 512):
-            main = (ms, plain_ms, lib_ms, bms, by, dev_ms)
-    results["flash_fwd"] = {
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mxnet_tpu/ops/pallas_kernels.py:163",
-        "max_abs_err": flash_err, "ms": main[0], "plain_ms": main[1],
-        "library_ms": main[2], "bound_ms": main[3], "bound_by": main[4],
-        "device_ms": main[5],
-        "shape": "q/k/v (4*12, 512, 64) fp32, causal + segment ids"}
+    results["flash_fwd"] = _flash_fwd_rows(rng, dev)
 
     # -- fused LayerNorm ----------------------------------------------------
     d = 768
+    main = None
     ln_err = 0.0
     for rows in (1, 8, 2000, 2048, 4096):
         x = torch.from_numpy((rng.randn(rows, d) * 2 + 0.5)
@@ -350,6 +397,106 @@ def phase_kernels():
     results["softmax"] = _softmax_row(rng, dev)
     _every_tile(rng, dev)
     return results
+
+
+FWD_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S = QK^T and PV, "
+              "fp32 as 3xTF32 (hi/lo split, three products), bf16 one "
+              "product; a warp per 16 query rows, K/V tiles by cp.async "
+              "into a two-stage shared-memory ring, online softmax on the "
+              "accumulator fragments (log2 units), P fed from the S "
+              "fragments in a permuted key order")
+
+
+def _flash_fwd_rows(rng, dev):
+    """The flash-attention forward against its plain version at GPT-2
+    prefill and training shapes, fp32 held to FLASH_TOL, bf16 to one bf16
+    step of the largest value (LSE to FLASH_TOL); times by CUDA events
+    (back to back and CUDA-graph replays) and the profiler, beside SDPA's.
+    (48, 512, 64) fp32 causal + ids gives the JSON row; (48, 1024, 64) fp32
+    and (48, 512, 64) bf16 stand in it under "more"."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, H, D = 4, 12, 64
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = 0.0
+    rows = {}
+    for Tq, Tk, causal, seg, dtype in [(128, 128, True, True, f32),
+                                       (384, 384, True, True, f32),
+                                       (512, 512, True, True, f32),
+                                       (1000, 1000, True, True, f32),
+                                       (1024, 1024, True, True, f32),
+                                       (384, 1000, False, False, f32),
+                                       (512, 512, True, True, bf16)]:
+        q, k, v, qs, ks = _flash_inputs(rng, dev, B, H, Tq, Tk, D, seg)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        scale = 1.0 / D ** 0.5
+        out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
+        ref, ref_lse = ck.attention_plain(q, k, v, scale, causal, qs, ks)
+        torch.cuda.synchronize()
+        e_out = float((out.float() - ref.float()).abs().max())
+        e_lse = float((lse - ref_lse).abs().max())
+        what = f"flash_fwd T=({Tq},{Tk}) causal={causal} {dtype}"
+        if dtype == f32:
+            check(max(e_out, e_lse) <= FLASH_TOL, f"{what}: max |diff| out "
+                  f"{e_out:.3g}, lse {e_lse:.3g} > {FLASH_TOL}")
+            err = max(err, e_out, e_lse)
+        else:
+            # both sides round one fp32 value to 8 bits: one bf16 step
+            step = 2 ** -7 * max(float(ref.float().abs().max()), 1.0)
+            check(e_out <= step and e_lse <= FLASH_TOL,
+                  f"{what}: max |diff| out {e_out:.3g} (limit {step:.3g}), "
+                  f"lse {e_lse:.3g} (limit {FLASH_TOL})")
+        if seg:
+            check(float(out[B - 1, :, 0].float().abs().max()) == 0.0,
+                  f"{what}: the fully masked row is not zero")
+        mask, pairs = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)
+        sdpa_mask = mask[:, None]
+
+        def kernel():
+            ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                           scale=scale)
+
+        ms = time_ms(kernel)
+        g_ms = graph_ms(kernel)
+        dev_ms = device_ms(kernel, "flash_fwd_kernel")
+        plain_ms = time_ms(lambda: ck.attention_plain(q, k, v, scale,
+                                                      causal, qs, ks))
+        lib_ms = time_ms(sdpa)
+        lib_g_ms = graph_ms(sdpa)
+        n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                      + out.numel()) + 4 * lse.numel() + (
+            4 * (qs.numel() + ks.numel()) if seg else 0)
+        bms, by, core_ms = attention_bound_ms(n_bytes, 4 * D * pairs, dtype)
+        log(f"[kernels] flash_fwd B*H={B * H} Tq={Tq} Tk={Tk} D={D} "
+            f"causal={causal} seg={seg} {dtype}: max|diff| out {e_out:.3g}, "
+            f"lse {e_lse:.3g}; kernel {ms:.4f} ms (graph {g_ms:.4f}, "
+            f"profiler {dev_ms}), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+            f"ms (graph {lib_g_ms:.4f}), bound {bms:.4f} ms ({by}; "
+            f"{'3xTF32' if dtype == f32 else 'bf16'} tensor cores, "
+            f"{100 * bms / g_ms:.1f} % reached; CUDA-core bound "
+            f"{core_ms:.4f} ms), {pairs} visible pairs")
+        if seg and Tq == Tk and Tq in (512, 1024):
+            rows[(Tq, dtype)] = {
+                "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_graph_ms": lib_g_ms, "bound_ms": bms,
+                "bound_by": by, "cuda_core_bound_ms": core_ms,
+                "shape": f"q/k/v ({B}*{H}, {Tq}, {D}) "
+                         f"{'fp32' if dtype == f32 else 'bf16'}, causal + "
+                         f"segment ids"}
+    row = {"name": "flash_fwd", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+           "replaces": "mxnet_tpu/ops/pallas_kernels.py:163",
+           "max_abs_err": err, "design": FWD_DESIGN}
+    row.update(rows[(512, f32)])
+    row["more"] = [rows[(1024, f32)], rows[(512, bf16)]]
+    return row
 
 
 def _softmax_row(rng, dev):
@@ -443,9 +590,8 @@ def _every_tile(rng, dev):
             delta = (g * out).sum(dim=-1)
             args = (q, k, v, g, lse, delta, qs, ks, scale, True, bq, bk)
             times[(bq, bk)] = [
-                time_ms(lambda: ck.flash_fwd_cuda(q, k, v, qs, ks, scale,
-                                                  True, bq, bk), reps=20,
-                        rounds=3),
+                graph_ms(lambda: ck.flash_fwd_cuda(q, k, v, qs, ks, scale,
+                                                   True, bq, bk), rounds=3),
                 time_ms(lambda: ck.flash_bwd_dkv_cuda(*args), reps=20,
                         rounds=3),
                 time_ms(lambda: ck.flash_bwd_dq_cuda(*args), reps=20,
@@ -453,8 +599,8 @@ def _every_tile(rng, dev):
     for (bq, bk), (f, dkv, dq, e_fwd, e_bwd) in times.items():
         log(f"[kernels] tile block_q={bq} block_k={bk} at (48, 512, 64) "
             f"causal + ids: max|diff| fwd {e_fwd:.3g}, bwd {e_bwd:.3g}; ms "
-            f"flash_fwd {f:.4f}, flash_bwd_dkv {dkv:.4f}, flash_bwd_dq "
-            f"{dq:.4f}")
+            f"flash_fwd {f:.4f} (graph), flash_bwd_dkv {dkv:.4f}, "
+            f"flash_bwd_dq {dq:.4f}")
     rows, d = 2000, 768
     x = torch.from_numpy(rng.randn(rows, d).astype("float32")).to(dev)
     gam = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
@@ -542,28 +688,30 @@ def _flash_bwd_rows(rng, dev):
                 ("flash_bwd_dq", ck.flash_bwd_dq_cuda, q.numel(), 6)):
             ms = time_ms(lambda: fn(*args))
             dev_ms = device_ms(lambda: fn(*args), name + "_kernel")
-            bms, by = bound_ms(n_in + 4 * n_out, flops_per_pair * D * pairs)
+            bms, by, core_ms = attention_bound_ms(
+                n_in + 4 * n_out, flops_per_pair * D * pairs, torch.float32)
             log(f"[kernels] {name} B*H={B * H} Tq={Tq} Tk={Tk} D={D} "
                 f"causal={causal} seg={seg}: max|diff| "
                 f"{e_dkv if name.endswith('dkv') else e_dq:.3g}; kernel "
                 f"{ms:.4f} ms (device {dev_ms}), bound {bms:.4f} ms ({by}, "
-                f"{pairs} visible pairs)")
+                f"3xTF32 tensor cores; CUDA-core bound {core_ms:.4f} ms), "
+                f"{pairs} visible pairs")
             if (Tq, Tk) == (1024, 1024):
-                rows[name] = (ms, plain_ms, lib_ms, bms, by, dev_ms)
+                rows[name] = (ms, plain_ms, lib_ms, bms, by, dev_ms, core_ms)
         log(f"[kernels] flash_bwd plain (dq, dk, dv together) {plain_ms:.4f}"
             f" ms; SDPA backward (autograd.grad through "
             f"scaled_dot_product_attention with the boolean mask, less its "
             f"forward) {lib_ms:.4f} ms")
     results = {}
     for name, line in (("flash_bwd_dkv", 529), ("flash_bwd_dq", 587)):
-        ms, plain_ms, lib_ms, bms, by, dev_ms = rows[name]
+        ms, plain_ms, lib_ms, bms, by, dev_ms, core_ms = rows[name]
         results[name] = {
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-            "device_ms": dev_ms,
+            "cuda_core_bound_ms": core_ms, "device_ms": dev_ms,
             "shape": "q/k/v/g (4*12, 1024, 64) fp32, causal; plain and "
                      "library times cover dq, dk and dv together"}
     return results

@@ -4,7 +4,7 @@ Each source in ``mxnet_tpu_torch/csrc/`` is compiled on its own, for
 ``sm_90a``, into a shared library with a plain C interface, at first use,
 into ``mxnet_tpu_torch/_build/`` (listed in ``.gitignore``); one source may
 hold several kernels, each with its own C entry point. A library's file
-name carries a digest of its source, the shared header and the flags, so an
+name carries a digest of its source, the shared headers and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. Several
 sources build in parallel: one ``nvcc`` per source, all started together.
 
@@ -79,7 +79,7 @@ def _nvcc():
 def _lib_path(name):
     src = CSRC / SOURCES[name][0]
     h = hashlib.sha256()
-    for p in (src, CSRC / "common.cuh"):
+    for p in (src, *sorted(CSRC.glob("*.cuh"))):
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"

@@ -573,24 +573,35 @@ def test_softmax_wrapper_refuses_host_tensors_and_counts_nothing_on_cpu():
 
 
 # -- on the card: every legal tile of every kernel against its plain version --
+def _ragged_ids(B, T, cuda):
+    # padding ids on the second batch row and a query row that sees no key
+    ks = onp.ones((B, T), "int32")
+    ks[1, 70:] = 0
+    qs = ks.copy()
+    qs[0, 5] = 9
+    return _t(qs).to(cuda), _t(ks).to(cuda)
+
+
+def _bf16_step(ref):
+    # both sides round one fp32 value to 8 bits: one bf16 step of the
+    # largest value
+    return 2 ** -7 * max(float(ref.float().abs().max()), 1.0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("block_k", tk.FLASH_BLOCKS)
 @pytest.mark.parametrize("block_q", tk.FLASH_BLOCKS)
 def test_flash_kernels_match_plain_at_every_tile_on_card(cuda, block_q,
                                                          block_k, D):
     # ragged T = 100 (no tile divides it), causal, padding ids and a row
-    # that sees no key; D = 128 with 64-row tiles needs 64 KiB of dynamic
-    # shared memory
+    # that sees no key; every head-dim class of the kernels; D = 128 with
+    # 64-row tiles needs dynamic shared memory past 48 KiB
     rng = onp.random.RandomState(12)
     B, H, T = 2, 3, 100
     q, k, v = (_t(a).to(cuda) for a in _qkv(rng, B, H, T, T, D))
     g = _t(rng.randn(B, H, T, D).astype("float32")).to(cuda)
-    ks = onp.ones((B, T), "int32")
-    ks[1, 70:] = 0
-    qs = ks.copy()
-    qs[0, 5] = 9
-    qs, ks = _t(qs).to(cuda), _t(ks).to(cuda)
+    qs, ks = _ragged_ids(B, T, cuda)
     scale = 1 / D ** 0.5
     tk.reset_launch_counts()
     out, lse = tk.flash_fwd_cuda(q, k, v, qs, ks, scale, True, block_q,
@@ -608,6 +619,66 @@ def test_flash_kernels_match_plain_at_every_tile_on_card(cuda, block_q,
     want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale, True)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("block_k", tk.FLASH_BLOCKS)
+@pytest.mark.parametrize("block_q", tk.FLASH_BLOCKS)
+def test_flash_fwd_bf16_matches_plain_at_every_tile_on_card(cuda, block_q,
+                                                            block_k, D):
+    # the one-product (bf16) instance of every tile, inputs as above
+    rng = onp.random.RandomState(15)
+    B, H, T = 2, 3, 100
+    q, k, v = (_t(a).to(cuda, torch.bfloat16)
+               for a in _qkv(rng, B, H, T, T, D))
+    qs, ks = _ragged_ids(B, T, cuda)
+    scale = 1 / D ** 0.5
+    tk.reset_launch_counts()
+    out, lse = tk.flash_fwd_cuda(q, k, v, qs, ks, scale, True, block_q,
+                                 block_k)
+    torch.cuda.synchronize()
+    assert tk.tile_counts() == {("flash_fwd", (block_q, block_k)): 1}
+    ref, ref_lse = tk.attention_plain(q, k, v, scale, True, qs, ks)
+    assert out.dtype == torch.bfloat16
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_step(ref)
+    # the scores are exact products of bf16 values summed in fp32
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    assert float(out[0, :, 5].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,offset", [(48, 0), (99, 0), (100, 0), (64, 1)])
+def test_flash_fwd_staging_paths_on_card(cuda, dtype, D, offset):
+    # K/V rows of 16-byte multiples from 16-byte aligned operands are
+    # staged by cp.async, the rest by plain loads: D = 48 fills part of the
+    # 64 class (both dtypes by cp.async); D = 99 (fp32 396 bytes, bf16 198)
+    # and bf16 D = 100 (200 bytes) take the plain path, fp32 D = 100 (400
+    # bytes) cp.async; offset 1 puts K and V one element past an aligned
+    # address, so both dtypes take the plain path at D = 64
+    rng = onp.random.RandomState(16)
+    B, H, T = 2, 3, 100
+    qn, kn, vn = _qkv(rng, B, H, T, T, D)
+    q = _t(qn).to(cuda, dtype)
+
+    def shifted(a):
+        buf = torch.empty(a.size + offset, dtype=dtype, device=cuda)
+        t = buf[offset:].view(a.shape)
+        t.copy_(_t(a))
+        return t
+
+    k, v = shifted(kn), shifted(vn)
+    assert k.is_contiguous() and (k.data_ptr() % 16 != 0) == bool(offset)
+    qs, ks = _ragged_ids(B, T, cuda)
+    scale = 1 / D ** 0.5
+    out, lse = tk.flash_fwd_cuda(q, k, v, qs, ks, scale, True)
+    torch.cuda.synchronize()
+    ref, ref_lse = tk.attention_plain(q, k, v, scale, True, qs, ks)
+    tol = 1e-4 if dtype == torch.float32 else _bf16_step(ref)
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    assert float(out[0, :, 5].float().abs().max()) == 0.0
 
 
 @pytest.mark.cuda
