@@ -11,8 +11,9 @@ Phases (any failure exits non-zero without the final line):
              paths from ``mxnet_tpu_torch/csrc`` (one process per source,
              in parallel, every legal tile instantiated), printing each
              source's seconds, ptxas's registers and spill bytes of the
-             flash_fwd instances at head dim 64 and the tensor-core (HMMA)
-             instructions cuobjdump finds in the flash_fwd library;
+             flash_fwd and flash_bwd_dq instances at head dim 64 and the
+             tensor-core (HMMA) instructions cuobjdump finds in each of the
+             two libraries (at least one in each);
 2. kernels — each kernel's wrapper against its plain PyTorch version on
              the card, inputs from a numpy seed: flash-attention forward at
              GPT-2 prefill and training shapes (causal + segment ids with
@@ -25,7 +26,10 @@ Phases (any failure exits non-zero without the final line):
              <= 1e-5; the two flash-attention backward kernels (dK/dV, dQ)
              at GPT-2 training shapes (4*12, 1024, 64) causal, 512 with
              padding ids and a fully masked row, ragged 384 and 1000,
-             Tq=384/Tk=1000 non-causal), max |diff| <= 1e-4 on dq, dk, dv;
+             Tq=384/Tk=1000 non-causal), max |diff| <= 1e-4 on dq, dk, dv,
+             and bf16 at (4*12, 1024, 64) causal within one bf16 step of
+             each gradient's largest value, with CUDA-graph times beside
+             the CUDA-event and profiler ones;
              softmax at (4096, 768), (64, 50257) and ragged row counts, fp32
              max |diff| <= 1e-6, bf16 |diff| <= 8e-3 |ref| + 1e-7 (one
              ulp of the value; absolute 1e-2 would pass zeros at vocabulary
@@ -258,8 +262,8 @@ def phase_build():
             f"{len(spills)} spill")
         for sp in spills:
             log(f"[build]   spills: {sp}")
-        if name == "flash_fwd":
-            _flash_fwd_build_report(entries, libs["flash_fwd"])
+        if name in ("flash_fwd", "flash_bwd_dq"):
+            _tensor_core_build_report(name, entries, libs[name])
 
 
 def _ptxas_entries(report):
@@ -278,36 +282,35 @@ def _ptxas_entries(report):
     return entries
 
 
-_FWD_ENTRY = re.compile(
-    r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
-
-
-def _flash_fwd_build_report(entries, lib):
-    """ptxas's registers and spill bytes of the flash_fwd instances at head
-    dim 64, and the tensor-core (HMMA) instructions cuobjdump finds in the
-    built library, where the toolkit has cuobjdump."""
+def _tensor_core_build_report(name, entries, lib):
+    """ptxas's registers and spill bytes of the tensor-core kernel
+    ``name``'s instances at head dim 64, and the tensor-core (HMMA)
+    instructions cuobjdump finds in its library, where the toolkit has
+    cuobjdump; fails if it finds none."""
     from pathlib import Path
 
     from mxnet_tpu_torch.ops import _build
 
+    pattern = re.compile(
+        name + r"_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
     for entry, regs, spill in entries:
-        m = _FWD_ENTRY.search(entry or "")
+        m = pattern.search(entry or "")
         if m and m.group(2) == "64":
             dtype, _, bq, bk = m.groups()
-            log(f"[build]   flash_fwd {'fp32' if dtype == 'f' else 'bf16'} "
+            log(f"[build]   {name} {'fp32' if dtype == 'f' else 'bf16'} "
                 f"D=64 block_q={bq} block_k={bk}: {regs} registers; {spill}")
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.is_file():
-        log(f"[build]   flash_fwd: no cuobjdump beside nvcc ({tool}): the "
+        log(f"[build]   {name}: no cuobjdump beside nvcc ({tool}): the "
             f"tensor-core instructions are not counted")
         return
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     hmma = re.findall(r"\bHMMA\.\S+", sass)
-    log(f"[build]   flash_fwd library: {len(hmma)} tensor-core (HMMA) "
+    log(f"[build]   {name} library: {len(hmma)} tensor-core (HMMA) "
         f"instructions, {sorted(set(hmma))}, in "
         f"{sass.count('Function : ')} kernel instances")
-    check(hmma, "flash_fwd: no tensor-core instruction in the library")
+    check(hmma, f"{name}: no tensor-core instruction in the library")
 
 
 # ---------------------------------------------------------------------------
@@ -592,14 +595,13 @@ def _every_tile(rng, dev):
             times[(bq, bk)] = [
                 graph_ms(lambda: ck.flash_fwd_cuda(q, k, v, qs, ks, scale,
                                                    True, bq, bk), rounds=3),
-                time_ms(lambda: ck.flash_bwd_dkv_cuda(*args), reps=20,
-                        rounds=3),
-                time_ms(lambda: ck.flash_bwd_dq_cuda(*args), reps=20,
-                        rounds=3), e_fwd, e_bwd]
+                graph_ms(lambda: ck.flash_bwd_dkv_cuda(*args), rounds=3),
+                graph_ms(lambda: ck.flash_bwd_dq_cuda(*args), rounds=3),
+                e_fwd, e_bwd]
     for (bq, bk), (f, dkv, dq, e_fwd, e_bwd) in times.items():
         log(f"[kernels] tile block_q={bq} block_k={bk} at (48, 512, 64) "
-            f"causal + ids: max|diff| fwd {e_fwd:.3g}, bwd {e_bwd:.3g}; ms "
-            f"flash_fwd {f:.4f} (graph), flash_bwd_dkv {dkv:.4f}, "
+            f"causal + ids: max|diff| fwd {e_fwd:.3g}, bwd {e_bwd:.3g}; "
+            f"graph ms flash_fwd {f:.4f}, flash_bwd_dkv {dkv:.4f}, "
             f"flash_bwd_dq {dq:.4f}")
     rows, d = 2000, 768
     x = torch.from_numpy(rng.randn(rows, d).astype("float32")).to(dev)
@@ -623,10 +625,26 @@ def _every_tile(rng, dev):
             f"{t_ln:.4f}, softmax {t_sm:.4f}")
 
 
+DQ_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S = QK^T, dP = GV^T "
+             "and dQ += dS K, fp32 as 3xTF32, bf16 one product for S and dP "
+             "and two for dS K (fp32 ds split hi/lo against K's exact "
+             "value); a warp per 16 query rows, Q and G split once: Q's "
+             "fragments held in registers (D <= 64), G's in hi/lo planes in "
+             "shared memory in fragment order; K/V tiles by cp.async into "
+             "the forward's two-stage ring, p from "
+             "the known LSE in log2 units with a branch-free mask, dS fed "
+             "from its accumulator fragments in the forward's permuted key "
+             "order")
+
+
 def _flash_bwd_rows(rng, dev):
     """The two flash-attention backward kernels against the plain backward
-    at GPT-2 training shapes; the training shape (4*12, 1024, 64) causal
-    gives the JSON rows."""
+    at GPT-2 training shapes, fp32 held to FLASH_TOL, bf16 to one bf16 step
+    of each gradient's largest value; times by CUDA events (back to back
+    and CUDA-graph replays) and the profiler. The training shape
+    (4*12, 1024, 64) fp32 causal gives the JSON rows; (48, 512, 64) fp32
+    causal + ids and (48, 1024, 64) bf16 causal stand in them under
+    "more"."""
     import torch
     import torch.nn.functional as F
 
@@ -634,34 +652,46 @@ def _flash_bwd_rows(rng, dev):
 
     B, H, D = 4, 12, 64
     scale = 1.0 / D ** 0.5
+    f32, bf16 = torch.float32, torch.bfloat16
     err = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
     rows = {}
-    for Tq, Tk, causal, seg in [(1024, 1024, True, False),
-                                (512, 512, True, True),
-                                (384, 384, True, True),
-                                (1000, 1000, True, True),
-                                (384, 1000, False, False)]:
+    for Tq, Tk, causal, seg, dtype in [(1024, 1024, True, False, f32),
+                                       (512, 512, True, True, f32),
+                                       (384, 384, True, True, f32),
+                                       (1000, 1000, True, True, f32),
+                                       (384, 1000, False, False, f32),
+                                       (1024, 1024, True, False, bf16)]:
         q, k, v, qs, ks = _flash_inputs(rng, dev, B, H, Tq, Tk, D, seg)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
         g = torch.from_numpy(rng.randn(B, H, Tq, D).astype("float32")) \
-            .to(dev)
+            .to(dev, dtype)
         out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
         dq, dk, dv = ck.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale,
                                        causal)
         rq, rk, rv = ck.attention_bwd_plain(q, k, v, out, lse, g, qs, ks,
                                             scale, causal)
         torch.cuda.synchronize()
-        e_dkv = max(float((dk - rk).abs().max()),
-                    float((dv - rv).abs().max()))
-        e_dq = float((dq - rq).abs().max())
-        check(max(e_dkv, e_dq) <= FLASH_TOL,
-              f"flash_bwd T=({Tq},{Tk}) causal={causal} seg={seg}: max "
-              f"|diff| dk/dv {e_dkv:.3g}, dq {e_dq:.3g} > {FLASH_TOL}")
+        what = f"flash_bwd T=({Tq},{Tk}) causal={causal} seg={seg} {dtype}"
+        diffs = {n: float((a.float() - b.float()).abs().max())
+                 for n, a, b in (("dq", dq, rq), ("dk", dk, rk),
+                                 ("dv", dv, rv))}
+        if dtype == f32:
+            limits = dict.fromkeys(diffs, FLASH_TOL)
+        else:
+            # both sides round one fp32 value to 8 bits: one bf16 step of
+            # each gradient's largest value
+            limits = {n: 2 ** -7 * max(float(b.float().abs().max()), 1.0)
+                      for n, b in (("dq", rq), ("dk", rk), ("dv", rv))}
+        check(all(diffs[n] <= limits[n] for n in diffs),
+              f"{what}: max |diff| {diffs} over the limits {limits}")
+        e_dkv, e_dq = max(diffs["dk"], diffs["dv"]), diffs["dq"]
         if seg:
-            check(float(dq[B - 1, :, 0].abs().max()) == 0.0,
-                  "flash_bwd: the fully masked row has a gradient")
-        err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
-        err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
-        delta = (g * out).sum(dim=-1)
+            check(float(dq[B - 1, :, 0].float().abs().max()) == 0.0,
+                  f"{what}: the fully masked row has a gradient")
+        if dtype == f32:
+            err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
+            err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
+        delta = (g.float() * out.float()).sum(dim=-1)
         args = (q, k, v, g, lse, delta, qs, ks, scale, causal)
         mask, pairs = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)
         plain_ms = time_ms(lambda: ck.attention_bwd_plain(
@@ -680,40 +710,53 @@ def _flash_bwd_rows(rng, dev):
         lib_ms = time_ms(lib_fwd_bwd, reps=20) - time_ms(
             lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=sdpa_mask, scale=scale), reps=20)
-        n_in = 4 * (q.numel() + k.numel() + v.numel() + g.numel()
-                    + lse.numel() + delta.numel()) + (
+        es = q.element_size()
+        n_in = es * (q.numel() + k.numel() + v.numel() + g.numel()) + 4 * (
+            lse.numel() + delta.numel()) + (
             4 * (qs.numel() + ks.numel()) if seg else 0)
         for name, fn, n_out, flops_per_pair in (
                 ("flash_bwd_dkv", ck.flash_bwd_dkv_cuda, 2 * k.numel(), 8),
                 ("flash_bwd_dq", ck.flash_bwd_dq_cuda, q.numel(), 6)):
             ms = time_ms(lambda: fn(*args))
+            g_ms = graph_ms(lambda: fn(*args))
             dev_ms = device_ms(lambda: fn(*args), name + "_kernel")
             bms, by, core_ms = attention_bound_ms(
-                n_in + 4 * n_out, flops_per_pair * D * pairs, torch.float32)
+                n_in + es * n_out, flops_per_pair * D * pairs, dtype)
             log(f"[kernels] {name} B*H={B * H} Tq={Tq} Tk={Tk} D={D} "
-                f"causal={causal} seg={seg}: max|diff| "
+                f"causal={causal} seg={seg} {dtype}: max|diff| "
                 f"{e_dkv if name.endswith('dkv') else e_dq:.3g}; kernel "
-                f"{ms:.4f} ms (device {dev_ms}), bound {bms:.4f} ms ({by}, "
-                f"3xTF32 tensor cores; CUDA-core bound {core_ms:.4f} ms), "
-                f"{pairs} visible pairs")
-            if (Tq, Tk) == (1024, 1024):
-                rows[name] = (ms, plain_ms, lib_ms, bms, by, dev_ms, core_ms)
-        log(f"[kernels] flash_bwd plain (dq, dk, dv together) {plain_ms:.4f}"
-            f" ms; SDPA backward (autograd.grad through "
+                f"{ms:.4f} ms (graph {g_ms:.4f}, profiler {dev_ms}), bound "
+                f"{bms:.4f} ms ({by}, {'3xTF32' if dtype == f32 else 'bf16'}"
+                f" tensor cores, {100 * bms / g_ms:.1f} % reached; CUDA-core "
+                f"bound {core_ms:.4f} ms), {pairs} visible pairs")
+            if (Tq, Tk) == (1024, 1024) or (Tq, seg) == (512, True):
+                rows[(name, Tq, dtype)] = {
+                    "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bms, "bound_by": by,
+                    "cuda_core_bound_ms": core_ms,
+                    "shape": f"q/k/v/g ({B}*{H}, {Tq}, {D}) "
+                             f"{'fp32' if dtype == f32 else 'bf16'}, causal"
+                             f"{' + segment ids' if seg else ''}; plain and "
+                             f"library times cover dq, dk and dv together"}
+        log(f"[kernels] flash_bwd {dtype} plain (dq, dk, dv together) "
+            f"{plain_ms:.4f} ms; SDPA backward (autograd.grad through "
             f"scaled_dot_product_attention with the boolean mask, less its "
             f"forward) {lib_ms:.4f} ms")
     results = {}
-    for name, line in (("flash_bwd_dkv", 529), ("flash_bwd_dq", 587)):
-        ms, plain_ms, lib_ms, bms, by, dev_ms, core_ms = rows[name]
+    for name, src, line in (
+            ("flash_bwd_dkv", "flash_bwd.cu", 529),
+            ("flash_bwd_dq", "flash_bwd_dq.cu", 587)):
         results[name] = {
             "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+            "source": f"mxnet_tpu_torch/csrc/{src}",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-            "cuda_core_bound_ms": core_ms, "device_ms": dev_ms,
-            "shape": "q/k/v/g (4*12, 1024, 64) fp32, causal; plain and "
-                     "library times cover dq, dk and dv together"}
+            "max_abs_err": err[name]}
+        if name == "flash_bwd_dq":
+            results[name]["design"] = DQ_DESIGN
+        results[name].update(rows[(name, 1024, f32)])
+        results[name]["more"] = [rows[(name, 512, f32)],
+                                 rows[(name, 1024, bf16)]]
     return results
 
 

@@ -1,10 +1,9 @@
-// Flash-attention backward, written by hand for Hopper (sm_90a): two
-// kernels, one for dK/dV and one for dQ.
+// Flash-attention backward, dK/dV, written by hand for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels _flash_bwd_dkv_kernel
-// (mxnet_tpu/ops/pallas_kernels.py:529-584) and _flash_bwd_dq_kernel
-// (:587-635), both launched there by _flash_bwd_tpu (:638-740), in their
-// plain and segment-id forms.
+// Replaces the Pallas TPU kernel _flash_bwd_dkv_kernel
+// (mxnet_tpu/ops/pallas_kernels.py:529-584), launched there by
+// _flash_bwd_tpu (:638-740), in its plain and segment-id forms. The dQ
+// half of the backward is flash_bwd_dq.cu.
 //
 // With the forward's fp32 log-sum-exp lse_i and Delta_i = sum_d g_id o_id
 // (fp32, computed by the caller as the reference does at :647-648), for each
@@ -17,43 +16,38 @@
 //   p_ij    = visible ? exp(s_ij - lse_i) : 0
 //   dp_ij   = g_i . v_j
 //   ds_ij   = p_ij (dp_ij - Delta_i) * scale
-//   dV_j    = sum_i p_ij g_i,   dK_j = sum_i ds_ij q_i,   dQ_i = sum_j ds_ij k_j
+//   dV_j    = sum_i p_ij g_i,   dK_j = sum_i ds_ij q_i
 // p is forced to 0 under the COMBINED mask, never computed and then masked:
 // a fully masked row stores lse = -1e30 (exactly, in fp32), and exp(s - lse)
 // of a hidden score is then 1 or inf, not 0 (the reference masks p for the
-// same reason, :565-568 and :623-624).
+// same reason, :565-568).
 //
-// Two kernels and no atomics, as the reference: flash_bwd_dkv_kernel gives
-// each block kRows keys and loops over all query tiles that can see them;
-// flash_bwd_dq_kernel gives each block kRows queries and loops over key
-// tiles.
-// Every gradient row is summed by one thread group in a fixed order, so the
-// result is deterministic from run to run.
+// No atomics, as the reference: each block owns kRows keys and loops over
+// all query tiles that can see them. Every gradient row is summed by one
+// thread group in a fixed order, so the result is deterministic from run to
+// run.
 //
-// What bounds it on this card: per visible (query, key) pair the dK/dV
-// kernel does 8*D FLOPs (s, dp, dV, dK) and the dQ kernel 6*D (s, dp, dQ),
-// while each operand row is read from device memory once per kRows-row
-// block:
-// at GPT-2 training shapes (D = 64, T = 1024) both are bound by arithmetic.
-// This first version does it in fp32 on the CUDA cores (67 TFLOP/s peak),
-// not on the tensor cores (no wgmma or TMA yet: later work). What the design
-// does about it: the tile that the loop walks is staged once per block in
-// shared memory as fp32 and reused by all kRows rows the block owns; each row
-// belongs to a quad of 4 threads that keep their slices of the row's
-// operands and fp32 accumulators in registers and read the staged tile as
-// 16-byte float4 chunks, so one shared-memory load feeds four FMAs of each
-// of two products, and the 8 quads of a warp read one address (a broadcast,
-// no bank conflict); the two dot products of a pair share one pass over
-// the chunks and are summed across the quad by two shuffles each; causal
-// blocks skip the tiles that no row of theirs can see.
+// What bounds it on this card: per visible (query, key) pair the kernel
+// does 8*D FLOPs (s, dp, dV, dK), while each operand row is read from
+// device memory once per kRows-row block: at GPT-2 training shapes
+// (D = 64, T = 1024) it is bound by arithmetic. This version does it in
+// fp32 on the CUDA cores (67 TFLOP/s peak), not on the tensor cores
+// (ROADMAP B2). What the design does about it: the query tile that the loop
+// walks is staged once per block in shared memory as fp32 and reused by all
+// kRows keys the block owns; each key belongs to a quad of 4 threads that
+// keep their slices of the key's operands and fp32 accumulators in
+// registers and read the staged tile as 16-byte float4 chunks, so one
+// shared-memory load feeds four FMAs of each of two products, and the 8
+// quads of a warp read one address (a broadcast, no bank conflict); the two
+// dot products of a pair share one pass over the chunks and are summed
+// across the quad by two shuffles each; causal blocks skip the tiles that
+// no key of theirs can see.
 //
 // Tiles are call parameters (the tuner picks them, ROADMAP B's rule): the
-// rows a block owns (kRows) and the rows of the other side's shared-memory
-// tile (kTile), each from {16, 32, 64}; (32, 32) is the default. For dK/dV
-// the owned rows are block_k keys and the tile block_q queries; for dQ the
-// owned rows are block_q queries and the tile block_k keys. The staged
-// tiles live in dynamic shared memory (64 KiB at a 64-row tile and
-// D = 128, over the 48 KiB static limit).
+// block owns kRows = block_k keys and stages kTile = block_q queries at a
+// time, each from {16, 32, 64}; (32, 32) is the default. The staged tiles
+// live in dynamic shared memory (64 KiB at a 64-row tile and D = 128, over
+// the 48 KiB static limit).
 #include <math.h>
 
 #include "common.cuh"
@@ -66,7 +60,7 @@ using mxtt::to_f32;
 constexpr int kGroup = 4;  // threads per owned row
 
 // Dynamic shared memory of one block: two staged fp32 tiles plus three
-// per-row words (lse, delta, segment id for dK/dV; the segment id for dQ).
+// per-row words (lse, delta, segment id).
 template <int kTile, int kDPad>
 constexpr size_t smem_bytes() {
   return 2 * sizeof(float) * kTile * kDPad + 3 * sizeof(float) * kTile;
@@ -227,208 +221,74 @@ __global__ void __launch_bounds__(kRows * kGroup)
   }
 }
 
-// dQ: one block per (kRows queries, bh); loops over kTile-key tiles.
-template <typename T, int V, int kRows, int kTile>
-__global__ void __launch_bounds__(kRows * kGroup)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const int* __restrict__ qseg,
-                        const int* __restrict__ kseg, T* __restrict__ dq,
-                        int H, int Tq, int Tk, int D, float scale,
-                        int causal) {
-  constexpr int kDPad = 16 * V;
-  constexpr int kThreads = kRows * kGroup;
-  extern __shared__ float4 smem[];
-  float4(*k_s)[kDPad / 4] = reinterpret_cast<float4(*)[kDPad / 4]>(smem);
-  float4(*v_s)[kDPad / 4] =
-      reinterpret_cast<float4(*)[kDPad / 4]>(smem + kTile * kDPad / 4);
-  int* ks_s = reinterpret_cast<int*>(smem + 2 * kTile * kDPad / 4);
-
-  const int tid = threadIdx.x;
-  const int t = tid % kGroup;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * kRows;
-  const int qi = q0 + tid / kGroup;
-  const bool row_ok = qi < Tq;
-  const bool use_seg = qseg != nullptr;
-  const int offset = Tk - Tq;
-
-  float qr[4 * V], gr[4 * V], dqa[4 * V];
-  load_row<T, V>(q + (size_t)bh * Tq * D, qi, row_ok, D, t, qr);
-  load_row<T, V>(g + (size_t)bh * Tq * D, qi, row_ok, D, t, gr);
-#pragma unroll
-  for (int e = 0; e < 4 * V; ++e) dqa[e] = 0.f;
-  const size_t r = (size_t)bh * Tq + (row_ok ? qi : 0);
-  const float lse_i = row_ok ? lse[r] : 0.f;
-  const float dl_i = row_ok ? delta[r] : 0.f;
-  const int qs = (use_seg && row_ok) ? qseg[(size_t)b * Tq + qi] : 0;
-
-  // a causal block stops at the last key its last row can see
-  int kend = Tk;
-  if (causal) {
-    const int q_last = min(q0 + kRows, Tq) - 1;
-    kend = min(Tk, max(q_last + offset + 1, 0));
-  }
-  const T* kbase = k + (size_t)bh * Tk * D;
-  const T* vbase = v + (size_t)bh * Tk * D;
-  for (int kb = 0; kb < kend; kb += kTile) {
-    __syncthreads();  // the previous tile is fully consumed
-    stage_tile<T, kDPad, kTile, kThreads>(
-        kbase, vbase, kb, Tk, D, reinterpret_cast<float*>(&k_s[0][0]),
-        reinterpret_cast<float*>(&v_s[0][0]), tid);
-    for (int jj = tid; jj < kTile; jj += kThreads) {
-      const int j = kb + jj;
-      ks_s[jj] = (use_seg && j < Tk) ? kseg[(size_t)b * Tk + j] : 0;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int jj = 0; jj < kTile; ++jj) {
-      const int j = kb + jj;
-      float4 kc[V];
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < V; ++c) {
-        kc[c] = k_s[jj][t + kGroup * c];
-        s += dot4(qr + 4 * c, kc[c]);
-        dp += dot4(gr + 4 * c, v_s[jj][t + kGroup * c]);
-      }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      bool ok = row_ok && j < Tk;
-      if (causal) ok = ok && j <= qi + offset;
-      if (use_seg) ok = ok && ks_s[jj] == qs;
-      const float p = ok ? expf(s * scale - lse_i) : 0.f;
-      const float ds = p * (dp - dl_i) * scale;
-#pragma unroll
-      for (int c = 0; c < V; ++c) axpy4(dqa + 4 * c, ds, kc[c]);
-    }
-  }
-
-  if (row_ok) store_row<T, V>(dq + (size_t)bh * Tq * D, qi, D, t, dqa);
-}
-
 struct Args {
   const void *q, *k, *v, *g;
   const float *lse, *delta;
   const int *qseg, *kseg;
-  void *out0, *out1;  // dk, dv for the dK/dV kernel; dq, unused for dQ
+  void *dk, *dv;
   int BH, H, Tq, Tk, D;
   float scale;
   int causal;
 };
 
-// Raise a kernel's dynamic shared-memory limit where it needs more than
-// the 48 KiB default. The callers keep the result in a static of their own
-// instantiation, so it runs once per kernel, before its first launch.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// kRows: the rows a block owns; kTile: the other side's tile.
+// kRows: the keys a block owns; kTile: the query tile.
 template <typename T, int V, int kRows, int kTile>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kernel = flash_bwd_dkv_kernel<T, V, kRows, kTile>;
   constexpr size_t kSmem = smem_bytes<kTile, 16 * V>();
-  static const cudaError_t attr = allow_smem(kernel, kSmem);
-  if (attr != cudaSuccess) return attr;
+  if (kSmem > 48 * 1024) {
+    // once per instantiation, before its first launch
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (attr != cudaSuccess) return attr;
+  }
   const dim3 grid((a.Tk + kRows - 1) / kRows, a.BH);
   kernel<<<grid, kRows * kGroup, kSmem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
-      a.qseg, a.kseg, static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.H,
+      a.qseg, a.kseg, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H,
       a.Tq, a.Tk, a.D, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int V, int kRows, int kTile>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, V, kRows, kTile>;
-  constexpr size_t kSmem = smem_bytes<kTile, 16 * V>();
-  static const cudaError_t attr = allow_smem(kernel, kSmem);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.Tq + kRows - 1) / kRows, a.BH);
-  kernel<<<grid, kRows * kGroup, kSmem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g), a.lse, a.delta,
-      a.qseg, a.kseg, static_cast<T*>(a.out0), a.H, a.Tq, a.Tk, a.D,
-      a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <bool kDKV, typename T, int V, int kRows, int kTile>
-cudaError_t launch(const Args& a, cudaStream_t s) {
-  if constexpr (kDKV) {
-    return launch_dkv<T, V, kRows, kTile>(a, s);
-  } else {
-    return launch_dq<T, V, kRows, kTile>(a, s);
-  }
-}
-
-template <bool kDKV, typename T, int V, int kRows>
+template <typename T, int V, int kRows>
 cudaError_t dispatch_tile(const Args& a, int tile, cudaStream_t s) {
   switch (tile) {
-    case 16: return launch<kDKV, T, V, kRows, 16>(a, s);
-    case 32: return launch<kDKV, T, V, kRows, 32>(a, s);
-    case 64: return launch<kDKV, T, V, kRows, 64>(a, s);
+    case 16: return launch<T, V, kRows, 16>(a, s);
+    case 32: return launch<T, V, kRows, 32>(a, s);
+    case 64: return launch<T, V, kRows, 64>(a, s);
   }
   return cudaErrorInvalidValue;
 }
 
-template <bool kDKV, typename T, int V>
+template <typename T, int V>
 cudaError_t dispatch_rows(const Args& a, int rows, int tile,
                           cudaStream_t s) {
   switch (rows) {
-    case 16: return dispatch_tile<kDKV, T, V, 16>(a, tile, s);
-    case 32: return dispatch_tile<kDKV, T, V, 32>(a, tile, s);
-    case 64: return dispatch_tile<kDKV, T, V, 64>(a, tile, s);
+    case 16: return dispatch_tile<T, V, 16>(a, tile, s);
+    case 32: return dispatch_tile<T, V, 32>(a, tile, s);
+    case 64: return dispatch_tile<T, V, 64>(a, tile, s);
   }
   return cudaErrorInvalidValue;
 }
 
-template <bool kDKV, typename T>
+template <typename T>
 cudaError_t dispatch_d(const Args& a, int rows, int tile, cudaStream_t s) {
-  if (a.D <= 16) return dispatch_rows<kDKV, T, 1>(a, rows, tile, s);
-  if (a.D <= 32) return dispatch_rows<kDKV, T, 2>(a, rows, tile, s);
-  if (a.D <= 64) return dispatch_rows<kDKV, T, 4>(a, rows, tile, s);
-  if (a.D <= 128) return dispatch_rows<kDKV, T, 8>(a, rows, tile, s);
-  return cudaErrorInvalidValue;
-}
-
-// For dK/dV the block owns block_k keys and tiles block_q queries; for dQ
-// it owns block_q queries and tiles block_k keys.
-template <bool kDKV>
-int dispatch(const Args& a, int dtype, int block_q, int block_k,
-             void* stream) {
-  if (a.BH < 1 || a.H < 1 || a.Tq < 1 || a.Tk < 1 || a.D < 1 ||
-      a.BH % a.H != 0 || a.BH > 65535 ||
-      (a.qseg == nullptr) != (a.kseg == nullptr))
-    return cudaErrorInvalidValue;
-  const int rows = kDKV ? block_k : block_q;
-  const int tile = kDKV ? block_q : block_k;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == mxtt::kFloat32)
-    return dispatch_d<kDKV, float>(a, rows, tile, s);
-  if (dtype == mxtt::kBFloat16)
-    return dispatch_d<kDKV, __nv_bfloat16>(a, rows, tile, s);
+  if (a.D <= 16) return dispatch_rows<T, 1>(a, rows, tile, s);
+  if (a.D <= 32) return dispatch_rows<T, 2>(a, rows, tile, s);
+  if (a.D <= 64) return dispatch_rows<T, 4>(a, rows, tile, s);
+  if (a.D <= 128) return dispatch_rows<T, 8>(a, rows, tile, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Both entry points take, contiguous and of one dtype: q, g (BH, Tq, D);
-// k, v (BH, Tk, D); float32 lse and delta (BH, Tq); qseg (BH / H, Tq) and
-// kseg (BH / H, Tk) int32, or both null; the tile block_q, block_k, each
-// 16, 32 or 64. Each launches one kernel on ``stream`` and returns
+// q, g (BH, Tq, D); k, v (BH, Tk, D), contiguous and of one dtype; float32
+// lse and delta (BH, Tq); qseg (BH / H, Tq) and kseg (BH / H, Tk) int32, or
+// both null; dk, dv (BH, Tk, D) in the operands' dtype; the tile block_q,
+// block_k, each 16, 32 or 64 (the block owns block_k keys and stages
+// block_q queries at a time). Launches one kernel on ``stream`` and returns
 // cudaGetLastError() (0 on success).
-
-// dk, dv: (BH, Tk, D) in the operands' dtype.
 extern "C" int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* g, const float* lse,
                                   const float* delta, const int* qseg,
@@ -436,20 +296,14 @@ extern "C" int mxtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   int H, int Tq, int Tk, int D, float scale,
                                   int causal, int dtype, int block_q,
                                   int block_k, void* stream) {
+  if (BH < 1 || H < 1 || Tq < 1 || Tk < 1 || D < 1 || BH % H != 0 ||
+      BH > 65535 || (qseg == nullptr) != (kseg == nullptr))
+    return cudaErrorInvalidValue;
   const Args a{q, k, v, g, lse, delta, qseg, kseg, dk, dv,
                BH, H, Tq, Tk, D, scale, causal};
-  return dispatch<true>(a, dtype, block_q, block_k, stream);
-}
-
-// dq: (BH, Tq, D) in the operands' dtype.
-extern "C" int mxtt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* g, const float* lse,
-                                 const float* delta, const int* qseg,
-                                 const int* kseg, void* dq, int BH, int H,
-                                 int Tq, int Tk, int D, float scale,
-                                 int causal, int dtype, int block_q,
-                                 int block_k, void* stream) {
-  const Args a{q, k, v, g, lse, delta, qseg, kseg, dq, nullptr,
-               BH, H, Tq, Tk, D, scale, causal};
-  return dispatch<false>(a, dtype, block_q, block_k, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mxtt::kFloat32) return dispatch_d<float>(a, block_k, block_q, s);
+  if (dtype == mxtt::kBFloat16)
+    return dispatch_d<__nv_bfloat16>(a, block_k, block_q, s);
+  return cudaErrorInvalidValue;
 }

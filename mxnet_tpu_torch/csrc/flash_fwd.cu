@@ -42,7 +42,8 @@
 //   bytes; D = 64 does not).
 // - K/V staging: cp.async copies 16-byte chunks of each K and V tile
 //   (zero-filled past Tk and past D) into a two-stage ring in dynamic
-//   shared memory, so the next tile loads while this one multiplies. Rows
+//   shared memory (flash_tc.cuh, shared with flash_bwd_dq.cu), so the next
+//   tile loads while this one multiplies. Rows
 //   are padded by 16 bytes (fp32: D + 4, bf16: D + 8 elements), which
 //   makes both fragment reads conflict-free: for S a thread reads
 //   K[key = g][d = t] (row stride 20, 36, 68 or 132 words: g*stride mod 32
@@ -89,69 +90,17 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
-using mxtt::cp_async16;
-using mxtt::cp_async4;
 using mxtt::from_f32;
+using mxtt::row_stride;
 using mxtt::split_tf32;
+using mxtt::stage_bytes;
+using mxtt::stage_kv;
 using mxtt::to_f32;
-
-// Row stride of a staged K/V tile in elements: the head-dim class kD plus
-// 16 bytes (see the bank analysis above).
-template <typename T, int kD>
-__host__ __device__ constexpr int row_stride() {
-  return kD + 16 / static_cast<int>(sizeof(T));
-}
-
-// Bytes of one ring stage: the K and V tiles and the tile's key ids.
-template <typename T, int kD, int kBlockK>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return 2 * sizeof(T) * kBlockK * row_stride<T, kD>() +
-         sizeof(int) * kBlockK;
-}
-
-// Issue the copies of keys [kb, kb + kBlockK) into one ring stage.
-template <typename T, int kD, int kBlockK, int kThreads>
-__device__ __forceinline__ void stage_kv(T* k_s, T* v_s, int* ks_s,
-                                         const T* kbase, const T* vbase,
-                                         const int* kseg, int kb, int Tk,
-                                         int D, bool vec) {
-  constexpr int kStride = row_stride<T, kD>();
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int kE = 16 / static_cast<int>(sizeof(T));
-    constexpr int kRowChunks = kD / kE;
-    for (int c = tid; c < kBlockK * kRowChunks; c += kThreads) {
-      const int j = c / kRowChunks;
-      const int d = (c % kRowChunks) * kE;
-      const int key = kb + j;
-      const bool in = key < Tk && d < D;
-      const size_t g = in ? (size_t)key * D + d : 0;
-      cp_async16(k_s + j * kStride + d, kbase + g, in);
-      cp_async16(v_s + j * kStride + d, vbase + g, in);
-    }
-  } else {
-    const T zero = from_f32<T>(0.f);
-    for (int idx = tid; idx < kBlockK * kD; idx += kThreads) {
-      const int j = idx / kD;
-      const int d = idx % kD;
-      const int key = kb + j;
-      const bool in = key < Tk && d < D;
-      const size_t g = (size_t)key * D + d;
-      k_s[j * kStride + d] = in ? kbase[g] : zero;
-      v_s[j * kStride + d] = in ? vbase[g] : zero;
-    }
-  }
-  if (kseg != nullptr) {
-    for (int j = tid; j < kBlockK; j += kThreads) {
-      const int key = kb + j;
-      cp_async4(ks_s + j, kseg + (key < Tk ? key : 0), key < Tk);
-    }
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ float q_at(const T* qbase, int r, int d, int Tq,
@@ -169,13 +118,6 @@ __device__ __forceinline__ void load_q(const T* qbase, int r0, int ks, int t,
   split_tf32<kSplit>(q_at(qbase, r0 + 8, d, Tq, D), ah[1], al[1]);
   split_tf32<kSplit>(q_at(qbase, r0, d + 4, Tq, D), ah[2], al[2]);
   split_tf32<kSplit>(q_at(qbase, r0 + 8, d + 4, Tq, D), ah[3], al[3]);
-}
-
-// 2^x (ex2.approx: ~2 ulp; -inf -> +0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // p as the P V product sees it: cast to V's dtype (a no-op in fp32)
@@ -353,8 +295,8 @@ __global__ void __launch_bounds__(kBlockQ * 2)
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float alpha0 = exp2_approx(m0 - mx0);
-      const float alpha1 = exp2_approx(m1 - mx1);
+      const float alpha0 = mxtt::exp2_approx(m0 - mx0);
+      const float alpha1 = mxtt::exp2_approx(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
       l0 *= alpha0;
@@ -372,7 +314,7 @@ __global__ void __launch_bounds__(kBlockQ * 2)
       for (int kk = 0; kk < kKeySteps; ++kk) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[kk][e] = exp2_approx(s[kk][e] - (e < 2 ? m0 : m1));
+          s[kk][e] = mxtt::exp2_approx(s[kk][e] - (e < 2 ? m0 : m1));
         l0 += s[kk][0] + s[kk][1];
         l1 += s[kk][2] + s[kk][3];
       }
@@ -454,10 +396,6 @@ struct Args {
   int causal;
 };
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T, int kD, int kBlockQ, int kBlockK>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int kSplit = std::is_same<T, float>::value ? 3 : 1;
@@ -471,8 +409,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   }
   // cp.async moves 16-byte chunks: whole rows of 16-byte multiples from
   // 16-byte aligned operands; anything else takes the plain staging path
-  const int vec = (a.D * sizeof(T)) % 16 == 0 && aligned16(a.k) &&
-                  aligned16(a.v);
+  const int vec = (a.D * sizeof(T)) % 16 == 0 && mxtt::aligned16(a.k) &&
+                  mxtt::aligned16(a.v);
   const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.BH);
   kernel<<<grid, kBlockQ * 2, kSmem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),

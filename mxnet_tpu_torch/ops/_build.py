@@ -47,7 +47,7 @@ SOURCES = {
                   [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd.cu", "mxtt_flash_bwd_dkv",
                       [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
-    "flash_bwd_dq": ("flash_bwd.cu", "mxtt_flash_bwd_dq",
+    "flash_bwd_dq": ("flash_bwd_dq.cu", "mxtt_flash_bwd_dq",
                      [_P] * 9 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
     "layer_norm": ("layer_norm.cu", "mxtt_layer_norm_fwd",
                    [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P]),

@@ -5,8 +5,8 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py`` for its five TPU kernels:
 - :func:`flash_attention` — the flash-attention forward
   (``csrc/flash_fwd.cu``, replacing ``_flash_fwd_kernel``, :163) and, as
   its autograd backward, the two backward kernels (``csrc/flash_bwd.cu``,
-  replacing ``_flash_bwd_dkv_kernel``, :529, and ``_flash_bwd_dq_kernel``,
-  :587);
+  replacing ``_flash_bwd_dkv_kernel``, :529, and ``csrc/flash_bwd_dq.cu``,
+  replacing ``_flash_bwd_dq_kernel``, :587);
 - :func:`fused_layer_norm` — row-wise LayerNorm (``csrc/layer_norm.cu``,
   replacing ``_ln_kernel``, :866);
 - :func:`fused_softmax` — last-axis softmax (``csrc/softmax.cu``, replacing
@@ -393,7 +393,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale,
 
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale, causal,
                       block_q=None, block_k=None):
-    """Launch the dQ kernel of ``csrc/flash_bwd.cu`` (operands as
+    """Launch the dQ kernel of ``csrc/flash_bwd_dq.cu`` (operands as
     :func:`flash_bwd_dkv_cuda`). A block owns ``block_q`` queries and loops
     over tiles of ``block_k`` keys. Returns dq in q's dtype."""
     global flash_bwd_dq_launches

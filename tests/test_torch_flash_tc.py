@@ -1,21 +1,25 @@
 """PyTorch/CUDA port: the arithmetic of the tensor-core flash-attention
-forward (``mxnet_tpu_torch/csrc/flash_fwd.cu``), modelled in numpy.
+forward (``mxnet_tpu_torch/csrc/flash_fwd.cu``) and of the backward's dQ
+kernel (``mxnet_tpu_torch/csrc/flash_bwd_dq.cu``), modelled in numpy.
 
-The kernel cannot run on the CPU, so this file rebuilds what it computes
+The kernels cannot run on the CPU, so this file rebuilds what they compute
 lane by lane: TF32 rounding as ``cvt.rna.tf32.f32`` does it, the hi/lo
 split and its three products (3xTF32), the fragment layouts of
 ``mma.sync.m16n8k8`` TF32, one warp's 16 query rows walking the keys in
-tiles of ``block_k`` with the online softmax on the accumulator fragments
-(in log2 units, as the kernel keeps them), and P V fed from the S fragments
-in the permuted key order. The model is held to the JAX package's
-``_attention_reference`` (``mxnet_tpu/ops/pallas_kernels.py:138``) at a
-small ragged shape.
+tiles of ``block_k``. The forward keeps the online softmax on the
+accumulator fragments (in log2 units, as the kernel keeps them) and feeds P
+V from the S fragments in the permuted key order; dQ builds S and dP as the
+forward builds S, dS on the accumulator layout, and feeds dS K from the dS
+fragments in the same permuted order. The models are held to the JAX
+package's ``_attention_reference`` (``mxnet_tpu/ops/pallas_kernels.py:138``)
+and ``_attention_bwd_blockwise`` (:746) at a small ragged shape.
 """
 import jax.numpy as jnp
 import numpy as onp
 import pytest
 
-from mxnet_tpu.ops.pallas_kernels import _attention_reference
+from mxnet_tpu.ops.pallas_kernels import (_attention_bwd_blockwise,
+                                          _attention_reference)
 
 # lane = 4 g + t
 LANE = onp.arange(32)
@@ -322,3 +326,165 @@ def test_pv_key_permutation_pairs_each_key_once():
         B_key[r] = key_of_b[i]
     assert (A_key == B_key[None, :]).all()
     assert sorted(B_key) == list(range(8))
+
+
+# -- the backward's dQ kernel -------------------------------------------------
+LOG2E = onp.float32(1.4426950408889634)
+
+
+def warp_dq(q, k, v, g, lse, delta, qseg, kseg, scale, causal, w0, block_k,
+            n_split, ds_split=3):
+    """Rows w0..w0+15 of one batch-head's dQ as ``flash_bwd_dq_kernel``
+    computes them: q, g (Tq, D), k, v (Tk, D) float32, the forward's lse and
+    Delta = rowsum(g o) (Tq,), segment ids (Tq,), (Tk,) or None. ``n_split``
+    is the TF32 products of S and dP and of K's side of dS K (3 fp32, 1
+    bf16); ``ds_split`` 3 splits ds into hi + lo (the kernel, both dtypes),
+    1 rounds it once to TF32 (what the kernel must not do). Returns (rows,
+    dq (len(rows), D))."""
+    Tq, D = q.shape
+    Tk = k.shape[0]
+    kD = next(c for c in (16, 32, 64, 128) if D <= c)   # head-dim class
+    nk = -(-max(Tk, 1) // block_k) * block_k
+    # staged tiles: zero past D and past Tk
+    kp = onp.zeros((nk, kD), onp.float32)
+    vp = onp.zeros((nk, kD), onp.float32)
+    kp[:Tk, :D], vp[:Tk, :D] = k, v
+    qp = onp.zeros((Tq + 16, kD), onp.float32)
+    gp = onp.zeros((Tq + 16, kD), onp.float32)
+    qp[:Tq, :D], gp[:Tq, :D] = q, g
+    r0, r1 = w0 + G, w0 + G + 8
+    offset = Tk - Tq
+    wend = Tk
+    if causal:
+        wend = min(Tk, max(min(w0 + 16, Tq) + offset, 0))
+    ids = onp.zeros(nk, onp.int32)
+    qs = (onp.zeros(32, onp.int32), onp.zeros(32, onp.int32))
+    if qseg is not None:
+        ids[:Tk] = kseg
+        qs = tuple(onp.where(r < Tq, qseg[onp.minimum(r, Tq - 1)], 0)
+                   for r in (r0, r1))
+    lim = tuple(onp.minimum(r + offset, Tk - 1) if causal
+                else onp.full(32, Tk - 1) for r in (r0, r1))
+    scale2 = onp.float32(scale) * LOG2E
+    # lse in log2 units and Delta of the thread's rows; 0 past Tq
+    lse2 = [onp.where(r < Tq, lse[onp.minimum(r, Tq - 1)] * LOG2E,
+                      onp.float32(0)).astype(onp.float32) for r in (r0, r1)]
+    dl = [onp.where(r < Tq, delta[onp.minimum(r, Tq - 1)],
+                    onp.float32(0)).astype(onp.float32) for r in (r0, r1)]
+
+    # the planes: Q's and G's A fragments, split once a block
+    def a_frags(xp):
+        return [split(onp.stack([xp[r, ks * 8 + c] for r, c in
+                                 ((r0, T4), (r1, T4), (r0, T4 + 4),
+                                  (r1, T4 + 4))], 1), n_split)
+                for ks in range(kD // 8)]
+
+    qf, gf = a_frags(qp), a_frags(gp)
+    acc = onp.zeros((kD // 8, 32, 4), onp.float32)
+    for kb in range(0, wend, block_k):
+        s = onp.zeros((block_k // 8, 32, 4), onp.float32)
+        dp = onp.zeros((block_k // 8, 32, 4), onp.float32)
+        for ks in range(kD // 8):
+            for nt in range(block_k // 8):
+                key = kb + nt * 8 + G
+                for acc_t, (ah, al), xp in ((s, qf[ks], kp),
+                                            (dp, gf[ks], vp)):
+                    bh, bl = split(onp.stack([xp[key, ks * 8 + T4],
+                                              xp[key, ks * 8 + T4 + 4]], 1),
+                                   n_split)
+                    acc_t[nt] = mma_split(acc_t[nt], ah, al, bh, bl,
+                                          n_split)
+        # dS = P (dP - Delta) on the accumulator layout; hidden scores give
+        # p = 2^-inf = 0; the FFMA rounds s * scale2 - lse2 once
+        for nt in range(block_k // 8):
+            for e in range(4):
+                h = e // 2
+                j = kb + nt * 8 + 2 * T4 + (e & 1)
+                ok = (j <= lim[h]) & (ids[j] == qs[h])
+                x = (s[nt][:, e].astype(onp.float64) * scale2
+                     - lse2[h]).astype(onp.float32)
+                p = onp.exp2(onp.where(ok, x, -onp.inf))
+                s[nt][:, e] = p * (dp[nt][:, e] - dl[h])
+        # dQ += dS K: the dS fragment as the A operand (keys 2t -> k-slot t,
+        # 2t + 1 -> k-slot t + 4), K read as the forward reads V
+        for kk in range(block_k // 8):
+            a = s[kk][:, [0, 2, 1, 3]]
+            ah, al = split(a, 3) if ds_split == 3 else (tf32(a),
+                                                       onp.zeros_like(a))
+            key = kb + kk * 8 + 2 * T4
+            for nd in range(kD // 8):
+                bh, bl = split(onp.stack([kp[key, nd * 8 + G],
+                                          kp[key + 1, nd * 8 + G]], 1),
+                               n_split)
+                acc[nd] = mma_split(acc[nd], ah, al, bh, bl, 3)
+    out = onp.zeros((16, kD), onp.float32)
+    for nd in range(kD // 8):
+        for e, (r, c) in enumerate(C_RC):
+            out[r, nd * 8 + c] = acc[nd][:, e] * onp.float32(scale)
+    rows = onp.arange(w0, min(w0 + 16, Tq))
+    return rows, out[:len(rows), :D]
+
+
+def model_dq(q, k, v, g, qseg, kseg, scale, causal, block_k, n_split,
+             ds_split=3):
+    """(B, H, Tq, D) dQ through :func:`warp_dq`, every warp of every
+    batch-head, with lse from :func:`model_forward` (the forward kernel's,
+    fp32 out) and Delta = rowsum(g o) in fp32, as the wrapper computes it."""
+    out, lse = model_forward(q, k, v, qseg, kseg, scale, causal, block_k,
+                             n_split)
+    delta = (g * out).sum(-1, dtype=onp.float32)
+    B, H, Tq, D = q.shape
+    dq = onp.zeros(q.shape, onp.float32)
+    for b in range(B):
+        for h in range(H):
+            for w0 in range(0, Tq, 16):
+                rows, d = warp_dq(
+                    q[b, h], k[b, h], v[b, h], g[b, h], lse[b, h],
+                    delta[b, h], None if qseg is None else qseg[b],
+                    None if kseg is None else kseg[b], scale, causal, w0,
+                    block_k, n_split, ds_split)
+                dq[b, h, rows] = d
+    return dq
+
+
+def _reference_dq(q, k, v, g, qs, ks, scale):
+    dq, _, _ = _attention_bwd_blockwise(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g),
+        scale, True, jnp.asarray(qs), jnp.asarray(ks))
+    return onp.asarray(dq)
+
+
+# the reference sums in fp32 in another order, with its own softmax stats
+# (~1e-7 each on values of O(1)); 3xTF32 drops lo * lo' and rounds lo,
+# ~2^-22 of each product: the model agrees to a few 1e-7
+DQ_TOL = 1e-5
+
+
+@pytest.mark.parametrize("block_k", [16, 32, 64])
+def test_dq_tensor_core_model_matches_reference(block_k):
+    q, k, v, qs, ks = _inputs()
+    g = onp.random.RandomState(4).randn(*q.shape).astype("float32")
+    scale = 1 / 8
+    want = _reference_dq(q, k, v, g, qs, ks, scale)
+    got = model_dq(q, k, v, g, qs, ks, scale, True, block_k, 3)
+    assert float(onp.abs(got - want).max()) <= DQ_TOL
+    # the row that sees no key: exact zeros
+    assert float(onp.abs(got[:, :, 5]).max()) == 0.0
+
+
+def test_dq_bf16_needs_ds_split_into_two_products():
+    # bf16 operands are exact in TF32, so S and dP take one product each;
+    # ds is fp32 (the reference multiplies fp32 ds by k.astype(float32)):
+    # one TF32 rounding of ds misses 1e-4 where hi + lo against K's exact
+    # value (two products) holds it
+    q, k, v, qs, ks = (_bf16(a) if a.dtype == onp.float32 else a
+                       for a in _inputs(seed=5))
+    g = _bf16(onp.random.RandomState(6).randn(*q.shape).astype("float32"))
+    scale = 1 / 8
+    want = _reference_dq(q, k, v, g, qs, ks, scale)
+    err = {n: float(onp.abs(model_dq(q, k, v, g, qs, ks, scale, True, 32, 1,
+                                     ds_split=n) - want).max())
+           for n in (1, 3)}
+    assert err[3] <= DQ_TOL
+    assert err[1] > 1e-4          # chip_smoke.py's FLASH_TOL
+    assert err[1] >= 100 * err[3]

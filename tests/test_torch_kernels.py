@@ -589,18 +589,20 @@ def _bf16_step(ref):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("block_k", tk.FLASH_BLOCKS)
 @pytest.mark.parametrize("block_q", tk.FLASH_BLOCKS)
 def test_flash_kernels_match_plain_at_every_tile_on_card(cuda, block_q,
-                                                         block_k, D):
+                                                         block_k, D, dtype):
     # ragged T = 100 (no tile divides it), causal, padding ids and a row
     # that sees no key; every head-dim class of the kernels; D = 128 with
-    # 64-row tiles needs dynamic shared memory past 48 KiB
+    # 64-row tiles needs dynamic shared memory past 48 KiB. fp32 within
+    # 1e-4; bf16 within one bf16 step of the largest value (LSE 1e-4)
     rng = onp.random.RandomState(12)
     B, H, T = 2, 3, 100
-    q, k, v = (_t(a).to(cuda) for a in _qkv(rng, B, H, T, T, D))
-    g = _t(rng.randn(B, H, T, D).astype("float32")).to(cuda)
+    q, k, v = (_t(a).to(cuda, dtype) for a in _qkv(rng, B, H, T, T, D))
+    g = _t(rng.randn(B, H, T, D).astype("float32")).to(cuda, dtype)
     qs, ks = _ragged_ids(B, T, cuda)
     scale = 1 / D ** 0.5
     tk.reset_launch_counts()
@@ -613,12 +615,17 @@ def test_flash_kernels_match_plain_at_every_tile_on_card(cuda, block_q,
     assert tk.tile_counts() == {("flash_fwd", tile): 1,
                                 ("flash_bwd_dkv", tile): 1,
                                 ("flash_bwd_dq", tile): 1}
+    f32 = dtype == torch.float32
     ref, ref_lse = tk.attention_plain(q, k, v, scale, True, qs, ks)
-    assert float((out - ref).abs().max()) <= 1e-4
+    assert float((out.float() - ref.float()).abs().max()) <= (
+        1e-4 if f32 else _bf16_step(ref))
     assert float((lse - ref_lse).abs().max()) <= 1e-4
     want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale, True)
     for a, b in zip(got, want):
-        assert float((a - b).abs().max()) <= 1e-4
+        assert a.dtype == dtype
+        assert float((a.float() - b.float()).abs().max()) <= (
+            1e-4 if f32 else _bf16_step(b))
+    assert float(got[0][0, :, 5].float().abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -679,6 +686,42 @@ def test_flash_fwd_staging_paths_on_card(cuda, dtype, D, offset):
     assert float((out.float() - ref.float()).abs().max()) <= tol
     assert float((lse - ref_lse).abs().max()) <= 1e-4
     assert float(out[0, :, 5].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,offset", [(48, 0), (99, 0), (100, 0), (64, 1)])
+def test_flash_bwd_dq_staging_paths_on_card(cuda, dtype, D, offset):
+    # the dQ kernel stages K/V as the forward does: cp.async for rows of
+    # 16-byte multiples from 16-byte aligned operands, plain loads for the
+    # rest (fp32 and bf16 D = 99, bf16 D = 100, every operand one element
+    # past an aligned address); D = 48 fills part of the 64 class
+    rng = onp.random.RandomState(17)
+    B, H, T = 2, 3, 100
+    qn, kn, vn = _qkv(rng, B, H, T, T, D)
+    gn = rng.randn(B, H, T, D).astype("float32")
+
+    def shifted(a):
+        buf = torch.empty(a.size + offset, dtype=dtype, device=cuda)
+        t = buf[offset:].view(a.shape)
+        t.copy_(_t(a))
+        return t
+
+    q, k, v, g = (shifted(a) for a in (qn, kn, vn, gn))
+    assert k.is_contiguous() and (k.data_ptr() % 16 != 0) == bool(offset)
+    qs, ks = _ragged_ids(B, T, cuda)
+    scale = 1 / D ** 0.5
+    out, lse = tk.attention_plain(q, k, v, scale, True, qs, ks)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    n0 = tk.flash_bwd_dq_launches
+    dq = tk.flash_bwd_dq_cuda(q, k, v, g, lse, delta, qs, ks, scale, True)
+    torch.cuda.synchronize()
+    assert tk.flash_bwd_dq_launches == n0 + 1 and dq.dtype == dtype
+    want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale,
+                                  True)[0]
+    tol = 1e-4 if dtype == torch.float32 else _bf16_step(want)
+    assert float((dq.float() - want.float()).abs().max()) <= tol
+    assert float(dq[0, :, 5].float().abs().max()) == 0.0
 
 
 @pytest.mark.cuda
