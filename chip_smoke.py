@@ -11,9 +11,9 @@ Phases (any failure exits non-zero without the final line):
              paths from ``mxnet_tpu_torch/csrc`` (one process per source,
              in parallel, every legal tile instantiated), printing each
              source's seconds, ptxas's registers and spill bytes of the
-             flash_fwd and flash_bwd_dq instances at head dim 64 and the
-             tensor-core (HMMA) instructions cuobjdump finds in each of the
-             two libraries (at least one in each);
+             flash_fwd, flash_bwd_dq and flash_bwd_dkv instances at head
+             dim 64 and the tensor-core (HMMA) instructions cuobjdump finds
+             in each of the three libraries (at least one in each);
 2. kernels — each kernel's wrapper against its plain PyTorch version on
              the card, inputs from a numpy seed: flash-attention forward at
              GPT-2 prefill and training shapes (causal + segment ids with
@@ -29,11 +29,17 @@ Phases (any failure exits non-zero without the final line):
              Tq=384/Tk=1000 non-causal), max |diff| <= 1e-4 on dq, dk, dv,
              and bf16 at (4*12, 1024, 64) causal within one bf16 step of
              each gradient's largest value, with CUDA-graph times beside
-             the CUDA-event and profiler ones;
-             softmax at (4096, 768), (64, 50257) and ragged row counts, fp32
-             max |diff| <= 1e-6, bf16 |diff| <= 8e-3 |ref| + 1e-7 (one
-             ulp of the value; absolute 1e-2 would pass zeros at vocabulary
-             width); then every kernel once at
+             the CUDA-event and profiler ones; keys that no query sees get
+             exact zeros, and dK/dV in fp32 is also held against a float64
+             answer beside the plain version;
+             softmax at (4096, 768), (64, 50257), (1, 50257), ragged row
+             counts and both sides of the wide path's threshold (d = 4095,
+             4096, 4097, 8191: one warp a row below 4096, one cluster of
+             eight blocks a row from it), fp32 max |diff| <= 1e-6, bf16
+             |diff| <= 8e-3 |ref| + 1e-7 (one ulp of the value; absolute
+             1e-2 would pass zeros at vocabulary width), with
+             ``torch.softmax``'s device time beside the kernel's at
+             (4096, 768) and (64, 50257) fp32 and bf16; then every kernel once at
              each tile of its legal set (flash (block_q, block_k) in
              {16, 32, 64}^2 at (4*12, 512, 64) causal + ids; LayerNorm and
              softmax block_rows in {1, 2, 4, 8, 16, 32} at (2000, 768)) at
@@ -162,7 +168,7 @@ def time_ms(fn, reps=50, rounds=5):
 
 def device_ms(fn, kernel_name, reps=20):
     """Device time per call of the CUDA kernel whose name contains
-    ``kernel_name`` (launched once a call), from ``torch.profiler``
+    ``kernel_name``, in any case (launched once a call), from ``torch.profiler``
     (CUPTI); None when the profiler records no device time for it on this
     machine. CUPTI can drop kernel records: the mean is over the records
     kept, and a shortfall is logged."""
@@ -177,13 +183,31 @@ def device_ms(fn, kernel_name, reps=20):
         torch.cuda.synchronize()
     us, n = 0.0, 0
     for evt in prof.key_averages():
-        if kernel_name in evt.key:
+        if kernel_name.lower() in evt.key.lower():
             us += getattr(evt, "device_time_total",
                           getattr(evt, "cuda_time_total", 0.0))
             n += evt.count
     if n != reps:
         log(f"[profiler] {kernel_name}: {n} kernel records for {reps} calls")
     return us / n / 1e3 if us > 0 else None
+
+
+def device_total_ms(fn, reps=10):
+    """Device time per call of every kernel ``fn`` launches, summed, from
+    ``torch.profiler`` (CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+             for evt in prof.key_averages())
+    return us / reps / 1e3
 
 
 def bound_ms(n_bytes, n_flops, peak=PEAK_FP32_FLOPS):
@@ -245,8 +269,13 @@ def graph_ms(fn, reps=20, rounds=5):
 # phase 1: build
 # ---------------------------------------------------------------------------
 def phase_build():
+    """Build every kernel; returns what ptxas and cuobjdump report for each
+    tensor-core kernel: the registers and spill line of the default
+    (32, 32) fp32 instance at D = 64, the most registers and spill bytes of
+    any instance, and the HMMA count."""
     from mxnet_tpu_torch.ops import _build
 
+    info = {}
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"[build] {len(_build.SOURCES)} kernels in "
@@ -262,8 +291,12 @@ def phase_build():
             f"{len(spills)} spill")
         for sp in spills:
             log(f"[build]   spills: {sp}")
-        if name in ("flash_fwd", "flash_bwd_dq"):
-            _tensor_core_build_report(name, entries, libs[name])
+        if name in TENSOR_CORE_KERNELS:
+            info[name] = _tensor_core_build_report(name, entries, libs[name])
+    return info
+
+
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _ptxas_entries(report):
@@ -286,24 +319,32 @@ def _tensor_core_build_report(name, entries, lib):
     """ptxas's registers and spill bytes of the tensor-core kernel
     ``name``'s instances at head dim 64, and the tensor-core (HMMA)
     instructions cuobjdump finds in its library, where the toolkit has
-    cuobjdump; fails if it finds none."""
+    cuobjdump; fails if it finds none. Returns the numbers for the JSON
+    line."""
     from pathlib import Path
 
     from mxnet_tpu_torch.ops import _build
 
     pattern = re.compile(
         name + r"_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E")
+    info = {"registers_max": max((r for _, r, _ in entries), default=0),
+            "spill_bytes_max": max((int(sp.split(",")[1].split()[0])
+                                    for _, _, sp in entries
+                                    if "spill stores" in sp), default=0)}
     for entry, regs, spill in entries:
         m = pattern.search(entry or "")
         if m and m.group(2) == "64":
             dtype, _, bq, bk = m.groups()
             log(f"[build]   {name} {'fp32' if dtype == 'f' else 'bf16'} "
                 f"D=64 block_q={bq} block_k={bk}: {regs} registers; {spill}")
+            if (dtype, bq, bk) == ("f", "32", "32"):
+                info["registers_fp32_d64_default"] = regs
+                info["spill_fp32_d64_default"] = spill
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.is_file():
         log(f"[build]   {name}: no cuobjdump beside nvcc ({tool}): the "
             f"tensor-core instructions are not counted")
-        return
+        return info
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     hmma = re.findall(r"\bHMMA\.\S+", sass)
@@ -311,6 +352,8 @@ def _tensor_core_build_report(name, entries, lib):
         f"instructions, {sorted(set(hmma))}, in "
         f"{sass.count('Function : ')} kernel instances")
     check(hmma, f"{name}: no tensor-core instruction in the library")
+    info["hmma"] = len(hmma)
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +390,25 @@ def _visible_pairs(qs, ks, B, H, Tq, Tk, causal):
     return mask, int(mask.sum()) * H
 
 
+def dkv_float64(q, k, v, g, qs, ks, scale, causal):
+    """dK and dV in float64 on the card from the dense identities, the
+    ground truth that the kernel and the plain fp32 version round away
+    from; (B, H, Tk, D) each."""
+    import torch
+
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    mask = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)[0][:, None]
+    s = torch.matmul(qd, kd.transpose(-1, -2)) * scale
+    s = torch.where(mask, s, torch.full_like(s, -1e300))
+    p = torch.softmax(s, dim=-1) * mask
+    delta = (gd * torch.matmul(p, vd)).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(gd, vd.transpose(-1, -2)) - delta) * scale
+    return (torch.matmul(ds.transpose(-1, -2), qd),
+            torch.matmul(p.transpose(-1, -2), gd))
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
@@ -381,20 +443,25 @@ def phase_kernels():
         ms = time_ms(kernel)
         dev_ms = device_ms(kernel, "layer_norm_kernel")
         plain_ms = time_ms(lambda: ck.layer_norm_plain(x, g, b, 1e-5))
-        lib_ms = time_ms(lambda: F.layer_norm(x, (d,), g, b, 1e-5))
+        def library():
+            F.layer_norm(x, (d,), g, b, 1e-5)
+
+        lib_ms = time_ms(library)
+        lib_dev_ms = device_ms(library, "layer_norm")
         bms, by = bound_ms(4 * (2 * rows * d + 2 * d), 8 * rows * d)
         log(f"[kernels] layer_norm rows={rows} d={d}: max|diff| {err:.3g};"
             f" kernel {ms:.4f} ms (device {dev_ms}), plain {plain_ms:.4f} "
-            f"ms, F.layer_norm {lib_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+            f"ms, F.layer_norm {lib_ms:.4f} ms (device {lib_dev_ms}), bound "
+            f"{bms:.5f} ms ({by})")
         if rows == 2048:
-            main = (ms, plain_ms, lib_ms, bms, by, dev_ms)
+            main = (ms, plain_ms, lib_ms, bms, by, dev_ms, lib_dev_ms)
     results["layer_norm"] = {
         "name": "layer_norm", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/layer_norm.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:866",
         "max_abs_err": ln_err, "ms": main[0], "plain_ms": main[1],
         "library_ms": main[2], "bound_ms": main[3], "bound_by": main[4],
-        "device_ms": main[5],
+        "device_ms": main[5], "library_device_ms": main[6],
         "shape": "x (4*512, 768) fp32, gamma/beta (768,) fp32"}
     results.update(_flash_bwd_rows(rng, dev))
     results["softmax"] = _softmax_row(rng, dev)
@@ -504,15 +571,22 @@ def _flash_fwd_rows(rng, dev):
 
 def _softmax_row(rng, dev):
     """The softmax kernel against its plain version: GPT-2 width and
-    vocabulary width, f32 and bf16, ragged row counts; times at
-    (4096, 768) f32 give the JSON row."""
+    vocabulary width, f32 and bf16, ragged row counts, both sides of the
+    wide path's threshold (d = 4095 one warp a row, 4096 one cluster a row)
+    and odd widths, whose rows start off 16-byte boundaries; times at
+    (4096, 768) fp32 give the JSON row, (64, 50257) fp32 and bf16 (the wide
+    path) stand in it under "more". Beside each kernel time stands
+    ``torch.softmax``'s on the same input, device time against device time
+    (profiler and CUDA-graph replays)."""
     import torch
 
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
     err = 0.0
-    main = None
-    for rows, d in ((4096, 768), (64, 50257), (1, 768), (1001, 768)):
+    rows_out = {}
+    for rows, d in ((4096, 768), (64, 50257), (1, 50257), (1, 768),
+                    (1001, 768), (3, 4095), (3, 4096), (5, 4097),
+                    (7, 8191)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.from_numpy(rng.randn(rows, d).astype("float32")).to(
                 dev, dtype)
@@ -521,43 +595,62 @@ def _softmax_row(rng, dev):
             torch.cuda.synchronize()
             diff = (out.float() - ref.float()).abs()
             e = float(diff.max())
+            what = f"softmax ({rows}, {d}) {dtype} " \
+                   f"{'wide' if d >= 4096 else 'narrow'} path"
             if dtype == torch.float32:
-                check(e <= SOFTMAX_TOL, f"softmax ({rows}, {d}) fp32: max "
-                      f"|diff| {e:.3g} > {SOFTMAX_TOL}")
+                check(e <= SOFTMAX_TOL, f"{what}: max |diff| {e:.3g} > "
+                      f"{SOFTMAX_TOL}")
+                err = max(err, e)
             else:
                 # relative: at vocabulary width a value is ~2e-5, so an
                 # absolute limit would pass a kernel that wrote zeros
                 over = float((diff - BF16_RTOL * ref.float().abs()).max())
                 check(over <= BF16_ATOL,
-                      f"softmax ({rows}, {d}) bf16: |diff| exceeds "
-                      f"{BF16_RTOL} |ref| + {BF16_ATOL} by {over:.3g}")
-            if dtype == torch.float32:
-                err = max(err, e)
-            if dtype != torch.float32 or rows not in (4096, 64):
-                log(f"[kernels] softmax rows={rows} d={d} {dtype}: max|diff|"
-                    f" {e:.3g}")
+                      f"{what}: |diff| exceeds {BF16_RTOL} |ref| + "
+                      f"{BF16_ATOL} by {over:.3g}")
+            if (rows, d) not in ((4096, 768), (64, 50257)) or (
+                    d == 768 and dtype != torch.float32):
+                log(f"[kernels] {what}: max|diff| {e:.3g}")
                 continue
 
             def kernel():
                 ck.softmax_cuda(x)
 
+            def library():
+                torch.softmax(x, dim=-1)
+
             ms = time_ms(kernel)
-            dev_ms = device_ms(kernel, "softmax_kernel")
+            g_ms = graph_ms(kernel)
+            dev_ms = device_ms(kernel, "softmax")
             plain_ms = time_ms(lambda: ck.softmax_plain(x))
-            lib_ms = time_ms(lambda: torch.softmax(x, dim=-1))
-            bms, by = bound_ms(2 * rows * d * 4, 4 * rows * d)
-            log(f"[kernels] softmax rows={rows} d={d} fp32: max|diff| "
-                f"{e:.3g}; kernel {ms:.4f} ms (device {dev_ms}), plain "
-                f"{plain_ms:.4f} ms, torch.softmax {lib_ms:.4f} ms, bound "
-                f"{bms:.5f} ms ({by})")
-            if rows == 4096:
-                main = (ms, plain_ms, lib_ms, bms, by, dev_ms)
-    return {"name": "softmax", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/softmax.cu",
-            "replaces": "mxnet_tpu/ops/pallas_kernels.py:971",
-            "max_abs_err": err, "ms": main[0], "plain_ms": main[1],
-            "library_ms": main[2], "bound_ms": main[3], "bound_by": main[4],
-            "device_ms": main[5], "shape": "x (4096, 768) fp32"}
+            lib_ms = time_ms(library)
+            lib_g_ms = graph_ms(library)
+            lib_dev_ms = device_ms(library, "softmax")
+            es = x.element_size()
+            bms, by = bound_ms(2 * rows * d * es, 4 * rows * d)
+            log(f"[kernels] {what}: max|diff| {e:.3g}; kernel {ms:.4f} ms "
+                f"(graph {g_ms:.5f}, profiler {dev_ms}), plain "
+                f"{plain_ms:.4f} ms, torch.softmax {lib_ms:.4f} ms (graph "
+                f"{lib_g_ms:.5f}, profiler {lib_dev_ms}), bound {bms:.5f} ms "
+                f"({by}, {100 * bms / g_ms:.1f} % reached)")
+            rows_out[(rows, d, dtype)] = {
+                "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_graph_ms": lib_g_ms,
+                "library_device_ms": lib_dev_ms, "bound_ms": bms,
+                "bound_by": by,
+                "shape": f"x ({rows}, {d}) "
+                         f"{'fp32' if dtype == torch.float32 else 'bf16'}, "
+                         f"{'one cluster of 8 blocks' if d >= 4096 else 'one warp'}"
+                         f" a row"}
+    row = {"name": "softmax", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/softmax.cu",
+           "replaces": "mxnet_tpu/ops/pallas_kernels.py:971",
+           "max_abs_err": err}
+    row.update(rows_out[(4096, 768, torch.float32)])
+    row["more"] = [rows_out[(64, 50257, torch.float32)],
+                   rows_out[(64, 50257, torch.bfloat16)]]
+    return row
 
 
 def _every_tile(rng, dev):
@@ -625,6 +718,17 @@ def _every_tile(rng, dev):
             f"{t_ln:.4f}, softmax {t_sm:.4f}")
 
 
+DKV_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S^T = KQ^T, "
+              "dP^T = VG^T, dV += P^T G and dK += dS^T Q, fp32 as 3xTF32, "
+              "bf16 one product for S^T and dP^T and two for dV and dK "
+              "(fp32 p and ds split hi/lo against the exact bf16 value); a "
+              "warp per 16 keys, K and V split once: K's fragments in "
+              "registers (D <= 64), V's in hi/lo planes in shared memory; Q/G "
+              "tiles with their lse, Delta and ids by cp.async into a "
+              "two-stage ring; P^T and dS^T fed from their accumulator "
+              "fragments in the forward's permuted order; fp32 sums each "
+              "query tile from zero and adds it to running sums in shared "
+              "memory (the accumulator truncates on every mma)")
 DQ_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S = QK^T, dP = GV^T "
              "and dQ += dS K, fp32 as 3xTF32, bf16 one product for S and dP "
              "and two for dS K (fp32 ds split hi/lo against K's exact "
@@ -688,6 +792,25 @@ def _flash_bwd_rows(rng, dev):
         if seg:
             check(float(dq[B - 1, :, 0].float().abs().max()) == 0.0,
                   f"{what}: the fully masked row has a gradient")
+            # keys with a padding id: no query sees them
+            unseen = (ks == 0)[:, None, :, None]
+            check(float(torch.where(unseen, dk.float().abs() +
+                                    dv.float().abs(), 0.0).max()) == 0.0,
+                  f"{what}: a key that no query sees has a gradient")
+        exact = {}
+        if dtype == f32 and Tq == Tk:
+            # both sides against a float64 answer: the kernel's own error,
+            # apart from the plain version's
+            ek, ev = dkv_float64(q, k, v, g, qs, ks, scale, causal)
+            exact = {n: float((a.double() - b).abs().max())
+                     for n, a, b in (("kernel dk", dk, ek),
+                                     ("kernel dv", dv, ev),
+                                     ("plain dk", rk, ek),
+                                     ("plain dv", rv, ev))}
+            log(f"[kernels] {what}: max |diff| against float64 {exact}; "
+                f"max |dk| {float(ek.abs().max()):.3g}, max |dv| "
+                f"{float(ev.abs().max()):.3g}")
+            del ek, ev
         if dtype == f32:
             err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
             err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
@@ -707,9 +830,12 @@ def _flash_bwd_rows(rng, dev):
                                                scale=scale)
             torch.autograd.grad(o, (qg, kg, vg), g)
 
-        lib_ms = time_ms(lib_fwd_bwd, reps=20) - time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=sdpa_mask, scale=scale), reps=20)
+        def lib_fwd():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
+                                           scale=scale)
+
+        lib_ms = time_ms(lib_fwd_bwd, reps=20) - time_ms(lib_fwd, reps=20)
+        lib_dev_ms = device_total_ms(lib_fwd_bwd) - device_total_ms(lib_fwd)
         es = q.element_size()
         n_in = es * (q.numel() + k.numel() + v.numel() + g.numel()) + 4 * (
             lse.numel() + delta.numel()) + (
@@ -733,6 +859,7 @@ def _flash_bwd_rows(rng, dev):
                 rows[(name, Tq, dtype)] = {
                     "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library_device_ms": lib_dev_ms,
                     "bound_ms": bms, "bound_by": by,
                     "cuda_core_bound_ms": core_ms,
                     "shape": f"q/k/v/g ({B}*{H}, {Tq}, {D}) "
@@ -742,7 +869,9 @@ def _flash_bwd_rows(rng, dev):
         log(f"[kernels] flash_bwd {dtype} plain (dq, dk, dv together) "
             f"{plain_ms:.4f} ms; SDPA backward (autograd.grad through "
             f"scaled_dot_product_attention with the boolean mask, less its "
-            f"forward) {lib_ms:.4f} ms")
+            f"forward) {lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
+        if exact and ("flash_bwd_dkv", Tq, dtype) in rows:
+            rows[("flash_bwd_dkv", Tq, dtype)]["float64_max_abs_err"] = exact
     results = {}
     for name, src, line in (
             ("flash_bwd_dkv", "flash_bwd.cu", 529),
@@ -752,8 +881,8 @@ def _flash_bwd_rows(rng, dev):
             "source": f"mxnet_tpu_torch/csrc/{src}",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             "max_abs_err": err[name]}
-        if name == "flash_bwd_dq":
-            results[name]["design"] = DQ_DESIGN
+        results[name]["design"] = (DQ_DESIGN if name == "flash_bwd_dq"
+                                   else DKV_DESIGN)
         results[name].update(rows[(name, 1024, f32)])
         results[name]["more"] = [rows[(name, 512, f32)],
                                  rows[(name, 1024, bf16)]]
@@ -1350,7 +1479,7 @@ def main():
         os.environ.pop(var, None)            # phases 1-4 run untuned
     try:
         t0 = time.perf_counter()
-        phase_build()
+        build_info = phase_build()
         kernels = phase_kernels()
         serve_counts, agree = phase_serve()
         train_counts = phase_train(smi_line)
@@ -1367,6 +1496,8 @@ def main():
                    "tune": tune_counts[name], "rtc": 0}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if name in build_info:
+            row["build"] = build_info[name]
     rtc_row["launches_by_path"] = {"serve": 0, "train": 0, "tune": 0,
                                    "rtc": rtc_row["launches"]}
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port: the arithmetic of the tensor-core flash-attention
 forward (``mxnet_tpu_torch/csrc/flash_fwd.cu``) and of the backward's dQ
-kernel (``mxnet_tpu_torch/csrc/flash_bwd_dq.cu``), modelled in numpy.
+and dK/dV kernels (``mxnet_tpu_torch/csrc/flash_bwd_dq.cu``,
+``flash_bwd.cu``), modelled in numpy.
 
 The kernels cannot run on the CPU, so this file rebuilds what they compute
 lane by lane: TF32 rounding as ``cvt.rna.tf32.f32`` does it, the hi/lo
@@ -10,9 +11,11 @@ tiles of ``block_k``. The forward keeps the online softmax on the
 accumulator fragments (in log2 units, as the kernel keeps them) and feeds P
 V from the S fragments in the permuted key order; dQ builds S and dP as the
 forward builds S, dS on the accumulator layout, and feeds dS K from the dS
-fragments in the same permuted order. The models are held to the JAX
-package's ``_attention_reference`` (``mxnet_tpu/ops/pallas_kernels.py:138``)
-and ``_attention_bwd_blockwise`` (:746) at a small ragged shape.
+fragments in the same permuted order; dK/dV builds the transposed scores
+S^T and dP^T with K and V as the stationary operands and feeds P^T and
+dS^T to dV and dK the same way. The models are held to the JAX package's
+``_attention_reference`` (``mxnet_tpu/ops/pallas_kernels.py:138``) and
+``_attention_bwd_blockwise`` (:746) at small ragged shapes.
 """
 import jax.numpy as jnp
 import numpy as onp
@@ -486,5 +489,250 @@ def test_dq_bf16_needs_ds_split_into_two_products():
                                      ds_split=n) - want).max())
            for n in (1, 3)}
     assert err[3] <= DQ_TOL
+    assert err[1] > 1e-4          # chip_smoke.py's FLASH_TOL
+    assert err[1] >= 100 * err[3]
+
+
+# -- the backward's dK/dV kernel ----------------------------------------------
+def warp_dkv(q, k, v, g, lse, delta, qseg, kseg, scale, causal, w0, block_q,
+             block_k, n_split, p_split=3):
+    """Keys w0..w0+15 of one batch-head's dK and dV as
+    ``flash_bwd_dkv_kernel`` computes them: q, g (Tq, D), k, v (Tk, D)
+    float32, the forward's lse and Delta = rowsum(g o) (Tq,), segment ids
+    (Tq,), (Tk,) or None. The warp builds S^T = K Q^T and dP^T = V G^T with
+    K and V as the stationary A operands (split once) and the staged query
+    tile as B, then feeds the P^T and dS^T accumulator fragments as A
+    operands of dV += P^T G and dK += dS^T Q in the permuted query order;
+    fp32 (``n_split`` 3) sums each query tile from zero and adds it to
+    running sums, as the kernel does in shared memory. ``n_split`` is the TF32 products of S^T and dP^T and of G's and Q's side
+    of the dV and dK products (3 fp32, 1 bf16); ``p_split`` 3 splits p and
+    ds into hi + lo (the kernel, both dtypes), 1 rounds them once to TF32
+    (what the kernel must not do). Returns (keys, dk, dv (len(keys), D))."""
+    Tq, D = q.shape
+    Tk = k.shape[0]
+    kD = next(c for c in (16, 32, 64, 128) if D <= c)   # head-dim class
+    # staged tiles: zero past D and past Tq (a tile may start anywhere)
+    qp = onp.zeros((Tq + 2 * block_q, kD), onp.float32)
+    gp = onp.zeros((Tq + 2 * block_q, kD), onp.float32)
+    qp[:Tq, :D], gp[:Tq, :D] = q, g
+    kp = onp.zeros((Tk + 16, kD), onp.float32)
+    vp = onp.zeros((Tk + 16, kD), onp.float32)
+    kp[:Tk, :D], vp[:Tk, :D] = k, v
+    # the tile's lse and Delta, zero past Tq, and the query ids (0 past Tq
+    # and without ids)
+    lse_p = onp.zeros(Tq + 2 * block_q, onp.float32)
+    dl_p = onp.zeros(Tq + 2 * block_q, onp.float32)
+    lse_p[:Tq], dl_p[:Tq] = lse, delta
+    qid = onp.zeros(Tq + 2 * block_q, onp.int32)
+    j = (w0 + G, w0 + G + 8)
+    kid = (onp.zeros(32, onp.int32), onp.zeros(32, onp.int32))
+    if qseg is not None:
+        qid[:Tq] = qseg
+        kid = tuple(onp.where(jj < Tk, kseg[onp.minimum(jj, Tk - 1)], 0)
+                    for jj in j)
+    offset = Tk - Tq
+    k0 = w0 // block_k * block_k        # the block's first key
+    qbeg = max(k0 - offset, 0) if causal else 0
+    wbeg = w0 - offset if causal else 0
+    # key j sees queries i with ilo <= i < ilo + span: its causal start and
+    # Tq; a key past Tk sees none
+    ilo = tuple(onp.maximum(jj - offset, 0) if causal
+                else onp.zeros(32, onp.int64) for jj in j)
+    span = tuple(onp.where(jj < Tk, onp.maximum(Tq - lo, 0), 0)
+                 for jj, lo in zip(j, ilo))
+    scale2 = onp.float32(scale) * LOG2E
+
+    def a_frags(xp):
+        return [split(onp.stack([xp[r, ks * 8 + c] for r, c in
+                                 ((j[0], T4), (j[1], T4), (j[0], T4 + 4),
+                                  (j[1], T4 + 4))], 1), n_split)
+                for ks in range(kD // 8)]
+
+    kf, vf = a_frags(kp), a_frags(vp)
+    dka = onp.zeros((kD // 8, 32, 4), onp.float32)
+    dva = onp.zeros((kD // 8, 32, 4), onp.float32)
+    for qb in range(qbeg, Tq, block_q):
+        if w0 >= Tk or qb + block_q <= wbeg:
+            continue                    # no key of the warp sees the tile
+        s = onp.zeros((block_q // 8, 32, 4), onp.float32)
+        dp = onp.zeros((block_q // 8, 32, 4), onp.float32)
+        for ks in range(kD // 8):
+            for nt in range(block_q // 8):
+                qrow = qb + nt * 8 + G
+                for acc_t, (ah, al), xp in ((s, kf[ks], qp),
+                                            (dp, vf[ks], gp)):
+                    bh, bl = split(onp.stack([xp[qrow, ks * 8 + T4],
+                                              xp[qrow, ks * 8 + T4 + 4]], 1),
+                                   n_split)
+                    acc_t[nt] = mma_split(acc_t[nt], ah, al, bh, bl,
+                                          n_split)
+        # P^T and dS^T on the accumulator layout (keys in rows, queries in
+        # columns); hidden scores give p = 2^-inf = 0; the FFMA rounds
+        # s * scale2 - lse2 once
+        for nt in range(block_q // 8):
+            for e in range(4):
+                h = e // 2
+                i = qb + nt * 8 + 2 * T4 + (e & 1)
+                ok = (i >= ilo[h]) & (i - ilo[h] < span[h]) & \
+                    (qid[i] == kid[h])
+                l2 = (lse_p[i] * LOG2E).astype(onp.float32)
+                x = (s[nt][:, e].astype(onp.float64) * scale2
+                     - l2).astype(onp.float32)
+                p = onp.exp2(onp.where(ok, x, -onp.inf)).astype(onp.float32)
+                s[nt][:, e] = p
+                dp[nt][:, e] = p * (dp[nt][:, e] - dl_p[i])
+        # dV += P^T G, dK += dS^T Q: the fragment as the A operand (queries
+        # 2t -> k-slot t, 2t + 1 -> k-slot t + 4), G and Q read as the
+        # forward reads V; fp32 sums each tile from zero and adds it to the
+        # running sums, bf16 sums in the accumulator throughout
+        tile = n_split == 3
+        tdv = onp.zeros_like(dva) if tile else dva
+        tdk = onp.zeros_like(dka) if tile else dka
+        for kk in range(block_q // 8):
+            qrow = qb + kk * 8 + 2 * T4
+            for acc, c, xp in ((tdv, s[kk], gp), (tdk, dp[kk], qp)):
+                a = c[:, [0, 2, 1, 3]]
+                ah, al = split(a, 3) if p_split == 3 else (
+                    tf32(a), onp.zeros_like(a))
+                for nd in range(kD // 8):
+                    bh, bl = split(onp.stack([xp[qrow, nd * 8 + G],
+                                              xp[qrow + 1, nd * 8 + G]], 1),
+                                   n_split)
+                    acc[nd] = mma_split(acc[nd], ah, al, bh, bl, 3)
+        if tile:
+            dva += tdv
+            dka += tdk
+    dk = onp.zeros((16, kD), onp.float32)
+    dv = onp.zeros((16, kD), onp.float32)
+    for nd in range(kD // 8):
+        for e, (r, c) in enumerate(C_RC):
+            dk[r, nd * 8 + c] = dka[nd][:, e] * onp.float32(scale)
+            dv[r, nd * 8 + c] = dva[nd][:, e]
+    keys = onp.arange(w0, min(w0 + 16, Tk))
+    return keys, dk[:len(keys), :D], dv[:len(keys), :D]
+
+
+def model_dkv(q, k, v, g, qseg, kseg, scale, causal, block_q, block_k,
+              n_split, p_split=3):
+    """(B, H, Tk, D) dK and dV through :func:`warp_dkv`, every warp of every
+    batch-head, with lse from :func:`model_forward` (the forward kernel's,
+    fp32 out) and Delta = rowsum(g o) in fp32, as the wrapper computes it."""
+    out, lse = model_forward(q, k, v, qseg, kseg, scale, causal, 32,
+                             n_split)
+    delta = (g * out).sum(-1, dtype=onp.float32)
+    B, H, Tk, D = k.shape
+    dk = onp.zeros(k.shape, onp.float32)
+    dv = onp.zeros(k.shape, onp.float32)
+    for b in range(B):
+        for h in range(H):
+            for w0 in range(0, Tk, 16):
+                keys, a, c = warp_dkv(
+                    q[b, h], k[b, h], v[b, h], g[b, h], lse[b, h],
+                    delta[b, h], None if qseg is None else qseg[b],
+                    None if kseg is None else kseg[b], scale, causal, w0,
+                    block_q, block_k, n_split, p_split)
+                dk[b, h, keys], dv[b, h, keys] = a, c
+    return dk, dv
+
+
+def _inputs_bwd(seed, Tq, Tk, D=64, B=1, H=2):
+    """q, g (B, H, Tq, D), k, v (B, H, Tk, D), padding ids from 70 % of
+    each length, and query row 5 with an id no key has (it sees nothing)."""
+    rng = onp.random.RandomState(seed)
+    q, g = (rng.randn(B, H, Tq, D).astype("float32") for _ in range(2))
+    k, v = (rng.randn(B, H, Tk, D).astype("float32") for _ in range(2))
+    ks = onp.ones((B, Tk), "int32")
+    ks[:, int(0.7 * Tk):] = 0
+    qs = onp.ones((B, Tq), "int32")
+    qs[:, int(0.7 * Tq):] = 0
+    qs[:, 5] = 9
+    return q, k, v, g, qs, ks
+
+
+def _reference_dkv(q, k, v, g, qs, ks, scale, causal):
+    _, dk, dv = _attention_bwd_blockwise(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(g),
+        scale, causal, jnp.asarray(qs), jnp.asarray(ks))
+    return onp.asarray(dk), onp.asarray(dv)
+
+
+def _exact_dkv(q, k, v, g, qs, ks, scale, causal):
+    """dK and dV in float64 from the dense identities: the ground truth
+    both the model and the reference round away from."""
+    q, k, v, g = (a.astype("float64") for a in (q, k, v, g))
+    Tq, Tk = q.shape[2], k.shape[2]
+    s = onp.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    vis = qs[:, None, :, None] == ks[:, None, None, :]
+    if causal:
+        vis = vis & onp.tril(onp.ones((Tq, Tk), bool), Tk - Tq)[None, None]
+    s = onp.where(vis, s, -1e30)
+    e = onp.where(vis, onp.exp(s - s.max(-1, keepdims=True)), 0.0)
+    p = e / onp.maximum(e.sum(-1, keepdims=True), 1e-300)
+    delta = (g * (p @ v)).sum(-1, keepdims=True)
+    ds = p * (g @ onp.swapaxes(v, -1, -2) - delta) * scale
+    return onp.swapaxes(ds, -1, -2) @ q, onp.swapaxes(p, -1, -2) @ g
+
+
+# 1e-6 of the largest value (dK and dV reach ~2.4 here). The reference sums
+# in fp32 in another order and is itself up to 1.4e-6 from the float64
+# answer at these inputs, so the model is held to both, each within 1e-6
+# of the largest value (3xTF32 drops lo * lo' and rounds lo, ~2^-22 of
+# each product; one TF32 product would be off by ~1e-3)
+DKV_RTOL = 1e-6
+
+
+def _close(got, want):
+    return float(onp.abs(got - want).max()) <= DKV_RTOL * max(
+        1.0, float(onp.abs(want).max()))
+
+
+@pytest.mark.parametrize("block_q,block_k,Tq,Tk,causal", [
+    (32, 16, 100, 100, True), (32, 32, 100, 100, True),
+    (32, 64, 100, 100, True), (32, 16, 70, 100, True),
+    (32, 32, 70, 100, True), (32, 64, 70, 100, True),
+    (16, 32, 100, 70, False), (64, 32, 100, 70, True),
+])
+def test_dkv_tensor_core_model_matches_reference(block_q, block_k, Tq, Tk,
+                                                 causal):
+    # causal bottom-right (Tk - Tq = 30 or -30), padding ids, ragged
+    # lengths that no tile divides and a query row that sees no key
+    q, k, v, g, qs, ks = _inputs_bwd(7, Tq, Tk)
+    scale = 1 / 8
+    want_dk, want_dv = _reference_dkv(q, k, v, g, qs, ks, scale, causal)
+    dk, dv = model_dkv(q, k, v, g, qs, ks, scale, causal, block_q, block_k,
+                       3)
+    exact_dk, exact_dv = _exact_dkv(q, k, v, g, qs, ks, scale, causal)
+    for got, want, exact in ((dk, want_dk, exact_dk), (dv, want_dv,
+                                                       exact_dv)):
+        assert _close(got, want) and _close(got, exact)
+
+
+def test_dkv_key_no_query_sees_is_exact_zero():
+    # causal with Tq < Tk: key j is seen by queries i >= j - (Tk - Tq), so
+    # with ids that hide the only queries that could see the last keys,
+    # those keys' gradients are exact zeros, as the reference's
+    q, k, v, g, qs, ks = _inputs_bwd(8, 40, 60, D=32)
+    ks[:, 50:] = 3          # an id no query carries
+    dk, dv = model_dkv(q, k, v, g, qs, ks, 1 / 8, True, 16, 32, 3)
+    assert float(onp.abs(dk[:, :, 50:]).max()) == 0.0
+    assert float(onp.abs(dv[:, :, 50:]).max()) == 0.0
+    want_dk, want_dv = _reference_dkv(q, k, v, g, qs, ks, 1 / 8, True)
+    assert _close(dk, want_dk) and _close(dv, want_dv)
+
+
+def test_dkv_bf16_needs_p_and_ds_split_into_two_products():
+    # bf16 operands are exact in TF32, so S^T and dP^T take one product
+    # each; p and ds are fp32 (the reference multiplies them by g and q cast
+    # to float32): one TF32 rounding of them misses 1e-4 where hi + lo
+    # against G's and Q's exact values (two products) holds it
+    q, k, v, g, qs, ks = (_bf16(a) if a.dtype == onp.float32 else a
+                          for a in _inputs_bwd(9, 100, 100))
+    scale = 1 / 8
+    want = _reference_dkv(q, k, v, g, qs, ks, scale, True)
+    got = {n: model_dkv(q, k, v, g, qs, ks, scale, True, 32, 32, 1,
+                        p_split=n) for n in (1, 3)}
+    err = {n: max(float(onp.abs(a - b).max()) for a, b in zip(got[n], want))
+           for n in got}
+    assert all(_close(a, b) for a, b in zip(got[3], want))
     assert err[1] > 1e-4          # chip_smoke.py's FLASH_TOL
     assert err[1] >= 100 * err[3]

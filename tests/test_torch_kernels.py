@@ -810,3 +810,133 @@ def test_library_lowering_is_taken_only_when_the_tier_chooses_it(cuda):
         tk.flash_attention(qc, kc, vc, causal=True).sum(), (qc, kc, vc))
     for a, b in zip(got, want):
         assert float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+# -- on the card: the tensor-core dK/dV kernel --------------------------------
+def _dkv_case(cuda, dtype, D, offset=0, seed=18):
+    """Ragged Tq = 70 < Tk = 100 (causal offset 30), padding ids, query row
+    5 with an id no key has, keys 90-99 with an id no query has; every
+    operand ``offset`` elements past a 16-byte boundary. Returns the
+    kernel's arguments up to the tile and the plain dk, dv."""
+    rng = onp.random.RandomState(seed)
+    B, H, Tq, Tk = 2, 3, 70, 100
+    qn, kn, vn = _qkv(rng, B, H, Tq, Tk, D)
+    gn = rng.randn(B, H, Tq, D).astype("float32")
+
+    def shifted(a):
+        buf = torch.empty(a.size + offset, dtype=dtype, device=cuda)
+        t = buf[offset:].view(a.shape)
+        t.copy_(_t(a))
+        return t
+
+    q, k, v, g = (shifted(a) for a in (qn, kn, vn, gn))
+    ks = onp.ones((B, Tk), "int32")
+    ks[1, 70:] = 0
+    ks[:, 90:] = 3
+    qs = onp.ones((B, Tq), "int32")
+    qs[1, 50:] = 0
+    qs[0, 5] = 9
+    qs, ks = _t(qs).to(cuda), _t(ks).to(cuda)
+    scale = 1 / D ** 0.5
+    out, lse = tk.attention_plain(q, k, v, scale, True, qs, ks)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale,
+                                  True)[1:]
+    return (q, k, v, g, lse, delta, qs, ks, scale, True), want
+
+
+def _check_dkv(got, want, dtype):
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        tol = 1e-4 if dtype == torch.float32 else _bf16_step(b)
+        assert float((a.float() - b.float()).abs().max()) <= tol
+        # keys 90-99 are seen by no query: exact zeros
+        assert float(a[:, :, 90:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("block_k", tk.FLASH_BLOCKS)
+@pytest.mark.parametrize("block_q", tk.FLASH_BLOCKS)
+def test_flash_bwd_dkv_matches_plain_at_every_tile_on_card(cuda, block_q,
+                                                           block_k, D,
+                                                           dtype):
+    # every tile and head-dim class of the tensor-core dK/dV kernel, fp32
+    # (3xTF32) within 1e-4, bf16 within one bf16 step of the largest value;
+    # D = 128 puts K in planes beside V's where both fit (all tiles but
+    # fp32 64 x 64, which re-reads K from L1)
+    args, want = _dkv_case(cuda, dtype, D)
+    tk.reset_launch_counts()
+    got = tk.flash_bwd_dkv_cuda(*args, block_q, block_k)
+    torch.cuda.synchronize()
+    assert tk.tile_counts() == {("flash_bwd_dkv", (block_q, block_k)): 1}
+    _check_dkv(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,offset", [(48, 0), (99, 0), (100, 0), (64, 1)])
+def test_flash_bwd_dkv_staging_paths_on_card(cuda, dtype, D, offset):
+    # Q and G tiles go through the cp.async ring for rows of 16-byte
+    # multiples from 16-byte aligned operands, plain loads for the rest
+    # (fp32 and bf16 D = 99, bf16 D = 100, every operand one element past
+    # an aligned address); D = 48 fills part of the 64 class
+    args, want = _dkv_case(cuda, dtype, D, offset, seed=19)
+    assert (args[0].data_ptr() % 16 != 0) == bool(offset)
+    n0 = tk.flash_bwd_dkv_launches
+    got = tk.flash_bwd_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    assert tk.flash_bwd_dkv_launches == n0 + 1
+    _check_dkv(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_dkv_is_deterministic_on_card(cuda, dtype):
+    # each key's sums run in a fixed order with no atomics: two launches
+    # are bitwise equal, at the training shape's width
+    rng = onp.random.RandomState(20)
+    q, k, v = (_t(a).to(cuda, dtype) for a in _qkv(rng, 2, 4, 256, 256, 64))
+    g = _t(rng.randn(2, 4, 256, 64).astype("float32")).to(cuda, dtype)
+    out, lse = tk.flash_fwd_cuda(q, k, v, None, None, 0.125, True)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, g, lse, delta, None, None, 0.125, True)
+    first = tk.flash_bwd_dkv_cuda(*args)
+    second = tk.flash_bwd_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# -- on the card: the fused softmax's wide path (one cluster a row) -----------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,offset", [
+    (1, 50257, 0), (64, 50257, 0), (64, 50257, 1), (3, 4095, 0),
+    (3, 4096, 0), (5, 4097, 1), (2, 8191, 0), (7, 4103, 3),
+    (1, 600001, 0),
+])
+def test_softmax_wide_path_matches_plain_on_card(cuda, dtype, rows, d,
+                                                 offset):
+    # both sides of the wide path's threshold (d >= 4096: 4095 runs one warp
+    # a row, 4096 one cluster a row); odd widths put every other row and
+    # the slice boundaries off 16-byte boundaries, and ``offset`` shifts x
+    # itself (out, from empty_like, then lies at another alignment than x:
+    # scalar stores); 600001 is too wide for a block's shared memory (the
+    # slice is read again from L2)
+    rng = onp.random.RandomState(21)
+    buf = torch.empty(rows * d + offset, dtype=dtype, device=cuda)
+    x = buf[offset:].view(rows, d)
+    x.copy_(_t(rng.randn(rows, d).astype("float32") * 4))
+    n0 = tk.softmax_launches
+    y = tk.softmax_cuda(x)
+    torch.cuda.synchronize()
+    assert tk.softmax_launches == n0 + 1 and y.dtype == dtype
+    ref = tk.softmax_plain(x)
+    diff = (y.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-6
+    else:
+        # one bf16 ulp of the value
+        assert bool((diff <= 8e-3 * ref.float().abs() + 1e-7).all())
