@@ -73,6 +73,22 @@ Phases (any failure exits non-zero without the final line):
              flash forward, dK/dV and dQ kernels and 25 LayerNorm launches
              in every step, all at the default tile; prints step ms,
              training tokens/s and peak device memory;
+4b. train (compiled) — the same model through ``trainer.compile_step``
+             (one CUDA graph replay a step after a warm step and the
+             capture): (i) three compiled and three eager AdamW steps at
+             B=4, T=1024, dropout 0, whose losses, weights and Adam states
+             agree within rtol 2e-4, atol 1e-6 (the reference's
+             cross-program bound); (ii) 30 steps as phase 4's (dropout 0.1)
+             whose loss falls below half its first value, one capture, the
+             captured body's launches (12 flash forward, 12 dK/dV, 12 dQ,
+             25 LayerNorm), no launch outside the warm step and the capture,
+             and those kernels found by name in one replay by the profiler;
+             (iii) two overflowing ``DynamicLossScaler`` steps (warm and
+             replay) leave every weight bitwise and ``num_update`` as they
+             were and halve the scale each; (iv) eager and compiled runs in
+             the order A B B A, each run's step ms (median of steps 3-30),
+             training tokens/s and peak device memory printed beside the
+             card's name and power limit;
 5. tune    — the tuning workflow at GPT-2 small's width with
              ``MXTPU_TUNE=1`` and a temporary cache file: warm phase 3's
              engine (same weights and arguments) with an empty cache, read
@@ -98,8 +114,10 @@ Phases (any failure exits non-zero without the final line):
 
 The lines before the last give the card's name and power limit and a JSON
 object of every kernel's numbers with its launches on each path (serve,
-train, tune, rtc); the last line is ``{"ok": true, "device": {...}}``.
+train, train_compiled (the warm step and the capture: replays move no
+counter), tune, rtc); the last line is ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import os
 import re
@@ -129,6 +147,10 @@ TRAIN_STEPS = 30
 TRAIN_LR = 3e-4            # AdamW peak, GPT-3's beta2 = 0.95, 5 warm-up
 TRAIN_WARMUP = 5           # steps, then a cosine to TRAIN_LR / 10
 TRAIN_SHAPE = (4, 1024)    # batch rows x tokens: GPT-2's own context
+TRAIN_WANT = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
+              "layer_norm": 25, "softmax": 0}   # launches a training step
+COMPILED_RTOL = 2e-4       # compiled vs eager step: the reference's
+COMPILED_ATOL = 1e-6       # cross-program bound (tests/test_train_step.py)
 DEV = "cuda"
 
 
@@ -1220,11 +1242,279 @@ def phase_train(smi_line):
     check(losses[-1] < 0.5 * losses[0],
           f"the loss did not fall below half its first value: {losses[0]:.3f}"
           f" -> {losses[-1]:.3f}")
-    want = {"flash_fwd": 12, "flash_bwd_dkv": 12, "flash_bwd_dq": 12,
-            "layer_norm": 25, "softmax": 0}
-    bad = [(i, ps) for i, ps in enumerate(per_step) if ps != want]
-    check(not bad, f"launches per step: step {bad[:1]} != {want}")
+    bad = [(i, ps) for i, ps in enumerate(per_step) if ps != TRAIN_WANT]
+    check(not bad, f"launches per step: step {bad[:1]} != {TRAIN_WANT}")
     check_default_tiles("train")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: GPT-2 small trained by the compiled step (one CUDA graph a step)
+# ---------------------------------------------------------------------------
+def _train_model(arrays, dropout):
+    """GPT-2 small on the card holding ``arrays`` (None: draw them with
+    ``train_weights``); returns (model, arrays)."""
+    from mxnet_tpu_torch import params_from_mxnet_tpu
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+
+    model = gpt2_small(dropout=dropout)
+    if arrays is None:
+        arrays = train_weights({n: tuple(p.shape) for n, p in
+                                model.collect_params().items()}, SEED)
+    model.load_dict(params_from_mxnet_tpu(arrays, model))
+    return model, arrays
+
+
+def _kernel_names(fn):
+    """{kernel name: launches} of the CUDA kernels ``fn`` runs, from
+    ``torch.profiler`` (CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+class _OverflowingLoss:
+    """Cross entropy times inf: the scaled loss overflows at any scale."""
+
+    def __init__(self):
+        from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+        self.ce = SoftmaxCrossEntropyLoss()
+
+    def __call__(self, pred, label):
+        return self.ce(pred, label) * float("inf")
+
+
+def _release():
+    """Free what the last run left: a compiled step and its trainer refer
+    to each other, so its graph's memory pool goes only with a collection."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _run_training(arrays, batches, compiled, smi_line, tag):
+    """One training run of GPT-2 small from ``arrays`` over ``batches``
+    (dropout 0.1, ``make_trainer``): eager (record / backward /
+    ``Trainer.step(B)``) or compiled (``trainer.compile_step``), each step
+    synchronised and timed on the host clock. Returns the losses, the step
+    ms and the peak device memory."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    _release()
+    held = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    mxrandom.seed(SEED)
+    model, _ = _train_model(arrays, 0.1)
+    trainer = make_trainer(model)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    step = trainer.compile_step(model, loss_fn) if compiled else None
+    losses, ms = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        if compiled:
+            loss = step(x, y)
+        else:
+            with autograd.record():
+                loss = loss_fn(model(x), y)
+            autograd.backward(loss)
+            trainer.step(x.shape[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach().mean()))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    B, T = batches[0][0].shape
+    med = statistics.median(ms[2:])
+    log(f"[train-compiled] timing {tag} "
+        f"{'compiled' if compiled else 'eager'}: step {med:.2f} ms (median "
+        f"of steps 3-{len(ms)}; first two {ms[0]:.1f}, {ms[1]:.1f} ms), "
+        f"{B * T / med * 1e3:.0f} training tokens/s, peak device memory "
+        f"{peak:.1f} MiB ({held:.1f} MiB held before the run); card "
+        f"{smi_line}")
+    check(all(onp.isfinite(losses)), f"timing run {tag}: a loss is not "
+          "finite")
+    del step, trainer, model
+    _release()
+    return losses, med, peak
+
+
+def phase_train_compiled(smi_line):
+    """GPT-2 small through ``trainer.compile_step``: (i) three compiled
+    steps against three eager ones, (ii) 30 training steps, (iii) an
+    overflow step, (iv) eager against compiled, A B B A. Returns the
+    launch counts of (ii)."""
+    import torch
+
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, T = TRAIN_SHAPE
+    loss_fn = SoftmaxCrossEntropyLoss()
+    rng = onp.random.RandomState(SEED + 3)
+
+    # -- (i) parity: three compiled steps against three eager ones ---------
+    _release()
+    comp, arrays = _train_model(None, 0.0)
+    eager, _ = _train_model(arrays, 0.0)
+    vocab = comp.vocab_size
+
+    def device_batches(n):
+        return [(torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV))
+                for x, y in cyclic_batches(rng, vocab, B, T, n)]
+
+    tr_c, tr_e = make_trainer(comp), make_trainer(eager)
+    step = tr_c.compile_step(comp, loss_fn)
+    worst = {"loss": 0.0, "weight": 0.0, "state": 0.0}
+    where = {}
+
+    def excess(got, want):
+        """max of |got - want| / (atol + rtol |want|): <= 1 passes."""
+        return float(((got - want).abs() / (COMPILED_ATOL + COMPILED_RTOL
+                                             * want.abs())).max())
+
+    for i, (x, y) in enumerate(device_batches(3)):
+        lc = step(x, y)
+        with autograd.record():
+            le = loss_fn(eager(x), y).mean()
+        autograd.backward(le)
+        tr_e.step(1)
+        e = excess(lc, le.detach())
+        if e > worst["loss"]:
+            worst["loss"], where["loss"] = e, f"step {i + 1}"
+    for (n, p), q in zip(comp.collect_params().items(),
+                         eager.collect_params().values()):
+        e = excess(p.detach(), q.detach())
+        if e > worst["weight"]:
+            worst["weight"], where["weight"] = e, n
+    for i, (sc, se) in enumerate(zip(tr_c._states, tr_e._states)):
+        for k in sc:
+            e = excess(sc[k], se[k])
+            if e > worst["state"]:
+                worst["state"], where["state"] = e, f"{k} of {i}"
+    log(f"[train-compiled] (i) 3 compiled vs 3 eager AdamW steps at B={B} "
+        f"T={T}, dropout 0: worst |diff| / ({COMPILED_ATOL} + "
+        f"{COMPILED_RTOL} |eager|): {worst} at {where} (limit 1); "
+        f"num_update {tr_c.optimizer.num_update} vs "
+        f"{tr_e.optimizer.num_update}; captures {step._traces}")
+    check(max(worst.values()) <= 1.0, f"compiled vs eager differ: {worst} "
+          f"at {where}")
+    check(tr_c.optimizer.num_update == tr_e.optimizer.num_update == 3,
+          "num_update after 3 steps")
+    check(step._traces == 1, f"{step._traces} captures in (i)")
+    del comp, eager, tr_c, tr_e, step, lc, le
+    _release()
+
+    # -- (ii) 30 training steps through compile_step, dropout 0.1 -----------
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[train-compiled] (ii) device memory held before the run: "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB")
+    mxrandom.seed(SEED)
+    model, _ = _train_model(arrays, 0.1)
+    trainer = make_trainer(model)
+    batches = device_batches(TRAIN_STEPS)
+    ck.reset_launch_counts()
+    step = trainer.compile_step(model, loss_fn)
+    losses, ms = [], []
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        if i == len(batches) - 1:
+            holder = []
+            names = _kernel_names(lambda: holder.append(step(x, y)))
+            loss = holder[0]
+        else:
+            loss = step(x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[train-compiled] (ii) gpt2_small B={B} T={T} AdamW (peak lr "
+        f"{TRAIN_LR}, {TRAIN_WARMUP} warm-up steps, cosine), dropout 0.1, "
+        f"{TRAIN_STEPS} steps through trainer.compile_step: loss by step "
+        f"{[round(v, 3) for v in losses]}")
+    log(f"[train-compiled] (ii) step {statistics.median(ms[2:-1]):.2f} ms "
+        f"(median of steps 3-{TRAIN_STEPS - 1}, synchronised; first "
+        f"{ms[0]:.1f} ms: warm step and capture), peak device memory "
+        f"{peak:.1f} MiB; captures {step._traces}; card {smi_line}")
+    log(f"[train-compiled] (ii) launch counters: captured body "
+        f"{step.captured_launches}, whole run (warm step + capture) "
+        f"{counts}; {TRAIN_STEPS - 1} replays ran the captured body")
+    found = {k: n for k, n in names.items() if any(
+        w + "_kernel" in k.lower() for w in TRAIN_WANT)}
+    log(f"[train-compiled] (ii) the profiler's kernels in step "
+        f"{TRAIN_STEPS} (one replay): {len(names)} kernel names, "
+        f"{sum(names.values())} launches; the port's kernels: {found}")
+    check(all(onp.isfinite(losses)), "a compiled training loss is not "
+          "finite")
+    check(losses[-1] < 0.5 * losses[0],
+          f"the compiled run's loss did not fall below half its first "
+          f"value: {losses[0]:.3f} -> {losses[-1]:.3f}")
+    check(step._traces == 1, f"{step._traces} captures in 30 steps")
+    check(step.captured_launches == TRAIN_WANT,
+          f"captured launches {step.captured_launches} != {TRAIN_WANT}")
+    check(counts == {k: 2 * n for k, n in TRAIN_WANT.items()},
+          f"launches outside the warm step and the capture: {counts}")
+    for w, n in TRAIN_WANT.items():
+        got = sum(c for k, c in names.items() if w + "_kernel" in k.lower())
+        check(got == n, f"the profiler found {got} {w} kernels in one "
+              f"replay, not {n}")
+    check_default_tiles("train-compiled")
+    del step, model, trainer, batches, loss, holder
+    _release()
+
+    # -- (iii) an overflowing step is a bitwise no-op --------------------------
+    model, _ = _train_model(arrays, 0.0)
+    trainer = make_trainer(model)
+    scaler = amp.DynamicLossScaler()
+    step = trainer.compile_step(model, _OverflowingLoss(),
+                                loss_scaler=scaler)
+    (x, y), = device_batches(1)
+    snap = [p.detach().clone() for p in model.collect_params().values()]
+    scale0 = scaler.loss_scale
+    for call in ("warm step", "replay"):
+        step(x, y)
+        moved = [n for (n, p), s in zip(model.collect_params().items(), snap)
+                 if not torch.equal(p.detach(), s)]
+        log(f"[train-compiled] (iii) overflowing {call}: scale "
+            f"{scaler.loss_scale}, num_update "
+            f"{trainer.optimizer.num_update}, weights moved: {moved}")
+        check(not moved, f"the overflowing {call} moved {moved}")
+        check(trainer.optimizer.num_update == 0,
+              f"num_update moved on overflow ({call})")
+    check(scaler.loss_scale == scale0 / 4,
+          f"the scale went {scale0} -> {scaler.loss_scale}, not halved "
+          "twice")
+    check(step._traces == 1, "the overflow step captured twice")
+    del step, model, trainer, snap
+    _release()
+
+    # -- (iv) eager (A) and compiled (B), in the order A B B A ---------------
+    batches = device_batches(TRAIN_STEPS)
+    runs = {}
+    for tag, compiled in (("A1", False), ("B1", True), ("B2", True),
+                          ("A2", False)):
+        runs[tag] = _run_training(arrays, batches, compiled, smi_line, tag)
+    a = [runs["A1"][1], runs["A2"][1]]
+    b = [runs["B1"][1], runs["B2"][1]]
+    log(f"[train-compiled] (iv) eager {a} ms, compiled {b} ms a step "
+        f"(medians, A B B A); peak MiB eager "
+        f"{[runs['A1'][2], runs['A2'][2]]}, compiled "
+        f"{[runs['B1'][2], runs['B2'][2]]}; card {smi_line}")
     return counts
 
 
@@ -1483,6 +1773,7 @@ def main():
         kernels = phase_kernels()
         serve_counts, agree = phase_serve()
         train_counts = phase_train(smi_line)
+        compiled_counts = phase_train_compiled(smi_line)
         tune_counts, _ = phase_tune(agree)
         rtc_row = phase_rtc()
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -1493,12 +1784,14 @@ def main():
     log(smi_line)
     for name, row in kernels.items():
         by_path = {"serve": serve_counts[name], "train": train_counts[name],
+                   "train_compiled": compiled_counts[name],
                    "tune": tune_counts[name], "rtc": 0}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if name in build_info:
             row["build"] = build_info[name]
-    rtc_row["launches_by_path"] = {"serve": 0, "train": 0, "tune": 0,
+    rtc_row["launches_by_path"] = {"serve": 0, "train": 0,
+                                   "train_compiled": 0, "tune": 0,
                                    "rtc": rtc_row["launches"]}
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {

@@ -8,15 +8,16 @@ Every entry point runs on ``cuda`` unless the caller passes
 :class:`MXNetError`.
 
 The TPU kernels on the ported paths (GPT training through the eager
-``gluon.Trainer``, GPT serving through the paged decode engine, the kernel
+``gluon.Trainer`` and through the compiled step ``Trainer.compile_step``,
+one CUDA graph a step; GPT serving through the paged decode engine, the kernel
 autotuner ``tune``) are hand-written CUDA kernels for ``sm_90a``
 (``csrc/``), built with nvcc at first use; see
 :mod:`mxnet_tpu_torch.ops.cuda_kernels`. ``rtc.CudaModule`` compiles CUDA C
 given at run time.
 """
-from . import (autograd, base, context, convert, gluon, initializer,
-               lr_scheduler, ops, optimizer, random, rtc, serve, telemetry,
-               tune)
+from . import (amp, autograd, base, context, convert, gluon, initializer,
+               lr_scheduler, ops, optimizer, parallel, random, rtc, serve,
+               telemetry, train_step, tune)
 from .base import MXNetError
 from .context import cpu, gpu, resolve_device
 from .convert import params_from_mxnet_tpu, trainer_states_from_mxnet_tpu
@@ -25,6 +26,6 @@ __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "cpu", "gpu", "resolve_device",
            "params_from_mxnet_tpu", "trainer_states_from_mxnet_tpu",
-           "autograd", "base", "context", "convert", "gluon", "initializer",
-           "lr_scheduler", "ops", "optimizer", "random", "rtc", "serve",
-           "telemetry", "tune"]
+           "amp", "autograd", "base", "context", "convert", "gluon",
+           "initializer", "lr_scheduler", "ops", "optimizer", "parallel",
+           "random", "rtc", "serve", "telemetry", "train_step", "tune"]

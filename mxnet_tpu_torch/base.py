@@ -1,14 +1,34 @@
 """Base utilities of the PyTorch/CUDA port: the framework error type.
 
-Counterpart of ``mxnet_tpu/base.py``. Only what the serving slice needs is
+Counterpart of ``mxnet_tpu/base.py``. Only what the ported slices need is
 carried: :class:`MXNetError`, the exception every layer of the port raises,
-and the dtype-name helper.
+:func:`warn_once` (reference :30) and the dtype-name helper.
 """
 from __future__ import annotations
 
+import threading
+import warnings
+
 import torch
 
-__all__ = ["MXNetError", "to_dtype"]
+__all__ = ["MXNetError", "to_dtype", "warn_once"]
+
+# process-level dedup of degradation warnings: a hot path may meet the same
+# unsupported configuration every step, and the useful signal is "this run
+# degraded", once
+_warned_keys: set = set()
+_warned_lock = threading.Lock()
+
+
+def warn_once(key, message, category=RuntimeWarning, stacklevel=2):
+    """Emit ``message`` at most once per process for ``key``; returns True
+    when the warning fired (reference: ``mxnet_tpu/base.py:30``)."""
+    with _warned_lock:
+        if key in _warned_keys:
+            return False
+        _warned_keys.add(key)
+    warnings.warn(message, category, stacklevel=stacklevel + 1)
+    return True
 
 
 class MXNetError(RuntimeError):

@@ -3,21 +3,31 @@
 Counterpart of ``mxnet_tpu/optimizer/optimizer.py``: the ``Optimizer`` base
 (:42-297) and ``SGD`` (:349-380), ``NAG`` (:392-407), ``Adam`` and ``AdamW``
 (:410-479). Each optimizer declares its recurrence once
-(``_register_step``, reference :202-222) as a plain function on tensors,
-``step(w, *states, g, lr, wd[, t])``, returning the new weight and states;
-``update`` runs it under ``torch.no_grad()`` and writes the results into
-the weight and state tensors in place, where the reference rebinds donated
-buffers. The reference's other optimizers, its lazy row-sparse updates and
-the fused multi-tensor path are not ported yet.
+(``_register_step``, reference :199-222) as a plain function on tensors,
+``step(w, *states, g, lr, wd[, t])``, returning the new weight and states.
+One declaration serves both paths: ``update`` runs it on one parameter
+under ``torch.no_grad()`` and writes the results into the weight and state
+tensors in place, where the reference rebinds donated buffers; the
+``Trainer``'s fused multi-tensor update and the compiled train step read it
+through :attr:`Optimizer.fused_step`. ``elementwise=True`` (SGD, Adam,
+AdamW; not NAG, as the reference declares it) lets the fused path run the
+recurrence once over many small tensors flattened into one vector, with
+the hypers spread per element. The reference's other optimizers and its
+lazy row-sparse updates are not ported yet.
 
 Semantics kept from the reference: ``rescale_grad`` multiplies the gradient
 outside the step (:183-188) and ``clip_gradient`` then clips it, where a
 value <= 0 turns clipping off (:288-294); ``lr_mult``/``wd_mult`` come from
 the parameter and from ``set_lr_mult``/``set_wd_mult``; the update count
-``t`` is kept per parameter index (:100-105); momentum and moment states
-are float32 whatever the weight's dtype; with ``multi_precision`` a
+``t`` is kept per parameter index (:100-105), and the compiled step stages
+counts and commits them only for a step that was not skipped
+(``_staged_counts``, ``_commit_counts``, :107-147); momentum and moment
+states are float32 whatever the weight's dtype; with ``multi_precision`` a
 bfloat16/float16 weight is updated through a float32 master copy
-(:145-151, :189-194).
+(:145-151, :189-194). The hypers ``lr``, ``wd`` and ``t`` arrive as Python
+numbers on the per-parameter path and as tensors (float32 ``lr``/``wd``,
+float64 ``t``) on the fused paths; Adam's bias correction ``1 - beta ** t``
+is computed in double either way and rounded to float32 where it divides.
 """
 from __future__ import annotations
 
@@ -68,6 +78,7 @@ class Optimizer:
         self.param_dict = param_dict or {}
         self.lr_mult, self.wd_mult = {}, {}
         self._step_spec = None
+        self._fusable = None
 
     # -- hyperparameter plumbing -------------------------------------------
     def set_learning_rate(self, lr):
@@ -91,9 +102,9 @@ class Optimizer:
     def set_wd_mult(self, args_wd_mult):
         self.wd_mult = dict(args_wd_mult)
 
-    def _get_lr(self, index):
-        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
-            else self.lr
+    def _get_lr(self, index, num_update=None):
+        nu = self.num_update if num_update is None else num_update
+        lr = self.lr_scheduler(nu) if self.lr_scheduler else self.lr
         if index in self.param_dict:
             lr *= getattr(self.param_dict[index], "lr_mult", 1.0)
         return lr * self.lr_mult.get(index, 1.0)
@@ -110,6 +121,34 @@ class Optimizer:
         self.num_update = max(self.num_update,
                               self._index_update_count[index])
         return self._index_update_count[index]
+
+    def _staged_counts(self, indices):
+        """Tentative per-index update counts and ``num_update`` of the step
+        about to run, without mutating (reference :107): a compiled step
+        the loss scaler later skips must leave the schedule where it was.
+        Returns ``(counts, num_update)``."""
+        counts = [self._index_update_count.get(i, 0) + 1 for i in indices]
+        return counts, max([self.num_update] + counts)
+
+    def _staged_counts_k(self, indices, k):
+        """``_staged_counts`` for ``k`` steps in one call (reference :119):
+        row ``j`` is what the ``j``-th committed step would see. The step
+        indexes the rows by its committed-step counter, so a skipped inner
+        step reads its row again. Returns ``(rows, num_updates)``."""
+        base = {i: self._index_update_count.get(i, 0) for i in indices}
+        nu = self.num_update
+        rows, nus = [], []
+        for j in range(k):
+            counts = [base[i] + j + 1 for i in indices]
+            rows.append(counts)
+            nus.append(max([nu] + counts))
+            nu = max(nu, max(counts))
+        return rows, nus
+
+    def _commit_counts(self, indices):
+        """Apply the counts staged by ``_staged_counts``."""
+        for i in indices:
+            self._update_count(i)
 
     # -- state --------------------------------------------------------------
     def create_state(self, index, weight) -> dict:
@@ -146,16 +185,29 @@ class Optimizer:
         else:
             self._apply(weight, grad, state, lr, wd, t)
 
-    def _register_step(self, step, state_keys=(), needs_t=False):
+    def _register_step(self, step, state_keys=(), needs_t=False,
+                       fusable=True, elementwise=False):
         """Declare the recurrence ``step(w, *states, g, lr, wd[, t])`` ->
-        new weight, or (new weight, *new states) in ``state_keys`` order."""
-        self._step_spec = (step, tuple(state_keys), needs_t)
+        new weight, or (new weight, *new states) in ``state_keys`` order.
+        ``fusable=False`` keeps the per-parameter step but opts out of the
+        fused paths; ``elementwise=True`` asserts the step is purely
+        per-element, so the fused path may flatten small tensors into one
+        call (reference :199-222)."""
+        self._step_spec = (step, tuple(state_keys), needs_t, elementwise)
+        self._fusable = self._step_spec if fusable else None
+
+    @property
+    def fused_step(self):
+        """``(step, state_keys, needs_t, elementwise)`` for the fused
+        multi-tensor update and the compiled step, or None when this
+        optimizer cannot be fused."""
+        return self._fusable
 
     def _apply(self, weight, grad, state, lr, wd, t):
         if self._step_spec is None:
             raise NotImplementedError(
                 f"{type(self).__name__} declares no per-tensor step")
-        step, keys, needs_t = self._step_spec
+        step, keys, needs_t, _ = self._step_spec
         args = [weight, *(state[k] for k in keys), grad, lr, wd]
         if needs_t:
             args.append(t)
@@ -199,9 +251,9 @@ class SGD(Optimizer):
             return (wf - lr * (g + wd * wf)).to(w.dtype)
 
         if momentum == 0.0:
-            self._register_step(step_nomom)
+            self._register_step(step_nomom, elementwise=True)
         else:
-            self._register_step(step, ("mom",))
+            self._register_step(step, ("mom",), elementwise=True)
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -230,6 +282,15 @@ class NAG(Optimizer):
                                    device=weight.device)}
 
 
+def _bias_correction(beta, t):
+    """``1 - beta ** t`` in double; float32 where ``t`` is a tensor (the
+    fused paths), so it divides a float32 moment as the Python double of
+    the per-parameter path does: rounded to float32 first."""
+    if isinstance(t, torch.Tensor):
+        return (1 - beta ** t.double()).float()
+    return 1 - beta ** t
+
+
 class _AdamBase(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, correct_bias=True, adamw=False, **kwargs):
@@ -247,8 +308,8 @@ class _AdamBase(Optimizer):
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
             if self.correct_bias:
-                mhat = m / (1 - b1 ** t)
-                vhat = v / (1 - b2 ** t)
+                mhat = m / _bias_correction(b1, t)
+                vhat = v / _bias_correction(b2, t)
             else:
                 mhat, vhat = m, v
             upd = mhat / (torch.sqrt(vhat) + eps)
@@ -256,7 +317,8 @@ class _AdamBase(Optimizer):
                 upd = upd + wd * wf
             return (wf - lr * upd).to(w.dtype), m, v
 
-        self._register_step(step, ("mean", "var"), needs_t=True)
+        self._register_step(step, ("mean", "var"), needs_t=True,
+                            elementwise=True)
 
     def create_state(self, index, weight):
         z = dict(dtype=torch.float32, device=weight.device)

@@ -7,6 +7,12 @@ when it is made and again by every ``seed(n)``; dropout draws from the
 generator of its tensor's device (:func:`generator`). The two packages draw
 different numbers from one seed, so a test that needs the same noise in
 both makes it with numpy.
+
+The compiled train step registers the CUDA generator with each graph it
+captures (``CUDAGraph.register_generator_state``), standing in for the
+reference's per-step key as a runtime operand (``train_step.py:2155``):
+every replay advances the generator and draws fresh masks, and ``seed(n)``
+resets what the next replay draws.
 """
 from __future__ import annotations
 

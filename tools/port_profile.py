@@ -21,11 +21,16 @@ Families:
   ``gluon.Trainer`` on the cyclic task), split into its forward, backward
   and optimizer parts with a synchronisation after each, so each part's
   kernels fall inside its own host interval; the whole step is reported
-  too.
+  too, and the run's peak device memory;
+- ``train_compiled``: the same training step through
+  ``trainer.compile_step`` (one CUDA graph replay a step, after a warm step
+  and the capture): wall ms a step (synchronised), device-busy ms, idle
+  share and kernel launches per replay, the top kernels, and the run's
+  peak device memory.
 
 Run from the repository root::
 
-    python3 tools/port_profile.py [serve|train|all]
+    python3 tools/port_profile.py [serve|train|train_compiled|all]
 """
 import os
 import statistics
@@ -102,6 +107,7 @@ def profile_train(top=12):
     from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
 
     B, T = TRAIN_SHAPE
+    torch.cuda.reset_peak_memory_stats()
     mxrandom.seed(SEED)
     model = gpt2_small(dropout=0.1)
     shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
@@ -179,6 +185,42 @@ def profile_train(top=12):
         print(f"[{name}]   {tot / reps / 1e3:8.4f} ms  x{cnt / reps:5.0f}  "
               f"{kname[:100]}")
     _host_ops(name, prof, reps, top)
+    print(f"[{name}] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+def profile_train_compiled(top=12):
+    """A training step of GPT-2 small through ``trainer.compile_step``."""
+    import itertools
+
+    import torch
+
+    from chip_smoke import SEED, TRAIN_SHAPE, cyclic_batches, make_trainer, \
+        train_weights
+    from mxnet_tpu_torch import params_from_mxnet_tpu
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+
+    B, T = TRAIN_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    mxrandom.seed(SEED)
+    model = gpt2_small(dropout=0.1)
+    shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
+    model.load_dict(params_from_mxnet_tpu(train_weights(shapes, SEED),
+                                          model))
+    trainer = make_trainer(model)
+    step = trainer.compile_step(model, SoftmaxCrossEntropyLoss())
+    batches = itertools.cycle([
+        (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+        for x, y in cyclic_batches(onp.random.RandomState(SEED + 2),
+                                   model.vocab_size, B, T, 8)])
+    wall, busy = profile_family(f"train_compiled b{B} t{T}",
+                                lambda: step(*next(batches)), top)
+    print(f"[train_compiled b{B} t{T}] {B * T / wall * 1e3:.0f} training "
+          f"tokens/s; captures {step._traces}; captured launches "
+          f"{step.captured_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
 def profile_serve():
@@ -230,19 +272,28 @@ def main():
     import torch
 
     family = sys.argv[1] if len(sys.argv) > 1 else "serve"
-    if family not in ("serve", "train", "all"):
-        print(f"port_profile: unknown family {family!r} (serve, train, all)")
+    if family not in ("serve", "train", "train_compiled", "all"):
+        print(f"port_profile: unknown family {family!r} (serve, train, "
+              "train_compiled, all)")
         return 2
     if not torch.cuda.is_available():
         print("port_profile: FAIL: no CUDA device visible")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch "
-          f"{torch.__version__}, allow_tf32=False")
+          f"{torch.__version__}, allow_tf32=False; nvidia-smi: {smi}")
     if family in ("serve", "all"):
         profile_serve()
     if family in ("train", "all"):
         profile_train()
+    if family in ("train_compiled", "all"):
+        profile_train_compiled()
     return 0
 
 
