@@ -31,7 +31,12 @@ Phases (any failure exits non-zero without the final line):
              each gradient's largest value, with CUDA-graph times beside
              the CUDA-event and profiler ones; keys that no query sees get
              exact zeros, and dK/dV in fp32 is also held against a float64
-             answer beside the plain version;
+             answer beside the plain version; the bf16 instances of the
+             three flash kernels at the AMP training shape (4*12, 1024, 64)
+             causal get rows of their own (``name:bf16``) beside SDPA's bf16
+             times (``is_causal``), and LayerNorm with bf16 x and fp32
+             gamma/beta at (4096, 768) one beside ``F.layer_norm``'s, held
+             with the plain version to a float64 answer;
              softmax at (4096, 768), (64, 50257), (1, 50257), ragged row
              counts and both sides of the wide path's threshold (d = 4095,
              4096, 4097, 8191: one warp a row below 4096, one cluster of
@@ -89,6 +94,28 @@ Phases (any failure exits non-zero without the final line):
              the order A B B A, each run's step ms (median of steps 3-30),
              training tokens/s and peak device memory printed beside the
              card's name and power limit;
+4c. train (AMP) — the same model and task under
+             ``amp.autocast("bfloat16")`` (the reference's cast at the op:
+             logits, loss and the flash kernels in bf16, LayerNorm on the
+             fp32 residual stream): (i) one eager step at B=2, T=128 (one
+             row right-padded, dropout 0): logits and loss bf16, gradients
+             fp32 within 3e-2 of each gradient's largest entry of the same
+             step on the CPU, 12 bf16 launches of each flash kernel and 25
+             fp32 LayerNorm launches; (ii) three compiled and three eager
+             AMP steps at B=4, T=1024, dropout 0, within phase 4b (i)'s
+             bound, bit-equality printed; (iii) 30 compiled AMP steps as
+             4b (ii), whose loss falls below half its first value and ends
+             within 1.25x phase 4b (ii)'s last loss, one capture, captured
+             launches 12 / 12 / 12 bf16 and 25 fp32 LayerNorm, the bf16
+             flash instances found by name in one replay by the profiler;
+             (iv) a fresh model through ``amp.convert_hybrid_block`` with
+             multi-precision AdamW, 10 eager AMP steps: non-norm weights
+             bf16 with fp32 masters, the loss falls, 25 LayerNorm launches
+             a step with bf16 x and fp32 gamma/beta; (v) fp32 compiled (A)
+             and AMP compiled (B) runs in the order A B B A, step ms,
+             training tokens/s and peak memory beside the card's name and
+             power limit. bf16 GEMMs sum in fp32
+             (``allow_bf16_reduced_precision_reduction`` off, as the MXU);
 5. tune    — the tuning workflow at GPT-2 small's width with
              ``MXTPU_TUNE=1`` and a temporary cache file: warm phase 3's
              engine (same weights and arguments) with an empty cache, read
@@ -114,8 +141,10 @@ Phases (any failure exits non-zero without the final line):
 
 The lines before the last give the card's name and power limit and a JSON
 object of every kernel's numbers with its launches on each path (serve,
-train, train_compiled (the warm step and the capture: replays move no
-counter), tune, rtc); the last line is ``{"ok": true, "device": {...}}``.
+train, train_compiled and train_amp (the warm step and the capture: replays
+move no counter), train_amp_converted, tune, rtc; a row counts the
+launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16`` row); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -154,8 +183,21 @@ COMPILED_ATOL = 1e-6       # cross-program bound (tests/test_train_step.py)
 DEV = "cuda"
 
 
+# launches by (kernel, operand dtypes) of each path's run, for the JSON line
+PATH_DTYPES = {}
+
+
 class SmokeError(Exception):
     pass
+
+
+def read_counts(path):
+    """The kernels' launches since the last reset (``launch_counts``); their
+    launches by operand dtypes are kept under ``path`` for the JSON line."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    PATH_DTYPES[path] = ck.dtype_counts()
+    return ck.launch_counts()
 
 
 def check(cond, msg):
@@ -216,7 +258,8 @@ def device_ms(fn, kernel_name, reps=20):
 
 def device_total_ms(fn, reps=10):
     """Device time per call of every kernel ``fn`` launches, summed, from
-    ``torch.profiler`` (CUPTI)."""
+    ``torch.profiler`` (CUPTI); None when the profiler recorded no kernel
+    (CUPTI can drop records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,10 +269,9 @@ def device_total_ms(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(evt, "device_time_total",
-                     getattr(evt, "cuda_time_total", 0.0))
-             for evt in prof.key_averages())
-    return us / reps / 1e3
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def bound_ms(n_bytes, n_flops, peak=PEAK_FP32_FLOPS):
@@ -412,6 +454,25 @@ def _visible_pairs(qs, ks, B, H, Tq, Tk, causal):
     return mask, int(mask.sum()) * H
 
 
+def _sdpa_mask_args(mask, causal, seg, Tq, Tk):
+    """SDPA's mask arguments for the visible pairs ``mask`` (B, Tq, Tk):
+    ``is_causal`` where the mask is causal alone, else the boolean mask."""
+    if causal and not seg and Tq == Tk:
+        return {"is_causal": True}
+    return {"attn_mask": mask[:, None]}
+
+
+def _bf16_row(row, numbers, err):
+    """The JSON row of a kernel's bf16 instance at the AMP training shape:
+    ``row``'s name with ``:bf16``, its source and what it replaces, and
+    ``numbers``."""
+    out = {"name": row["name"] + ":bf16", "route": row["route"],
+           "source": row["source"], "replaces": row["replaces"],
+           "max_abs_err": err, "dtype": "bfloat16"}
+    out.update(numbers)
+    return out
+
+
 def dkv_float64(q, k, v, g, qs, ks, scale, causal):
     """dK and dV in float64 on the card from the dense identities, the
     ground truth that the kernel and the plain fp32 version round away
@@ -441,7 +502,8 @@ def phase_kernels():
     rng = onp.random.RandomState(SEED)
     results = {}
 
-    results["flash_fwd"] = _flash_fwd_rows(rng, dev)
+    results["flash_fwd"], results["flash_fwd:bf16"] = _flash_fwd_rows(rng,
+                                                                      dev)
 
     # -- fused LayerNorm ----------------------------------------------------
     d = 768
@@ -485,10 +547,86 @@ def phase_kernels():
         "library_ms": main[2], "bound_ms": main[3], "bound_by": main[4],
         "device_ms": main[5], "library_device_ms": main[6],
         "shape": "x (4*512, 768) fp32, gamma/beta (768,) fp32"}
+    results["layer_norm:bf16"] = _layer_norm_bf16_row(rng, dev,
+                                                      results["layer_norm"])
     results.update(_flash_bwd_rows(rng, dev))
     results["softmax"] = _softmax_row(rng, dev)
     _every_tile(rng, dev)
     return results
+
+
+def _layer_norm_bf16_row(rng, dev, row):
+    """LayerNorm with bf16 x and fp32 gamma/beta, as a block converted by
+    ``amp.convert_hybrid_block`` runs it, at the training step's rows
+    (4*1024, 768). The kernel normalises in fp32 and rounds once; the plain
+    version (the reference's ``_ln_reference``) rounds x - mean and its
+    product with 1/sigma to bf16 first. So both are held to a float64
+    answer from the same bf16 x: the kernel within one bf16 rounding
+    (2^-8 |exact|) plus fp32's error (2^-18 of the scale below), the plain
+    version within four bf16 roundings (2^-8 each of the scale
+    (|x_hat| + |mean| / sigma) |gamma| + |beta|), and to each other by the
+    sum of the two, each with 1e-6 beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    rows, d = 4096, 768
+    x = torch.from_numpy((rng.randn(rows, d) * 2 + 0.5).astype("float32")) \
+        .to(dev, torch.bfloat16)
+    g = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
+    b = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
+    out = ck.layer_norm_cuda(x, g, b, 1e-5)
+    ref = ck.layer_norm_plain(x, g, b, 1e-5)
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    sigma = torch.sqrt(xd.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    xhat = (xd - mu) / sigma
+    exact = xhat * g.double() + b.double()
+    # what the plain version's roundings are relative to: x_hat gamma,
+    # beta, and the bf16 mean's rounding carried through gamma / sigma
+    scale = (xhat.abs() + mu.abs() / sigma) * g.double().abs() + \
+        b.double().abs()
+    check(out.dtype == ref.dtype == torch.bfloat16,
+          f"layer_norm bf16 x: output dtypes {out.dtype}, {ref.dtype}")
+    lim_k = 2 ** -8 * exact.abs() + 2 ** -18 * scale + 1e-6
+    lim_p = 4 * 2 ** -8 * scale + 1e-6
+    over_k = float(((out.double() - exact).abs() - lim_k).max())
+    over_p = float(((ref.double() - exact).abs() - lim_p).max())
+    over_kp = float(((out.double() - ref.double()).abs()
+                     - (lim_k + lim_p)).max())
+    err = float((out.float() - ref.float()).abs().max())
+    check(max(over_k, over_p, over_kp) <= 0.0,
+          f"layer_norm bf16 x, fp32 gamma/beta: beyond the limits by "
+          f"kernel {over_k:.3g}, plain {over_p:.3g}, kernel vs plain "
+          f"{over_kp:.3g}")
+
+    def kernel():
+        ck.layer_norm_cuda(x, g, b, 1e-5)
+
+    g16, b16 = g.to(x.dtype), b.to(x.dtype)
+
+    def library():
+        F.layer_norm(x, (d,), g16, b16, 1e-5)
+
+    ms = time_ms(kernel)
+    dev_ms = device_ms(kernel, "layer_norm_kernel")
+    plain_ms = time_ms(lambda: ck.layer_norm_plain(x, g, b, 1e-5))
+    lib_ms = time_ms(library)
+    lib_dev_ms = device_total_ms(library)
+    bms, by = bound_ms(2 * 2 * rows * d + 4 * 2 * d, 8 * rows * d)
+    log(f"[kernels] layer_norm rows={rows} d={d} bf16 x, fp32 gamma/beta: "
+        f"max|diff| from plain {err:.3g}; kernel {ms:.4f} ms (device "
+        f"{dev_ms}), plain {plain_ms:.4f} ms, F.layer_norm (gamma/beta in "
+        f"bf16) {lib_ms:.4f} ms (device {lib_dev_ms}), bound "
+        f"{bms:.5f} ms ({by})")
+    out_row = _bf16_row(row, {
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+        "bound_ms": bms, "bound_by": by,
+        "shape": f"x ({rows}, {d}) bf16, gamma/beta ({d},) fp32"}, err)
+    out_row["dtype"] = "bfloat16 x, float32 gamma/beta"
+    return out_row
 
 
 FWD_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S = QK^T and PV, "
@@ -505,7 +643,11 @@ def _flash_fwd_rows(rng, dev):
     step of the largest value (LSE to FLASH_TOL); times by CUDA events
     (back to back and CUDA-graph replays) and the profiler, beside SDPA's.
     (48, 512, 64) fp32 causal + ids gives the JSON row; (48, 1024, 64) fp32
-    and (48, 512, 64) bf16 stand in it under "more"."""
+    and (48, 512, 64) bf16 stand in it under "more". The bf16 instance at
+    the AMP training shape, (48, 1024, 64) causal, gives a row of its own
+    (returned second), beside SDPA's bf16 device time. Where the mask is
+    causal alone, SDPA runs with ``is_causal=True`` (its fastest form of
+    the same function), else with the boolean mask."""
     import torch
     import torch.nn.functional as F
 
@@ -513,7 +655,7 @@ def _flash_fwd_rows(rng, dev):
 
     B, H, D = 4, 12, 64
     f32, bf16 = torch.float32, torch.bfloat16
-    err = 0.0
+    err = bf16_err = 0.0
     rows = {}
     for Tq, Tk, causal, seg, dtype in [(128, 128, True, True, f32),
                                        (384, 384, True, True, f32),
@@ -521,7 +663,8 @@ def _flash_fwd_rows(rng, dev):
                                        (1000, 1000, True, True, f32),
                                        (1024, 1024, True, True, f32),
                                        (384, 1000, False, False, f32),
-                                       (512, 512, True, True, bf16)]:
+                                       (512, 512, True, True, bf16),
+                                       (1024, 1024, True, False, bf16)]:
         q, k, v, qs, ks = _flash_inputs(rng, dev, B, H, Tq, Tk, D, seg)
         q, k, v = (t.to(dtype) for t in (q, k, v))
         scale = 1.0 / D ** 0.5
@@ -541,18 +684,18 @@ def _flash_fwd_rows(rng, dev):
             check(e_out <= step and e_lse <= FLASH_TOL,
                   f"{what}: max |diff| out {e_out:.3g} (limit {step:.3g}), "
                   f"lse {e_lse:.3g} (limit {FLASH_TOL})")
+            bf16_err = max(bf16_err, e_out, e_lse)
         if seg:
             check(float(out[B - 1, :, 0].float().abs().max()) == 0.0,
                   f"{what}: the fully masked row is not zero")
         mask, pairs = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)
-        sdpa_mask = mask[:, None]
+        sdpa_args = _sdpa_mask_args(mask, causal, seg, Tq, Tk)
 
         def kernel():
             ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal)
 
         def sdpa():
-            F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
-                                           scale=scale)
+            F.scaled_dot_product_attention(q, k, v, scale=scale, **sdpa_args)
 
         ms = time_ms(kernel)
         g_ms = graph_ms(kernel)
@@ -573,22 +716,28 @@ def _flash_fwd_rows(rng, dev):
             f"{'3xTF32' if dtype == f32 else 'bf16'} tensor cores, "
             f"{100 * bms / g_ms:.1f} % reached; CUDA-core bound "
             f"{core_ms:.4f} ms), {pairs} visible pairs")
-        if seg and Tq == Tk and Tq in (512, 1024):
+        if (seg and Tq == Tk and Tq in (512, 1024)) or (
+                dtype == bf16 and Tq == 1024):
             rows[(Tq, dtype)] = {
                 "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
                 "library_graph_ms": lib_g_ms, "bound_ms": bms,
                 "bound_by": by, "cuda_core_bound_ms": core_ms,
                 "shape": f"q/k/v ({B}*{H}, {Tq}, {D}) "
-                         f"{'fp32' if dtype == f32 else 'bf16'}, causal + "
-                         f"segment ids"}
+                         f"{'fp32' if dtype == f32 else 'bf16'}, causal"
+                         f"{' + segment ids' if seg else ''}"}
+            if not seg:
+                lib_dev = device_total_ms(sdpa)
+                rows[(Tq, dtype)]["library_device_ms"] = lib_dev
+                log(f"[kernels] flash_fwd {dtype} T={Tq} causal: SDPA "
+                    f"(is_causal) device {lib_dev} ms")
     row = {"name": "flash_fwd", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "mxnet_tpu/ops/pallas_kernels.py:163",
            "max_abs_err": err, "design": FWD_DESIGN}
     row.update(rows[(512, f32)])
     row["more"] = [rows[(1024, f32)], rows[(512, bf16)]]
-    return row
+    return row, _bf16_row(row, rows[(1024, bf16)], bf16_err)
 
 
 def _softmax_row(rng, dev):
@@ -768,9 +917,11 @@ def _flash_bwd_rows(rng, dev):
     at GPT-2 training shapes, fp32 held to FLASH_TOL, bf16 to one bf16 step
     of each gradient's largest value; times by CUDA events (back to back
     and CUDA-graph replays) and the profiler. The training shape
-    (4*12, 1024, 64) fp32 causal gives the JSON rows; (48, 512, 64) fp32
-    causal + ids and (48, 1024, 64) bf16 causal stand in them under
-    "more"."""
+    (4*12, 1024, 64) fp32 causal gives the JSON rows, (48, 512, 64) fp32
+    causal + ids stands in them under "more"; (48, 1024, 64) bf16 causal,
+    the AMP training shape, gives rows of their own (``name:bf16``). The
+    library time is autograd through SDPA (``is_causal`` where the mask is
+    causal alone) less SDPA's forward."""
     import torch
     import torch.nn.functional as F
 
@@ -780,6 +931,7 @@ def _flash_bwd_rows(rng, dev):
     scale = 1.0 / D ** 0.5
     f32, bf16 = torch.float32, torch.bfloat16
     err = {"flash_bwd_dkv": 0.0, "flash_bwd_dq": 0.0}
+    err_bf16 = dict(err)
     rows = {}
     for Tq, Tk, causal, seg, dtype in [(1024, 1024, True, False, f32),
                                        (512, 512, True, True, f32),
@@ -833,9 +985,9 @@ def _flash_bwd_rows(rng, dev):
                 f"max |dk| {float(ek.abs().max()):.3g}, max |dv| "
                 f"{float(ev.abs().max()):.3g}")
             del ek, ev
-        if dtype == f32:
-            err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"], e_dkv)
-            err["flash_bwd_dq"] = max(err["flash_bwd_dq"], e_dq)
+        errs = err if dtype == f32 else err_bf16
+        errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], e_dkv)
+        errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], e_dq)
         delta = (g.float() * out.float()).sum(dim=-1)
         args = (q, k, v, g, lse, delta, qs, ks, scale, causal)
         mask, pairs = _visible_pairs(qs, ks, B, H, Tq, Tk, causal)
@@ -844,20 +996,23 @@ def _flash_bwd_rows(rng, dev):
         # the library's backward: autograd through SDPA with the same
         # boolean mask, less SDPA's forward alone
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa_mask = mask[:, None]
+        sdpa_args = _sdpa_mask_args(mask, causal, seg, Tq, Tk)
 
         def lib_fwd_bwd():
-            o = F.scaled_dot_product_attention(qg, kg, vg,
-                                               attn_mask=sdpa_mask,
-                                               scale=scale)
+            o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale,
+                                               **sdpa_args)
             torch.autograd.grad(o, (qg, kg, vg), g)
 
         def lib_fwd():
-            F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask,
-                                           scale=scale)
+            F.scaled_dot_product_attention(q, k, v, scale=scale, **sdpa_args)
 
         lib_ms = time_ms(lib_fwd_bwd, reps=20) - time_ms(lib_fwd, reps=20)
-        lib_dev_ms = device_total_ms(lib_fwd_bwd) - device_total_ms(lib_fwd)
+        lib_g_ms = graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd)
+        dev_both, dev_fwd = device_total_ms(lib_fwd_bwd), \
+            device_total_ms(lib_fwd)
+        # None where the profiler dropped the records of either run
+        lib_dev_ms = dev_both - dev_fwd if dev_both and dev_fwd and \
+            dev_both > dev_fwd else None
         es = q.element_size()
         n_in = es * (q.numel() + k.numel() + v.numel() + g.numel()) + 4 * (
             lse.numel() + delta.numel()) + (
@@ -881,6 +1036,7 @@ def _flash_bwd_rows(rng, dev):
                 rows[(name, Tq, dtype)] = {
                     "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library_graph_ms": lib_g_ms,
                     "library_device_ms": lib_dev_ms,
                     "bound_ms": bms, "bound_by": by,
                     "cuda_core_bound_ms": core_ms,
@@ -890,8 +1046,9 @@ def _flash_bwd_rows(rng, dev):
                              f"library times cover dq, dk and dv together"}
         log(f"[kernels] flash_bwd {dtype} plain (dq, dk, dv together) "
             f"{plain_ms:.4f} ms; SDPA backward (autograd.grad through "
-            f"scaled_dot_product_attention with the boolean mask, less its "
-            f"forward) {lib_ms:.4f} ms (device {lib_dev_ms:.4f})")
+            f"scaled_dot_product_attention with {list(sdpa_args)[0]}, less "
+            f"its forward) {lib_ms:.4f} ms (graph {lib_g_ms:.4f}, profiler "
+            f"{lib_dev_ms})")
         if exact and ("flash_bwd_dkv", Tq, dtype) in rows:
             rows[("flash_bwd_dkv", Tq, dtype)]["float64_max_abs_err"] = exact
     results = {}
@@ -906,8 +1063,9 @@ def _flash_bwd_rows(rng, dev):
         results[name]["design"] = (DQ_DESIGN if name == "flash_bwd_dq"
                                    else DKV_DESIGN)
         results[name].update(rows[(name, 1024, f32)])
-        results[name]["more"] = [rows[(name, 512, f32)],
-                                 rows[(name, 1024, bf16)]]
+        results[name]["more"] = [rows[(name, 512, f32)]]
+        results[name + ":bf16"] = _bf16_row(
+            results[name], rows[(name, 1024, bf16)], err_bf16[name])
     return results
 
 
@@ -1033,7 +1191,7 @@ def phase_serve():
     eng.warmup()
     ck.reset_launch_counts()
     reqs, outs, serve_s, fam_ms = drive_engine(eng, model)
-    counts = ck.launch_counts()
+    counts = read_counts("serve")
     st = eng.stats()
     eng.close()
     peak = torch.cuda.max_memory_allocated()
@@ -1144,10 +1302,11 @@ def cyclic_batches(rng, vocab, B, T, steps, period=97):
         yield seq[:, :-1], seq[:, 1:]
 
 
-def make_trainer(model):
+def make_trainer(model, multi_precision=False):
     """AdamW through ``gluon.Trainer``: peak lr TRAIN_LR after TRAIN_WARMUP
     linear warm-up steps, then a cosine down to a tenth of it at the last
-    step; beta2 0.95 and weight decay 0.01 (GPT-3's settings)."""
+    step; beta2 0.95 and weight decay 0.01 (GPT-3's settings);
+    ``multi_precision`` keeps fp32 masters of bf16 weights."""
     from mxnet_tpu_torch import lr_scheduler
     from mxnet_tpu_torch.gluon import Trainer
 
@@ -1156,7 +1315,8 @@ def make_trainer(model):
         warmup_steps=TRAIN_WARMUP)
     return Trainer(model.collect_params(), "adamw",
                    {"learning_rate": TRAIN_LR, "beta2": 0.95, "wd": 0.01,
-                    "lr_scheduler": sched})
+                    "lr_scheduler": sched,
+                    "multi_precision": multi_precision})
 
 
 def phase_train(smi_line):
@@ -1226,7 +1386,7 @@ def phase_train(smi_line):
         losses.append(float(loss.detach().mean()))
         after = ck.launch_counts()
         per_step.append({n: after[n] - before[n] for n in after})
-    counts = ck.launch_counts()
+    counts = read_counts("train")
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(step_ms[2:])
     log(f"[train] gpt2_small B={B} T={T} AdamW (peak lr {TRAIN_LR}, "
@@ -1302,14 +1462,18 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _run_training(arrays, batches, compiled, smi_line, tag):
+def _run_training(arrays, batches, compiled, smi_line, tag, amp=False):
     """One training run of GPT-2 small from ``arrays`` over ``batches``
     (dropout 0.1, ``make_trainer``): eager (record / backward /
-    ``Trainer.step(B)``) or compiled (``trainer.compile_step``), each step
-    synchronised and timed on the host clock. Returns the losses, the step
-    ms and the peak device memory."""
+    ``Trainer.step(B)``) or compiled (``trainer.compile_step``), under
+    ``amp.autocast("bfloat16")`` with ``amp``, each step synchronised and
+    timed on the host clock. Returns the losses, the step ms and the peak
+    device memory."""
+    import contextlib
+
     import torch
 
+    from mxnet_tpu_torch import amp as mxamp
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -1323,22 +1487,25 @@ def _run_training(arrays, batches, compiled, smi_line, tag):
     loss_fn = SoftmaxCrossEntropyLoss()
     step = trainer.compile_step(model, loss_fn) if compiled else None
     losses, ms = [], []
-    for x, y in batches:
-        t0 = time.perf_counter()
-        if compiled:
-            loss = step(x, y)
-        else:
-            with autograd.record():
-                loss = loss_fn(model(x), y)
-            autograd.backward(loss)
-            trainer.step(x.shape[0])
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss.detach().mean()))
+    scope = mxamp.autocast("bfloat16") if amp else contextlib.nullcontext()
+    with scope:
+        for x, y in batches:
+            t0 = time.perf_counter()
+            if compiled:
+                loss = step(x, y)
+            else:
+                with autograd.record():
+                    loss = loss_fn(model(x), y)
+                autograd.backward(loss)
+                trainer.step(x.shape[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach().float().mean()))
     peak = torch.cuda.max_memory_allocated() / 2**20
     B, T = batches[0][0].shape
     med = statistics.median(ms[2:])
-    log(f"[train-compiled] timing {tag} "
+    log(f"[train-{'amp' if amp else 'compiled'}] timing {tag} "
+        f"{'AMP bf16 ' if amp else ''}"
         f"{'compiled' if compiled else 'eager'}: step {med:.2f} ms (median "
         f"of steps 3-{len(ms)}; first two {ms[0]:.1f}, {ms[1]:.1f} ms), "
         f"{B * T / med * 1e3:.0f} training tokens/s, peak device memory "
@@ -1355,7 +1522,7 @@ def phase_train_compiled(smi_line):
     """GPT-2 small through ``trainer.compile_step``: (i) three compiled
     steps against three eager ones, (ii) 30 training steps, (iii) an
     overflow step, (iv) eager against compiled, A B B A. Returns the
-    launch counts of (ii)."""
+    launch counts of (ii), and its batches and losses."""
     import torch
 
     from mxnet_tpu_torch import amp, autograd
@@ -1441,7 +1608,7 @@ def phase_train_compiled(smi_line):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    counts = ck.launch_counts()
+    counts = read_counts("train_compiled")
     peak = torch.cuda.max_memory_allocated() / 2**20
     log(f"[train-compiled] (ii) gpt2_small B={B} T={T} AdamW (peak lr "
         f"{TRAIN_LR}, {TRAIN_WARMUP} warm-up steps, cosine), dropout 0.1, "
@@ -1474,6 +1641,7 @@ def phase_train_compiled(smi_line):
         check(got == n, f"the profiler found {got} {w} kernels in one "
               f"replay, not {n}")
     check_default_tiles("train-compiled")
+    run_ii = (batches, losses)
     del step, model, trainer, batches, loss, holder
     _release()
 
@@ -1515,7 +1683,271 @@ def phase_train_compiled(smi_line):
         f"(medians, A B B A); peak MiB eager "
         f"{[runs['A1'][2], runs['A2'][2]]}, compiled "
         f"{[runs['B1'][2], runs['B2'][2]]}; card {smi_line}")
-    return counts
+    return counts, run_ii
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: GPT-2 small trained under AMP (bf16), compiled and converted
+# ---------------------------------------------------------------------------
+BF16 = ("bfloat16",)
+AMP_WANT = {("flash_fwd", BF16): 12, ("flash_bwd_dkv", BF16): 12,
+            ("flash_bwd_dq", BF16): 12,
+            ("layer_norm", ("float32", "float32")): 25}
+CONVERTED_WANT = {**AMP_WANT, ("layer_norm", ("float32", "float32")): 0,
+                  ("layer_norm", ("bfloat16", "float32")): 25}
+AMP_GRAD_RTOL = 3e-2       # bf16's roundoff 3.9e-3, GEMM orders, 12 layers
+AMP_LOSS_RATIO = 1.25      # last AMP loss against the fp32 run's
+CONVERTED_STEPS = 10
+
+
+def phase_train_amp(smi_line, fp32_run):
+    """GPT-2 small under ``amp.autocast("bfloat16")``: (i) one eager step's
+    gradients against the CPU's, (ii) three compiled AMP steps against
+    three eager ones, (iii) 30 compiled AMP steps on the batches, weights
+    and dropout seed of phase 4b (ii)'s fp32 run (``fp32_run``: its
+    batches and losses), so that precision is all that differs, (iv) a
+    block converted by ``amp.convert_hybrid_block`` with multi-precision
+    AdamW, 10 eager steps, (v) fp32 compiled (A) against AMP compiled (B),
+    A B B A on one set of batches."""
+    import torch
+
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, T = TRAIN_SHAPE
+    loss_fn = SoftmaxCrossEntropyLoss()
+    rng = onp.random.RandomState(SEED + 4)
+
+    # -- (i) one AMP step's gradients: the card against the CPU --------------
+    _release()
+    model, arrays = _train_model(None, 0.0)
+    cpu = gpt2_small(dropout=0.0, device="cpu")
+    cpu.load_dict(arrays)
+    toks = torch.from_numpy(rng.randint(0, model.vocab_size, (2, 128))
+                            .astype("int32"))
+    tgt = torch.from_numpy(rng.randint(0, model.vocab_size, (2, 128))
+                           .astype("int32"))
+    valid = torch.tensor([128, 77], dtype=torch.int32)   # row 1 padded
+    ck.reset_launch_counts()
+    for net, dev in ((model, DEV), (cpu, "cpu")):
+        with amp.autocast("bfloat16"):
+            with autograd.record():
+                logits = net(toks.to(dev), valid.to(dev))
+                loss = loss_fn(logits, tgt.to(dev))
+            autograd.backward(loss)
+        check(logits.dtype == loss.dtype == torch.bfloat16,
+              f"[{dev}] AMP logits {logits.dtype}, loss {loss.dtype}: not "
+              f"bfloat16")
+    dts = ck.dtype_counts()
+    worst, worst_name = 0.0, None
+    cpu_params = cpu.collect_params()
+    for name, p in model.collect_params().items():
+        want = cpu_params[name].grad
+        check(p.grad.dtype == want.dtype == torch.float32,
+              f"{name}: gradient dtype {p.grad.dtype} on the card, "
+              f"{want.dtype} on the CPU, not float32")
+        rel = float((p.grad.cpu() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[train-amp] (i) one AMP (bf16) step at B=2, T=128 (row 1 "
+        f"right-padded to 77): logits and loss bfloat16, gradients float32; "
+        f"all {len(cpu_params)} gradients card vs CPU, worst relative max "
+        f"|diff| {worst:.3g} ({worst_name}; limit {AMP_GRAD_RTOL}); "
+        f"launches by dtype {dts}")
+    check(worst <= AMP_GRAD_RTOL, f"AMP card vs CPU gradients differ: "
+          f"{worst:.3g} at {worst_name}")
+    check(dts == AMP_WANT, f"AMP step launches by dtype {dts} != "
+          f"{AMP_WANT}")
+    del model, cpu, cpu_params, net, loss, logits
+
+    # -- (ii) three compiled AMP steps against three eager ones --------------
+    _release()
+    comp, _ = _train_model(arrays, 0.0)
+    eager, _ = _train_model(arrays, 0.0)
+    vocab = comp.vocab_size
+
+    def device_batches(n):
+        return [(torch.from_numpy(x).to(DEV), torch.from_numpy(y).to(DEV))
+                for x, y in cyclic_batches(rng, vocab, B, T, n)]
+
+    tr_c, tr_e = make_trainer(comp), make_trainer(eager)
+    step = tr_c.compile_step(comp, loss_fn)
+    worst = {"loss": 0.0, "weight": 0.0, "state": 0.0}
+    where, bitwise = {}, True
+
+    def excess(got, want):
+        return float(((got.float() - want.float()).abs()
+                      / (COMPILED_ATOL + COMPILED_RTOL
+                         * want.float().abs())).max())
+
+    with amp.autocast("bfloat16"):
+        for i, (x, y) in enumerate(device_batches(3)):
+            lc = step(x, y)
+            with autograd.record():
+                le = loss_fn(eager(x), y).mean()
+            autograd.backward(le)
+            tr_e.step(1)
+            bitwise &= bool(torch.equal(lc, le.detach().float()))
+            e = excess(lc, le.detach())
+            if e > worst["loss"]:
+                worst["loss"], where["loss"] = e, f"step {i + 1}"
+    for (n, p), q in zip(comp.collect_params().items(),
+                         eager.collect_params().values()):
+        bitwise &= bool(torch.equal(p, q))
+        e = excess(p.detach(), q.detach())
+        if e > worst["weight"]:
+            worst["weight"], where["weight"] = e, n
+    for i, (sc, se) in enumerate(zip(tr_c._states, tr_e._states)):
+        for k in sc:
+            bitwise &= bool(torch.equal(sc[k], se[k]))
+            e = excess(sc[k], se[k])
+            if e > worst["state"]:
+                worst["state"], where["state"] = e, f"{k} of {i}"
+    log(f"[train-amp] (ii) 3 compiled vs 3 eager AMP AdamW steps at B={B} "
+        f"T={T}, dropout 0: worst |diff| / ({COMPILED_ATOL} + "
+        f"{COMPILED_RTOL} |eager|): {worst} at {where} (limit 1); "
+        f"bit-equal {bitwise}; captures {step._traces}")
+    check(max(worst.values()) <= 1.0, f"compiled vs eager AMP steps differ: "
+          f"{worst} at {where}")
+    check(step._traces == 1, f"{step._traces} captures in (ii)")
+    del comp, eager, tr_c, tr_e, step, lc, le
+    _release()
+
+    # -- (iii) 30 compiled AMP steps, dropout 0.1, phase 4b (ii)'s run --------
+    batches, fp32_losses = fp32_run
+    fp32_final_loss = fp32_losses[-1]
+    torch.cuda.reset_peak_memory_stats()
+    mxrandom.seed(SEED)
+    model, _ = _train_model(arrays, 0.1)
+    trainer = make_trainer(model)
+    losses, ms = [], []
+    ck.reset_launch_counts()
+    with amp.autocast("bfloat16"):
+        step = trainer.compile_step(model, loss_fn)
+        for i, (x, y) in enumerate(batches):
+            t0 = time.perf_counter()
+            if i == len(batches) - 1:
+                holder = []
+                names = _kernel_names(lambda: holder.append(step(x, y)))
+                loss = holder[0]
+            else:
+                loss = step(x, y)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    counts = read_counts("train_amp")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    found = {k: n for k, n in names.items() if any(
+        w + "_kernel" in k.lower() for w in TRAIN_WANT)}
+    log(f"[train-amp] (iii) gpt2_small B={B} T={T} AdamW, dropout 0.1, "
+        f"{TRAIN_STEPS} compiled AMP (bf16) steps on phase 4b (ii)'s "
+        f"batches, weights and dropout seed: loss by step "
+        f"{[round(v, 3) for v in losses]}; the fp32 run's "
+        f"{[round(v, 3) for v in fp32_losses]}")
+    log(f"[train-amp] (iii) step {statistics.median(ms[2:-1]):.2f} ms "
+        f"(median of steps 3-{TRAIN_STEPS - 1}, synchronised; first "
+        f"{ms[0]:.1f} ms: warm step and capture), peak device memory "
+        f"{peak:.1f} MiB; captures {step._traces}; captured launches "
+        f"{step.captured_launches}, by dtype {step.captured_dtypes}; card "
+        f"{smi_line}")
+    log(f"[train-amp] (iii) the profiler's kernels in step {TRAIN_STEPS} "
+        f"(one replay): {len(names)} kernel names, {sum(names.values())} "
+        f"launches; the port's kernels: {found}")
+    check(all(onp.isfinite(losses)), "an AMP training loss is not finite")
+    check(losses[-1] < 0.5 * losses[0],
+          f"the AMP run's loss did not fall below half its first value: "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+    check(losses[-1] <= AMP_LOSS_RATIO * fp32_final_loss,
+          f"the AMP run ended at {losses[-1]:.3f}, above {AMP_LOSS_RATIO} x "
+          f"the fp32 run's {fp32_final_loss:.3f}")
+    check(step._traces == 1, f"{step._traces} captures in 30 AMP steps")
+    check(step.captured_launches == TRAIN_WANT,
+          f"captured launches {step.captured_launches} != {TRAIN_WANT}")
+    check(step.captured_dtypes == AMP_WANT,
+          f"captured launches by dtype {step.captured_dtypes} != {AMP_WANT}")
+    check(counts == {k: 2 * n for k, n in TRAIN_WANT.items()},
+          f"launches outside the warm step and the capture: {counts}")
+    for w, n in TRAIN_WANT.items():
+        mine = {k: c for k, c in found.items() if w + "_kernel" in k.lower()}
+        check(sum(mine.values()) == n, f"the profiler found "
+              f"{sum(mine.values())} {w} kernels in one replay, not {n}")
+        bf16_names = [k for k in mine if "bfloat16" in k.lower()]
+        want_bf16 = w.startswith("flash")
+        check(len(bf16_names) == (len(mine) if want_bf16 else 0),
+              f"{w}: the replay ran {mine}, not the "
+              f"{'bf16' if want_bf16 else 'fp32'} instance")
+    check_default_tiles("train-amp")
+    del step, model, trainer, batches, loss, holder
+    _release()
+
+    # -- (iv) a converted block with multi-precision AdamW -------------------
+    mxrandom.seed(SEED)
+    model, _ = _train_model(arrays, 0.1)
+    amp.convert_hybrid_block(model)
+    trainer = make_trainer(model, multi_precision=True)
+    bad = [n for n, p in model.collect_params().items() if p.dtype != (
+        torch.float32 if n.endswith(("gamma", "beta")) else torch.bfloat16)]
+    check(not bad, f"convert_hybrid_block left these in another dtype: {bad}")
+    losses, per_step, ms = [], [], []
+    ck.reset_launch_counts()
+    with amp.autocast("bfloat16"):
+        for x, y in device_batches(CONVERTED_STEPS):
+            before = ck.dtype_counts()
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = loss_fn(model(x), y)
+            autograd.backward(loss)
+            trainer.step(B)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.detach().float().mean()))
+            after = ck.dtype_counts()
+            per_step.append({k: after.get(k, 0) - before.get(k, 0)
+                             for k in CONVERTED_WANT})
+    read_counts("train_amp_converted")
+    masters = [st["weight_fp32"] for st in trainer._states
+               if st is not None and "weight_fp32" in st]
+    n_bf16 = sum(p.dtype == torch.bfloat16 for p in model.parameters())
+    log(f"[train-amp] (iv) converted block (non-norm weights bf16), AdamW "
+        f"multi_precision, dropout 0.1, {CONVERTED_STEPS} eager steps at "
+        f"B={B} T={T}: loss by step {[round(v, 3) for v in losses]}; "
+        f"{statistics.median(ms[2:]):.2f} ms a step; {len(masters)} fp32 "
+        f"masters for {n_bf16} bf16 weights; launches by dtype a step "
+        f"{per_step[-1]}")
+    check(all(onp.isfinite(losses)), "a converted-block loss is not finite")
+    check(losses[-1] < losses[0], f"the converted block's loss did not "
+          f"fall: {losses[0]:.3f} -> {losses[-1]:.3f}")
+    check(len(masters) == n_bf16 and all(
+        m.dtype == torch.float32 for m in masters),
+          f"{len(masters)} masters for {n_bf16} bf16 weights")
+    bad = [(i, ps) for i, ps in enumerate(per_step) if ps != CONVERTED_WANT]
+    check(not bad, f"converted-block launches by dtype: step {bad[:1]} != "
+          f"{CONVERTED_WANT}")
+    del model, trainer, masters, loss
+    _release()
+
+    # -- (v) fp32 compiled (A) and AMP compiled (B), A B B A ------------------
+    batches = device_batches(TRAIN_STEPS)
+    runs = {}
+    for tag, use_amp in (("A1", False), ("B1", True), ("B2", True),
+                         ("A2", False)):
+        runs[tag] = _run_training(arrays, batches, True, smi_line, tag,
+                                  amp=use_amp)
+    log(f"[train-amp] (v) compiled fp32 "
+        f"{[runs['A1'][1], runs['A2'][1]]} ms, compiled AMP bf16 "
+        f"{[runs['B1'][1], runs['B2'][1]]} ms a step (medians of steps "
+        f"3-{TRAIN_STEPS}, A B B A); training tokens/s fp32 "
+        f"{[round(B * T / runs[t][1] * 1e3) for t in ('A1', 'A2')]}, AMP "
+        f"{[round(B * T / runs[t][1] * 1e3) for t in ('B1', 'B2')]}; peak "
+        f"MiB fp32 {[runs['A1'][2], runs['A2'][2]]}, AMP "
+        f"{[runs['B1'][2], runs['B2'][2]]}; last losses fp32 "
+        f"{[round(runs[t][0][-1], 3) for t in ('A1', 'A2')]}, AMP "
+        f"{[round(runs[t][0][-1], 3) for t in ('B1', 'B2')]}; card "
+        f"{smi_line}")
 
 
 # ---------------------------------------------------------------------------
@@ -1605,7 +2037,7 @@ def phase_tune(agree):
                   f"engine's before step {upto}: {got} vs {want}")
         log(f"[tune] tuned engine tokens == untuned engine tokens up to "
             f"each request's first near tie")
-        counts = ck.launch_counts()
+        counts = read_counts("tune")
         log(f"[tune] kernel launches on the path: {counts}; library calls "
             f"{ck.library_counts()}; tiles {ck.tile_counts()}")
         check(counts["softmax"] > 0, "the tune path launched no softmax")
@@ -1753,13 +2185,18 @@ def main():
             "not beside this script)")
         return 1
     sys.path.insert(0, here)
-    # fp32 parity phases: full-precision matmuls and convolutions
+    # fp32 parity phases: full-precision matmuls and convolutions; bf16
+    # GEMMs (phase 4c) sum in fp32 throughout, split-K partials included,
+    # as the MXU that the reference runs on accumulates in fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
         f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
+        f"cudnn={torch.backends.cudnn.allow_tf32}; "
+        f"allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1771,10 +2208,11 @@ def main():
         t0 = time.perf_counter()
         build_info = phase_build()
         kernels = phase_kernels()
-        serve_counts, agree = phase_serve()
-        train_counts = phase_train(smi_line)
-        compiled_counts = phase_train_compiled(smi_line)
-        tune_counts, _ = phase_tune(agree)
+        _, agree = phase_serve()
+        phase_train(smi_line)
+        _, fp32_run = phase_train_compiled(smi_line)
+        phase_train_amp(smi_line, fp32_run)
+        phase_tune(agree)
         rtc_row = phase_rtc()
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
@@ -1783,15 +2221,20 @@ def main():
         return 1
     log(smi_line)
     for name, row in kernels.items():
-        by_path = {"serve": serve_counts[name], "train": train_counts[name],
-                   "train_compiled": compiled_counts[name],
-                   "tune": tune_counts[name], "rtc": 0}
+        # a row counts the launches of its dtype instance: x in bf16 for a
+        # ":bf16" row (LayerNorm's gamma and beta in either dtype), else x
+        # in fp32
+        kernel, _, low = name.partition(":")
+        by_path = {path: sum(n for (k, dts), n in counts.items()
+                             if k == kernel and
+                             (dts[0] == "bfloat16") == bool(low))
+                   for path, counts in PATH_DTYPES.items()}
+        by_path["rtc"] = 0
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         if name in build_info:
             row["build"] = build_info[name]
-    rtc_row["launches_by_path"] = {"serve": 0, "train": 0,
-                                   "train_compiled": 0, "tune": 0,
+    rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ Every entry point runs on ``cuda`` unless the caller passes
 
 The TPU kernels on the ported paths (GPT training through the eager
 ``gluon.Trainer`` and through the compiled step ``Trainer.compile_step``,
-one CUDA graph a step; GPT serving through the paged decode engine, the kernel
-autotuner ``tune``) are hand-written CUDA kernels for ``sm_90a``
+one CUDA graph a step, in fp32 or under ``amp`` in bf16; GPT serving through
+the paged decode engine, the kernel autotuner ``tune``) are hand-written
+CUDA kernels for ``sm_90a``
 (``csrc/``), built with nvcc at first use; see
 :mod:`mxnet_tpu_torch.ops.cuda_kernels`. ``rtc.CudaModule`` compiles CUDA C
 given at run time.

@@ -38,11 +38,14 @@ class MXNetError(RuntimeError):
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64,
            "int32": torch.int32, "int64": torch.int64, "int8": torch.int8,
-           "uint8": torch.uint8, "bool": torch.bool}
+           "uint8": torch.uint8, "bool": torch.bool,
+           "float8_e4m3fn": torch.float8_e4m3fn,
+           "float8_e5m2": torch.float8_e5m2}
 
 
 def to_dtype(dtype):
-    """A torch dtype from a torch dtype or its name (``"float32"``)."""
+    """A torch dtype from a torch dtype or its name (``"float32"``,
+    ``"bfloat16"``, ``"float8_e4m3fn"``, ...)."""
     if isinstance(dtype, torch.dtype):
         return dtype
     try:

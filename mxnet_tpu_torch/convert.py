@@ -13,23 +13,35 @@ from __future__ import annotations
 import numpy as onp
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, to_dtype
 
 __all__ = ["params_from_mxnet_tpu", "trainer_states_from_mxnet_tpu"]
+
+# the JAX package's low-precision dtypes (ml_dtypes), which numpy knows by
+# name only
+_LOW_PRECISION = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
 
 
 def params_from_mxnet_tpu(arrays, model=None):
     """Turn the JAX package's parameters, as ``{name: numpy array}``, into
     the port's ``{name: torch.Tensor}``.
 
-    Every value must be a numeric array. With ``model`` (a port block), the
-    names must be exactly ``model.collect_params()``'s and every shape must
-    match; the tensors then take each parameter's dtype and device.
-    Raises :class:`MXNetError` naming the first mismatch.
+    Every value must be a numeric array: numpy's own dtypes, or the
+    ``bfloat16`` and fp8 arrays of a block the JAX package converted
+    (``amp.convert_hybrid_block``), which become tensors of the same torch
+    dtype (through float32, which holds each of their values exactly). With
+    ``model`` (a port block), the names must be exactly
+    ``model.collect_params()``'s and every shape must match; the tensors
+    then take each parameter's dtype and device. Raises
+    :class:`MXNetError` naming the first mismatch.
     """
     out = {}
     for name, arr in arrays.items():
         a = onp.asarray(arr)
+        if a.dtype.name in _LOW_PRECISION:
+            out[name] = torch.from_numpy(a.astype("float32")).to(
+                to_dtype(a.dtype.name))
+            continue
         if a.dtype.kind not in "fiu":
             raise MXNetError(
                 f"parameter {name}: unsupported dtype {a.dtype}")

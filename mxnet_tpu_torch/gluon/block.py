@@ -71,6 +71,11 @@ class Block(torch.nn.Module):
     def hybridize(self, active=True, **kwargs):
         """Accepted for API parity: the port runs eagerly."""
 
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype`` in place (reference :81)."""
+        for param in self.collect_params().values():
+            param.cast(dtype)
+
     # -- persistence (reference: block.py:117-153) ---------------------------
     def save_parameters(self, filename):
         """Write the parameters in the reference's ``.params`` format: a

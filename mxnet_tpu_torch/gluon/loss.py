@@ -4,6 +4,10 @@ Counterpart of ``mxnet_tpu/gluon/loss.py``: the ``Loss`` base with
 ``_mean_nonbatch`` and ``_apply_weighting`` (:16-40), ``L2Loss`` (:41) and
 ``SoftmaxCrossEntropyLoss`` / ``SoftmaxCELoss`` (:104-127). Each returns one
 loss per sample along ``batch_axis`` (the mean over every other axis).
+
+A loss follows the dtype of ``pred``, as in the reference: under AMP the
+bf16 logits of a tied LM head give a bf16 ``log_softmax``, ``pick`` and
+loss, with no upcast (``torch.autocast`` would compute them in fp32).
 """
 from __future__ import annotations
 

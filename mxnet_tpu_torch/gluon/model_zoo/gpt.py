@@ -160,7 +160,9 @@ class GPTModel(HybridBlock):
 
     def _lm_logits(self, x):
         if self._tie:
-            return torch.matmul(x, self.tok_embed.weight.t())
+            # the registered matmul op, as the reference's np.matmul: under
+            # AMP the logits come out in the AMP dtype
+            return F.matmul(x, self.tok_embed.weight.t())
         return self.lm_head(x)
 
     def _pad_mask(self, valid_length, seq_len):

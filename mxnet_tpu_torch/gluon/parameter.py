@@ -15,6 +15,10 @@ own initializer, and ``grad_req``:
 
 A backward that does not reach a parameter leaves its ``.grad`` as it was,
 in every mode, as in the reference.
+
+``cast(dtype)`` changes the parameter's dtype in place (reference :211): the
+same object, so trainers and blocks that hold it see the new data, with a
+zero gradient of the new dtype attached.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import weakref
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, to_dtype
 
 __all__ = ["Parameter"]
 
@@ -89,6 +93,17 @@ class Parameter(torch.nn.Parameter):
     def zero_grad(self):
         if self.grad is not None:
             self.grad.zero_()
+
+    @torch.no_grad()
+    def cast(self, dtype):
+        """Change the dtype of the data to ``dtype`` (a torch dtype or its
+        name) in place; a parameter that takes gradients gets a zero
+        gradient of the new dtype (reference :211). The data moves to new
+        memory, so a compiled train step that captured the old address
+        captures anew at its next call."""
+        self.data = self.data.to(to_dtype(dtype))
+        self.grad = None if self._grad_req == "null" else \
+            torch.zeros_like(self.data)
 
 
 def _overwrite(p):

@@ -20,9 +20,10 @@ only for tensors that lie on the CPU. For CUDA tensors it launches its
 kernel or raises: nothing falls back from a failed build or launch. Each
 launch adds one to the kernel's counter (``flash_fwd_launches``,
 ``flash_bwd_dkv_launches``, ``flash_bwd_dq_launches``,
-``layer_norm_launches``, ``softmax_launches``) and to the count of its tile
-(:func:`tile_counts`), so a run can show that its path went through the
-kernels, and with which tiles.
+``layer_norm_launches``, ``softmax_launches``), to the count of its tile
+(:func:`tile_counts`) and to the count of its operands' dtypes
+(:func:`dtype_counts`), so a run can show that its path went through the
+kernels, with which tiles and at which dtype instances.
 
 Tiles are call parameters, as in the reference (:39-132). ``None`` resolves
 per call through the tuning tier (:mod:`mxnet_tpu_torch.tune`): with tuning
@@ -54,7 +55,8 @@ __all__ = ["flash_attention", "fused_layer_norm", "fused_softmax",
            "flash_bwd_dkv_cuda", "flash_bwd_dq_cuda", "layer_norm_cuda",
            "softmax_cuda", "flash_block_q", "flash_block_k", "FLASH_BLOCKS",
            "ROW_BLOCKS", "DEFAULT_BLOCK_ROWS", "launch_counts",
-           "reset_launch_counts", "tile_counts", "library_counts"]
+           "reset_launch_counts", "tile_counts", "dtype_counts",
+           "library_counts"]
 
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,6 +77,7 @@ flash_bwd_dq_launches = 0
 layer_norm_launches = 0
 softmax_launches = 0
 _tiles = {}       # (kernel, tile) -> launches, beside the counters above
+_dtypes = {}      # (kernel, operand dtype names) -> launches
 _library = {"flash_fwd": 0, "flash_bwd": 0, "layer_norm": 0, "softmax": 0}
 
 
@@ -93,6 +96,13 @@ def tile_counts():
     return dict(_tiles)
 
 
+def dtype_counts():
+    """Launches since the last reset by (kernel, dtypes): the operands'
+    dtype names, ``("bfloat16",)`` for the flash kernels and the softmax,
+    (x's, gamma's) for LayerNorm, e.g. ``("bfloat16", "float32")``."""
+    return dict(_dtypes)
+
+
 def library_counts():
     """Calls since the last reset that took the library lowering (the
     tuning tier's ``"xla"``), by kernel family."""
@@ -108,12 +118,15 @@ def reset_launch_counts():
     layer_norm_launches = 0
     softmax_launches = 0
     _tiles.clear()
+    _dtypes.clear()
     for fam in _library:
         _library[fam] = 0
 
 
-def _launched(name, tile):
+def _launched(name, tile, *dtypes):
     _tiles[(name, tile)] = _tiles.get((name, tile), 0) + 1
+    key = (name, tuple(str(d).replace("torch.", "") for d in dtypes))
+    _dtypes[key] = _dtypes.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +356,7 @@ def flash_fwd_cuda(q, k, v, q_seg, k_seg, scale, causal, block_q=None,
     if rc != 0:
         raise MXNetError(f"flash_fwd kernel launch failed: CUDA error {rc}")
     flash_fwd_launches += 1
-    _launched("flash_fwd", (bq, bk))
+    _launched("flash_fwd", (bq, bk), q.dtype)
     return out, lse
 
 
@@ -387,7 +400,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale,
         raise MXNetError(
             f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
     flash_bwd_dkv_launches += 1
-    _launched("flash_bwd_dkv", (bq, bk))
+    _launched("flash_bwd_dkv", (bq, bk), q.dtype)
     return dk, dv
 
 
@@ -413,7 +426,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale, causal,
         raise MXNetError(
             f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
     flash_bwd_dq_launches += 1
-    _launched("flash_bwd_dq", (bq, bk))
+    _launched("flash_bwd_dq", (bq, bk), q.dtype)
     return dq
 
 
@@ -623,7 +636,7 @@ def layer_norm_cuda(x, gamma, beta, eps, block_rows=None):
         raise MXNetError(
             f"layer_norm kernel launch failed: CUDA error {rc}")
     layer_norm_launches += 1
-    _launched("layer_norm", (br,))
+    _launched("layer_norm", (br,), x.dtype, gamma.dtype)
     return out
 
 
@@ -709,7 +722,7 @@ def softmax_cuda(x, block_rows=None):
     if rc != 0:
         raise MXNetError(f"softmax kernel launch failed: CUDA error {rc}")
     softmax_launches += 1
-    _launched("softmax", (br,))
+    _launched("softmax", (br,), x.dtype)
     return out
 
 

@@ -1,10 +1,15 @@
 """Neural-network operators of the port: plain functions on tensors.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT training
-and serving paths call. The matrix products and elementwise work stay plain
-PyTorch, as the reference leaves them to XLA; LayerNorm and masked
-attention (forward and backward) route to the hand-written kernels in
-:mod:`.cuda_kernels`.
+and serving paths call, and of the ``matmul`` of ``mxnet_tpu/ops/_core.py``.
+The matrix products and elementwise work stay plain PyTorch, as the
+reference leaves them to XLA; LayerNorm and masked attention (forward and
+backward) route to the hand-written kernels in :mod:`.cuda_kernels`.
+
+Mixed precision is cast at the op, as in the reference: each op here that
+``amp.MXU_FUNCS`` names (``fully_connected``, ``matmul``,
+``multihead_attention``, ``flash_attention``) passes its arguments through
+:func:`_amp_cast` first. The others follow the dtype that flows in.
 """
 from __future__ import annotations
 
@@ -13,26 +18,50 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import amp as _amp
 from .. import autograd as _ag
 from .. import random as _random
-from ..base import MXNetError
+from ..base import MXNetError, to_dtype
 from . import cuda_kernels as _kern
 
-__all__ = ["fully_connected", "layer_norm", "embedding", "leaky_relu",
-           "dropout", "softmax", "log_softmax", "pick", "one_hot",
-           "multihead_attention", "flash_attention"]
+__all__ = ["fully_connected", "matmul", "layer_norm", "embedding",
+           "leaky_relu", "dropout", "softmax", "log_softmax", "pick",
+           "one_hot", "multihead_attention", "flash_attention"]
 
 _NEG_INF = -1e30
 
 
+def _amp_cast(op_name, *args):
+    """``args`` as the op ``op_name`` receives them: while AMP is on and
+    ``op_name`` is in ``amp.MXU_OPS``, every float32 tensor among them cast
+    to the AMP dtype; every other argument (integer ids and lengths, bool
+    masks, other floats, None) as it is. The port's counterpart of the
+    reference's ``_amp_wrap`` and the check in ``invoke``
+    (``ops/registry.py:215-217``, :283-297)."""
+    if not (_amp.is_enabled() and op_name in _amp.MXU_OPS):
+        return args
+    tgt = to_dtype(_amp.resolve_dtype(_amp.target_dtype()))
+    return tuple(a.to(tgt) if isinstance(a, torch.Tensor) and
+                 a.dtype == torch.float32 else a for a in args)
+
+
 def fully_connected(x, weight, bias=None, flatten=True):
-    """y = x W^T (+ b); weight layout (units, in_units) (reference :31)."""
+    """y = x W^T (+ b); weight layout (units, in_units) (reference :31).
+    Under AMP the bias is cast with x and W, as in the reference."""
+    x, weight, bias = _amp_cast("fully_connected", x, weight, bias)
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     y = torch.matmul(x, weight.t())
     if bias is not None:
         y = y + bias
     return y
+
+
+def matmul(a, b):
+    """``torch.matmul`` as the registered ``matmul`` op (reference
+    ``ops/_core.py:110``, ``jnp.matmul``), cast under AMP."""
+    a, b = _amp_cast("matmul", a, b)
+    return torch.matmul(a, b)
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
@@ -139,6 +168,7 @@ def multihead_attention(q, k, v, mask=None, num_heads=1, causal=False,
     ``num_heads // num_kv_heads`` query heads (repeated before attention,
     as the reference's stopgap at :556-564).
     """
+    q, k, v, mask = _amp_cast("multihead_attention", q, k, v, mask)
     n_kv = num_heads if num_kv_heads is None else int(num_kv_heads)
     if n_kv < 1 or num_heads % n_kv:
         raise MXNetError(
@@ -183,6 +213,7 @@ def flash_attention(q, k, v, *segments, causal=False, scale=None):
     operands; rank-2/3 operands are lifted to rank 4 and the output
     restored. Optional 4th/5th inputs: (B, Tq)/(B, Tk) segment ids (one
     id given is used for both sides)."""
+    q, k, v, *segments = _amp_cast("flash_attention", q, k, v, *segments)
     ndim = q.dim()
     if ndim == 2:
         qq, kk, vv = (a[None, None] for a in (q, k, v))

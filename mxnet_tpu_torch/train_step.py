@@ -49,8 +49,20 @@ back to eager execution. The kernels' tiles are resolved while capturing
 and frozen in the graph (the flash backward's tile is resolved in its
 forward): keep tuning off, or fixed, while a compiled step trains. The
 kernels' launch counters move at capture only; ``captured_launches`` holds
-the counts of the last capture. On the CPU, as the tests run it, the same
-body runs eagerly each step.
+the counts of the last capture, ``captured_dtypes`` its launches by kernel
+and operand dtypes (``cuda_kernels.dtype_counts``). On the CPU, as the
+tests run it, the same body runs eagerly each step.
+
+Mixed precision: a program runs its body under the AMP state
+(:mod:`mxnet_tpu_torch.amp`, on or off and its dtype) of the call that
+built it, as the reference traces under the AMP state of its first call
+and does not key its cache on that state. A graph captured under
+``amp.autocast("bfloat16")`` replays its bf16 casts and the bf16 instances
+of the kernels, whatever the state of later calls; on the CPU the body runs
+under the recorded state each step. Build a new step (``compile_step``) to
+train under another state. A parameter cast to another dtype
+(``Parameter.cast``, ``amp.convert_hybrid_block``) lies at a new address,
+so the next call captures anew.
 
 Semantic fallback (reference :660-670): an optimizer without a fusable
 step or with ``multi_precision`` runs the eager loop
@@ -69,6 +81,7 @@ from __future__ import annotations
 
 import torch
 
+from . import amp as _amp
 from . import autograd
 from . import random as _random
 from .base import MXNetError, warn_once
@@ -117,11 +130,13 @@ class _Program:
         self.losses = torch.zeros(k_cap, dtype=torch.float32, device=dev)
         self.flags = torch.zeros(k_cap, dtype=torch.bool, device=dev)
         self.addresses = self._addresses(self.states)
+        self.amp_state = _amp._snapshot()
         self.graph = None
         self.captured = None
+        self.captured_dtypes = None
 
     def _addresses(self, states):
-        return [p.data_ptr() for p in self.params] + [
+        return [(p.data_ptr(), p.dtype) for p in self.params] + [
             st[k].data_ptr() for st in states for k in self.spec[1]]
 
     def current(self):
@@ -153,6 +168,10 @@ class _Program:
 
     # -- the step body: forward, loss, backward, update ---------------------
     def body(self):
+        with _amp._scoped(self.amp_state):
+            self._body()
+
+    def _body(self):
         step = self.step
         n, g = self.n, self.g
         scaler_on = step.loss_scaler is not None
@@ -231,6 +250,7 @@ class _Program:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = _ck.launch_counts()
+        before_dt = _ck.dtype_counts()
         try:
             graph.register_generator_state(_random.generator(dev))
             with torch.cuda.graph(graph):
@@ -241,6 +261,10 @@ class _Program:
                 f"failed: {e}") from e
         after = _ck.launch_counts()
         self.captured = {n: after[n] - before[n] for n in after}
+        after_dt = _ck.dtype_counts()
+        self.captured_dtypes = {
+            k: n - before_dt.get(k, 0) for k, n in after_dt.items()
+            if n != before_dt.get(k, 0)}
         self.graph = graph
 
 
@@ -277,6 +301,7 @@ class CompiledTrainStep:
         self.multi_step = None  # K steps a call (None = off)
         self.accumulate = 1     # microbatches a step
         self.captured_launches = None
+        self.captured_dtypes = None
         opt = trainer._optimizer
         if opt.fused_step is None:
             self.fallback_reason = (
@@ -442,6 +467,7 @@ class CompiledTrainStep:
             prog.run()
         if prog.captured is not None:
             self.captured_launches = prog.captured
+            self.captured_dtypes = prog.captured_dtypes
         losses = prog.losses[:k].clone()
         if scaler is not None:
             # the call's one host sync: K overflow flags

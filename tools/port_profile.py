@@ -26,11 +26,21 @@ Families:
   ``trainer.compile_step`` (one CUDA graph replay a step, after a warm step
   and the capture): wall ms a step (synchronised), device-busy ms, idle
   share and kernel launches per replay, the top kernels, and the run's
-  peak device memory.
+  peak device memory;
+- ``train_amp`` and ``train_amp_compiled``: the two training steps above
+  under ``amp.autocast("bfloat16")`` (the reference's cast at the op: bf16
+  GEMMs, bf16 flash kernels, the (B, T, 50257) logits and their loss in
+  bf16, LayerNorm on the fp32 residual stream).
+
+Every training family also sums the device time of a step by kind of
+kernel (GEMMs, the port's flash kernels, LayerNorm, dtype casts and
+copies, softmax and loss, the optimizer's elementwise work, other), so
+that a step's time can be split without reading kernel names.
 
 Run from the repository root::
 
-    python3 tools/port_profile.py [serve|train|train_compiled|all]
+    python3 tools/port_profile.py \
+        [serve|train|train_compiled|train_amp|train_amp_compiled|all]
 """
 import os
 import statistics
@@ -41,6 +51,38 @@ import numpy as onp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+
+# kinds of kernels by name (lower case), first match wins; cuBLAS names
+# its Hopper GEMMs nvjet_*
+_KINDS = (("flash attention (port)", ("flash_fwd_kernel", "flash_bwd")),
+          ("layer norm (port)", ("layer_norm_kernel",)),
+          ("GEMM", ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_",
+                    "sm80_")),
+          ("softmax and loss", ("softmax", "nll", "cross_entropy",
+                                "gather", "scatter")),
+          ("casts and copies", ("copy", "convert")),
+          ("reductions", ("reduce",)))
+
+
+def _by_kind(name, by_name, reps):
+    """Print the device ms a run of each kind of kernel in ``by_name``
+    ({kernel name: (total us, launches)} over ``reps`` runs), with the
+    three kernels of each kind that take the most."""
+    kinds = {}
+    for kname, (tot, cnt) in by_name.items():
+        low = kname.lower()
+        kind = next((k for k, keys in _KINDS
+                     if any(w in low for w in keys)), "other elementwise")
+        t, c, top = kinds.get(kind, (0.0, 0, []))
+        kinds[kind] = (t + tot, c + cnt, top + [(tot, kname)])
+    total = sum(t for t, _, _ in kinds.values()) or 1.0
+    for kind, (tot, cnt, top) in sorted(kinds.items(),
+                                        key=lambda kv: -kv[1][0]):
+        print(f"[{name}] by kind: {kind:24s} {tot / reps / 1e3:8.3f} ms "
+              f"({100 * tot / total:5.1f} %), x{cnt / reps:5.0f}")
+        for t, kname in sorted(top, reverse=True)[:3]:
+            print(f"[{name}]     {t / reps / 1e3:8.4f} ms  {kname[:90]}")
 
 
 def profile_family(name, fn, top=12):
@@ -78,6 +120,7 @@ def profile_family(name, fn, top=12):
     for kname, (tot, cnt) in rows:
         print(f"[{name}]   {tot / reps / 1e3:8.4f} ms  x{cnt / reps:5.0f}  "
               f"{kname[:100]}")
+    _by_kind(name, by_name, reps)
     # the host side: operators by their own CPU time (dispatch included)
     _host_ops(name, prof, reps, top)
     return wall, busy_us / 1e3
@@ -93,14 +136,17 @@ def _host_ops(name, prof, reps, top):
               f"x{e.count / reps:5.0f}  {e.key[:60]}")
 
 
-def profile_train(top=12):
+def profile_train(top=12, amp=False):
     """One training step of GPT-2 small, split into forward, backward and
-    optimizer."""
+    optimizer; under ``amp.autocast("bfloat16")`` with ``amp``."""
+    import contextlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import SEED, TRAIN_SHAPE, cyclic_batches, make_trainer, \
         train_weights
+    from mxnet_tpu_torch import amp as mxamp
     from mxnet_tpu_torch import autograd, params_from_mxnet_tpu
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -123,7 +169,9 @@ def profile_train(top=12):
         x, y = (torch.from_numpy(a).cuda() for a in next(batches))
         marks = [time.perf_counter()]
         with record_function("forward"):
-            with autograd.record():
+            scope = mxamp.autocast("bfloat16") if amp else \
+                contextlib.nullcontext()
+            with scope, autograd.record():
                 loss = loss_fn(model(x), y)
             torch.cuda.synchronize()
         marks.append(time.perf_counter())
@@ -158,7 +206,7 @@ def profile_train(top=12):
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in phases]
-    name = f"train b{B} t{T}"
+    name = f"train{'_amp' if amp else ''} b{B} t{T}"
     total_wall = total_busy = 0.0
     for ph in phases:
         mine = [e for e in kernels if any(a <= e.time_range.start < b
@@ -184,19 +232,23 @@ def profile_train(top=12):
                                     key=lambda kv: -kv[1][0])[:top]:
         print(f"[{name}]   {tot / reps / 1e3:8.4f} ms  x{cnt / reps:5.0f}  "
               f"{kname[:100]}")
+    _by_kind(name, by_name, reps)
     _host_ops(name, prof, reps, top)
     print(f"[{name}] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
-def profile_train_compiled(top=12):
-    """A training step of GPT-2 small through ``trainer.compile_step``."""
+def profile_train_compiled(top=12, amp=False):
+    """A training step of GPT-2 small through ``trainer.compile_step``,
+    captured under ``amp.autocast("bfloat16")`` with ``amp``."""
+    import contextlib
     import itertools
 
     import torch
 
     from chip_smoke import SEED, TRAIN_SHAPE, cyclic_batches, make_trainer, \
         train_weights
+    from mxnet_tpu_torch import amp as mxamp
     from mxnet_tpu_torch import params_from_mxnet_tpu
     from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
@@ -215,12 +267,16 @@ def profile_train_compiled(top=12):
         (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
         for x, y in cyclic_batches(onp.random.RandomState(SEED + 2),
                                    model.vocab_size, B, T, 8)])
-    wall, busy = profile_family(f"train_compiled b{B} t{T}",
-                                lambda: step(*next(batches)), top)
-    print(f"[train_compiled b{B} t{T}] {B * T / wall * 1e3:.0f} training "
+    name = f"train{'_amp' if amp else ''}_compiled b{B} t{T}"
+    # the program keeps the AMP state of its first call (the warm step and
+    # the capture inside profile_family's first call)
+    with mxamp.autocast("bfloat16") if amp else contextlib.nullcontext():
+        wall, busy = profile_family(name, lambda: step(*next(batches)), top)
+    print(f"[{name}] {B * T / wall * 1e3:.0f} training "
           f"tokens/s; captures {step._traces}; captured launches "
-          f"{step.captured_launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+          f"{step.captured_launches}, by dtype {step.captured_dtypes}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB")
 
 
 def profile_serve():
@@ -272,14 +328,16 @@ def main():
     import torch
 
     family = sys.argv[1] if len(sys.argv) > 1 else "serve"
-    if family not in ("serve", "train", "train_compiled", "all"):
-        print(f"port_profile: unknown family {family!r} (serve, train, "
-              "train_compiled, all)")
+    families = ("serve", "train", "train_compiled", "train_amp",
+                "train_amp_compiled", "all")
+    if family not in families:
+        print(f"port_profile: unknown family {family!r} {families}")
         return 2
     if not torch.cuda.is_available():
         print("port_profile: FAIL: no CUDA device visible")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     import subprocess
 
     smi = subprocess.run(
@@ -287,13 +345,19 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch "
-          f"{torch.__version__}, allow_tf32=False; nvidia-smi: {smi}")
+          f"{torch.__version__}, allow_tf32=False, "
+          f"allow_bf16_reduced_precision_reduction=False (as chip_smoke.py);"
+          f" nvidia-smi: {smi}")
     if family in ("serve", "all"):
         profile_serve()
     if family in ("train", "all"):
         profile_train()
     if family in ("train_compiled", "all"):
         profile_train_compiled()
+    if family in ("train_amp", "all"):
+        profile_train(amp=True)
+    if family in ("train_amp_compiled", "all"):
+        profile_train_compiled(amp=True)
     return 0
 
 
