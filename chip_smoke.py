@@ -54,15 +54,30 @@ Phases (any failure exits non-zero without the final line):
 3. serve   — GPT-2 small (12 x 768, 12 heads, vocab 50257, max_length
              1024, fp32, weights from a numpy seed loaded through
              ``params_from_mxnet_tpu``) served by ``DecodeEngine`` (8 slots,
-             128-token pages, prefix cache), tuning off: 8 ragged prompts of
-             16-500 tokens, 32 new tokens each, two sharing a 300-token
-             prefix so the prefix-join program runs. Checks: the launch
-             counts of the kernels against the engine's program runs, every
-             launch at the default tile, each request's last-token prefill
-             logits against the same weights on the CPU (relative max |diff|
-             <= 1e-3), and the engine's greedy tokens against
-             ``generate(use_cache=False)`` on the card up to the first near
-             tie (top-2 logit margin < 1e-3);
+             128-token pages, prefix cache), tuning off, its program table
+             captured as CUDA graphs by ``warmup()`` (43: the tick and 7
+             lengths x 3 batches of each prefill family; captures, warmup
+             seconds, the graph pool's bytes and peak memory printed): 8
+             ragged prompts of 16-500 tokens, 32 new tokens each, two
+             sharing a 300-token prefix so the prefix-join program runs.
+             Checks: each program's captured launches (12 flash forward in a
+             prefill, 25 LayerNorm in every program), the replays while
+             serving times those launches against 12 x plain prefills and
+             25 x program runs, no capture and no counter move while
+             serving, every launch at the default tile, each request's
+             last-token prefill logits against the same weights on the CPU
+             (relative max |diff| <= 1e-3), and the engine's greedy tokens
+             against ``generate(use_cache=False)`` on the card up to the
+             first near tie (top-2 logit margin < 1e-3). Then the tick and
+             the (4, 512) prefill alone: run wall against device busy and
+             the idle share, replay ms, and a replay's tokens and pools
+             bit-equal to the eager body's on the same operands; the same 8
+             requests through an engine whose programs run their bodies
+             eagerly (a private switch), whose tokens must equal the
+             captured engine's; and 64 ragged clients on 8 threads (prompts
+             of 1-500 tokens, half sharing a 128-token prefix, 1-6 new
+             tokens, K = 4, prefix cache) with no capture after warmup and
+             stats and counters that add up;
 4. train   — GPT-2 small (the same width and depth, GPT-2's N(0, 0.02)
              initialisation from a numpy seed, loaded through
              ``params_from_mxnet_tpu``) trained through
@@ -141,8 +156,9 @@ Phases (any failure exits non-zero without the final line):
 
 The lines before the last give the card's name and power limit and a JSON
 object of every kernel's numbers with its launches on each path (serve,
-train, train_compiled and train_amp (the warm step and the capture: replays
-move no counter), train_amp_converted, tune, rtc; a row counts the
+train, train_compiled and train_amp (serve: the warm call and the capture
+of each program; the compiled steps: the warm step and the capture;
+replays move no counter), train_amp_converted, tune, rtc; a row counts the
 launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16`` row); the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1172,28 +1188,188 @@ def check_default_tiles(phase):
     log(f"[{phase}] every launch used the default tile: {tiles}")
 
 
+SERVE_PROGRAMS = 43        # the tick + 2 prefill families x 7 lengths x 3
+SERVE_WANT = {"prefill": {"flash_fwd": 12, "layer_norm": 25},
+              "prefill_ext": {"flash_fwd": 0, "layer_norm": 25},
+              "decode": {"flash_fwd": 0, "layer_norm": 25}}
+RAGGED = dict(clients=64, threads=8, shared=128, longest=500, most_new=6)
+
+
+def _reserved():
+    import torch
+
+    return torch.cuda.memory_stats().get("reserved_bytes.all.current", 0)
+
+
+def warm_engine(model, tag, eager=False, **overrides):
+    """A ``DecodeEngine`` with ``SERVE_ARGS`` (and ``overrides``), warmed:
+    its whole table captured, or with ``eager`` its bodies run eagerly on
+    the card through the programs' private switch. Logs the captures, the
+    warmup seconds, the graph pool's bytes (its segments in the allocator's
+    snapshot) and the reserved device bytes after warmup less before, each
+    read after ``empty_cache``; returns (engine, {captures, warmup_s,
+    pool_bytes, reserved_bytes})."""
+    import torch
+
+    from mxnet_tpu_torch.serve.decode import DecodeEngine
+
+    eng = DecodeEngine(model, **{**SERVE_ARGS, **overrides})
+    if eager:
+        eng.programs._graphs = False
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = _reserved()
+    t = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    info = {"captures": eng.programs._captures, "warmup_s": warm_s,
+            "pool_bytes": eng.programs.pool_bytes(),
+            "reserved_bytes": _reserved() - r0}
+    log(f"[{tag}] warmup: {len(eng.programs.keys())} programs, "
+        f"{info['captures']} {'built (eager bodies)' if eager else 'captured'}"
+        f" in {warm_s:.2f} s; graph pool {info['pool_bytes'] / 2**20:.1f} "
+        f"MiB; reserved bytes after warmup less before "
+        f"{info['reserved_bytes'] / 2**20:.1f} MiB")
+    return eng, info
+
+
+def greedy_upto_tie(model, prompt, max_new):
+    """``generate(use_cache=False)``'s tokens after ``prompt`` on the card and
+    the step of its first near tie (top-2 logit margin < NEAR_TIE), or
+    ``max_new`` when there is none."""
+    import torch
+
+    want = model.generate(prompt, max_new_tokens=max_new, use_cache=False,
+                          window=len(prompt) + max_new)[len(prompt):]
+    seq = torch.tensor([prompt + want], dtype=torch.int32,
+                       device=model.device)
+    with torch.inference_mode():
+        logits = model(seq)[0, len(prompt) - 1:len(prompt) + max_new - 1]
+    top = torch.topk(logits, 2, dim=-1).values
+    margins = (top[:, 0] - top[:, 1]).tolist()
+    return want, next((j for j, m in enumerate(margins) if m < NEAR_TIE),
+                      max_new)
+
+
+def _serve_operands(progs, key, rng, vocab):
+    """Operands of the profiled runs: prefill at (4, 512) with rows of 512,
+    400, 300 and 200 valid tokens; the tick with 8 live slots at 300-500
+    cached positions; each row on its own pages."""
+    rows = progs.num_slots if key[0] == "decode" else key[1]
+    table = onp.full((rows, progs.table_width), progs.kv_pages, "int32")
+    for r in range(rows):
+        table[r, :4] = onp.arange(r * 8, r * 8 + 4)
+    if key[0] == "decode":
+        return [rng.randint(0, vocab, (rows, key[1])).astype("int32"),
+                onp.array([300, 330, 360, 390, 420, 450, 480, 500][:rows],
+                          "int32"), table]
+    return [rng.randint(0, vocab, (rows, key[2])).astype("int32"),
+            onp.array([512, 400, 300, 200][:rows], "int32"), table]
+
+
+def profile_program(eng, key, datas, tag):
+    """A program's run (operands in, replay, tokens out, synchronised)
+    beside its device time: wall ms (host clock, median of 20 runs), device
+    busy ms and kernels a run (profiler), the idle share, and the replay
+    alone by CUDA events around 50 back-to-back replays."""
+    import torch
+
+    progs, cache = eng.programs, eng._cache
+    args = datas + [cache.k, cache.v]
+
+    def run():
+        progs.run(key, args)
+
+    run()
+    walls = []
+    for _ in range(20):
+        t = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall = statistics.median(walls)
+    busy = device_total_ms(run, reps=10)
+    kernels = _kernel_names(run)
+    prog = progs._programs[key]
+    replay = time_ms(prog.replay, reps=50, rounds=3)
+    torch.cuda.synchronize()
+    idle = None if busy is None else max(0.0, 1 - busy / wall)
+    log(f"[serve] {tag} {'|'.join(map(str, key))}: run wall {wall:.3f} ms "
+        f"(median of 20), device busy {busy} ms, idle share {idle}, "
+        f"{sum(kernels.values())} device operations a run (kernels and "
+        f"copies; the host launches one graph and two copies), replay "
+        f"{replay:.3f} ms (CUDA events, 50 back to back)")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": idle,
+            "replay_ms": replay, "ops": sum(kernels.values())}
+
+
+def replay_bit_equal(eng, key, datas):
+    """One replay's tokens and pools against the eager body's on the same
+    operands and the same pools; the pools are left as they were."""
+    import torch
+
+    progs, cache = eng.programs, eng._cache
+    k0, v0 = cache.k.clone(), cache.v.clone()
+    toks, _, _ = progs.run(key, datas + [cache.k, cache.v])
+    ka, va = cache.k.clone(), cache.v.clone()
+    cache.k.copy_(k0)
+    cache.v.copy_(v0)
+    prog = progs._programs[key]
+    with torch.inference_mode():
+        prog.load(datas)
+        want = prog.body(cache.k, cache.v).cpu()
+    torch.cuda.synchronize()
+    same = (torch.equal(toks, want), torch.equal(ka, cache.k),
+            torch.equal(va, cache.v), not torch.equal(ka, k0))
+    cache.k.copy_(k0)
+    cache.v.copy_(v0)
+    log(f"[serve] {'|'.join(map(str, key))}: replay against the eager body "
+        f"on the same operands and pools: tokens equal {same[0]}, k pool "
+        f"bit-equal {same[1]}, v pool bit-equal {same[2]} (pages written: "
+        f"{same[3]})")
+    check(all(same), f"{key}: the replay differs from the eager body: "
+          f"{same}")
+
+
 def phase_serve():
     import torch
 
+    from mxnet_tpu_torch import telemetry as tm
     from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
     from mxnet_tpu_torch.ops import cuda_kernels as ck
-    from mxnet_tpu_torch.serve.decode import DecodeEngine
 
     max_new = MAX_NEW
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, arrays = serve_model()
     n_params = sum(int(a.size) for a in arrays.values())
     log(f"[serve] gpt2_small: {len(arrays)} tensors, {n_params} parameters "
         f"from numpy default_rng({SEED}) in {time.perf_counter() - t0:.1f} s")
 
-    eng = DecodeEngine(model, **SERVE_ARGS)
-    eng.warmup()
+    # the serve path: the table's warm calls and captures (the launch
+    # counters move there only), then the requests, each run a replay
+    torch.cuda.reset_peak_memory_stats()
     ck.reset_launch_counts()
+    eng, info = warm_engine(model, "serve")
+    progs = eng.programs
+    check(info["captures"] == len(progs.keys()) == SERVE_PROGRAMS,
+          f"{info['captures']} captures for {len(progs.keys())} programs, "
+          f"expected {SERVE_PROGRAMS}")
+    warm_counts = ck.launch_counts()
+    gs0 = progs.graph_stats()
+    for name, g in gs0.items():
+        want = SERVE_WANT[name.split("|")[0]]
+        got = g["captured_launches"]
+        check(all(got[k] == n for k, n in want.items()),
+              f"{name}: captured launches {got}, expected {want}")
+    log(f"[serve] captured launches a program: {SERVE_WANT} (all "
+        f"{len(gs0)} programs); warm calls and captures launched "
+        f"{warm_counts}")
     reqs, outs, serve_s, fam_ms = drive_engine(eng, model)
     counts = read_counts("serve")
     st = eng.stats()
-    eng.close()
+    gs1 = progs.graph_stats()
     peak = torch.cuda.max_memory_allocated()
 
     n_tok = sum(len(o) for o in outs)
@@ -1209,18 +1385,34 @@ def phase_serve():
         f"{st['ttft_ms_p99']:.1f} ms, TPOT p50/p99 {st['tpot_ms_p50']:.2f}/"
         f"{st['tpot_ms_p99']:.2f} ms, peak device memory "
         f"{peak / 2**20:.1f} MiB")
-    log(f"[serve] kernel launches on the path: {counts}")
 
     check(all(len(o) == max_new for o in outs), "a request came up short")
     check(kinds["prefill_ext"] >= 1 and st["prefix_hit_tokens"] > 0,
           f"the prefix-join family did not run: {kinds}, "
           f"{st['prefix_hit_tokens']} hit tokens")
-    check(counts["flash_fwd"] == 12 * kinds["prefill"],
-          f"flash_fwd launches {counts['flash_fwd']} != 12 x "
+    check(progs._captures == info["captures"],
+          f"serving captured {progs._captures - info['captures']} programs")
+    check(counts == warm_counts,
+          f"a kernel counter moved while serving: {warm_counts} -> {counts}")
+    replays = {n: gs1[n]["replays"] - gs0[n]["replays"] for n in gs1}
+    ran = {fam: sum(r for n, r in replays.items() if n.split("|")[0] == fam)
+           for fam in SERVE_WANT}
+    launched = {k: sum(r * gs1[n]["captured_launches"][k]
+                       for n, r in replays.items())
+                for k in ("flash_fwd", "layer_norm")}
+    log(f"[serve] replays while serving by family {ran}; kernels they ran "
+        f"(replays x captured launches) {launched}; counters (warm calls "
+        f"and captures only) {counts}")
+    check(ran == {"prefill": kinds["prefill"],
+                  "prefill_ext": kinds["prefill_ext"],
+                  "decode": st["ticks"]},
+          f"replays {ran} != program runs {kinds}, {st['ticks']} ticks")
+    check(launched["flash_fwd"] == 12 * kinds["prefill"],
+          f"flash_fwd replayed {launched['flash_fwd']} != 12 x "
           f"{kinds['prefill']} plain prefills")
     n_runs = st["prefills"] + st["ticks"]
-    check(counts["layer_norm"] == 25 * n_runs,
-          f"layer_norm launches {counts['layer_norm']} != 25 x {n_runs} "
+    check(launched["layer_norm"] == 25 * n_runs,
+          f"layer_norm replayed {launched['layer_norm']} != 25 x {n_runs} "
           f"program runs")
     check_default_tiles("serve")
 
@@ -1239,6 +1431,7 @@ def phase_serve():
             torch.from_numpy(valid).cuda())[0].cpu()
         on_cpu = cpu.forward_prefill(torch.from_numpy(toks),
                                      torch.from_numpy(valid))[0]
+    del cpu
     rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
     log(f"[serve] prefill last-token logits, card vs CPU: relative max "
         f"|diff| {rel:.3g} (limit {LOGIT_RTOL})")
@@ -1247,15 +1440,7 @@ def phase_serve():
     # -- greedy tokens: the engine against naive generation on the card ----
     ties = []
     for i, ((p, _), got) in enumerate(zip(reqs, outs)):
-        want = model.generate(p, max_new_tokens=max_new, use_cache=False,
-                              window=len(p) + max_new)[len(p):]
-        seq = torch.tensor([p + want], dtype=torch.int32, device="cuda")
-        with torch.inference_mode():
-            logits = model(seq)[0, len(p) - 1:len(p) + max_new - 1]
-        top = torch.topk(logits, 2, dim=-1).values
-        margins = (top[:, 0] - top[:, 1]).tolist()
-        n = next((j for j, m in enumerate(margins) if m < NEAR_TIE),
-                 max_new)
+        want, n = greedy_upto_tie(model, p, max_new)
         if n < max_new:
             ties.append((i, n))
         check(got[:n] == want[:n],
@@ -1267,8 +1452,119 @@ def phase_serve():
     # the tune phase holds its tuned engine to these tokens, each up to its
     # first near tie
     agree = [(got, dict(ties).get(i, max_new)) for i, got in enumerate(outs)]
+
+    # -- the captured programs alone, and against their eager bodies -------
+    rng = onp.random.RandomState(SEED + 4)
+    vocab = model.vocab_size
+    for key in (("decode", 1), ("prefill", 4, 512)):
+        profile_program(eng, key, _serve_operands(progs, key, rng, vocab),
+                        "captured")
+        # fresh tokens: the profiled runs left their own k/v in these pages
+        replay_bit_equal(eng, key, _serve_operands(progs, key, rng, vocab))
+    eng.close()
+    del eng, progs
+    _release()
+
+    # -- the same requests through the eager bodies on the card ------------
+    eng, _ = warm_engine(model, "serve eager", eager=True)
+    _, outs_e, serve_e, fam_e = drive_engine(eng, model)
+    ste = eng.stats()
+    eng.close()
+    del eng
+    _release()
+    log(f"[serve eager] {sum(len(o) for o in outs_e) / serve_e:.1f} tokens/s"
+        f"; " + "; ".join(f"{fam} median {statistics.median(xs):.3f} ms, max "
+                          f"{max(xs):.3f} ms" for fam, xs in fam_e.items()
+                          if xs) +
+        f"; TTFT p50/p99 {ste['ttft_ms_p50']:.1f}/{ste['ttft_ms_p99']:.1f} "
+        f"ms, TPOT p50/p99 {ste['tpot_ms_p50']:.2f}/{ste['tpot_ms_p99']:.2f}"
+        f" ms (run after the captured engine, same process)")
+    check(outs_e == outs, "the eager bodies' tokens differ from the "
+          "captured engine's")
+    log("[serve] captured engine tokens == eager-body engine tokens for all "
+        f"{len(outs)} requests")
+
+    phase_ragged_clients(model, tm)
     return counts, agree
 
+
+def phase_ragged_clients(model, tm):
+    """64 ragged clients on 8 threads against a warmed engine with K = 4 and
+    the prefix cache (the analog of the reference's
+    tests/test_decode.py:358): prompts of 1-500 tokens, half sharing a
+    128-token prefix, 1-6 new tokens each. Nothing captures after warmup
+    and the stats and counters add up."""
+    import threading
+
+    eng, _ = warm_engine(model, "serve ragged", speculate_k=4, max_queue=128)
+    n0 = eng.programs._captures
+    rng = onp.random.RandomState(SEED + 6)
+    vocab = model.vocab_size
+    shared = rng.randint(0, vocab, size=RAGGED["shared"]).tolist()
+    ps = [rng.randint(0, vocab, size=rng.randint(1, RAGGED["longest"] + 1))
+          .tolist() for _ in range(RAGGED["clients"])]
+    for i in range(0, RAGGED["clients"], 2):
+        ps[i] = shared + ps[i][:RAGGED["longest"] - RAGGED["shared"]]
+    budgets = [1 + i % RAGGED["most_new"] for i in range(RAGGED["clients"])]
+    c0 = {n: tm.counter(n).value for n in ("serve.tokens_total",
+                                           "serve.requests")}
+    per = RAGGED["clients"] // RAGGED["threads"]
+    results, errors = {}, []
+    barrier = threading.Barrier(RAGGED["threads"] + 1)
+
+    def client(cid):
+        barrier.wait()
+        try:
+            for r in range(per):
+                i = cid * per + r
+                results[i] = eng.submit(
+                    ps[i], max_new_tokens=budgets[i]).result(timeout=120)
+        except Exception as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(RAGGED["threads"])]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=120)
+    secs = time.perf_counter() - t0
+    st = eng.stats()
+    captured = eng.programs._captures - n0
+    eng.close()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"ragged clients failed: {errors[:3]}")
+    total = sum(len(results[i]) for i in range(RAGGED["clients"]))
+    log(f"[serve ragged] {RAGGED['clients']} clients on {RAGGED['threads']} "
+        f"threads, prompts 1-{RAGGED['longest']} tokens (half sharing "
+        f"{RAGGED['shared']}), K=4: {total} tokens in {secs:.2f} s, "
+        f"{st['ticks']} ticks, {st['prefills']} prefills "
+        f"{st['prefills_by_kind']}, prefix-hit tokens "
+        f"{st['prefix_hit_tokens']}, mean accepted "
+        f"{st['spec_accept_mean']:.2f}"
+        f"; captures after warmup {captured}")
+    check(captured == 0, f"{captured} captures after warmup")
+    check(st["tokens"] == total == sum(budgets),
+          f"tokens {st['tokens']} / {total} != {sum(budgets)}")
+    check(st["completed"] == RAGGED["clients"] and st["shed"] == 0,
+          f"completed {st['completed']}, shed {st['shed']}")
+    check(tm.counter("serve.tokens_total").value - c0["serve.tokens_total"]
+          == total and tm.counter("serve.requests").value
+          - c0["serve.requests"] == RAGGED["clients"],
+          "the serve counters do not add up")
+    check(st["prefix_hit_tokens"] > 0 and st["page_starved"] == 0,
+          f"prefix hits {st['prefix_hit_tokens']}, starved "
+          f"{st['page_starved']}")
+    for i in (0, 17, 40, 63):
+        want, n = greedy_upto_tie(model, ps[i], budgets[i])
+        check(results[i][:n] == want[:n],
+              f"ragged request {i} differs from generate before step {n}")
+    log("[serve ragged] stats and counters add up; requests 0, 17, 40, 63 "
+        "== generate(use_cache=False) up to their first near tie")
+    del eng
+    _release()
 
 
 
@@ -1978,6 +2274,8 @@ def phase_tune(agree):
         eng = DecodeEngine(model, **SERVE_ARGS)
         eng.warmup()
         eng.close()
+        del eng
+        _release()
         worklist = tune.missed()
         fams = sorted({kern for kern, _ in worklist})
         log(f"[tune] discovery warmup: {len(worklist)} missed keys "
@@ -2012,15 +2310,17 @@ def phase_tune(agree):
         tune.reset()
         eng = DecodeEngine(model, **SERVE_ARGS)
         m0, h0 = n("tune.cache_misses"), n("tune.cache_hits")
+        lib0 = ck.library_counts()
         eng.warmup()
         m1, meas1 = n("tune.cache_misses"), n("tune.measurements")
         log(f"[tune] fresh engine warmup after preload: "
             f"{tune.status()['entries']} entries, {n('tune.cache_hits') - h0}"
             f" hits, {m1 - m0} misses")
         check(m1 == m0, f"{m1 - m0} cache misses after the preload")
-        lib0 = ck.library_counts()
         reqs, outs, serve_s, fam_ms = drive_engine(eng, model)
         eng.close()
+        del eng
+        _release()
         lib = {f: c - lib0[f] for f, c in ck.library_counts().items()}
         check(n("tune.measurements") == meas1,
               "the serving engine measured candidates online")
@@ -2030,7 +2330,7 @@ def phase_tune(agree):
         log(f"[tune] tuned engine: {len(reqs)} requests, {n_tok} tokens in "
             f"{serve_s:.3f} s ({n_tok / serve_s:.1f} tokens/s); median ms "
             f"{ {f: round(v, 3) for f, v in med.items()} }; library-lowering"
-            f" calls while serving {lib}")
+            f" calls in the warm calls and captures {lib}")
         for i, (got, (want, upto)) in enumerate(zip(outs, agree)):
             check(got[:upto] == want[:upto],
                   f"request {i}: tuned tokens differ from the untuned "
@@ -2077,10 +2377,12 @@ def _tick_ab(model, agree):
                         tune.record("layer_norm", key,
                                     {"block_rows": ck.DEFAULT_BLOCK_ROWS})
         eng = DecodeEngine(model, **SERVE_ARGS)
-        eng.warmup()
         lib0 = ck.library_counts()["layer_norm"]
+        eng.warmup()
         _, outs, serve_s, fam_ms = drive_engine(eng, model)
         eng.close()
+        del eng
+        _release()
         for i, (got, (want, upto)) in enumerate(zip(outs, agree)):
             check(got[:upto] == want[:upto],
                   f"[tune A/B] {variant}: request {i} differs from the "
@@ -2090,7 +2392,8 @@ def _tick_ab(model, agree):
         n_tok = sum(len(o) for o in outs)
         log(f"[tune A/B] {variant}: decode tick median {tick:.3f} ms "
             f"({len(fam_ms['decode'])} ticks), prefill median {pre:.3f} ms, "
-            f"{n_tok / serve_s:.1f} tokens/s, F.layer_norm calls "
+            f"{n_tok / serve_s:.1f} tokens/s, F.layer_norm calls in the "
+            f"warm calls and captures "
             f"{ck.library_counts()['layer_norm'] - lib0}")
         return tick
 

@@ -23,11 +23,22 @@ the serving paths never drop units.
 
 Paged pools are written IN PLACE by index scatter, where the reference
 scatters through one-hot einsums and returns new pools: this saves a copy
-of the pool per program run. Writes aimed at the sentinel page id
-``num_pages`` are dropped exactly, as the reference's
-``one_hot(num_pages, num_pages)`` zero vector drops them, and reads clip
-the sentinel to page ``num_pages - 1`` as ``take(mode="clip")`` does; the
-pools end equal to the reference's.
+of the pool per program run. Every shape of the paged paths follows from
+the operands' shapes alone, and nothing there waits for the device, so a
+CUDA graph can hold them (the decode engine captures each bucket). A write
+the reference drops (a column holding the sentinel page id ``num_pages``,
+whose one-hot row is zero; a chunk past ``valid_length``; a position past
+the page view) is aimed at a clamped cell that holds what every other
+write to that cell holds: the live write's value where one lands there,
+else the cell's own content (:meth:`GPTModel._owners`). Duplicate indices
+of one scatter then carry one value, so their order does not matter, and
+the pools end equal to the reference's. Reads clip the sentinel to page
+``num_pages - 1`` as ``take(mode="clip")`` does.
+
+The prefill paths gather each row's last valid hidden state before
+``ln_f`` and the LM head (the reference computes the (B, T, V) logits and
+then picks the row by a one-hot contraction, gpt.py:329-332): the same
+values within fp32 rounding, without the (B, T, V) temporary.
 
 The tensor-parallel hooks of the reference (``_local_heads``,
 ``gpt_tp_rules``) are not ported yet.
@@ -187,12 +198,28 @@ class GPTModel(HybridBlock):
         x = self.tok_embed(tokens) + self.pos_embed(pos)
         return F.dropout(x, self._dropout, self.training)
 
-    def _last_valid(self, logits, valid_length):
-        """Logits at each row's last valid position, picked by a one-hot
-        contraction as the reference does (gpt.py:329-332)."""
-        T = logits.shape[1]
-        onehot = F.one_hot(valid_length.long() - 1, T, dtype=logits.dtype)
-        return torch.einsum("btv,bt->bv", logits, onehot)
+    def _last_valid(self, x, valid_length):
+        """LM logits (B, V) at each row's last valid position of the final
+        hidden states ``x`` (B, T, U): the row is gathered first, then
+        ``ln_f`` and the head run on B rows (the reference picks it from the
+        (B, T, V) logits by a one-hot contraction, gpt.py:329-332).
+        ``valid_length`` >= 1."""
+        rows = torch.arange(x.shape[0], device=x.device)
+        last = (valid_length.long() - 1).clamp_min(0)
+        return self._lm_logits(self.ln_f(x[rows, last]))
+
+    @staticmethod
+    def _owners(cell, live, n_cells):
+        """For writes aimed at ``cell`` (n,) int64 in [0, n_cells): the
+        index of the live write that lands on each write's cell, or -1 where
+        none does. A write that is not ``live`` writes the owner's value
+        (or, without one, the cell's own content), so every write to one
+        cell carries one value and a scatter's order cannot matter."""
+        owner = torch.full((n_cells + 1,), -1, dtype=torch.long,
+                           device=cell.device)
+        owner.scatter_(0, torch.where(live, cell, n_cells),
+                       torch.arange(cell.numel(), device=cell.device))
+        return owner[cell]
 
     # -- full-sequence forward ----------------------------------------------
     def forward(self, tokens, valid_length=None):
@@ -232,8 +259,7 @@ class GPTModel(HybridBlock):
             x, k, v = blk.forward_prefill(x, mask)
             ks.append(self._split_heads(k))
             vs.append(self._split_heads(v))
-        logits = self._lm_logits(self.ln_f(x))            # (B, T, V)
-        last = self._last_valid(logits, valid_length)
+        last = self._last_valid(x, valid_length)          # (B, V)
         return last, torch.stack(ks, dim=1), torch.stack(vs, dim=1)
 
     def forward_decode(self, tokens, positions, k_cache, v_cache):
@@ -283,13 +309,13 @@ class GPTModel(HybridBlock):
         view = view.reshape(-1, W, H, P, D).permute(0, 1, 3, 2, 4)
         return view.reshape(-1, W * P, H * D)
 
-    @staticmethod
-    def _scatter_pages(k, v, valid_length, start, page_table, k_pool,
+    @classmethod
+    def _scatter_pages(cls, k, v, valid_length, start, page_table, k_pool,
                        v_pool):
         """Write per-layer prompt k/v (B, layers, heads, T, head_dim) into
         the pools, in place, at the pages ``page_table`` maps for logical
         pages start//P + j. Chunks at or past ``valid_length`` and chunks
-        whose column holds the sentinel are dropped."""
+        whose column holds the sentinel are dropped (``_owners``)."""
         NP_, L, H, P, D = k_pool.shape
         T = k.shape[3]
         W = page_table.shape[1] - 1
@@ -298,9 +324,9 @@ class GPTModel(HybridBlock):
         if pad:
             k = torch.nn.functional.pad(k, (0, 0, 0, pad))
             v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-        # (B, L, H, J*P, D) -> (B, J, L, H, P, D) page chunks
-        k = k.reshape(-1, L, H, J, P, D).permute(0, 3, 1, 2, 4, 5)
-        v = v.reshape(-1, L, H, J, P, D).permute(0, 3, 1, 2, 4, 5)
+        # (B, L, H, J*P, D) -> (B, L, H, J, P, D): chunk (b, j) is [b, :, :, j]
+        k = k.reshape(-1, L, H, J, P, D)
+        v = v.reshape(-1, L, H, J, P, D)
         j_idx = torch.arange(J, device=k.device).reshape(1, J)
         base = (start.long() // P).reshape(-1, 1) if start is not None \
             else torch.zeros_like(valid_length, dtype=torch.long
@@ -309,10 +335,12 @@ class GPTModel(HybridBlock):
         page_id = torch.gather(page_table.long(), 1, col)      # (B, J)
         live = (j_idx * P < valid_length.long().reshape(-1, 1)) & \
             (page_id < NP_)
-        b, j = live.nonzero(as_tuple=True)   # one host sync per run
-        ids = page_id[b, j]
-        k_pool[ids] = k[b, j]
-        v_pool[ids] = v[b, j]
+        cell = page_id.clamp_max(NP_ - 1).reshape(-1)
+        w = cls._owners(cell, live.reshape(-1), NP_)
+        wb, wj = w.clamp_min(0) // J, w.clamp_min(0) % J
+        keep = (w >= 0).reshape(-1, 1, 1, 1, 1)
+        k_pool[cell] = torch.where(keep, k[wb, :, :, wj], k_pool[cell])
+        v_pool[cell] = torch.where(keep, v[wb, :, :, wj], v_pool[cell])
 
     def forward_prefill_paged(self, tokens, valid_length, page_table,
                               k_pool, v_pool):
@@ -325,22 +353,28 @@ class GPTModel(HybridBlock):
                             v_pool)
         return last, k_pool, v_pool
 
-    @staticmethod
-    def _own_rows(pos, WP):
-        """(b, t, pos[b, t]) for the positions of ``pos`` (B, T) inside a
-        WP-position page view; positions past it are dropped. Computed once
-        per program run, so the per-layer writes need no host sync."""
-        b, t = (pos < WP).nonzero(as_tuple=True)
-        return b, t, pos[b, t]
+    @classmethod
+    def _own_rows(cls, pos, WP):
+        """Routing of this run's own k/v rows (``pos`` (B, T) absolute
+        positions) into a flattened (B * WP) page view: (cell, owner) with
+        positions past the view dropped (``_owners``). Computed once per
+        program run and shared by every layer."""
+        B, T = pos.shape
+        rows = torch.arange(B, device=pos.device).reshape(-1, 1) * WP
+        cell = (rows + pos.clamp_max(WP - 1)).reshape(-1)
+        return cell, cls._owners(cell, (pos < WP).reshape(-1), B * WP)
 
     def _page_view(self, pool_layer, flat_ids, W, rows, x):
         """One layer's gathered page view with this run's own k or v ``x``
         (B, T, U) written over it at ``rows`` (the reference's one-hot
         contraction, gpt.py:503-506). The gather is a fresh copy, so the
         write goes in place."""
-        b, t, p = rows
+        cell, owner = rows
         view = self._gather_page_view(pool_layer, flat_ids, W)
-        view[b, p] = x[b, t]
+        flat = view.view(-1, view.shape[-1])
+        own = x.reshape(-1, x.shape[-1])
+        flat[cell] = torch.where((owner >= 0).reshape(-1, 1),
+                                 own[owner.clamp_min(0)], flat[cell])
         return view
 
     def forward_prefill_join(self, tokens, valid_length, start, page_table,
@@ -373,8 +407,7 @@ class GPTModel(HybridBlock):
                                          num_heads=self._num_heads,
                                          causal=False)
             x = blk._post_attention(x, attn)
-        logits = self._lm_logits(self.ln_f(x))                   # (B, T, V)
-        last = self._last_valid(logits, valid_length)
+        last = self._last_valid(x, valid_length)                 # (B, V)
         self._scatter_pages(torch.stack(ks, dim=1), torch.stack(vs, dim=1),
                             valid_length, start, page_table, k_pool, v_pool)
         return last, k_pool, v_pool
@@ -401,9 +434,13 @@ class GPTModel(HybridBlock):
         # pool write routing, shared by every layer: (page, offset) cells;
         # the sentinel page drops the write
         page_id = torch.gather(page_table.long(), 1,
-                               (q_pos // P).clamp_max(W))
-        cs, ck = (page_id < NP_).nonzero(as_tuple=True)
-        cell_page, cell_off = page_id[cs, ck], (q_pos % P)[cs, ck]
+                               (q_pos // P).clamp_max(W)).reshape(-1)
+        cell_page = page_id.clamp_max(NP_ - 1)
+        cell_off = (q_pos % P).reshape(-1)
+        owner = self._owners(cell_page * P + cell_off, page_id < NP_,
+                             NP_ * P)
+        keep = (owner >= 0).reshape(-1, 1, 1, 1)
+        owner = owner.clamp_min(0)
         rows = self._own_rows(q_pos, WP)
         nk, nv = [], []
         for i, blk in enumerate(self.blocks):
@@ -417,10 +454,12 @@ class GPTModel(HybridBlock):
                                          causal=False)
             x = blk._post_attention(x, attn)
         logits = self._lm_logits(self.ln_f(x))                    # (S, K, V)
-        knew = torch.stack(nk, dim=2)[cs, ck]          # (cells, L, H, D)
-        vnew = torch.stack(nv, dim=2)[cs, ck]
-        k_pool[cell_page, :, :, cell_off] = knew
-        v_pool[cell_page, :, :, cell_off] = vnew
+        knew = torch.stack(nk, dim=2).reshape(S * K, L, H, D)[owner]
+        vnew = torch.stack(nv, dim=2).reshape(S * K, L, H, D)[owner]
+        k_pool[cell_page, :, :, cell_off] = torch.where(
+            keep, knew, k_pool[cell_page, :, :, cell_off])
+        v_pool[cell_page, :, :, cell_off] = torch.where(
+            keep, vnew, v_pool[cell_page, :, :, cell_off])
         return logits, k_pool, v_pool
 
     # -- generation ----------------------------------------------------------

@@ -136,7 +136,8 @@ class PagedKVCache:
     pool page id. ``trash`` (= num_pages, one past the pool) marks unmapped
     columns: writes routed there are dropped and reads clip to a real page
     whose positions the kv mask never admits. Column W is permanently
-    trash.
+    trash. No page is allocated for it: ``nbytes`` (the engine's
+    ``stats()["cache_bytes"]``) is what the two pools hold.
     """
 
     def __init__(self, shape, dtype="float32", *, num_slots, max_len,

@@ -11,20 +11,38 @@ shared pool of pages on the device; ``submit`` is thread-safe and returns a
 before it reaches a slot, is shed with :class:`ShedError`; a request whose
 deadline expires mid-generation finishes with ``expired=True``.
 
-A scheduler crash never hangs a client: every live, pending and queued
-stream finishes with :class:`EngineDeadError` carrying the cause, and later
-``submit`` raises it. (The reference first retries a failed program run;
-the port does not: a CUDA error is sticky, and the programs update the
-pools in place.)
+Each program run goes through the reference's retry policy: a failure
+retries with capped exponential backoff (``MXTPU_SERVE_RETRIES`` /
+``MXTPU_SERVE_RETRY_BACKOFF_MS`` / ``MXTPU_SERVE_RETRY_MAX_MS``;
+``serve.retries`` counts them). A run is safe to repeat: its writes are a
+function of its operands and of pool cells it does not write. A
+``torch.cuda.OutOfMemoryError`` is not retried. A failure that survives
+the retries is a scheduler crash, which never hangs a client: every live,
+pending and queued stream finishes with :class:`EngineDeadError` carrying
+the cause, ``healthy`` turns false, ``serve.scheduler_crashes`` counts it
+and later ``submit`` raises. ``drain()`` finishes accepted work while new
+submissions shed; ``resume()`` reopens the gate. Chaos points:
+``decode.prefill``, ``decode.tick`` (:mod:`mxnet_tpu_torch.testing.chaos`).
+Counters and gauges (``serve.*``, ``mem.kv_cache_bytes``) move in the
+port's telemetry registry under the reference's names.
+
+On the card every program bucket is a CUDA graph (:mod:`.programs`):
+``warmup()`` captures the whole table, so serving captures nothing, and
+``warmup(manifest_path)`` also writes the warmup manifest.
+``DecodeEngine(..., manifest=path)`` adopts a manifest's geometry and warms
+at construction. ``cache_dir`` is recorded in the manifest and points at
+nothing else: a CUDA graph does not persist across processes.
 
 The engine runs on the GPU unless ``device="cpu"`` is passed; the model's
-parameters must already live on that device. Not ported yet: ``cache_dir``,
-``manifest``, ``programs`` and ``tp`` (later slices; they raise when
-given), ``drain``/``resume``, and the telemetry layer (exporter, watchdog,
-stall heartbeats); ``stats()`` keeps its own TTFT/TPOT histograms.
+parameters must already live on that device. Not ported yet: ``programs``
+(serving from an export needs the graph layer) and ``tp`` (they raise when
+given), and the telemetry layer beyond the registry (exporter, watchdog,
+stall heartbeats, request traces); ``stats()`` keeps its own TTFT/TPOT
+histograms.
 """
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
@@ -34,12 +52,14 @@ from collections import deque
 import numpy as onp
 import torch
 
+from ... import telemetry as _tm
 from ...base import MXNetError
 from ...context import resolve_device
+from ...testing import chaos
 from ..bucketing import pick_bucket
 from .cache import PagedKVCache
 from .prefix import RadixPrefixCache
-from .programs import DecodePrograms
+from .programs import DecodePrograms, _check_manifest, load_decode_manifest
 from .spec import accept_longest_prefix, make_draft
 
 __all__ = ["DecodeEngine", "DecodeStream", "ShedError", "EngineDeadError",
@@ -180,6 +200,13 @@ class DecodeEngine:
     (``MXTPU_DECODE_MAX_WAIT_US``, 2000), ``deadline_ms``
     (``MXTPU_DECODE_DEADLINE_MS``, 0 = none), ``max_queue``. ``device``:
     where the engine runs; ``None`` means the GPU.
+
+    ``cache_dir``: recorded in the warmup manifest (``False`` or None
+    records none); a CUDA graph does not persist, so nothing is read from
+    or written to it. ``manifest``: a warmup manifest (path or dict) from
+    ``warmup(manifest_path)``; its geometry (slots, lengths, batch, pages,
+    speculation, prefix cache) overrides the arguments, and the engine
+    warms at construction.
     """
 
     def __init__(self, model=None, *, num_slots=None, max_len=None,
@@ -188,12 +215,30 @@ class DecodeEngine:
                  prefix_cache=None, max_wait_us=None, deadline_ms=None,
                  max_queue=None, cache_dir=None, manifest=None,
                  programs=None, tp=None, device=None):
-        for name, val in (("cache_dir", cache_dir), ("manifest", manifest),
-                          ("programs", programs), ("tp", tp)):
-            if val is not None and val is not False:
-                raise MXNetError(
-                    f"DecodeEngine({name}=...) comes with a later slice of "
-                    "the PyTorch/CUDA port")
+        if programs is not None:
+            raise MXNetError(
+                "DecodeEngine(programs=...) comes with a later slice of the "
+                "PyTorch/CUDA port: programs from an export need the graph "
+                "layer")
+        if tp is not None and int(tp) != 1:
+            raise MXNetError(
+                f"DecodeEngine(tp={tp}) comes with a later slice of the "
+                "PyTorch/CUDA port (tensor-parallel serving)")
+        self.cache_dir = None if cache_dir in (None, False) \
+            else str(cache_dir)
+        manifest_dict = None
+        if manifest is not None:
+            manifest_dict = load_decode_manifest(manifest) \
+                if isinstance(manifest, str) \
+                else _check_manifest(dict(manifest), "the manifest= dict")
+            num_slots = int(manifest_dict["num_slots"])
+            max_len = int(manifest_dict["max_len"])
+            max_prompt_len = int(manifest_dict["max_prompt_len"])
+            prefill_batch = int(manifest_dict["prefill_batch"])
+            page_tokens = int(manifest_dict["page_tokens"])
+            kv_pages = int(manifest_dict["kv_pages"])
+            speculate_k = int(manifest_dict["speculate_k"])
+            prefix_cache = bool(manifest_dict["prefix_cache"])
         self.device = resolve_device(device)
         if model is None:
             raise MXNetError("DecodeEngine needs a model")
@@ -257,6 +302,12 @@ class DecodeEngine:
         self._worker_lock = threading.Lock()
         self._closed = False
         self._dead = None        # scheduler crash exception, once fatal
+        self._draining = False   # drain(): shed new submits, finish live
+
+        # transient program-run failures retry before the crash path
+        self._retries = _env_int("MXTPU_SERVE_RETRIES", 2)
+        self._retry_backoff_ms = _env_int("MXTPU_SERVE_RETRY_BACKOFF_MS", 10)
+        self._retry_max_ms = _env_int("MXTPU_SERVE_RETRY_MAX_MS", 1000)
 
         # -- accounting (these ARE the serving stats) -----------------------
         self._stats_lock = threading.Lock()
@@ -275,14 +326,33 @@ class DecodeEngine:
         self._ttft_ms = Histogram()
         self._tpot_ms = Histogram()
         self._spec_accept = Histogram()
+        # the registry's metrics, resolved once (the hot sites call inc/set)
+        reg = _tm.REGISTRY
+        self._m = {n: reg.counter(f"serve.{n}") for n in (
+            "requests", "tokens_total", "shed_total", "retries",
+            "scheduler_crashes", "prefix_hit_tokens")}
+        self._g_slots = reg.gauge("serve.slots_live")
+        self._g_kv_bytes = reg.gauge("mem.kv_cache_bytes")
+        self._g_pages = reg.gauge("serve.kv_pages_live")
+
+        if manifest_dict is not None:
+            self.warmup()
 
     # ------------------------------------------------------------- warmup
-    def warmup(self):
-        """Build every program bucket (and the CUDA kernels on a GPU) and
-        run each once against the pools with writes routed to the sentinel
-        page, so serving pays no first-call cost. Call before serving."""
-        with torch.inference_mode():
-            self.programs.warmup(self._cache.k, self._cache.v)
+    def warmup(self, manifest_path=None):
+        """Build every program bucket (and the CUDA kernels on a GPU):
+        on the card, capture each into its CUDA graph and replay it once,
+        with page tables that hold only the sentinel, so nothing is written
+        and serving captures nothing. Returns the warmup manifest, also
+        written (atomically) to ``manifest_path`` when given."""
+        self.programs.warmup(self._cache.k, self._cache.v)
+        manifest = self.programs.manifest_dict(cache_dir=self.cache_dir)
+        if manifest_path:
+            tmp = manifest_path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(manifest, fh, indent=1)
+            os.replace(tmp, manifest_path)
+        return manifest
 
     # ------------------------------------------------------------- submit
     def submit(self, prompt, max_new_tokens=20, deadline_ms=None,
@@ -300,6 +370,14 @@ class DecodeEngine:
             ) from self._dead
         if self._closed:
             raise MXNetError("DecodeEngine is closed")
+        if self._draining:
+            with self._stats_lock:
+                self._n_requests += 1
+            self._m["requests"].inc()
+            self._shed_one()
+            raise ShedError(
+                "DecodeEngine is draining: new work is shed until "
+                "resume()")
         toks = self._normalize_prompt(prompt)
         if max_new_tokens < 1:
             raise MXNetError(
@@ -309,6 +387,7 @@ class DecodeEngine:
             over = self._pending_count >= self.max_queue
             if not over:
                 self._pending_count += 1
+        self._m["requests"].inc()
         if over:
             self._shed_one()
             raise ShedError(
@@ -377,9 +456,32 @@ class DecodeEngine:
         real cause."""
         self._dead = exc
         self._closed = True
+        self._m["scheduler_crashes"].inc()
         err = EngineDeadError(f"DecodeEngine scheduler crashed: {exc!r}")
         err.__cause__ = exc
         self._drain(pending, err=err)
+
+    def _run_retry(self, key, args, point):
+        """One program run behind the transient-failure retry policy: up to
+        ``MXTPU_SERVE_RETRIES`` retries with exponential backoff capped at
+        ``MXTPU_SERVE_RETRY_MAX_MS``; ``point`` is also a chaos injection
+        site. A device out-of-memory error is not transient and is not
+        retried; exhaustion re-raises into the crash path."""
+        attempt = 0
+        while True:
+            try:
+                chaos.fault_point(point)
+                return self.programs.run(key, args)
+            except torch.cuda.OutOfMemoryError:
+                raise
+            except Exception:   # noqa: BLE001 — bounded retries
+                if attempt >= self._retries:
+                    raise
+                attempt += 1
+                self._m["retries"].inc()
+                delay_ms = min(self._retry_backoff_ms * (1 << (attempt - 1)),
+                               self._retry_max_ms)
+                time.sleep(delay_ms * 1e-3)
 
     def _gather(self, pending):
         """Pull new requests off the queue. Blocks when fully idle;
@@ -506,9 +608,6 @@ class DecodeEngine:
                     pending.extendleft(s for s, _ in reversed(sub))
                     raise
 
-    def _put(self, arr):
-        return torch.from_numpy(arr).to(self.device)
-
     def _prefill(self, sub):
         cache = self._cache
         P = self.page_tokens
@@ -538,11 +637,9 @@ class DecodeEngine:
         kind = "prefill_ext" if ext else "prefill"
         key = (kind, B, T)
         self.programs.ensure(kind, batch=B, length=T)
-        args = [self._put(tokens), self._put(valid)]
-        if ext:
-            args.append(self._put(start))
-        args += [self._put(table), cache.k, cache.v]
-        outs = self.programs.run(key, args)
+        args = [tokens, valid] + ([start] if ext else []) + \
+            [table, cache.k, cache.v]
+        outs = self._run_retry(key, args, point="decode.prefill")
         cache.rebind(outs[1], outs[2])
         first = outs[0].cpu().numpy()   # device sync: the TTFT tokens
         with self._stats_lock:
@@ -556,6 +653,7 @@ class DecodeEngine:
             if meta["start"]:
                 with self._stats_lock:
                     self._n_prefix_hit_tokens += meta["start"]
+                self._m["prefix_hit_tokens"].inc(meta["start"])
             if self._prefix is not None:
                 # publish this prompt's full pages for future sharers;
                 # adopted pages change owner (the tree frees them, not us)
@@ -575,6 +673,7 @@ class DecodeEngine:
             self._emit_tokens(stream, [tok])
             if len(stream.tokens) >= stream.max_new_tokens:
                 self._retire(sid)
+        self._set_slot_gauge()
 
     def _tick(self):
         cache = self._cache
@@ -610,9 +709,8 @@ class DecodeEngine:
                 tokens[sid, 1:] = d
         key = ("decode", K)
         self.programs.ensure("decode")
-        outs = self.programs.run(key, [
-            self._put(tokens), self._put(cache.lengths),
-            self._put(cache.table), cache.k, cache.v])
+        outs = self._run_retry(key, [tokens, cache.lengths, cache.table,
+                                     cache.k, cache.v], point="decode.tick")
         cache.rebind(outs[1], outs[2])
         rows = outs[0].cpu().numpy()   # device sync: this tick's tokens
         occ = cache.occupancy()
@@ -663,6 +761,7 @@ class DecodeEngine:
         stream._t_last = now
         with self._stats_lock:
             self._n_tokens += n
+        self._m["tokens_total"].inc(n)
         for tok in toks:
             stream._emit(tok)
 
@@ -684,12 +783,21 @@ class DecodeEngine:
             self._n_completed += 1
             if expired:
                 self._n_evicted += 1
+        self._set_slot_gauge()
 
     def _shed_one(self, admitted=False):
         with self._stats_lock:
             self._n_shed += 1
             if admitted:
                 self._pending_count -= 1
+        self._m["shed_total"].inc()
+
+    def _set_slot_gauge(self):
+        self._g_slots.set(len(self._slot_req))
+        # KV residency: the pool's bytes are static per engine; pages_live
+        # tracks the tokens resident in it
+        self._g_kv_bytes.set(self._cache.nbytes)
+        self._g_pages.set(self._cache.pages_live())
 
     def _drain(self, pending, err=None):
         if err is None:
@@ -749,14 +857,46 @@ class DecodeEngine:
         out["prefix_cache"] = self._prefix.stats() \
             if self._prefix is not None else None
         out["dead"] = self._dead is not None
+        out["draining"] = self._draining
         out["programs"] = sorted(
             "|".join(str(k) for k in key)
             for key in self.programs._programs)
         return out
 
+    # -------------------------------------------------------------- health
+    def _health(self):
+        if self._dead is not None:
+            return False, f"scheduler crashed: {self._dead!r}"
+        return True, {"slots_live": len(self._slot_req),
+                      "draining": self._draining}
+
     @property
     def healthy(self):
         return self._dead is None
+
+    # ---------------------------------------------------------- drain/resume
+    def drain(self, timeout=None):
+        """Shed new submissions (``ShedError``) while already-accepted work
+        — live slots and queued requests not yet in a slot — runs to
+        completion. Blocks until idle (or ``timeout`` seconds); returns True
+        when fully drained. ``resume()`` reopens the gate."""
+        self._draining = True
+        deadline = None if timeout is None \
+            else time.perf_counter() + float(timeout)
+        while True:
+            with self._stats_lock:
+                pending = self._pending_count
+            if not self._slot_req and pending <= 0:
+                return True
+            if self._dead is not None or self._closed:
+                return not self._slot_req
+            if deadline is not None and time.perf_counter() > deadline:
+                return False
+            time.sleep(0.002)
+
+    def resume(self):
+        """Accept submissions again after :meth:`drain`."""
+        self._draining = False
 
     # ------------------------------------------------------------ lifecycle
     def close(self):

@@ -244,9 +244,11 @@ def test_engine_truncation_validation_and_streaming(twins, engines):
 
 def test_engine_refuses_later_slices_and_missing_gpu(twins):
     _, tnet = twins
-    for kw in ({"cache_dir": "/nonexistent"}, {"manifest": {}}, {"tp": 2}):
+    for kw in ({"programs": object()}, {"tp": 2}):
         with pytest.raises(MXNetError, match="later slice"):
             DecodeEngine(tnet, device="cpu", **kw)
+    with pytest.raises(MXNetError, match="decode manifest"):
+        DecodeEngine(tnet, device="cpu", manifest={})
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="GPU is required"):
             DecodeEngine(tnet)
@@ -308,7 +310,7 @@ def test_engine_crash_fails_streams_with_the_cause(twins):
 # -- the package stands alone ------------------------------------------------
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.serve.decode, "
-            "mxnet_tpu_torch.gluon.model_zoo\n"
+            "mxnet_tpu_torch.gluon.model_zoo, mxnet_tpu_torch.testing.chaos\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.'))\n"

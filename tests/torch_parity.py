@@ -70,7 +70,8 @@ def top2_margins(tnet, prompt, tokens):
     ``prompt``, from the port's full forward."""
     seq = list(prompt) + list(tokens)
     with torch.no_grad():
-        logits = tnet(torch.tensor([seq], dtype=torch.int32))[0]
+        logits = tnet(torch.tensor([seq], dtype=torch.int32,
+                                   device=tnet.device))[0]
     steps = logits[len(prompt) - 1:len(seq) - 1]
     top = torch.topk(steps, 2, dim=-1).values
     return (top[:, 0] - top[:, 1]).tolist()

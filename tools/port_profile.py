@@ -12,10 +12,16 @@ Builds GPT-2 small (fp32, random weights from numpy seed 0, as
 
 Families:
 
-- ``serve`` (the default): a ``DecodeEngine`` (8 slots, 1024 positions,
-  128-token pages) runs its program families directly on fixed operands:
-  ``prefill`` at the largest bucket (4 x 512, rows of 512, 400, 300 and 200
-  valid tokens) and ``decode`` (8 live slots at 300-500 cached positions);
+- ``serve`` (the default): a warmed ``DecodeEngine`` (8 slots, 1024
+  positions, 128-token pages; every bucket captured as a CUDA graph) runs
+  two of its programs directly on fixed host operands, as the engine does
+  (operands staged in, one replay, tokens out): ``prefill`` at the largest
+  bucket (4 x 512, rows of 512, 400, 300 and 200 valid tokens) and
+  ``decode`` (8 live slots at 300-500 cached positions); wall, device busy,
+  idle share and device operations (kernels and copies) a run, the
+  program's captured launches and the graph pool's bytes;
+- ``serve_eager``: the same runs with the family bodies eager on the card
+  (the programs' private switch), for comparison in one call;
 - ``train``: one training step as ``chip_smoke.py``'s train phase runs it
   (B = 4, T = 1024, dropout 0.1, AdamW with its schedule through
   ``gluon.Trainer`` on the cyclic task), split into its forward, backward
@@ -40,7 +46,8 @@ that a step's time can be split without reading kernel names.
 Run from the repository root::
 
     python3 tools/port_profile.py \
-        [serve|train|train_compiled|train_amp|train_amp_compiled|all]
+        [serve|serve_eager|train|train_compiled|train_amp|
+         train_amp_compiled|all]
 """
 import os
 import statistics
@@ -279,7 +286,7 @@ def profile_train_compiled(top=12, amp=False):
           f"MiB")
 
 
-def profile_serve():
+def profile_serve(eager=False):
     import torch
 
     from chip_smoke import numpy_weights
@@ -287,14 +294,26 @@ def profile_serve():
     from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
     from mxnet_tpu_torch.serve.decode import DecodeEngine
 
+    tag = "eager" if eager else "captured"
     model = gpt2_small(dropout=0.0)
     shapes = {n: tuple(p.shape) for n, p in model.collect_params().items()}
     model.load_dict(params_from_mxnet_tpu(numpy_weights(shapes, 0), model))
     eng = DecodeEngine(model, num_slots=8, max_len=1024, max_prompt_len=512,
                        prefill_batch=4, page_tokens=128, prefix_cache=True)
-    eng.warmup()
     progs, cache = eng.programs, eng._cache
-    dev = torch.device("cuda")
+    progs._graphs = not eager
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    t = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    print(f"[serve {tag}] warmup {warm_s:.2f} s, {progs._captures} "
+          f"programs ready; graph pool "
+          f"{(torch.cuda.memory_reserved() - reserved0) / 2**20:.1f} MiB "
+          f"(reserved bytes after warmup less before)")
     rng = onp.random.RandomState(1)
     W1 = progs.table_width
 
@@ -302,25 +321,25 @@ def profile_serve():
         t = onp.full((rows, W1), progs.kv_pages, "int32")
         for r in range(rows):
             t[r, :pages_each] = onp.arange(r * 8, r * 8 + pages_each)
-        return torch.from_numpy(t).to(dev)
+        return t
 
-    toks = torch.from_numpy(rng.randint(0, 50257, (4, 512)).astype(
-        "int32")).to(dev)
-    valid = torch.tensor([512, 400, 300, 200], dtype=torch.int32,
-                         device=dev)
-    ptab = table(4, 4)
-    progs.ensure("prefill", batch=4, length=512)
-    with torch.inference_mode():
-        profile_family("prefill b4 t512", lambda: progs.run(
-            ("prefill", 4, 512), [toks, valid, ptab, cache.k, cache.v]))
-        dtoks = torch.from_numpy(rng.randint(0, 50257, (8, 1)).astype(
-            "int32")).to(dev)
-        pos = torch.tensor([300, 330, 360, 390, 420, 450, 480, 500],
-                           dtype=torch.int32, device=dev)
-        dtab = table(8, 4)
-        progs.ensure("decode")
-        profile_family("decode s8 k1", lambda: progs.run(
-            ("decode", 1), [dtoks, pos, dtab, cache.k, cache.v]))
+    pre = [rng.randint(0, 50257, (4, 512)).astype("int32"),
+           onp.array([512, 400, 300, 200], "int32"), table(4, 4),
+           cache.k, cache.v]
+    dec = [rng.randint(0, 50257, (8, 1)).astype("int32"),
+           onp.array([300, 330, 360, 390, 420, 450, 480, 500], "int32"),
+           table(8, 4), cache.k, cache.v]
+    stats = progs.graph_stats()
+    for key, datas, name in ((("prefill", 4, 512), pre, "prefill b4 t512"),
+                             (("decode", 1), dec, "decode s8 k1")):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        profile_family(f"{name} ({tag})",
+                       lambda key=key, datas=datas: progs.run(key, datas))
+        print(f"[{name} ({tag})] captured launches "
+              f"{stats['|'.join(map(str, key))]['captured_launches']}; peak "
+              f"device memory above the resident "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
     eng.close()
 
 
@@ -328,8 +347,8 @@ def main():
     import torch
 
     family = sys.argv[1] if len(sys.argv) > 1 else "serve"
-    families = ("serve", "train", "train_compiled", "train_amp",
-                "train_amp_compiled", "all")
+    families = ("serve", "serve_eager", "train", "train_compiled",
+                "train_amp", "train_amp_compiled", "all")
     if family not in families:
         print(f"port_profile: unknown family {family!r} {families}")
         return 2
@@ -350,6 +369,8 @@ def main():
           f" nvidia-smi: {smi}")
     if family in ("serve", "all"):
         profile_serve()
+    if family in ("serve_eager", "all"):
+        profile_serve(eager=True)
     if family in ("train", "all"):
         profile_train()
     if family in ("train_compiled", "all"):
