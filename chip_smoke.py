@@ -131,6 +131,31 @@ Phases (any failure exits non-zero without the final line):
              training tokens/s and peak memory beside the card's name and
              power limit. bf16 GEMMs sum in fp32
              (``allow_bf16_reduced_precision_reduction`` off, as the MXU);
+4d. nd    — the NDArray layer (``mx.np``, ``mx.npx``, the op registry)
+             on the card: (i) GPT-2 small from phase 4's weights and
+             batches at B=4, T=1024 (the last row right-padded by 128),
+             fp32, dropout 0, AdamW: 3 steps from NDArrays
+             (``mx.np.array(..., ctx=mx.gpu())``, ``autograd.record``,
+             ``loss.backward()``, ``trainer.step(B)``) and 3 tensor-path
+             steps in the same process, whose per-sample losses and step-1
+             gradients of every parameter must be bitwise equal or within
+             1e-6 of the largest entry (which case held is printed), with
+             12 flash forward, 12 dK/dV, 12 dQ and 25 LayerNorm launches in
+             each NDArray step as in each tensor step; one AMP (bf16) step
+             each way whose losses are bitwise equal; (ii)
+             ``npx.multihead_attention`` at (4, 1024, 768), 12 heads,
+             causal, and with a right-padding mask routed to segment ids,
+             under ``record()`` with ``backward()``: output and q/k/v
+             gradients within 1e-4 of the plain version, one launch of each
+             flash kernel; ``npx.layer_norm`` at (4096, 768) within 1e-5;
+             ``npx.pick`` / ``npx.embedding`` at indices -17, -16, -1, 15,
+             16 of 16 give NaN where the reference's rule does and a later
+             CUDA op still runs; (iii) host µs a call of ``mx.np.add``
+             (``invoke``) beside ``torch.add`` on (1,) operands (median of
+             100 blocks of 100 calls, A B B A), and the eager step's wall
+             through the NDArray door (B) against the tensor path (A),
+             dropout 0.1, medians of steps 3-12, A B B A, beside the
+             card's name and power limit; the phase's seconds;
 5. tune    — the tuning workflow at GPT-2 small's width with
              ``MXTPU_TUNE=1`` and a temporary cache file: warm phase 3's
              engine (same weights and arguments) with an empty cache, read
@@ -156,7 +181,7 @@ Phases (any failure exits non-zero without the final line):
 
 The lines before the last give the card's name and power limit and a JSON
 object of every kernel's numbers with its launches on each path (serve,
-train, train_compiled and train_amp (serve: the warm call and the capture
+train, train_compiled, train_amp and nd (serve: the warm call and the capture
 of each program; the compiled steps: the warm step and the capture;
 replays move no counter), train_amp_converted, tune, rtc; a row counts the
 launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16`` row); the
@@ -1669,7 +1694,8 @@ def phase_train(smi_line):
     trainer = make_trainer(model)
     losses, step_ms, per_step = [], [], []
     ck.reset_launch_counts()
-    for x, y in cyclic_batches(rng, model.vocab_size, B, T, TRAIN_STEPS):
+    batches = list(cyclic_batches(rng, model.vocab_size, B, T, TRAIN_STEPS))
+    for x, y in batches:
         before = ck.launch_counts()
         t0 = time.perf_counter()
         with autograd.record():
@@ -1701,7 +1727,7 @@ def phase_train(smi_line):
     bad = [(i, ps) for i, ps in enumerate(per_step) if ps != TRAIN_WANT]
     check(not bad, f"launches per step: step {bad[:1]} != {TRAIN_WANT}")
     check_default_tiles("train")
-    return counts
+    return counts, arrays, batches
 
 
 # ---------------------------------------------------------------------------
@@ -2247,6 +2273,290 @@ def phase_train_amp(smi_line, fp32_run):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: GPT-2 small from NDArrays, the npx kernel ops, dispatch cost
+# ---------------------------------------------------------------------------
+ND_STEPS = 3
+ND_RTOL = 1e-6             # NDArray door vs tensor path, where not bitwise
+ND_TIMED_STEPS = 12        # eager door/tensor timing runs, A B B A
+ND_PAD = 128               # the last row of each batch right-padded by this
+
+
+def _mha_plain(q, k, v, heads, causal, valid):
+    """Multi-head attention over (B, T, heads * D) tensors by the flash
+    kernels' plain version (``attention_plain``), differentiable by torch;
+    ``valid`` (B,) right-pads through segment ids as the op does."""
+    import math
+
+    import torch
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, T, E = q.shape
+    D = E // heads
+
+    def split(t):
+        return t.reshape(B, T, heads, D).transpose(1, 2)
+
+    q_seg = k_seg = None
+    if valid is not None:
+        k_seg = (torch.arange(T, device=q.device)[None] <
+                 valid[:, None]).to(torch.int32)
+        q_seg = torch.ones_like(k_seg)
+    out, _ = ck.attention_plain(split(q), split(k), split(v),
+                                1.0 / math.sqrt(D), causal, q_seg, k_seg)
+    return out.transpose(1, 2).reshape(B, T, E)
+
+
+def _oor_expect(table, idx, axis_rows):
+    """The reference's out-of-range rule on the host: an index in [-n, 0)
+    wraps, one outside [-n, n) gives NaN."""
+    n = table.shape[0] if axis_rows else table.shape[1]
+    out = []
+    for r, i in enumerate(idx):
+        j = i + n if -n <= i < 0 else i
+        ok = 0 <= j < n
+        if axis_rows:
+            out.append(table[j] if ok else onp.full(table.shape[1], onp.nan))
+        else:
+            out.append(table[r, j] if ok else onp.nan)
+    return onp.array(out, dtype="float32")
+
+
+def phase_nd(smi_line, arrays, batches):
+    """The NDArray layer on the card: (i) GPT-2 small trained 3 steps from
+    NDArrays (``mx.np.array(..., ctx=mx.gpu())``, ``autograd.record``,
+    ``loss.backward()``, ``trainer.step``) against 3 tensor-path steps from
+    phase 4's weights and batches, the kernels' launches a step, and one
+    AMP step each way; (ii) ``npx.multihead_attention`` (causal, and with a
+    right-padding mask routed to segment ids, backward included),
+    ``npx.layer_norm``, and ``npx.pick`` / ``npx.embedding`` out of range;
+    (iii) host µs a dispatch of ``mx.np.add`` beside ``torch.add``, and the
+    eager step's wall through the door against the tensor path, A B B A.
+    Returns the launch counts of the NDArray steps."""
+    import contextlib
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch import np as mxnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    B, T = TRAIN_SHAPE
+    loss_fn = SoftmaxCrossEntropyLoss()
+    valid = onp.full((B,), T, "int32")
+    valid[-1] = T - ND_PAD
+
+    def run(door, steps, dropout=0.0, amp_on=False, counted=False):
+        """``steps`` eager AdamW steps of GPT-2 small from phase 4's weights
+        on phase 4's batches: from NDArrays (``door``) or tensors. Returns
+        the per-sample losses of each step, step 1's gradients, the
+        launches of each step and each step's wall ms."""
+        _release()
+        model, _ = _train_model(arrays, dropout)
+        trainer = make_trainer(model)
+        losses, grads, per_step, ms = [], None, [], []
+        if counted:
+            ck.reset_launch_counts()
+        scope = amp.autocast("bfloat16") if amp_on else \
+            contextlib.nullcontext()
+        for i, (x, y) in enumerate(batches[:steps]):
+            before = ck.launch_counts()
+            t0 = time.perf_counter()
+            if door:
+                xs, ys, vl = (mxnp.array(a, ctx=mx.gpu())
+                              for a in (x, y, valid))
+            else:
+                xs, ys, vl = (torch.from_numpy(a).to(DEV)
+                              for a in (x, y, valid))
+            with scope:
+                with autograd.record():
+                    loss = loss_fn(model(xs, vl), ys)
+                if door:
+                    loss.backward()
+                else:
+                    autograd.backward(loss)
+            if i == 0:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in model.collect_params().items()}
+            trainer.step(B)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = ck.launch_counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+            lt = loss._data if door else loss
+            losses.append(lt.detach().cpu())
+        del model, trainer, loss
+        _release()
+        return losses, grads, per_step, ms
+
+    # -- (i) GPT-2 small from NDArrays against the tensor path ---------------
+    nd_losses, nd_grads, nd_steps, _ = run(True, ND_STEPS, counted=True)
+    counts = read_counts("nd")
+    t_losses, t_grads, t_steps, _ = run(False, ND_STEPS)
+    check(all(bool(torch.isfinite(v).all()) for v in nd_losses),
+          "an NDArray-path loss is not finite")
+    loss_bitwise = all(torch.equal(a, b) for a, b in zip(nd_losses,
+                                                         t_losses))
+    grad_bitwise = all(torch.equal(nd_grads[n], t_grads[n])
+                       for n in t_grads)
+    worst, worst_name = 0.0, None
+    for n, want in t_grads.items():
+        rel = float((nd_grads[n] - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, n
+    loss_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(nd_losses, t_losses))
+    log(f"[nd] (i) gpt2_small B={B} T={T} (last row right-padded to "
+        f"{T - ND_PAD}), fp32, dropout 0, AdamW: {ND_STEPS} steps from "
+        f"NDArrays (mx.np.array(..., ctx=mx.gpu()), autograd.record, "
+        f"loss.backward(), trainer.step) against {ND_STEPS} tensor-path "
+        f"steps from the same weights and batches: mean losses "
+        f"{[round(float(v.mean()), 6) for v in nd_losses]} vs "
+        f"{[round(float(v.mean()), 6) for v in t_losses]}; losses "
+        f"{'bitwise equal' if loss_bitwise else f'max rel diff {loss_rel:.3g}'}"
+        f"; step-1 gradients of all {len(t_grads)} parameters "
+        f"{'bitwise equal' if grad_bitwise else f'worst relative max |diff| {worst:.3g} ({worst_name})'}"
+        f" (limit where not bitwise {ND_RTOL})")
+    check(loss_bitwise or loss_rel <= ND_RTOL,
+          f"NDArray-path losses differ from the tensor path: {loss_rel:.3g}")
+    check(grad_bitwise or worst <= ND_RTOL,
+          f"NDArray-path gradients differ: {worst:.3g} at {worst_name}")
+    log(f"[nd] (i) kernel launches in the {ND_STEPS} NDArray steps: "
+        f"{counts}; per step {nd_steps}; tensor-path steps {t_steps}")
+    bad = [(i, ps) for i, ps in enumerate(nd_steps)
+           if ps != TRAIN_WANT or ps != t_steps[i]]
+    check(not bad, f"NDArray-path launches per step: {bad[:1]} != "
+          f"{TRAIN_WANT} (tensor path {t_steps[:1]})")
+    del nd_grads, t_grads
+    amp_nd = run(True, 1, amp_on=True)[0][0]
+    amp_t = run(False, 1, amp_on=True)[0][0]
+    log(f"[nd] (i) one AMP (bf16) step: loss through the door "
+        f"{float(amp_nd.float().mean()):.6f}, tensor path "
+        f"{float(amp_t.float().mean()):.6f}, dtype {amp_nd.dtype}; bitwise "
+        f"{torch.equal(amp_nd, amp_t)}")
+    check(amp_nd.dtype == torch.bfloat16 and torch.equal(amp_nd, amp_t),
+          "the AMP loss through the door differs from the tensor path's")
+
+    # -- (ii) the npx kernel ops on NDArrays on the card ---------------------
+    rs = onp.random.RandomState(SEED + 7)
+    E, H = 768, 12
+    q, k, v, g = (rs.standard_normal((B, T, E)).astype("float32")
+                  for _ in range(4))
+    for tag, vl in (("causal", None), ("causal + right-padding mask", valid)):
+        ck.reset_launch_counts()
+        nds = [mxnp.array(a, ctx=mx.gpu()) for a in (q, k, v)]
+        for a in nds:
+            a.attach_grad()
+        mask = None if vl is None else mxnp.array(
+            (onp.arange(T)[None] < vl[:, None]).reshape(B, 1, 1, T)
+            .astype("float32"), ctx=mx.gpu())
+        with autograd.record():
+            out = npx.multihead_attention(*nds, mask, num_heads=H,
+                                          causal=True)
+        out.backward(mxnp.array(g, ctx=mx.gpu()))
+        launched = ck.launch_counts()
+        ts = [torch.from_numpy(a).to(DEV).requires_grad_() for a in
+              (q, k, v)]
+        ref = _mha_plain(*ts, H, True, None if vl is None else
+                         torch.from_numpy(vl).to(DEV))
+        ref.backward(torch.from_numpy(g).to(DEV))
+        errs = [float((out._data - ref).abs().max())
+                for out, ref in ((out, ref.detach()),)] + \
+            [float((a.grad._data - t.grad).abs().max())
+             for a, t in zip(nds, ts)]
+        log(f"[nd] (ii) npx.multihead_attention ({B}, {T}, {E}), {H} heads,"
+            f" {tag}, under record() with backward(): max |diff| vs the "
+            f"plain version out {errs[0]:.3g}, dq {errs[1]:.3g}, dk "
+            f"{errs[2]:.3g}, dv {errs[3]:.3g} (limit {FLASH_TOL}); launches "
+            f"{launched}")
+        check(max(errs) <= FLASH_TOL, f"npx.multihead_attention ({tag}) "
+              f"differs from the plain version: {errs}")
+        check(launched["flash_fwd"] == 1 and launched["flash_bwd_dkv"] == 1
+              and launched["flash_bwd_dq"] == 1,
+              f"npx.multihead_attention ({tag}) did not run the flash "
+              f"kernels: {launched}")
+        del nds, out, ts, ref
+    x = rs.standard_normal((4096, E)).astype("float32")
+    gam = (1 + 0.1 * rs.standard_normal(E)).astype("float32")
+    bet = (0.1 * rs.standard_normal(E)).astype("float32")
+    ck.reset_launch_counts()
+    ln = npx.layer_norm(*(mxnp.array(a, ctx=mx.gpu()) for a in (x, gam, bet)))
+    ln_launched = ck.launch_counts()["layer_norm"]
+    want = ck.layer_norm_plain(*(torch.from_numpy(a).to(DEV)
+                                 for a in (x, gam, bet)), 1e-5)
+    ln_err = float((ln._data - want).abs().max())
+    log(f"[nd] (ii) npx.layer_norm (4096, {E}): max |diff| vs the plain "
+        f"version {ln_err:.3g} (limit {LN_TOL}); {ln_launched} launch")
+    check(ln_err <= LN_TOL and ln_launched == 1,
+          f"npx.layer_norm differs or did not launch: {ln_err}")
+    n = 16
+    idx = onp.array([-n - 1, -n, -1, n - 1, n], "int32")
+    table = rs.standard_normal((n, 8)).astype("float32")
+    rows = rs.standard_normal((5, n)).astype("float32")
+    emb = npx.embedding(mxnp.array(idx, ctx=mx.gpu()),
+                        mxnp.array(table, ctx=mx.gpu())).asnumpy()
+    picked = npx.pick(mxnp.array(rows, ctx=mx.gpu()),
+                      mxnp.array(idx, ctx=mx.gpu())).asnumpy()
+    emb_ok = onp.array_equal(emb, _oor_expect(table, idx, True),
+                             equal_nan=True)
+    pick_ok = onp.array_equal(picked, _oor_expect(rows, idx, False),
+                              equal_nan=True)
+    after = (mxnp.ones((1024,), ctx=mx.gpu()) * 2).sum().item()
+    torch.cuda.synchronize()
+    log(f"[nd] (ii) indices {idx.tolist()} of {n}: npx.embedding rows NaN "
+        f"{onp.isnan(emb).all(axis=1).tolist()}, npx.pick {picked.tolist()}"
+        f"; as the reference's rule: embedding {emb_ok}, pick {pick_ok}; a "
+        f"later CUDA op gives {after} (2048.0)")
+    check(emb_ok and pick_ok and after == 2048.0,
+          "out-of-range pick/embedding on the card differ from the "
+          "reference's rule, or left the context unusable")
+
+    # -- (iii) dispatch cost and the eager step's wall -----------------------
+    a1, b1 = (mxnp.array([1.0], ctx=mx.gpu()) for _ in range(2))
+    ta, tb = a1._data, b1._data
+
+    def host_us(fn, blocks=100, per=100):
+        samples = []
+        for _ in range(blocks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(per):
+                fn()
+            samples.append((time.perf_counter_ns() - t0) / per / 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(samples)
+
+    disp = {}
+    for tag, fn in (("mx.np.add", lambda: mxnp.add(a1, b1)),
+                    ("torch.add", lambda: torch.add(ta, tb)),
+                    ("torch.add ", lambda: torch.add(ta, tb)),
+                    ("mx.np.add ", lambda: mxnp.add(a1, b1))):
+        disp[tag] = host_us(fn)
+    log(f"[nd] (iii) host µs a call on (1,) fp32 operands on the card "
+        f"(median of 100 blocks of 100 calls, 10k calls each, A B B A): "
+        f"mx.np.add (invoke) {disp['mx.np.add']:.2f}, "
+        f"{disp['mx.np.add ']:.2f}; torch.add {disp['torch.add']:.2f}, "
+        f"{disp['torch.add ']:.2f}; card {smi_line}")
+    walls = {}
+    for tag, door in (("A1", False), ("B1", True), ("B2", True),
+                      ("A2", False)):
+        ms = run(door, ND_TIMED_STEPS, dropout=0.1)[3]
+        walls[tag] = statistics.median(ms[2:])
+    log(f"[nd] (iii) eager step wall (B={B}, T={T}, fp32, dropout 0.1, "
+        f"AdamW; median of steps 3-{ND_TIMED_STEPS}; host clock, "
+        f"synchronised): tensor path (A) {walls['A1']:.2f}, "
+        f"{walls['A2']:.2f} ms; NDArray door (B) {walls['B1']:.2f}, "
+        f"{walls['B2']:.2f} ms (A B B A); card {smi_line}")
+    log(f"[nd] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the tuning path (discover, tune, save, preload, serve)
 # ---------------------------------------------------------------------------
 def phase_tune(agree):
@@ -2512,9 +2822,11 @@ def main():
         build_info = phase_build()
         kernels = phase_kernels()
         _, agree = phase_serve()
-        phase_train(smi_line)
+        _, arrays, batches = phase_train(smi_line)
         _, fp32_run = phase_train_compiled(smi_line)
         phase_train_amp(smi_line, fp32_run)
+        phase_nd(smi_line, arrays, batches)
+        del arrays, batches
         phase_tune(agree)
         rtc_row = phase_rtc()
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

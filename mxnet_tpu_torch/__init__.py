@@ -2,31 +2,55 @@
 
 A second package beside ``mxnet_tpu`` (the JAX reference, which it never
 imports). It keeps the reference's module layout and names; inside, it is
-PyTorch: ``nn.Module``s, plain functions on tensors, an explicit device.
-Every entry point runs on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU and without that argument it raises
-:class:`MXNetError`.
+PyTorch: ``NDArray`` over ``torch.Tensor``, one op registry whose
+``invoke`` every ``mx.np`` / ``mx.npx`` call goes through, ``nn.Module``
+blocks, an explicit device. Every entry point runs on ``cuda`` unless the
+caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
+``with mx.cpu():``); without a GPU and without that it raises
+:class:`MXNetError`. Typical use, as the reference's::
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import np, npx, autograd
+
+    x = np.array([[1.0, 2.0]], ctx=mx.gpu())
+    x.attach_grad()
+    with autograd.record():
+        y = npx.relu(x * 3).sum()
+    y.backward()
 
 The TPU kernels on the ported paths (GPT training through the eager
 ``gluon.Trainer`` and through the compiled step ``Trainer.compile_step``,
-one CUDA graph a step, in fp32 or under ``amp`` in bf16; GPT serving through
-the paged decode engine, the kernel autotuner ``tune``) are hand-written
-CUDA kernels for ``sm_90a``
+one CUDA graph a step, in fp32 or under ``amp`` in bf16, from tensors or
+NDArrays; GPT serving through the paged decode engine, the kernel
+autotuner ``tune``) are hand-written CUDA kernels for ``sm_90a``
 (``csrc/``), built with nvcc at first use; see
 :mod:`mxnet_tpu_torch.ops.cuda_kernels`. ``rtc.CudaModule`` compiles CUDA C
 given at run time.
 """
-from . import (amp, autograd, base, context, convert, gluon, initializer,
-               lr_scheduler, ops, optimizer, parallel, random, rtc, serve,
-               telemetry, train_step, tune)
+from . import (amp, autograd, base, context, convert, engine, gluon,
+               initializer, lr_scheduler, ndarray, ops, optimizer, parallel,
+               random, rtc, serve, telemetry, train_step, tune)
+from . import numpy as np
+from . import numpy_extension as npx
 from .base import MXNetError
-from .context import cpu, gpu, resolve_device
+from .context import (Context, Device, cpu, current_context, current_device,
+                      device, gpu, gpu_memory_info, num_gpus, resolve_device)
 from .convert import params_from_mxnet_tpu, trainer_states_from_mxnet_tpu
+from .ndarray import NDArray, array
+
+nd = ndarray
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "cpu", "gpu", "resolve_device",
-           "params_from_mxnet_tpu", "trainer_states_from_mxnet_tpu",
-           "amp", "autograd", "base", "context", "convert", "gluon",
-           "initializer", "lr_scheduler", "ops", "optimizer", "parallel",
-           "random", "rtc", "serve", "telemetry", "train_step", "tune"]
+__all__ = ["MXNetError", "Context", "Device", "NDArray", "array", "cpu",
+           "gpu", "device", "current_context", "current_device", "num_gpus",
+           "gpu_memory_info", "resolve_device", "waitall",
+           "params_from_mxnet_tpu", "trainer_states_from_mxnet_tpu", "np",
+           "npx", "nd", "amp", "autograd", "base", "context", "convert",
+           "engine", "gluon", "initializer", "lr_scheduler", "ndarray",
+           "ops", "optimizer", "parallel", "random", "rtc", "serve",
+           "telemetry", "train_step", "tune"]
+
+
+def waitall():
+    engine.wait_all()

@@ -4,9 +4,12 @@ Counterpart of ``mxnet_tpu/amp/__init__.py``, with the reference's
 cast-at-the-op design, not ``torch.autocast``'s: while AMP is on, each op
 named in ``MXU_FUNCS`` (matrix products: ``fully_connected``, ``matmul``,
 ``multihead_attention``, ``flash_attention``, ...) casts its float32
-tensor arguments to the target dtype at its entry
-(:func:`mxnet_tpu_torch.ops.nn._amp_cast`, the reference's ``_amp_wrap``
-and the check in ``invoke``, ``ops/registry.py:215-217``, :283-297).
+tensor arguments to the target dtype at its entry. The cast lives in the
+op registry, as the reference's: ``invoke`` (and the tensor-level doors of
+``ops.nn``, which read this same state) add the ``__amp__`` attribute and
+``Op.fn`` wraps the op's function with the casts
+(:func:`mxnet_tpu_torch.ops.registry._amp_wrap`; reference
+``ops/registry.py:215-217``, :283-297).
 Every other op follows the dtype that flows in, so under
 ``init("bfloat16")`` the logits of a tied LM head come out bf16, a
 ``log_softmax`` of them stays bf16 (``torch.autocast`` would upcast it),

@@ -4,8 +4,9 @@ Same names, same order, same roles as the reference's:
 
 - ``MXU_FUNCS``: ops whose products run on the matrix units (the
   tensor cores here). With AMP on, the ops of the port named here cast
-  every float32 tensor argument to the AMP dtype at their entry
-  (:func:`mxnet_tpu_torch.ops.nn._amp_cast`, the counterpart of the
+  every float32 tensor argument to the AMP dtype at their entry: the
+  registry adds the ``__amp__`` attribute to them and wraps their function
+  with the casts (:func:`mxnet_tpu_torch.ops.registry._amp_wrap`, the
   reference's ``_amp_wrap``, ``ops/registry.py:283-297``).
 - ``FP32_FUNCS``: numerically fragile ops that must never receive
   downcast inputs. They get no cast and no upcast: they follow the dtype

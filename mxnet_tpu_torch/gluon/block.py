@@ -11,6 +11,13 @@ nothing. A block starts in inference mode (``training`` False). Dropout is
 active inside ``autograd.record()`` (which sets the training flag, as in the
 reference) or after the torch idiom ``block.train()``; elsewhere it is the
 identity, so serving never drops units.
+
+A block takes tensors or NDArrays. Called with NDArrays (the NDArray door),
+it unwraps them, runs its tensor body and wraps the outputs into NDArrays;
+the torch graph is kept, so ``loss.backward()`` on an NDArray loss reaches
+the parameters. Outside ``autograd.record()`` (and inside ``pause()``) the
+door runs the body with grad mode off, as the reference records nothing
+there.
 """
 from __future__ import annotations
 
@@ -19,11 +26,38 @@ from collections import OrderedDict
 import numpy as onp
 import torch
 
+from .. import autograd as _ag
 from .. import initializer as init_mod
 from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
 
-__all__ = ["Block", "HybridBlock", "new_parameter"]
+__all__ = ["Block", "HybridBlock", "new_parameter", "unwrap", "wrap"]
+
+
+def unwrap(x):
+    """``x`` with every NDArray (at any depth of tuples and lists) replaced
+    by its tensor."""
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (tuple, list)):
+        return type(x)(unwrap(v) for v in x)
+    return x
+
+
+def wrap(x):
+    """``x`` with every tensor (at any depth of tuples and lists) wrapped
+    into an NDArray."""
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(wrap(v) for v in x)
+    return x
+
+
+def _has_nd(args, kwargs):
+    return any(isinstance(a, NDArray) for a in args) or \
+        any(isinstance(v, NDArray) for v in kwargs.values())
 
 
 def new_parameter(shape, dtype, device, init=None, grad_req="write"):
@@ -40,6 +74,14 @@ class Block(torch.nn.Module):
     def __init__(self):
         super().__init__()
         self.train(False)
+
+    def __call__(self, *args, **kwargs):
+        if not _has_nd(args, kwargs):
+            return super().__call__(*args, **kwargs)
+        args, kwargs = unwrap(args), {k: unwrap(v)
+                                      for k, v in kwargs.items()}
+        with torch.set_grad_enabled(_ag.is_recording()):
+            return wrap(super().__call__(*args, **kwargs))
 
     def collect_params(self):
         """``OrderedDict`` of name -> parameter."""

@@ -1,0 +1,251 @@
+"""mx.npx of the port — numpy_extension: NN operators and framework
+controls on NDArrays.
+
+Counterpart of ``mxnet_tpu/numpy_extension/__init__.py:1-405``, with the
+reference's signatures: the framework controls (``set_np``, ``use_np``,
+``waitall``, ``cpu``/``gpu``/``num_gpus``) and the NN ops of
+:mod:`mxnet_tpu_torch.ops.nn` and :mod:`.ops._core`, each through
+``ops.registry.invoke``. ``flash_attention``, ``multihead_attention`` and
+``layer_norm`` reach the hand-written CUDA kernels for arrays on the card.
+
+Not ported (they raise :class:`MXNetError` naming their ROADMAP item):
+convolution, deconvolution, pooling, batch_norm and the other norms,
+sequence and loss ops, the vision and detection ops and control flow
+(A9, the rest of the op library); ``custom`` (A10). Any other registered
+op is reachable by name through :func:`__getattr__`.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import autograd as _ag
+from .. import engine as _engine
+from ..base import MXNetError
+from ..context import cpu, current_context, gpu, num_gpus  # noqa: F401
+from ..ndarray.ndarray import NDArray, array
+from ..ops.registry import _OPS, apply_op as _op
+
+
+def set_np(shape=True, array=True, dtype=False):
+    """Reference parity: numpy semantics are always on."""
+    return True
+
+
+def reset_np():
+    return True
+
+
+def is_np_array():
+    return True
+
+
+def is_np_shape():
+    return True
+
+
+def use_np(func):
+    return func
+
+
+use_np_array = use_np
+
+
+def waitall():
+    _engine.wait_all()
+
+
+def _nd(x):
+    return x if isinstance(x, NDArray) else array(x)
+
+
+def _not_ported(name, item):
+    def f(*args, **kwargs):
+        raise MXNetError(f"npx.{name} is not ported (ROADMAP {item})")
+
+    f.__name__ = name
+    return f
+
+
+# -- NN ops ------------------------------------------------------------------
+def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
+                    flatten=True):
+    args = [_nd(data), _nd(weight)]
+    no_bias_eff = bias is None or no_bias
+    if not no_bias_eff:
+        args.append(_nd(bias))
+    return _op("fully_connected", *args, no_bias=no_bias_eff, flatten=flatten,
+               num_hidden=num_hidden)
+
+
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
+    return _op("layer_norm", _nd(data), _nd(gamma), _nd(beta), axis=axis,
+               eps=eps)
+
+
+def activation(data, act_type="relu"):
+    return _op("activation", _nd(data), act_type=act_type)
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25, **kw):
+    if act_type == "prelu":
+        return _op("leaky_relu", _nd(data), _nd(gamma), act_type=act_type)
+    return _op("leaky_relu", _nd(data), act_type=act_type, slope=slope)
+
+
+def relu(data):
+    return _op("relu", _nd(data))
+
+
+def sigmoid(data):
+    return _op("sigmoid", _nd(data))
+
+
+def softmax(data, axis=-1, length=None, temperature=None, use_length=False):
+    if length is not None:
+        return _op("softmax", _nd(data), _nd(length), axis=axis,
+                   temperature=temperature, use_length=True)
+    return _op("softmax", _nd(data), axis=axis, temperature=temperature)
+
+
+def log_softmax(data, axis=-1, temperature=None):
+    return _op("log_softmax", _nd(data), axis=axis, temperature=temperature)
+
+
+def masked_softmax(data, mask, axis=-1, temperature=1.0):
+    return _op("masked_softmax", _nd(data), _nd(mask), axis=axis,
+               temperature=temperature)
+
+
+def dropout(data, p=0.5, mode="training", **kw):
+    return _op("dropout", _nd(data), p=p, mode=mode,
+               training=_ag.is_training() or mode == "always")
+
+
+def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
+              sparse_grad=False):
+    return _op("embedding", _nd(data), _nd(weight), input_dim=input_dim,
+               output_dim=output_dim, sparse_grad=sparse_grad)
+
+
+def one_hot(data, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+    return _op("one_hot", _nd(data), depth=depth, on_value=on_value,
+               off_value=off_value, dtype=dtype)
+
+
+def pick(data, index, axis=-1, mode="clip", keepdims=False):
+    return _op("pick", _nd(data), _nd(index), axis=axis, mode=mode,
+               keepdims=keepdims)
+
+
+def topk(data, k=1, axis=-1, ret_typ="indices", is_ascend=False):
+    return _op("topk", _nd(data), k=k, axis=axis, ret_typ=ret_typ,
+               is_ascend=is_ascend)
+
+
+def flash_attention(query, key, value, causal=False, scale=None):
+    """Fused online-softmax attention over (B, H, T, D) operands: the
+    hand-written flash kernels for arrays on the card."""
+    return _op("flash_attention", _nd(query), _nd(key), _nd(value),
+               causal=causal, scale=scale)
+
+
+def multihead_attention(query, key, value, mask=None, num_heads=1,
+                        dropout=0.0, causal=False, scale=None,
+                        num_kv_heads=None):
+    """Attention over (B, T, heads * D) projections; ``num_kv_heads``
+    enables grouped-query / multi-query attention. A (B, 1, 1, Tk)
+    key-padding mask rides the flash kernels through segment ids (a fully
+    masked query row gives zeros there); any other mask takes the dense
+    path (a ~uniform softmax for such a row)."""
+    args = [_nd(query), _nd(key), _nd(value)]
+    if mask is not None:
+        args.append(_nd(mask))
+    return _op("multihead_attention", *args, num_heads=num_heads,
+               dropout=dropout, causal=causal, scale=scale,
+               num_kv_heads=num_kv_heads)
+
+
+def arange_like(data, start=0.0, step=1.0, axis=None):
+    d = _nd(data)
+    n = d.size if axis is None else d.shape[axis]
+    return NDArray(torch.arange(n, device=d._data.device,
+                                dtype=torch.float32) * step + start)
+
+
+def gamma(data):
+    return _op("gamma", _nd(data))
+
+
+def gammaln(data):
+    return _op("gammaln", _nd(data))
+
+
+def erf(data):
+    return _op("erf", _nd(data))
+
+
+def erfinv(data):
+    return _op("erfinv", _nd(data))
+
+
+def stop_gradient(data):
+    return _op("stop_gradient", _nd(data))
+
+
+def cast(data, dtype):
+    return _nd(data).astype(dtype)
+
+
+def reshape_like(lhs, rhs):
+    return _nd(lhs).reshape(_nd(rhs).shape)
+
+
+def broadcast_like(lhs, rhs):
+    return _nd(lhs).broadcast_to(_nd(rhs).shape)
+
+
+def slice_axis(data, axis=0, begin=0, end=None):
+    key = [slice(None)] * _nd(data).ndim
+    key[axis] = slice(begin, end)
+    return _nd(data)[tuple(key)]
+
+
+def slice_like(data, shape_like, axes=None):
+    d, s = _nd(data), _nd(shape_like)
+    key = []
+    for i in range(d.ndim):
+        if axes is None or i in axes:
+            key.append(slice(0, s.shape[i]))
+        else:
+            key.append(slice(None))
+    return d[tuple(key)]
+
+
+# the reference's ops outside ops/_core, ops/indexing and ops/nn's ported
+# subset: the rest of the op library (ROADMAP A9) and custom ops (A10)
+for _name in ("convolution", "deconvolution", "pooling", "batch_norm",
+              "group_norm", "instance_norm", "rms_norm", "smooth_l1",
+              "ctc_loss", "sequence_mask", "sequence_reverse",
+              "sequence_last", "adaptive_avg_pool2d", "box_iou", "box_nms",
+              "box_encode", "box_decode", "roi_pooling", "roi_align",
+              "upsampling", "bilinear_resize_2d", "moments", "foreach",
+              "while_loop", "cond"):
+    globals()[_name] = _not_ported(_name, "A9")
+custom = _not_ported("custom", "A10")
+
+
+def __getattr__(name):
+    """Any other registered op by name (reference :390)."""
+    if name not in _OPS:
+        raise AttributeError(f"module 'mxnet_tpu_torch.numpy_extension' "
+                             f"has no attribute {name!r}")
+
+    def wrapper(*inputs, **attrs):
+        out = attrs.pop("out", None)
+        arrs = [_nd(x) if hasattr(x, "shape") or isinstance(x, (list, tuple))
+                else x for x in inputs]
+        return _op(name, *arrs, out=out, **attrs)
+
+    wrapper.__name__ = name
+    globals()[name] = wrapper
+    return wrapper

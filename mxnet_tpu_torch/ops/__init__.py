@@ -1,5 +1,10 @@
-"""Operators of the port: :mod:`.nn` (functional ops) over the hand-written
-CUDA kernels in :mod:`.cuda_kernels`."""
-from . import cuda_kernels, nn
+"""Operators of the port: the registry and its one dispatch chokepoint
+(:mod:`.registry`), the core ops (:mod:`._core`), indexing
+(:mod:`.indexing`) and the neural-network ops (:mod:`.nn`) over the
+hand-written CUDA kernels in :mod:`.cuda_kernels`."""
+from . import registry  # noqa: I001 — the registry first: the ops register in it
+from . import _core, cuda_kernels, indexing, nn
+from .registry import apply_op, get_op, invoke, list_ops, register
 
-__all__ = ["cuda_kernels", "nn"]
+__all__ = ["registry", "cuda_kernels", "indexing", "nn", "apply_op",
+           "get_op", "invoke", "list_ops", "register"]

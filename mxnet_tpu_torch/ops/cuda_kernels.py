@@ -517,6 +517,14 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
+        if torch.is_grad_enabled():
+            # create_graph: the two backward kernels have no derivative of
+            # their own, so a gradient that is to be differentiated again
+            # cannot go through them (it would come back as zeros)
+            raise MXNetError(
+                "flash_attention: the backward kernels have no derivative; "
+                "a gradient with create_graph=True (for a higher-order "
+                "gradient) cannot go through them")
         q, k, v, out, lse, q_seg, k_seg = ctx.saved_tensors
         # the caller's merge of heads hands a transposed view: the kernels
         # read rows, so make it contiguous
@@ -652,6 +660,16 @@ class _FusedLayerNorm(torch.autograd.Function):
         # the vjp of the plain formula, as the reference's _fused_ln_bwd
         # (pallas_kernels.py:958-962)
         x, gamma, beta = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # create_graph: the vjp recorded on the saved inputs themselves,
+            # so the gradient can be differentiated again, as the
+            # reference's jnp vjp can
+            need = ctx.needs_input_grad[:3]
+            ins = [t for t, n in zip((x, gamma, beta), need) if n]
+            got = iter(torch.autograd.grad(
+                layer_norm_plain(x, gamma, beta, ctx.eps), ins, g,
+                create_graph=True, allow_unused=True))
+            return (*[next(got) if n else None for n in need], None, None)
         with torch.enable_grad():
             xs, gs, bs = (t.detach().requires_grad_() for t in
                           (x, gamma, beta))

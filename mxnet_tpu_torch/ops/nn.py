@@ -1,15 +1,27 @@
-"""Neural-network operators of the port: plain functions on tensors.
+"""Neural-network operators of the port: registered ops and their
+tensor-level doors.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT training
-and serving paths call, and of the ``matmul`` of ``mxnet_tpu/ops/_core.py``.
-The matrix products and elementwise work stay plain PyTorch, as the
-reference leaves them to XLA; LayerNorm and masked attention (forward and
-backward) route to the hand-written kernels in :mod:`.cuda_kernels`.
+and serving paths call. Each op is registered in :mod:`.registry` under the
+reference's name and attributes (``fully_connected``, ``layer_norm``,
+``embedding``, ``leaky_relu``, ``activation``, ``softmax``,
+``log_softmax``, ``masked_softmax``, ``dropout``, ``pick``,
+``multihead_attention``, ``flash_attention``), so ``mx.npx`` and NDArrays
+reach them through ``invoke``. The matrix products and elementwise work stay
+plain PyTorch, as the reference leaves them to XLA; LayerNorm and masked
+attention (forward and backward) route to the hand-written kernels in
+:mod:`.cuda_kernels`.
 
-Mixed precision is cast at the op, as in the reference: each op here that
-``amp.MXU_FUNCS`` names (``fully_connected``, ``matmul``,
-``multihead_attention``, ``flash_attention``) passes its arguments through
-:func:`_amp_cast` first. The others follow the dtype that flows in.
+The functions of this module (``fully_connected(x, weight, bias)``, ...)
+are the tensor-level doors that GPT, the losses, the compiled step and the
+decode programs call with ``torch.Tensor``s. Each resolves the registered
+op's cached function for its attributes once (:class:`_Door`) and calls it,
+so captured programs keep calling plain tensor functions. Mixed precision
+is cast by the registry, as in the reference: while AMP is on, a door of an
+op in ``amp.MXU_OPS`` (``fully_connected``, ``matmul``,
+``multihead_attention``, ``flash_attention``) resolves the function with
+the ``__amp__`` attribute, which casts float32 tensor operands at entry;
+the others follow the dtype that flows in.
 """
 from __future__ import annotations
 
@@ -21,140 +33,206 @@ import torch.nn.functional as F
 from .. import amp as _amp
 from .. import autograd as _ag
 from .. import random as _random
-from ..base import MXNetError, to_dtype
+from ..base import MXNetError
 from . import cuda_kernels as _kern
+from ._core import fill_value, take_along_axis, wrap_fill_index
+from .registry import get_op, register
 
 __all__ = ["fully_connected", "matmul", "layer_norm", "embedding",
-           "leaky_relu", "dropout", "softmax", "log_softmax", "pick",
-           "one_hot", "multihead_attention", "flash_attention"]
+           "leaky_relu", "activation", "dropout", "softmax", "log_softmax",
+           "masked_softmax", "pick", "one_hot", "multihead_attention",
+           "flash_attention"]
 
 _NEG_INF = -1e30
 
 
-def _amp_cast(op_name, *args):
-    """``args`` as the op ``op_name`` receives them: while AMP is on and
-    ``op_name`` is in ``amp.MXU_OPS``, every float32 tensor among them cast
-    to the AMP dtype; every other argument (integer ids and lengths, bool
-    masks, other floats, None) as it is. The port's counterpart of the
-    reference's ``_amp_wrap`` and the check in ``invoke``
-    (``ops/registry.py:215-217``, :283-297)."""
-    if not (_amp.is_enabled() and op_name in _amp.MXU_OPS):
-        return args
-    tgt = to_dtype(_amp.resolve_dtype(_amp.target_dtype()))
-    return tuple(a.to(tgt) if isinstance(a, torch.Tensor) and
-                 a.dtype == torch.float32 else a for a in args)
+class _Door:
+    """The tensor-level door of a registered op: :meth:`fn` gives the op's
+    cached function for a set of attributes and the AMP state, resolved
+    through :meth:`Op.fn` once per such set."""
+
+    __slots__ = ("op", "mxu", "_fns")
+
+    def __init__(self, name):
+        self.op = get_op(name)
+        self.mxu = name in _amp.MXU_OPS
+        self._fns = {}
+
+    def fn(self, **attrs):
+        amp = _amp.target_dtype() if self.mxu and _amp.is_enabled() \
+            else None
+        key = (tuple(attrs.items()), amp)
+        f = self._fns.get(key)
+        if f is None:
+            if amp is not None:
+                attrs["__amp__"] = amp
+            f = self._fns[key] = self.op.fn(**attrs)
+        return f
 
 
-def fully_connected(x, weight, bias=None, flatten=True):
-    """y = x W^T (+ b); weight layout (units, in_units) (reference :31).
-    Under AMP the bias is cast with x and W, as in the reference."""
-    x, weight, bias = _amp_cast("fully_connected", x, weight, bias)
-    if flatten and x.dim() > 2:
-        x = x.reshape(x.shape[0], -1)
-    y = torch.matmul(x, weight.t())
-    if bias is not None:
-        y = y + bias
-    return y
+# ---------------------------------------------------------------------------
+# registered ops (reference ops/nn.py)
+# ---------------------------------------------------------------------------
+@register("fully_connected")
+def _fc(no_bias=False, flatten=True, num_hidden=0):
+    def f(x, w, *b):
+        if flatten and x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        y = torch.matmul(x, w.t())
+        if not no_bias:
+            y = y + b[0]
+        return y
+
+    return f
 
 
-def matmul(a, b):
-    """``torch.matmul`` as the registered ``matmul`` op (reference
-    ``ops/_core.py:110``, ``jnp.matmul``), cast under AMP."""
-    a, b = _amp_cast("matmul", a, b)
-    return torch.matmul(a, b)
+@register("layer_norm")
+def _layer_norm(axis=-1, eps=1e-5):
+    """The last axis runs the fused row kernel; any other axis the plain
+    formula (reference :255)."""
+    def f(x, gamma, beta):
+        ax = axis if axis >= 0 else x.dim() + axis
+        if ax == x.dim() - 1:
+            return _kern.fused_layer_norm(x.contiguous(), gamma, beta, eps)
+        mean = x.mean(dim=ax, keepdim=True)
+        var = x.var(dim=ax, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var.float() + eps).to(x.dtype)
+        shape = [1] * x.dim()
+        shape[ax] = x.shape[ax]
+        return (x - mean) * inv * gamma.reshape(shape) + beta.reshape(shape)
+
+    return f
 
 
-def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
-    """LayerNorm over ``axis`` (reference :255). The last axis runs the
-    fused row kernel; any other axis the plain formula."""
-    ax = axis if axis >= 0 else x.dim() + axis
-    if ax == x.dim() - 1:
-        return _kern.fused_layer_norm(x.contiguous(), gamma, beta, eps)
-    mean = x.mean(dim=ax, keepdim=True)
-    var = x.var(dim=ax, unbiased=False, keepdim=True)
-    inv = torch.rsqrt(var.float() + eps).to(x.dtype)
-    shape = [1] * x.dim()
-    shape[ax] = x.shape[ax]
-    return (x - mean) * inv * gamma.reshape(shape) + beta.reshape(shape)
+@register("embedding")
+def _embedding(input_dim=0, output_dim=0, sparse_grad=False):
+    """Rows of ``weight`` at ``idx``, as the reference's ``jnp.take``
+    (reference :418): an index in [-n, 0) wraps, and the row of an index
+    outside [-n, n) is filled (NaN for a float table). Gathered at the
+    clamped index and filled by a mask: no host sync, no data-dependent
+    shape, no device-side assert."""
+    def f(idx, weight):
+        i, ok = wrap_fill_index(idx, weight.shape[0])
+        return torch.where(ok.unsqueeze(-1), weight[i],
+                           fill_value(weight.dtype))
+
+    return f
 
 
-def embedding(idx, weight):
-    """Rows of ``weight`` at integer ``idx`` (reference :418)."""
-    return weight[idx.long()]
-
-
-def leaky_relu(x, alpha=None, act_type="leaky", slope=0.25):
-    """The reference's LeakyReLU family (reference :341); ``gelu`` is the
-    exact erf form, ``gelu_tanh`` the tanh approximation."""
+@register("leaky_relu")
+def _leaky_relu(act_type="leaky", slope=0.25):
+    """The LeakyReLU family (reference :341); ``gelu`` is the exact erf
+    form, ``gelu_tanh`` the tanh approximation."""
     if act_type == "leaky":
-        return F.leaky_relu(x, slope)
+        return lambda x: F.leaky_relu(x, slope)
     if act_type == "elu":
-        return F.elu(x, slope)
+        return lambda x: F.elu(x, slope)
     if act_type == "selu":
-        return F.selu(x)
+        return F.selu
     if act_type == "gelu":
-        return F.gelu(x, approximate="none")
+        return lambda x: F.gelu(x, approximate="none")
     if act_type == "gelu_tanh":
-        return F.gelu(x, approximate="tanh")
+        return lambda x: F.gelu(x, approximate="tanh")
     if act_type == "prelu":
-        return torch.where(x >= 0, x, alpha * x)
+        return lambda x, alpha: torch.where(x >= 0, x, alpha * x)
     raise MXNetError(f"unknown leaky_relu variant {act_type!r}")
 
 
-def dropout(x, p=0.5, training=False, generator=None):
-    """Inverted dropout (reference :403). Active when ``training`` is True
-    or the autograd training flag is set — inside ``autograd.record()``, as
-    the reference's ``npx.dropout`` (numpy_extension:161-163); the identity
-    otherwise and at p <= 0. The keep mask is drawn from ``generator``, by
-    default the generator of x's device in :mod:`mxnet_tpu_torch.random`."""
-    if p <= 0.0 or not (training or _ag.is_training()):
-        return x
-    if generator is None:
-        generator = _random.generator(x.device)
-    keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+    "log_sigmoid": F.logsigmoid,
+    "mish": F.mish,
+    # the reference's HardSigmoid: clip(0.2 x + 0.5, 0, 1)
+    "hard_sigmoid": lambda x: torch.clamp(0.2 * x + 0.5, 0.0, 1.0),
+    "hard_swish": F.hardswish,
+    "silu": F.silu,
+}
 
 
-def softmax(x, axis=-1, temperature=None, length=None):
-    """Softmax over ``axis`` (reference :357); ``length`` (B,) masks each
-    row's positions >= its length."""
-    z = x / temperature if temperature not in (None, 1.0) else x
-    if length is not None:
-        ax = axis if axis >= 0 else x.dim() + axis
-        shape = [1] * x.dim()
-        shape[ax] = x.shape[ax]
-        idx = torch.arange(x.shape[ax], device=x.device).reshape(shape)
-        lshape = [1] * x.dim()
-        lshape[0] = x.shape[0]
-        z = torch.where(idx < length.reshape(lshape), z,
-                        torch.full_like(z, float("-inf")))
-    return torch.softmax(z, dim=axis)
+@register("activation")
+def _activation(act_type="relu"):
+    if act_type not in _ACTIVATIONS:
+        raise MXNetError(f"unknown activation {act_type!r}")
+    return _ACTIVATIONS[act_type]
 
 
-def log_softmax(x, axis=-1):
-    """Log-softmax over ``axis`` (reference :369)."""
-    return torch.log_softmax(x, dim=axis)
+def _length_mask(x, length, axis):
+    ax = axis if axis >= 0 else x.dim() + axis
+    shape = [1] * x.dim()
+    shape[ax] = x.shape[ax]
+    idx = torch.arange(x.shape[ax], device=x.device).reshape(shape)
+    lshape = [1] * x.dim()
+    lshape[0] = x.shape[0]
+    return idx < length.reshape(lshape)
 
 
-def pick(x, index, axis=-1, keepdims=False):
-    """``x``'s entries at ``index`` along ``axis`` (reference :476);
-    ``index`` has x's shape without that axis and is clamped into range
-    (the reference's default mode, ``"clip"``)."""
-    idx = index.long().clamp(0, x.shape[axis] - 1)
-    out = torch.gather(x, axis, idx.unsqueeze(axis))
-    return out if keepdims else out.squeeze(axis)
+def _tempered(x, temperature):
+    return x / temperature if temperature not in (None, 1.0) else x
 
 
-def one_hot(indices, depth, dtype=torch.float32):
-    """One-hot over the last axis; an index outside [0, depth) gives the
-    zero vector, as the reference's ``one_hot`` (F.one_hot would raise)."""
-    ar = torch.arange(depth, device=indices.device)
-    return (indices.unsqueeze(-1) == ar).to(dtype)
+@register("softmax")
+def _softmax(axis=-1, temperature=None, use_length=False):
+    """Softmax over ``axis`` (reference :357); with ``use_length`` the
+    second operand (B,) masks each row's positions >= its length."""
+    def f(x, *length):
+        z = _tempered(x, temperature)
+        if use_length:
+            z = torch.where(_length_mask(x, length[0], axis), z,
+                            torch.full_like(z, float("-inf")))
+        return torch.softmax(z, dim=axis)
+
+    return f
 
 
-def multihead_attention(q, k, v, mask=None, num_heads=1, causal=False,
-                        scale=None, num_kv_heads=None):
+@register("log_softmax")
+def _log_softmax(axis=-1, temperature=None):
+    return lambda x: torch.log_softmax(_tempered(x, temperature), dim=axis)
+
+
+@register("masked_softmax")
+def _masked_softmax(axis=-1, temperature=1.0):
+    def f(x, mask):
+        m = mask.bool()
+        z = torch.where(m, _tempered(x, temperature), float("-inf"))
+        return torch.where(m, torch.softmax(z, dim=axis), 0.0)
+
+    return f
+
+
+@register("dropout", needs_rng=True)
+def _dropout(p=0.5, mode="training", training=True):
+    """Inverted dropout (reference :403); the keep mask is drawn from the
+    generator operand."""
+    def f(gen, x):
+        if not training or p <= 0.0:
+            return x
+        keep = 1.0 - p
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+    return f
+
+
+@register("pick")
+def _pick(axis=-1, keepdims=False, mode="clip"):
+    """``x``'s entries at ``index`` along ``axis`` (reference :476, whose
+    ``jnp.take_along_axis`` ignores ``mode``): an index in [-n, 0) wraps and
+    one outside [-n, n) gives the fill value (NaN for a float x, the type's
+    least value for a signed int, True for bool)."""
+    def f(x, idx):
+        out = take_along_axis(x, idx.unsqueeze(axis), axis)
+        return out if keepdims else out.squeeze(axis)
+
+    return f
+
+
+@register("multihead_attention")
+def _multihead_attention(num_heads=1, dropout=0.0, causal=False, scale=None,
+                         num_kv_heads=None):
     """Multi-head attention over (B, T, heads * D) projections (reference
     :535). The dispatch keeps the reference's three branches exactly:
 
@@ -168,73 +246,194 @@ def multihead_attention(q, k, v, mask=None, num_heads=1, causal=False,
     ``num_heads // num_kv_heads`` query heads (repeated before attention,
     as the reference's stopgap at :556-564).
     """
-    q, k, v, mask = _amp_cast("multihead_attention", q, k, v, mask)
     n_kv = num_heads if num_kv_heads is None else int(num_kv_heads)
     if n_kv < 1 or num_heads % n_kv:
         raise MXNetError(
             f"num_kv_heads must be a positive divisor of num_heads "
             f"{num_heads}, got {num_kv_heads}")
-    B, Tq, E = q.shape
-    Tk = k.shape[1]
-    D = E // num_heads
-    qh = q.reshape(B, Tq, num_heads, D).transpose(1, 2)
-    kh = k.reshape(B, Tk, n_kv, D).transpose(1, 2)
-    vh = v.reshape(B, Tk, n_kv, D).transpose(1, 2)
-    if n_kv != num_heads:
-        reps = num_heads // n_kv
-        kh = kh.repeat_interleave(reps, dim=1)
-        vh = vh.repeat_interleave(reps, dim=1)
-    s = scale if scale is not None else 1.0 / math.sqrt(D)
-    if mask is None:
-        out = _kern.flash_attention(qh.contiguous(), kh.contiguous(),
-                                    vh.contiguous(), s, causal)
-    elif mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1 and \
-            mask.shape[0] == B and mask.shape[3] == Tk and Tq == Tk:
-        seg = (mask.reshape(B, Tk) != 0).to(torch.int32)
-        out = _kern.flash_attention(qh.contiguous(), kh.contiguous(),
-                                    vh.contiguous(), s, causal,
-                                    q_segment_ids=torch.ones_like(seg),
-                                    kv_segment_ids=seg)
-    else:
-        logits = torch.matmul(qh, kh.transpose(-1, -2)) * s
-        neg = torch.full_like(logits, _NEG_INF)
-        if causal:
-            cm = torch.ones((Tq, Tk), dtype=torch.bool,
-                            device=q.device).tril(Tk - Tq)
-            logits = torch.where(cm, logits, neg)
-        logits = torch.where(mask.to(torch.bool), logits, neg)
-        w = torch.softmax(logits, dim=-1)
-        out = torch.matmul(w, vh)
-    return out.transpose(1, 2).reshape(B, Tq, E)
+
+    def f(q, k, v, *mask):
+        B, Tq, E = q.shape
+        Tk = k.shape[1]
+        D = E // num_heads
+        qh = q.reshape(B, Tq, num_heads, D).transpose(1, 2)
+        kh = k.reshape(B, Tk, n_kv, D).transpose(1, 2)
+        vh = v.reshape(B, Tk, n_kv, D).transpose(1, 2)
+        if n_kv != num_heads:
+            reps = num_heads // n_kv
+            kh = kh.repeat_interleave(reps, dim=1)
+            vh = vh.repeat_interleave(reps, dim=1)
+        s = scale if scale is not None else 1.0 / math.sqrt(D)
+        m = mask[0] if mask else None
+        if m is None:
+            out = _kern.flash_attention(qh.contiguous(), kh.contiguous(),
+                                        vh.contiguous(), s, causal)
+        elif m.dim() == 4 and m.shape[1] == 1 and m.shape[2] == 1 and \
+                m.shape[0] == B and m.shape[3] == Tk and Tq == Tk:
+            seg = (m.reshape(B, Tk) != 0).to(torch.int32)
+            out = _kern.flash_attention(qh.contiguous(), kh.contiguous(),
+                                        vh.contiguous(), s, causal,
+                                        q_segment_ids=torch.ones_like(seg),
+                                        kv_segment_ids=seg)
+        else:
+            logits = torch.matmul(qh, kh.transpose(-1, -2)) * s
+            neg = torch.full_like(logits, _NEG_INF)
+            if causal:
+                cm = torch.ones((Tq, Tk), dtype=torch.bool,
+                                device=q.device).tril(Tk - Tq)
+                logits = torch.where(cm, logits, neg)
+            logits = torch.where(m.to(torch.bool), logits, neg)
+            w = torch.softmax(logits, dim=-1)
+            out = torch.matmul(w, vh)
+        return out.transpose(1, 2).reshape(B, Tq, E)
+
+    return f
 
 
-def flash_attention(q, k, v, *segments, causal=False, scale=None):
+@register("flash_attention")
+def _flash_attention(num_heads=1, causal=False, scale=None):
     """The ``flash_attention`` op (reference :599): canonical (B, H, T, D)
     operands; rank-2/3 operands are lifted to rank 4 and the output
     restored. Optional 4th/5th inputs: (B, Tq)/(B, Tk) segment ids (one
     id given is used for both sides)."""
-    q, k, v, *segments = _amp_cast("flash_attention", q, k, v, *segments)
-    ndim = q.dim()
-    if ndim == 2:
-        qq, kk, vv = (a[None, None] for a in (q, k, v))
-    elif ndim == 3:
-        qq, kk, vv = (a[:, None] for a in (q, k, v))
-    elif ndim == 4:
-        qq, kk, vv = q, k, v
-    else:
-        raise MXNetError(
-            f"flash_attention expects rank 2-4 operands, got {ndim}")
-    q_seg = k_seg = None
-    if segments:
-        q_seg = segments[0]
-        k_seg = segments[1] if len(segments) > 1 else segments[0]
+    def f(q, k, v, *segments):
+        ndim = q.dim()
         if ndim == 2:
-            q_seg, k_seg = q_seg[None], k_seg[None]
-    out = _kern.flash_attention(qq.contiguous(), kk.contiguous(),
-                                vv.contiguous(), scale, causal,
-                                q_segment_ids=q_seg, kv_segment_ids=k_seg)
-    if ndim == 2:
-        return out[0, 0]
-    if ndim == 3:
-        return out[:, 0]
-    return out
+            qq, kk, vv = (a[None, None] for a in (q, k, v))
+        elif ndim == 3:
+            qq, kk, vv = (a[:, None] for a in (q, k, v))
+        elif ndim == 4:
+            qq, kk, vv = q, k, v
+        else:
+            raise MXNetError(
+                f"flash_attention expects rank 2-4 operands, got {ndim}")
+        q_seg = k_seg = None
+        if segments:
+            q_seg = segments[0]
+            k_seg = segments[1] if len(segments) > 1 else segments[0]
+            if ndim == 2:
+                q_seg, k_seg = q_seg[None], k_seg[None]
+        out = _kern.flash_attention(qq.contiguous(), kk.contiguous(),
+                                    vv.contiguous(), scale, causal,
+                                    q_segment_ids=q_seg,
+                                    kv_segment_ids=k_seg)
+        if ndim == 2:
+            return out[0, 0]
+        if ndim == 3:
+            return out[:, 0]
+        return out
+
+    return f
+
+
+# ---------------------------------------------------------------------------
+# tensor-level doors
+# ---------------------------------------------------------------------------
+_FC = _Door("fully_connected")
+_MATMUL = _Door("matmul")
+_LN = _Door("layer_norm")
+_EMBEDDING = _Door("embedding")
+_LEAKY = _Door("leaky_relu")
+_ACTIVATION = _Door("activation")
+_DROPOUT = _Door("dropout")
+_SOFTMAX = _Door("softmax")
+_LOG_SOFTMAX = _Door("log_softmax")
+_MASKED_SOFTMAX = _Door("masked_softmax")
+_PICK = _Door("pick")
+_ONE_HOT = _Door("one_hot")
+_MHA = _Door("multihead_attention")
+_FLASH = _Door("flash_attention")
+
+
+def fully_connected(x, weight, bias=None, flatten=True):
+    """y = x W^T (+ b); weight layout (units, in_units) (reference :31).
+    Under AMP the bias is cast with x and W, as in the reference."""
+    if bias is None:
+        return _FC.fn(no_bias=True, flatten=flatten)(x, weight)
+    return _FC.fn(no_bias=False, flatten=flatten)(x, weight, bias)
+
+
+def matmul(a, b):
+    """The registered ``matmul`` op (reference ``ops/_core.py:110``,
+    ``jnp.matmul``), cast under AMP."""
+    return _MATMUL.fn()(a, b)
+
+
+def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
+    """LayerNorm over ``axis`` (reference :255)."""
+    return _LN.fn(axis=axis, eps=eps)(x, gamma, beta)
+
+
+def embedding(idx, weight):
+    """Rows of ``weight`` at integer ``idx`` (reference :418); out-of-range
+    rows filled as the registered op says."""
+    return _EMBEDDING.fn()(idx, weight)
+
+
+def leaky_relu(x, alpha=None, act_type="leaky", slope=0.25):
+    """The reference's LeakyReLU family (reference :341)."""
+    if act_type == "prelu":
+        return _LEAKY.fn(act_type=act_type, slope=slope)(x, alpha)
+    return _LEAKY.fn(act_type=act_type, slope=slope)(x)
+
+
+def activation(x, act_type="relu"):
+    return _ACTIVATION.fn(act_type=act_type)(x)
+
+
+def dropout(x, p=0.5, training=False, generator=None):
+    """Inverted dropout (reference :403). Active when ``training`` is True
+    or the autograd training flag is set — inside ``autograd.record()``, as
+    the reference's ``npx.dropout`` (numpy_extension:161-163); the identity
+    otherwise and at p <= 0. The keep mask is drawn from ``generator``, by
+    default the generator of x's device in :mod:`mxnet_tpu_torch.random`."""
+    if p <= 0.0 or not (training or _ag.is_training()):
+        return x
+    if generator is None:
+        generator = _random.generator(x.device)
+    return _DROPOUT.fn(p=p, mode="training", training=True)(generator, x)
+
+
+def softmax(x, axis=-1, temperature=None, length=None):
+    """Softmax over ``axis`` (reference :357); ``length`` (B,) masks each
+    row's positions >= its length."""
+    if length is None:
+        return _SOFTMAX.fn(axis=axis, temperature=temperature)(x)
+    return _SOFTMAX.fn(axis=axis, temperature=temperature,
+                       use_length=True)(x, length)
+
+
+def log_softmax(x, axis=-1, temperature=None):
+    """Log-softmax over ``axis`` (reference :369)."""
+    return _LOG_SOFTMAX.fn(axis=axis, temperature=temperature)(x)
+
+
+def masked_softmax(x, mask, axis=-1, temperature=1.0):
+    return _MASKED_SOFTMAX.fn(axis=axis, temperature=temperature)(x, mask)
+
+
+def pick(x, index, axis=-1, keepdims=False, mode="clip"):
+    """``x``'s entries at ``index`` along ``axis`` (reference :476); out of
+    range as the registered op says."""
+    return _PICK.fn(axis=axis, keepdims=keepdims, mode=mode)(x, index)
+
+
+def one_hot(indices, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+    """One-hot over a new last axis (reference ``ops/_core.py:221``); an
+    index outside [0, depth) gives the ``off_value`` vector."""
+    return _ONE_HOT.fn(depth=depth, on_value=on_value, off_value=off_value,
+                       dtype=dtype)(indices)
+
+
+def multihead_attention(q, k, v, mask=None, num_heads=1, causal=False,
+                        scale=None, num_kv_heads=None):
+    """Multi-head attention over (B, T, heads * D) projections; see the
+    registered op."""
+    f = _MHA.fn(num_heads=num_heads, causal=causal, scale=scale,
+                num_kv_heads=num_kv_heads)
+    return f(q, k, v) if mask is None else f(q, k, v, mask)
+
+
+def flash_attention(q, k, v, *segments, causal=False, scale=None):
+    """The ``flash_attention`` op on tensors; see the registered op."""
+    return _FLASH.fn(causal=causal, scale=scale)(q, k, v, *segments)

@@ -57,7 +57,7 @@ import time
 import numpy as onp
 import torch
 
-from ...base import MXNetError
+from ...base import MXNetError, collector_paused
 from ...context import env_signature
 from ...ops import _build
 from ...ops import cuda_kernels as _ck
@@ -206,8 +206,9 @@ class _Program:
         graph = torch.cuda.CUDAGraph()
         before = _ck.launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=progs._pool,
-                                  capture_error_mode="thread_local"):
+            with collector_paused(), torch.cuda.graph(
+                    graph, pool=progs._pool,
+                    capture_error_mode="thread_local"):
                 self.out = self.body(kp, vp)
         except RuntimeError as e:
             raise MXNetError(

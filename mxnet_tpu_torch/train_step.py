@@ -29,7 +29,8 @@ donated-buffer XLA program; the port captures the same body into one
   scaler replays them (``LossScaler.replay``). Without a scaler nothing
   syncs;
 - the returned loss is a copy on the device (the next replay overwrites
-  the static one).
+  the static one). Called with NDArrays, the step takes their tensors and
+  returns the loss as an NDArray, as the reference's step does.
 
 Multi-step (``multi_step=K``) and accumulation (``accumulate=G``) replay
 the one-step graph K times a call, the hyper table's row chosen on the
@@ -84,8 +85,10 @@ import torch
 from . import amp as _amp
 from . import autograd
 from . import random as _random
-from .base import MXNetError, warn_once
+from .base import MXNetError, collector_paused, warn_once
+from .gluon.block import unwrap
 from .gluon.trainer import _fused_layout
+from .ndarray.ndarray import NDArray
 from .ops import cuda_kernels as _ck
 
 __all__ = ["CompiledTrainStep"]
@@ -253,7 +256,7 @@ class _Program:
         before_dt = _ck.dtype_counts()
         try:
             graph.register_generator_state(_random.generator(dev))
-            with torch.cuda.graph(graph):
+            with collector_paused(), torch.cuda.graph(graph):
                 self.body()
         except RuntimeError as e:
             raise MXNetError(
@@ -336,6 +339,8 @@ class CompiledTrainStep:
 
     # -- stepping -----------------------------------------------------------
     def __call__(self, x, y):
+        if isinstance(x, NDArray) or isinstance(y, NDArray):
+            return NDArray(self(unwrap(x), unwrap(y)))
         if self.multi_step is not None or self.accumulate > 1:
             return self._call_multi(x, y)
         if self.fallback_reason is not None:
