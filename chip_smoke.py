@@ -178,17 +178,48 @@ Phases (any failure exits non-zero without the final line):
              ``rtc.CudaModule``, launched at n = 4 and n = 2**24 and held to
              torch's ``2 * x + y`` (relative 1e-6); compile seconds, launch
              ms and the bytes bound.
+7. resnet  — ResNet-50 v1 at full width (224 x 224, 1000 classes, the
+             reference's architecture; weights from a numpy seed loaded
+             through ``load_dict`` into the deferred placeholders), through
+             the registry's ``convolution``/``pooling``/``batch_norm`` (cuDNN
+             and the reference's BatchNorm formula; no port kernel: the five
+             kernels' counters stay 0, printed before and after): (i) one
+             fp32 training step at batch 8 (forward in training mode,
+             ``SoftmaxCrossEntropyLoss``, backward, ``SGD(momentum=0.9)``)
+             on the card and on the CPU, TF32 off: logits, loss and every
+             running statistic within 1e-3 of each one's largest entry,
+             every gradient within 5e-2 of the net's largest gradient and
+             every weight's update within 5e-2 of lr times it over the
+             batch (each gradient's error over its own largest entry is
+             printed beside);
+             (iii) ``bench.py``'s training: ``amp.init("bfloat16")``,
+             ``compile_step``, batch 128 of bf16 images, SGD(0.1, 0.9):
+             three compiled steps against three eager ones (losses, weights,
+             statistics and momenta within 2e-2 of each largest entry), then
+             20 compiled steps on 4 cyclic batches of a 10-class template
+             task whose last cycle's mean loss must fall below 0.7 of the
+             first loss, one
+             capture and no memory reserved after it; step wall and device
+             busy ms, img/s, MFU (``bench.py``'s FLOPs over the dense bf16
+             peak), peak memory, the device time by kind and the ten
+             heaviest kernels, and the eager step's forward+backward and
+             optimizer device ms; (ii) ``bench.py``'s inference on the
+             trained weights: ``cast("bfloat16")``, predict mode, batch 128,
+             within 5e-2 of the fp32 predict's largest logit; img/s, device
+             busy ms a batch and the idle share; the phase's seconds.
 
 The lines before the last give the card's name and power limit and a JSON
 object of every kernel's numbers with its launches on each path (serve,
 train, train_compiled, train_amp and nd (serve: the warm call and the capture
 of each program; the compiled steps: the warm step and the capture;
-replays move no counter), train_amp_converted, tune, rtc; a row counts the
+replays move no counter), train_amp_converted, tune, rtc, resnet (all 0);
+a row counts the
 launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16`` row); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -2781,6 +2812,392 @@ def phase_rtc():
             "device_ms": dev_ms, "launches": launches,
             "shape": "x, y (2^24,) fp32, axpy compiled by rtc.CudaModule"}
 
+# ---------------------------------------------------------------------------
+# phase 7: ResNet-50 v1 (convolution, pooling and BatchNorm; no port kernel)
+# ---------------------------------------------------------------------------
+RESNET_CLASSES = 1000
+RESNET_IMAGE = (3, 224, 224)
+RESNET_CHECK_BATCH = 8      # (i) the card against the CPU, fp32
+RESNET_BATCH = 128          # bench.py's bench_resnet_infer / _train
+RESNET_LR = 0.1             # bench.py's SGD(learning_rate=0.1, momentum=0.9)
+RESNET_MOMENTUM = 0.9
+RESNET_FP32_RTOL = 1e-3     # card vs CPU: logits, loss and statistics,
+#                             each over its own largest entry
+RESNET_GRAD_RTOL = 5e-2     # card vs CPU: gradients over the net's largest
+#                             gradient, updates over lr times it over B. A
+#                             conv before BatchNorm in training gets a
+#                             gradient orthogonal to its weight, a sum whose
+#                             terms cancel: fp32 runs on two devices differ
+#                             by 2.6e-2 at the stem (PERF.md §6,
+#                             tools/port_resnet_grads.py)
+RESNET_BF16_RTOL = 5e-2     # bf16 predict vs fp32 predict, largest logit
+RESNET_COMPILED_RTOL = 2e-2  # compiled vs eager AMP steps, largest entry
+RESNET_STEPS = 20
+RESNET_TASK = dict(classes=10, batches=4)   # the cyclic set of batches
+RESNET_LOSS_SHARE = 0.7     # the last cycle's mean loss below this share of
+#                             the first loss (SGD at 0.1 without warm-up
+#                             first overshoots, then falls)
+RESNET50_FWD_FLOPS = 4.089e9  # bench.py:37, 2 FLOPs a MAC, 224 x 224
+RESNET_TRAIN_FLOPS = 3 * RESNET50_FWD_FLOPS   # bench.py:38
+_RESNET_KINDS = (("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "sm90_",
+                                          "sm80_", "cutlass", "gemm",
+                                          "nvjet", "implicit")),
+                 ("casts and copies", ("copy", "convert")),
+                 ("reductions (BatchNorm's means)", ("reduce",)),
+                 ("pooling", ("pool",)),
+                 ("softmax and loss", ("softmax", "nll", "gather")))
+
+
+def resnet_model():
+    """ResNet-50 v1 at its published width (the reference's
+    ``resnet50_v1(classes=1000)``, nothing cut), on the current context."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    return vision.resnet50_v1(classes=RESNET_CLASSES)
+
+
+def resnet_weights(seed):
+    """ResNet-50 v1's parameters from ``default_rng(seed)``: He-normal
+    convolutions, N(0, 1/fan_in) for the output layer, gammas 1 + N(0,
+    0.1^2), betas and running means N(0, 0.1^2), running variances in
+    [1, 1.2], zero biases. The shapes come from the port's own net after a
+    forward of one small image on the CPU."""
+    import torch
+
+    from mxnet_tpu_torch import cpu
+
+    with cpu():
+        net = resnet_model()
+        with torch.no_grad():
+            net(torch.zeros((1, RESNET_IMAGE[0], 32, 32)))
+        shapes = {n: tuple(p.shape) for n, p in
+                  net.collect_params().items()}
+    rs = onp.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith("running_var"):
+            a = 1 + 0.2 * rs.random(shape, dtype="float32")
+        elif name.endswith("gamma"):
+            a = 1 + 0.1 * rs.standard_normal(shape, dtype="float32")
+        elif name.endswith(("beta", "running_mean")):
+            a = 0.1 * rs.standard_normal(shape, dtype="float32")
+        elif name.endswith("bias"):
+            a = onp.zeros(shape, "float32")
+        else:
+            fan_in = int(onp.prod(shape[1:]))
+            gain = 1.0 if name.startswith("output") else 2.0
+            a = rs.standard_normal(shape, dtype="float32") * \
+                onp.float32(onp.sqrt(gain / fan_in))
+        out[name] = a
+    return out
+
+
+def _resnet_net(arrays):
+    net = resnet_model()
+    net.load_dict(arrays)
+    return net
+
+
+def _resnet_task(seed, dtype):
+    """RESNET_TASK's cyclic set of batches on the card: each image is its
+    label's template plus noise, the labels drawn from 10 of the 1000
+    classes, so the loss can fall within a few steps."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    k = RESNET_TASK["classes"]
+    templates = torch.randn((k, *RESNET_IMAGE), generator=gen, device=DEV)
+    out = []
+    for _ in range(RESNET_TASK["batches"]):
+        y = torch.randint(0, k, (RESNET_BATCH,), generator=gen, device=DEV)
+        x = templates[y] + 0.5 * torch.randn(
+            (RESNET_BATCH, *RESNET_IMAGE), generator=gen, device=DEV)
+        out.append((x.to(dtype), y.float()))
+    return out
+
+
+def _max_rel(got, want, scale=None):
+    got = got.detach().float().cpu()
+    want = want.detach().float().cpu()
+    scale = float(want.abs().max()) if scale is None else scale
+    return float((got - want).abs().max()) / max(scale, 1e-30)
+
+
+def _profile(fn, reps=5):
+    """(device-busy ms a call, launches a call, {kernel: device us total})
+    over ``reps`` calls, from torch.profiler (CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us()
+    busy = sum(by_name.values()) / reps / 1e3
+    return busy, len(kernels) / reps, by_name
+
+
+def _wall_ms(fn, reps):
+    """Median host-clock ms of ``fn`` followed by a synchronise."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls)
+
+
+def _log_by_kind(tag, by_name, reps, smi_line):
+    kinds = {}
+    for name, us in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in _RESNET_KINDS
+                     if any(w in low for w in keys)),
+                    "other elementwise (BatchNorm, ReLU, adds, update)")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    total = sum(kinds.values()) or 1.0
+    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"[resnet] {tag} by kind: {kind:48s} {us / reps / 1e3:8.3f} ms "
+            f"({100 * us / total:5.1f} %); card {smi_line}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[resnet] {tag} top: {us / reps / 1e3:8.3f} ms  {name[:100]}")
+
+
+def phase_resnet(smi_line):
+    """ResNet-50 v1 at full width through the port's registry, layers and
+    compiled step: (i) one fp32 training step at batch 8 on the card
+    against the CPU; (iii) bench.py's training, AMP bf16 at batch 128 with
+    SGD(0.1, momentum 0.9): three compiled steps against three eager ones,
+    then 20 compiled steps on a cyclic task; (ii) bench.py's inference on
+    the trained weights, ``cast("bfloat16")`` at batch 128, against the
+    fp32 predict. No port kernel runs: the five kernels' counters stay at
+    0. Returns the phase's launch counts."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, autograd, gluon, optimizer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    log(f"[resnet] kernel counters before: {ck.launch_counts()}")
+    loss_fn = SoftmaxCrossEntropyLoss()
+    arrays = resnet_weights(SEED + 7)
+    log(f"[resnet] ResNet-50 v1: {len(arrays)} parameters, "
+        f"{sum(a.size for a in arrays.values()) / 1e6:.2f} M values; "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    # -- (i) one fp32 training step, the card against the CPU ---------------
+    rng = onp.random.default_rng(SEED + 8)
+    x8 = rng.standard_normal((RESNET_CHECK_BATCH, *RESNET_IMAGE),
+                             dtype="float32")
+    y8 = rng.integers(0, RESNET_CLASSES, RESNET_CHECK_BATCH).astype(
+        "float32")
+    runs = []
+    for ctx in (mx.cpu(), mx.gpu()):
+        with ctx:
+            net = _resnet_net(arrays)
+            dev = net.device
+            trainer = gluon.Trainer(net.collect_params(), optimizer.SGD(
+                learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM))
+            with autograd.record():
+                logits = net(torch.from_numpy(x8).to(dev))
+                loss = loss_fn(logits, torch.from_numpy(y8).to(dev))
+            autograd.backward(loss)
+            params = net.collect_params()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in params.items() if p.grad_req != "null"}
+            trainer.step(RESNET_CHECK_BATCH)
+            after = {n: p.detach().cpu().clone() for n, p in params.items()}
+            runs.append((logits.detach().cpu(), loss.detach().cpu(), grads,
+                         after))
+            del net, trainer, logits, loss
+    (lc, sc, gc_, wc), (lg, sg, gg, wg) = runs
+    _release()
+    top = max(float(g.abs().max()) for g in gc_.values())
+    errs = {"logits": _max_rel(lg, lc), "loss": _max_rel(sg, sc)}
+    own = {}
+    for n, g in gc_.items():
+        errs["grad " + n] = _max_rel(gg[n], g, top)
+        own[n] = _max_rel(gg[n], g)
+    for n, w in wc.items():
+        if n.endswith(("running_mean", "running_var")):
+            errs["stat " + n] = _max_rel(wg[n], w)
+        else:   # the first update, -lr g / B, on the gradients' scale
+            errs["update " + n] = _max_rel(wg[n] - torch.from_numpy(
+                arrays[n]), w - torch.from_numpy(arrays[n]),
+                RESNET_LR * top / RESNET_CHECK_BATCH)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    worst_own = sorted(own.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[resnet] (i) fp32 step at batch {RESNET_CHECK_BATCH}, card vs "
+        f"CPU (TF32 off), max |diff| over the largest entry (gradients and "
+        f"updates: the net's largest gradient, times lr): logits "
+        f"{errs['logits']:.2e}, loss {errs['loss']:.2e}; the five largest: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+        + "; gradients over their own largest entry, the three largest: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst_own)
+        + f"; card {smi_line}")
+    for k, v in errs.items():
+        limit = RESNET_GRAD_RTOL if k.startswith(("grad ", "update ")) \
+            else RESNET_FP32_RTOL
+        check(v <= limit, f"resnet (i): {k} {v:.2e} > {limit}")
+    del runs, gc_, gg, wc, wg, own
+
+    # -- (iii) bench.py's training: AMP, batch 128, SGD(0.1, 0.9) ------------
+    batches = _resnet_task(SEED + 9, torch.bfloat16)
+
+    def trainer_of(net):
+        return gluon.Trainer(net.collect_params(), optimizer.SGD(
+            learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM))
+
+    amp.init("bfloat16")
+    try:
+        eager = _resnet_net(arrays)
+        tr_e = trainer_of(eager)
+        eager_losses = []
+        for x, y in batches[:3]:
+            with autograd.record():
+                loss = loss_fn(eager(x), y).mean()
+            autograd.backward(loss)
+            tr_e.step(1)
+            eager_losses.append(float(loss.detach()))
+        eager_after = {n: p.detach().clone()
+                       for n, p in eager.collect_params().items()}
+        eager_mom = [None if s is None else s["mom"].clone()
+                     for s in tr_e._states]
+        del eager, tr_e, loss
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        net = _resnet_net(arrays)
+        trainer = trainer_of(net)
+        step = trainer.compile_step(net, loss_fn)
+        losses, reserved = [], []
+        for i in range(RESNET_STEPS):
+            x, y = batches[i % len(batches)]
+            losses.append(float(step(x, y)))
+            reserved.append(torch.cuda.memory_reserved())
+            if i == 2:
+                params = net.collect_params()
+                errs = {n: _max_rel(params[n], w)
+                        for n, w in eager_after.items()}
+                errs.update({f"mom {i}": _max_rel(s["mom"], m) for i, (s, m)
+                             in enumerate(zip(trainer._states, eager_mom))
+                             if m is not None})
+                loss_err = max(abs(a - b) / abs(b) for a, b in
+                               zip(losses, eager_losses))
+                worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+                log(f"[resnet] (iii) 3 compiled vs 3 eager AMP steps "
+                    f"(batch {RESNET_BATCH}, bf16 images, SGD "
+                    f"{RESNET_LR}/{RESNET_MOMENTUM}): losses "
+                    f"{[round(v, 5) for v in losses]} vs "
+                    f"{[round(v, 5) for v in eager_losses]} (rel "
+                    f"{loss_err:.2e}); weights, statistics and momenta "
+                    f"max |diff| / largest, the three largest: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in worst))
+                check(loss_err <= RESNET_COMPILED_RTOL and
+                      worst[0][1] <= RESNET_COMPILED_RTOL,
+                      f"resnet (iii): compiled vs eager beyond "
+                      f"{RESNET_COMPILED_RTOL}")
+                del eager_after, eager_mom
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[resnet] (iii) {RESNET_STEPS} compiled AMP steps on "
+            f"{len(batches)} cyclic batches: loss "
+            + " ".join(f"{v:.4f}" for v in losses)
+            + f"; captures {step._traces}; reserved bytes from step 2 on "
+            f"{sorted(set(reserved[1:]))}; peak "
+            f"{peak / 2**20:.0f} MiB; card {smi_line}")
+        check(step._traces == 1, "resnet (iii): more than one capture")
+        check(len(set(reserved[1:])) == 1,
+              "resnet (iii): memory reserved after the capture")
+        last = statistics.mean(losses[-len(batches):])
+        log(f"[resnet] (iii) the last cycle's mean loss {last:.4f} against "
+            f"{RESNET_LOSS_SHARE} x the first, {losses[0]:.4f}")
+        check(all(math.isfinite(v) for v in losses) and
+              last < RESNET_LOSS_SHARE * losses[0],
+              f"resnet (iii): mean loss {last:.4f} of the last cycle not "
+              f"below {RESNET_LOSS_SHARE} x {losses[0]:.4f}")
+        x, y = batches[0]
+        wall = _wall_ms(lambda: step(x, y), 10)
+        busy, launches, by_name = _profile(lambda: step(x, y))
+        img_s = RESNET_BATCH / wall * 1e3
+        mfu = img_s * RESNET_TRAIN_FLOPS / PEAK_BF16_FLOPS
+        log(f"[resnet] (iii) compiled AMP step: wall {wall:.2f} ms "
+            f"(median of 10), device busy {busy:.2f} ms, idle share "
+            f"{max(0.0, 1 - busy / wall):.3f}, {launches:.0f} kernels a "
+            f"replay; {img_s:.1f} img/s; MFU {mfu:.3f} (bench.py's "
+            f"{RESNET_TRAIN_FLOPS:.4g} FLOP an image over the dense bf16 "
+            f"peak {PEAK_BF16_FLOPS:.3g}); peak {peak / 2**20:.0f} MiB; "
+            f"card {smi_line}")
+        _log_by_kind("(iii) compiled step", by_name, 5, smi_line)
+        # where the eager AMP step's time goes, by part
+        tr_p = trainer
+        parts = {}
+
+        def forward_backward():
+            with autograd.record():
+                loss = loss_fn(net(x), y).mean()
+            autograd.backward(loss)
+
+        parts["forward+backward"] = _profile(forward_backward, 3)[0]
+        parts["optimizer (fused SGD)"] = _profile(lambda: tr_p.step(1), 3)[0]
+        log("[resnet] (iii) eager AMP step, device busy ms by part: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            + f"; card {smi_line}")
+        del step, trainer, tr_p
+    finally:
+        amp.disable()
+    _release()
+
+    # -- (ii) bench.py's inference: cast("bfloat16"), predict, batch 128 ----
+    xi = batches[0][0].float()
+    with torch.no_grad():
+        ref32 = net(xi)
+        net.cast("bfloat16")
+        xb = xi.to(torch.bfloat16)
+        got = net(xb)
+    err = _max_rel(got, ref32)
+    log(f"[resnet] (ii) bf16 predict vs fp32 predict at batch "
+        f"{RESNET_BATCH}: max |diff| / largest logit {err:.2e} (limit "
+        f"{RESNET_BF16_RTOL}); dtype {got.dtype}")
+    check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+          and err <= RESNET_BF16_RTOL, f"resnet (ii): bf16 predict {err:.2e}")
+
+    def infer():
+        with torch.no_grad():
+            return net(xb)
+
+    wall = _wall_ms(infer, 10)
+    busy, launches, by_name = _profile(infer)
+    log(f"[resnet] (ii) bf16 inference, batch {RESNET_BATCH}: wall "
+        f"{wall:.2f} ms a batch (median of 10), {RESNET_BATCH / wall * 1e3:.1f}"
+        f" img/s, device busy {busy:.2f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}, {launches:.0f} kernels; MFU "
+        f"{RESNET_BATCH / wall * 1e3 * RESNET50_FWD_FLOPS / PEAK_BF16_FLOPS:.3f}"
+        f"; card {smi_line}")
+    _log_by_kind("(ii) inference", by_name, 5, smi_line)
+    del net, batches, ref32, got
+    _release()
+    counts = read_counts("resnet")
+    log(f"[resnet] kernel counters after: {counts}")
+    check(not any(counts.values()),
+          f"resnet: a port kernel launched on the ResNet path: {counts}")
+    log(f"[resnet] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 
 # ---------------------------------------------------------------------------
 def main():
@@ -2829,6 +3246,7 @@ def main():
         del arrays, batches
         phase_tune(agree)
         rtc_row = phase_rtc()
+        phase_resnet(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()

@@ -31,8 +31,10 @@ def params_from_mxnet_tpu(arrays, model=None):
     (``amp.convert_hybrid_block``), which become tensors of the same torch
     dtype (through float32, which holds each of their values exactly). With
     ``model`` (a port block), the names must be exactly
-    ``model.collect_params()``'s and every shape must match; the tensors
-    then take each parameter's dtype and device. Raises
+    ``model.collect_params()``'s and every shape must match (a parameter of
+    unknown shape, a placeholder, matches an array of its rank that keeps
+    its known extents); the tensors then take each parameter's dtype and
+    device. Raises
     :class:`MXNetError` naming the first mismatch.
     """
     out = {}
@@ -55,7 +57,10 @@ def params_from_mxnet_tpu(arrays, model=None):
         raise MXNetError(
             f"parameter names differ: missing {missing}, unexpected {extra}")
     for name, p in params.items():
-        if tuple(out[name].shape) != tuple(p.shape):
+        got, want = tuple(out[name].shape), tuple(p.shape)
+        if got != want and not (
+                getattr(p, "is_deferred", False) and len(got) == len(want)
+                and all(w in (0, g) for g, w in zip(got, want))):
             raise MXNetError(
                 f"parameter {name}: shape {tuple(out[name].shape)} from the "
                 f"JAX package, {tuple(p.shape)} in the port")

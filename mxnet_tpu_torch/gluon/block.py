@@ -96,18 +96,24 @@ class Block(torch.nn.Module):
     @torch.no_grad()
     def initialize(self, init=None, seed=None):
         """Fill every parameter from its own initializer, else ``init``
-        (default ``Uniform(0.07)``), drawing from a CPU ``torch.Generator``
+        (default ``Uniform(0.07)``), by the reference's fill by name
+        (``Initializer.init_array``), drawing from a CPU ``torch.Generator``
         seeded with ``seed`` — so a seed gives the same weights on every
-        device."""
+        device. A parameter of unknown shape records its initializer, the
+        generator and its name, and is drawn at its first forward."""
         default = init_mod.create(init) or init_mod.Uniform(0.07)
         gen = torch.Generator()
         if seed is None:
             gen.seed()
         else:
             gen.manual_seed(int(seed))
-        for p in self.collect_params().values():
+        for name, p in self.collect_params().items():
+            initializer = getattr(p, "mx_init", None) or default
+            if getattr(p, "is_deferred", False):
+                p._deferred_init = (initializer, gen, name)
+                continue
             host = torch.empty(p.shape, dtype=torch.float32)
-            (getattr(p, "mx_init", None) or default)(host, gen)
+            initializer.init_array(name, host, gen)
             p.copy_(host)
 
     def hybridize(self, active=True, **kwargs):
@@ -122,9 +128,12 @@ class Block(torch.nn.Module):
     def save_parameters(self, filename):
         """Write the parameters in the reference's ``.params`` format: a
         numpy ``savez`` archive keyed by ``collect_params()`` names
-        (bfloat16 stored as float32)."""
+        (bfloat16 stored as float32). A parameter still of unknown shape is
+        left out, as in the reference."""
         arrays = {}
         for name, p in self.collect_params().items():
+            if getattr(p, "is_deferred", False):
+                continue
             t = p.detach()
             if t.dtype == torch.bfloat16:
                 t = t.float()
@@ -142,7 +151,8 @@ class Block(torch.nn.Module):
     def load_dict(self, arrays):
         """Copy ``{name: numpy array or tensor}`` into the parameters
         through :func:`~mxnet_tpu_torch.convert.params_from_mxnet_tpu`,
-        which checks every name and shape."""
+        which checks every name and shape; a parameter of unknown shape
+        takes the array's, in place."""
         from ..convert import params_from_mxnet_tpu
 
         arrays = {n: (a.detach().cpu().numpy()
@@ -150,7 +160,10 @@ class Block(torch.nn.Module):
                   for n, a in arrays.items()}
         params = self.collect_params()
         for name, t in params_from_mxnet_tpu(arrays, self).items():
-            params[name].copy_(t)
+            if getattr(params[name], "is_deferred", False):
+                params[name]._fill(t)
+            else:
+                params[name].copy_(t)
 
 
 class HybridBlock(Block):

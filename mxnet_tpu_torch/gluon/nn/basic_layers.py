@@ -1,19 +1,39 @@
-"""Core layers as ``torch.nn.Module``s (the subset the GPT family uses).
+"""Core layers as ``torch.nn.Module``s (the subset GPT and ResNet use).
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense`` (:61),
+``Flatten`` (:116), ``Activation`` (:129), ``BatchNorm`` (:211),
 ``LayerNorm`` (:281), ``Embedding`` (:365) and ``HybridSequential`` (:56).
 Parameter names and layouts are the reference's: ``Dense.weight`` is
-(units, in_units), ``LayerNorm`` keeps ``gamma``/``beta``. Shapes are given
-at construction: the reference's deferred shape inference is not ported.
+(units, in_units), the norms keep ``gamma``/``beta``, BatchNorm its
+``running_mean``/``running_var`` (parameters with ``grad_req='null'``).
+
+Deferred shapes: ``Dense`` without ``in_units`` and the norms without
+``in_channels`` hold placeholders (a 0 in the shape) that their first
+forward fills (``Parameter._finish_deferred_init``), as the reference's
+``_infer``. A layer given its shapes (as GPT's are) never defers.
 """
 from __future__ import annotations
 
-from ...base import MXNetError, to_dtype
+import math
+
+import torch
+
+from ... import autograd as _ag
+from ...base import to_dtype
 from ...context import resolve_device
 from ...ops import nn as F
 from ..block import HybridBlock, new_parameter
 
-__all__ = ["HybridSequential", "Dense", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Flatten", "Activation",
+           "BatchNorm", "LayerNorm", "Embedding"]
+
+
+def finish_deferred(shape, *params):
+    """Fill those of ``params`` still awaiting their shape with ``shape``
+    (None entries skipped)."""
+    for p in params:
+        if p is not None and p.is_deferred:
+            p._finish_deferred_init(shape)
 
 
 class HybridSequential(HybridBlock):
@@ -40,43 +60,113 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """Fully connected layer: y = x W^T + b, W of shape (units, in_units)."""
+    """Fully connected layer: y = act(x W^T + b), W of shape (units,
+    in_units); ``in_units=0`` defers it to the first forward (the
+    non-batch extent of x with ``flatten``, else its last)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, device=None):
         super().__init__()
-        if not in_units:
-            raise MXNetError(
-                "Dense needs in_units: deferred shape inference is not "
-                "ported")
-        if activation is not None:
-            raise MXNetError("Dense(activation=...) is not ported")
         device = resolve_device(device)
         dtype = to_dtype(dtype)
         self._units = units
         self._flatten = flatten
+        self._activation = activation
         self.weight = new_parameter((units, in_units), dtype, device,
                                     weight_initializer)
         self.bias = new_parameter((units,), dtype, device,
                                   bias_initializer) if use_bias else None
 
     def forward(self, x):
-        return F.fully_connected(x, self.weight, self.bias,
-                                 flatten=self._flatten)
+        if self.weight.is_deferred:
+            self.weight._finish_deferred_init((self._units, math.prod(
+                x.shape[1:]) if self._flatten else x.shape[-1]))
+        out = F.fully_connected(x, self.weight, self.bias,
+                                flatten=self._flatten)
+        if self._activation is not None:
+            out = F.activation(out, act_type=self._activation)
+        return out
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, everything else)."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Activation(HybridBlock):
+    """``act_type`` of the ``activation`` op (``"relu"``, ``"tanh"``,
+    ...)."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self._act = activation
+
+    def forward(self, x):
+        return F.activation(x, act_type=self._act)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over ``axis`` (reference :211-270).
+
+    While training (``autograd.is_training()``: inside ``autograd.record()``
+    — not ``Module.training``) and without ``use_global_stats`` it
+    normalises by the batch's stats and writes the new running stats into
+    ``running_mean``/``running_var`` **in place** (``copy_`` under
+    ``no_grad``), never rebinding them, so a captured step updates the same
+    storage on every replay; otherwise it normalises by the running stats.
+    ``scale=False`` fixes gamma at ones (``fix_gamma``)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 dtype="float32", device=None):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = to_dtype(dtype)
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._use_global_stats = use_global_stats
+        self._scale = scale
+        shape = (in_channels,)
+        self.gamma = new_parameter(shape, dtype, device, gamma_initializer,
+                                   "write" if scale else "null")
+        self.beta = new_parameter(shape, dtype, device, beta_initializer,
+                                  "write" if center else "null")
+        self.running_mean = new_parameter(shape, dtype, device,
+                                          running_mean_initializer, "null")
+        self.running_var = new_parameter(shape, dtype, device,
+                                         running_variance_initializer,
+                                         "null")
+
+    def forward(self, x):
+        finish_deferred((x.shape[self._axis],), self.gamma, self.beta,
+                        self.running_mean, self.running_var)
+        update = _ag.is_training() and not self._use_global_stats
+        out, new_mean, new_var = F.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._eps, momentum=self._momentum,
+            fix_gamma=not self._scale, use_batch_stats=update,
+            axis=self._axis)
+        if update:
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+        return out
 
 
 class LayerNorm(HybridBlock):
-    """LayerNorm over ``axis`` with ``gamma``/``beta`` parameters."""
+    """LayerNorm over ``axis`` with ``gamma``/``beta`` parameters;
+    ``in_channels=0`` defers their shape to the first forward."""
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
                  in_channels=0, dtype="float32", device=None):
         super().__init__()
-        if not in_channels:
-            raise MXNetError(
-                "LayerNorm needs in_channels: deferred shape inference is "
-                "not ported")
         device = resolve_device(device)
         dtype = to_dtype(dtype)
         self._axis = axis
@@ -89,6 +179,7 @@ class LayerNorm(HybridBlock):
                                   "write" if center else "null")
 
     def forward(self, x):
+        finish_deferred((x.shape[self._axis],), self.gamma, self.beta)
         return F.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                             eps=self._eps)
 

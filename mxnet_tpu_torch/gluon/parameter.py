@@ -19,6 +19,16 @@ in every mode, as in the reference.
 ``cast(dtype)`` changes the parameter's dtype in place (reference :211): the
 same object, so trainers and blocks that hold it see the new data, with a
 zero gradient of the new dtype attached.
+
+Deferred shapes (reference :28, :89-130): a parameter whose shape holds a 0
+(a layer built without ``in_units``/``in_channels``) is a placeholder, an
+empty tensor, until the first forward gives its shape. ``initialize()``
+only records its initializer (with the generator and the name);
+:meth:`Parameter._finish_deferred_init` then fills it **in place**, the
+same object (``p.data = ...``), so a ``Trainer`` built before the first
+forward holds it; a placeholder never initialised gets zeros. Filling one
+inside a CUDA graph capture raises: the capture would record an allocation
+and a host-side draw that no replay repeats.
 """
 from __future__ import annotations
 
@@ -52,6 +62,9 @@ class Parameter(torch.nn.Parameter):
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.mx_init = init
+        # (initializer, generator, name) recorded by initialize() while the
+        # shape is unknown
+        self._deferred_init = None
         self._fresh_grad = None
         self._hooked = False
         if self.requires_grad:
@@ -93,6 +106,47 @@ class Parameter(torch.nn.Parameter):
     def zero_grad(self):
         if self.grad is not None:
             self.grad.zero_()
+
+    @property
+    def is_deferred(self):
+        """True while the shape holds a 0: a placeholder awaiting its first
+        forward (or a loaded file)."""
+        return not all(self.shape)
+
+    def _check_fill(self, shape):
+        """Raise unless the placeholder may become ``shape`` now: the same
+        rank, every known extent kept, and no CUDA graph capturing."""
+        if len(shape) != self.dim() or any(
+                old and old != new for old, new in zip(self.shape, shape)):
+            raise MXNetError(f"cannot change the shape of a parameter from "
+                             f"{tuple(self.shape)} to {tuple(shape)}")
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                f"parameter of shape {tuple(self.shape)} is filled during a "
+                "CUDA graph capture: run one forward before capturing")
+
+    @torch.no_grad()
+    def _fill(self, data):
+        """Become ``data`` (a tensor of this parameter's final shape), in
+        place: the same object, its gradient dropped."""
+        self._check_fill(tuple(data.shape))
+        self.data = data.to(device=self.device, dtype=self.dtype)
+        self.grad = None
+        self._deferred_init = None
+
+    @torch.no_grad()
+    def _finish_deferred_init(self, shape):
+        """Give the placeholder its ``shape`` and fill it from the
+        initializer ``initialize()`` recorded (zeros when none was), by the
+        reference's fill by name."""
+        shape = tuple(int(n) for n in shape)
+        self._check_fill(shape)
+        host = torch.zeros(shape, dtype=torch.float32)
+        if self._deferred_init is not None:
+            init, gen, name = self._deferred_init
+            init.init_array(name, host, gen)
+        self._fill(host)
 
     @torch.no_grad()
     def cast(self, dtype):

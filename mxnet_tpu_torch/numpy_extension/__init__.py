@@ -6,12 +6,15 @@ reference's signatures: the framework controls (``set_np``, ``use_np``,
 ``waitall``, ``cpu``/``gpu``/``num_gpus``) and the NN ops of
 :mod:`mxnet_tpu_torch.ops.nn` and :mod:`.ops._core`, each through
 ``ops.registry.invoke``. ``flash_attention``, ``multihead_attention`` and
-``layer_norm`` reach the hand-written CUDA kernels for arrays on the card.
+``layer_norm`` reach the hand-written CUDA kernels for arrays on the card;
+``convolution``, ``pooling``, ``adaptive_avg_pool2d`` and ``batch_norm``
+run torch's convolution and pooling (cuDNN on the card) and the
+reference's BatchNorm formula.
 
 Not ported (they raise :class:`MXNetError` naming their ROADMAP item):
-convolution, deconvolution, pooling, batch_norm and the other norms,
-sequence and loss ops, the vision and detection ops and control flow
-(A9, the rest of the op library); ``custom`` (A10). Any other registered
+deconvolution, the other norms, sequence and loss ops, the vision and
+detection ops and control flow (A9, the rest of the op library); ``custom``
+(A10). Any other registered
 op is reachable by name through :func:`__getattr__`.
 """
 from __future__ import annotations
@@ -75,6 +78,44 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
         args.append(_nd(bias))
     return _op("fully_connected", *args, no_bias=no_bias_eff, flatten=flatten,
                num_hidden=num_hidden)
+
+
+def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=0, num_group=1, no_bias=False, layout=None,
+                **kw):
+    args = [_nd(data), _nd(weight)]
+    no_bias_eff = bias is None or no_bias
+    if not no_bias_eff:
+        args.append(_nd(bias))
+    return _op("convolution", *args, kernel=tuple(kernel),
+               stride=tuple(stride), dilate=tuple(dilate), pad=tuple(pad),
+               num_filter=num_filter, num_group=num_group,
+               no_bias=no_bias_eff, layout=layout)
+
+
+def pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
+            global_pool=False, count_include_pad=True, layout=None,
+            ceil_mode=False, **kw):
+    return _op("pooling", _nd(data), kernel=tuple(kernel),
+               pool_type=pool_type, stride=tuple(stride), pad=tuple(pad),
+               global_pool=global_pool, count_include_pad=count_include_pad,
+               layout=layout, ceil_mode=ceil_mode)
+
+
+def adaptive_avg_pool2d(data, output_size=1):
+    return _op("adaptive_avg_pool2d", _nd(data), output_size=output_size)
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=False, use_global_stats=False,
+               output_mean_var=False, axis=1):
+    """``(out, new_mean, new_var)``: batch stats only while training
+    (``autograd.is_training()``) and not ``use_global_stats``."""
+    use_batch = _ag.is_training() and not use_global_stats
+    return _op("batch_norm", _nd(x), _nd(gamma), _nd(beta),
+               _nd(running_mean), _nd(running_var), eps=eps,
+               momentum=momentum, fix_gamma=fix_gamma,
+               use_batch_stats=use_batch, axis=axis)
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
@@ -223,10 +264,9 @@ def slice_like(data, shape_like, axes=None):
 
 # the reference's ops outside ops/_core, ops/indexing and ops/nn's ported
 # subset: the rest of the op library (ROADMAP A9) and custom ops (A10)
-for _name in ("convolution", "deconvolution", "pooling", "batch_norm",
-              "group_norm", "instance_norm", "rms_norm", "smooth_l1",
-              "ctc_loss", "sequence_mask", "sequence_reverse",
-              "sequence_last", "adaptive_avg_pool2d", "box_iou", "box_nms",
+for _name in ("deconvolution", "group_norm", "instance_norm", "rms_norm",
+              "smooth_l1", "ctc_loss", "sequence_mask", "sequence_reverse",
+              "sequence_last", "box_iou", "box_nms",
               "box_encode", "box_decode", "roi_pooling", "roi_align",
               "upsampling", "bilinear_resize_2d", "moments", "foreach",
               "while_loop", "cond"):

@@ -1,16 +1,18 @@
 """Neural-network operators of the port: registered ops and their
 tensor-level doors.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT training
-and serving paths call. Each op is registered in :mod:`.registry` under the
-reference's name and attributes (``fully_connected``, ``layer_norm``,
-``embedding``, ``leaky_relu``, ``activation``, ``softmax``,
-``log_softmax``, ``masked_softmax``, ``dropout``, ``pick``,
-``multihead_attention``, ``flash_attention``), so ``mx.npx`` and NDArrays
-reach them through ``invoke``. The matrix products and elementwise work stay
-plain PyTorch, as the reference leaves them to XLA; LayerNorm and masked
-attention (forward and backward) route to the hand-written kernels in
-:mod:`.cuda_kernels`.
+Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT and
+ResNet training and serving paths call. Each op is registered in
+:mod:`.registry` under the reference's name and attributes
+(``fully_connected``, ``convolution``, ``pooling``,
+``adaptive_avg_pool2d``, ``batch_norm``, ``layer_norm``, ``embedding``,
+``leaky_relu``, ``activation``, ``softmax``, ``log_softmax``,
+``masked_softmax``, ``dropout``, ``pick``, ``multihead_attention``,
+``flash_attention``), so ``mx.npx`` and NDArrays reach them through
+``invoke``. The matrix products, convolutions, pooling and elementwise work
+stay plain PyTorch (cuDNN on the card), as the reference leaves them to XLA;
+LayerNorm and masked attention (forward and backward) route to the
+hand-written kernels in :mod:`.cuda_kernels`.
 
 The functions of this module (``fully_connected(x, weight, bias)``, ...)
 are the tensor-level doors that GPT, the losses, the compiled step and the
@@ -38,7 +40,8 @@ from . import cuda_kernels as _kern
 from ._core import fill_value, take_along_axis, wrap_fill_index
 from .registry import get_op, register
 
-__all__ = ["fully_connected", "matmul", "layer_norm", "embedding",
+__all__ = ["fully_connected", "matmul", "convolution", "pooling",
+           "adaptive_avg_pool2d", "batch_norm", "layer_norm", "embedding",
            "leaky_relu", "activation", "dropout", "softmax", "log_softmax",
            "masked_softmax", "pick", "one_hot", "multihead_attention",
            "flash_attention"]
@@ -82,6 +85,202 @@ def _fc(no_bias=False, flatten=True, num_hidden=0):
         if not no_bias:
             y = y + b[0]
         return y
+
+    return f
+
+
+# ---------------------------------------------------------------------------
+# convolution and pooling (reference :47-224)
+# ---------------------------------------------------------------------------
+_DEFAULT_LAYOUT = {3: "NCW", 4: "NCHW", 5: "NCDHW"}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _channels_first(layout, nd):
+    """(to, back): the permutations between ``layout`` and channels-first,
+    or (None, None) when it is channels-first already. A channels-last
+    layout (``NWC``, ``NHWC``, ``NDHWC``) is logical, as the reference's
+    dimension numbers (:47-52): x is permuted, with the same result."""
+    lay = layout or _DEFAULT_LAYOUT[nd]
+    if lay[1] == "C":
+        return None, None
+    return (0, nd - 1, *range(1, nd - 1)), (0, *range(2, nd), 1)
+
+
+def _per_dim(v, n, default):
+    return tuple(v) if v else (default,) * n
+
+
+@register("convolution")
+def _convolution(kernel=(), stride=(), dilate=(), pad=(), num_filter=0,
+                 num_group=1, no_bias=False, layout=None):
+    """N-d convolution (1-3 spatial dims), weight (O, I / groups, *k) in any
+    layout (reference :55-83)."""
+    def f(x, w, *b):
+        nsp = x.dim() - 2
+        to, back = _channels_first(layout, x.dim())
+        if to is not None:
+            x = x.permute(to)
+        y = _CONV[nsp](x, w, None if no_bias else b[0],
+                       stride=_per_dim(stride, nsp, 1),
+                       padding=_per_dim(pad, nsp, 0),
+                       dilation=_per_dim(dilate, nsp, 1), groups=num_group)
+        return y if back is None else y.permute(back)
+
+    return f
+
+
+def _ceil_extra(size, k, s, p, ceil_mode):
+    """The ceil-mode padding past the symmetric one that lets the window
+    grid cover the last partial window (reference :165-172)."""
+    rem = (size + 2 * p - k) % s
+    return s - rem if ceil_mode and rem else 0
+
+
+def _torch_pool_size(size, k, s, p, ceil_mode):
+    """Output extent of torch's pooling (which drops a last window that
+    starts in the right padding)."""
+    span = size + 2 * p - k
+    out = (-(-span // s) if ceil_mode else span // s) + 1
+    if ceil_mode and (out - 1) * s >= size + p:
+        out -= 1
+    return out
+
+
+def _windows(x, k, s):
+    """x (N, C, *spatial) -> (N, C, *out, *k): every pooling window."""
+    for i, (ki, si) in enumerate(zip(k, s)):
+        x = x.unfold(2 + i, ki, si)
+    return x
+
+
+def _pad_spatial(x, lohi, value):
+    pads = []
+    for lo, hi in reversed(lohi):
+        pads += [lo, hi]
+    return F.pad(x, pads, value=value)
+
+
+@register("pooling")
+def _pooling(kernel=(), pool_type="max", stride=(), pad=(), global_pool=False,
+             count_include_pad=True, layout=None, ceil_mode=False):
+    """Max or average pooling (anything but ``"max"`` averages, as the
+    reference, :147-204). Where torch's pooling computes the same windows
+    (padding at most half the kernel, the same output extent) it runs
+    torch's (cuDNN's) op; otherwise the windows are padded explicitly (-inf
+    or the integer minimum for max, 0 for average) and reduced, with the
+    reference's divisor: the symmetric padding counts when
+    ``count_include_pad``, the ceil-mode extra never."""
+    is_max = pool_type == "max"
+
+    def f(x):
+        to, back = _channels_first(layout, x.dim())
+        if to is not None:
+            x = x.permute(to)
+        y = _pool(x)
+        return y if back is None else y.permute(back)
+
+    def _pool(x):
+        nsp = x.dim() - 2
+        sp = tuple(range(2, x.dim()))
+        if global_pool:
+            return x.amax(dim=sp, keepdim=True) if is_max else \
+                x.mean(dim=sp, keepdim=True)
+        k = tuple(kernel)
+        s = _per_dim(stride, nsp, 1)
+        p = _per_dim(pad, nsp, 0)
+        sizes = x.shape[2:]
+        extra = [_ceil_extra(n, ki, si, pi, ceil_mode)
+                 for n, ki, si, pi in zip(sizes, k, s, p)]
+        ours = [(n + 2 * pi + e - ki) // si + 1
+                for n, ki, si, pi, e in zip(sizes, k, s, p, extra)]
+        if x.is_floating_point() and all(2 * pi <= ki for pi, ki in
+                                         zip(p, k)) and ours == [
+                _torch_pool_size(n, ki, si, pi, ceil_mode)
+                for n, ki, si, pi in zip(sizes, k, s, p)]:
+            if is_max:
+                return _MAX_POOL[nsp](x, k, s, p, ceil_mode=ceil_mode)
+            return _AVG_POOL[nsp](x, k, s, p, ceil_mode=ceil_mode,
+                                  count_include_pad=count_include_pad)
+        lohi = [(pi, pi + e) for pi, e in zip(p, extra)]
+        red = tuple(range(-nsp, 0))
+        if is_max:
+            fill = float("-inf") if x.is_floating_point() else \
+                torch.iinfo(x.dtype).min
+            return _windows(_pad_spatial(x, lohi, fill), k, s).amax(dim=red)
+        total = _windows(_pad_spatial(x, lohi, 0), k, s).sum(dim=red)
+        ones = torch.ones((1, 1, *sizes), dtype=torch.float32,
+                          device=x.device)
+        if count_include_pad:
+            ones = _pad_spatial(_pad_spatial(ones, [(pi, pi) for pi in p], 1),
+                                [(0, e) for e in extra], 0)
+        else:
+            ones = _pad_spatial(ones, lohi, 0)
+        count = _windows(ones, k, s).sum(dim=red)
+        return total / count.to(total.dtype)
+
+    return f
+
+
+@register("adaptive_avg_pool2d")
+def _adaptive_avg_pool2d(output_size=1):
+    """Average pooling of NCHW to ``output_size``, which must divide the
+    input's extent (reference :207-224)."""
+    osz = (output_size, output_size) if isinstance(output_size, int) \
+        else tuple(output_size)
+
+    def f(x):
+        n, c, h, w = x.shape
+        if osz == (1, 1):
+            return x.mean(dim=(2, 3), keepdim=True)
+        if h % osz[0] or w % osz[1]:
+            raise MXNetError(
+                f"adaptive_avg_pool2d requires divisible sizes: {(h, w)} "
+                f"into {osz}")
+        return x.reshape(n, c, osz[0], h // osz[0], osz[1],
+                         w // osz[1]).mean(dim=(3, 5))
+
+    return f
+
+
+@register("batch_norm", nout=3)
+def _batch_norm(eps=1e-5, momentum=0.9, fix_gamma=True, use_batch_stats=True,
+                axis=1):
+    """BatchNorm over ``axis`` (reference :227-252), three outputs ``(out,
+    new_mean, new_var)``. With batch stats the new running stats mix in the
+    batch's *biased* variance with MXNet's momentum (the weight of the old
+    stat), and carry no gradient; otherwise the moving stats normalise and
+    come back as they are. The formula is the reference's, in its dtypes:
+    x's dtype for ``out``, the promotion of the stats' for the new stats
+    (the means sum in fp32 for bf16 x). One value per channel gives
+    variance 0."""
+    def f(x, gamma, beta, moving_mean, moving_var):
+        g = torch.ones_like(gamma) if fix_gamma else gamma
+        ax = axis if axis >= 0 else x.dim() + axis
+        red = tuple(i for i in range(x.dim()) if i != ax)
+        shape = [1] * x.dim()
+        shape[ax] = x.shape[ax]
+        if use_batch_stats:
+            # two passes, as jnp.var: the variance's error is then second
+            # order in the mean's rounding, which decides the result where
+            # a channel holds few values
+            mean = x.mean(dim=red)
+            centered = x - mean.reshape(shape)
+            var = (centered * centered).mean(dim=red)
+            new_mean = (momentum * moving_mean +
+                        (1 - momentum) * mean).detach()
+            new_var = (momentum * moving_var +
+                       (1 - momentum) * var).detach()
+        else:
+            mean, var = moving_mean, moving_var
+            new_mean, new_var = moving_mean, moving_var
+            centered = x - mean.reshape(shape).to(x.dtype)
+        inv = torch.rsqrt(var.float() + eps).to(x.dtype)
+        out = centered * (g * inv).reshape(shape).to(x.dtype) + \
+            beta.reshape(shape).to(x.dtype)
+        return out, new_mean, new_var
 
     return f
 
@@ -331,6 +530,10 @@ def _flash_attention(num_heads=1, causal=False, scale=None):
 # ---------------------------------------------------------------------------
 _FC = _Door("fully_connected")
 _MATMUL = _Door("matmul")
+_CONVOLUTION = _Door("convolution")
+_POOLING = _Door("pooling")
+_ADAPTIVE_AVG = _Door("adaptive_avg_pool2d")
+_BATCH_NORM = _Door("batch_norm")
 _LN = _Door("layer_norm")
 _EMBEDDING = _Door("embedding")
 _LEAKY = _Door("leaky_relu")
@@ -357,6 +560,39 @@ def matmul(a, b):
     """The registered ``matmul`` op (reference ``ops/_core.py:110``,
     ``jnp.matmul``), cast under AMP."""
     return _MATMUL.fn()(a, b)
+
+
+def convolution(x, weight, bias=None, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=0, num_group=1, layout=None):
+    """The ``convolution`` op on tensors (reference :55), cast under AMP;
+    tuples for the per-dimension attributes."""
+    f = _CONVOLUTION.fn(kernel=kernel, stride=stride, dilate=dilate, pad=pad,
+                        num_filter=num_filter, num_group=num_group,
+                        no_bias=bias is None, layout=layout)
+    return f(x, weight) if bias is None else f(x, weight, bias)
+
+
+def pooling(x, kernel=(), pool_type="max", stride=(), pad=(),
+            global_pool=False, count_include_pad=True, layout=None,
+            ceil_mode=False):
+    """The ``pooling`` op on tensors (reference :147)."""
+    return _POOLING.fn(kernel=kernel, pool_type=pool_type, stride=stride,
+                       pad=pad, global_pool=global_pool,
+                       count_include_pad=count_include_pad, layout=layout,
+                       ceil_mode=ceil_mode)(x)
+
+
+def adaptive_avg_pool2d(x, output_size=1):
+    return _ADAPTIVE_AVG.fn(output_size=output_size)(x)
+
+
+def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
+               momentum=0.9, fix_gamma=True, use_batch_stats=True, axis=1):
+    """The ``batch_norm`` op on tensors (reference :227): ``(out, new_mean,
+    new_var)``."""
+    return _BATCH_NORM.fn(eps=eps, momentum=momentum, fix_gamma=fix_gamma,
+                          use_batch_stats=use_batch_stats, axis=axis)(
+        x, gamma, beta, running_mean, running_var)
 
 
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):

@@ -65,6 +65,17 @@ train under another state. A parameter cast to another dtype
 (``Parameter.cast``, ``amp.convert_hybrid_block``) lies at a new address,
 so the next call captures anew.
 
+BatchNorm: the forward of the body writes the new running statistics into
+the net's ``running_mean``/``running_var`` in place, so the update is part
+of the captured graph and each replay advances them once a forward (G
+times a step with ``accumulate=G``, microbatch by microbatch, as the
+reference's scan); the warm step advances them once and the capture runs
+nothing, so N calls leave them where N eager steps would. Parameters of
+unknown shape (layers built without their input widths) are filled before
+the warm step by one forward under ``autograd.pause()`` (the reference's
+``_ensure_initialized``), which leaves the statistics as they were; never
+inside a capture.
+
 Semantic fallback (reference :660-670): an optimizer without a fusable
 step or with ``multi_precision`` runs the eager loop
 ``loss_fn(net(x), y).mean(); backward(); trainer.step(1)`` with a warning
@@ -108,6 +119,10 @@ class _Program:
         self.g = g
         self.k_cap = k_cap
         self.params = [tr._params[i] for i in idxs]
+        # the net's other parameters (BatchNorm's running statistics), which
+        # the body writes in place
+        held = {id(p) for p in self.params}
+        self.aux = [p for p in step.net.parameters() if id(p) not in held]
         self.device = dev = self.params[0].device
         self.states = [tr._states[i] for i in idxs]
         keys = spec[1]
@@ -139,12 +154,12 @@ class _Program:
         self.captured_dtypes = None
 
     def _addresses(self, states):
-        return [(p.data_ptr(), p.dtype) for p in self.params] + [
+        return [(p.data_ptr(), p.dtype) for p in self.params + self.aux] + [
             st[k].data_ptr() for st in states for k in self.spec[1]]
 
     def current(self):
-        """True while every trainable and state lies where the program
-        (and its graph) found it."""
+        """True while every parameter of the net and trainer, and every
+        state, lies where the program (and its graph) found it."""
         tr = self.step.trainer
         states = [tr._states[i] for i in self.idxs]
         if any(st is None or any(k not in st for k in self.spec[1])
@@ -345,6 +360,7 @@ class CompiledTrainStep:
             return self._call_multi(x, y)
         if self.fallback_reason is not None:
             return self._eager_step(x, y)
+        self._ensure_initialized(x)
         prog = self._program(x, y, 1, 1)
         if prog is None:
             return self._eager_step(x, y)
@@ -356,6 +372,7 @@ class CompiledTrainStep:
                 "multi-step dispatch cannot fall back to the eager loop "
                 f"(stacked inputs): {self.fallback_reason}")
         k, x, y = self._split_super(x, y)
+        self._ensure_initialized(x[0][0] if self.accumulate > 1 else x[0])
         prog = self._program(x[0], y[0], self.accumulate, k)
         if prog is None:
             raise MXNetError(
@@ -392,6 +409,16 @@ class CompiledTrainStep:
         return int(x.shape[0]), x, y
 
     # -- building -----------------------------------------------------------
+    def _ensure_initialized(self, x):
+        """Fill the net's parameters of unknown shape by one forward of the
+        microbatch ``x`` under ``autograd.pause()`` (reference
+        ``gluon/block.py:222-236``): predict mode, so no statistic moves."""
+        params = list(self.net.parameters())
+        if not any(getattr(p, "is_deferred", False) for p in params):
+            return
+        with autograd.pause(), torch.no_grad():
+            self.net(x.to(params[0].device))
+
     def _collect(self):
         """Trainables in trainer order (reference :909): parameters whose
         ``grad_req`` is not ``'null'``. Returns ``(indices, reason)``."""
