@@ -207,15 +207,44 @@ Phases (any failure exits non-zero without the final line):
              trained weights: ``cast("bfloat16")``, predict mode, batch 128,
              within 5e-2 of the fp32 predict's largest logit; img/s, device
              busy ms a batch and the idle share; the phase's seconds.
+8. predictor — the ``serve.Predictor`` serving hybridized blocks at full
+             width, each bucket one CUDA graph: (i) ResNet-50 v1 (phase 7's
+             weights, ``cast("bfloat16")``, ``hybridize()``) with the ladder
+             1, 2, ..., 64: ``warmup()`` captures 7 programs and serving
+             captures none; 256 single-image submits from 16 threads, then
+             predicts of 1, 3, 64 and 100 rows, every served row bitwise
+             equal to the eager block's forward of the same padded bucket
+             batch; then ``bench.py``'s ``bench_resnet_infer`` body through
+             the port's ``cached_op.trace`` at batch 128 (bitwise equal to
+             the eager forward); (ii) BERT-Base (12 x 768, 12 heads, vocab
+             30522, max_length 512, weights from a numpy seed, dropout 0.1,
+             inert in predict mode) behind a Predictor of 128 int32 tokens,
+             128 int32 token types and a float32 valid length an item,
+             max_batch 32, in fp32 and then after ``cast("bfloat16")``: 128
+             requests of valid lengths 16-128 from 16 threads, every served
+             row against the same row predicted alone (fp32 within 1e-4,
+             bf16 within 3e-2 of the largest entry), 12 flash-forward and
+             25 LayerNorm launches in every capture, no counter moving while
+             serving and the launches while serving (replays x captured)
+             non-zero; (iii) warmup seconds, captures, graph-pool bytes,
+             request p50/p99, img/s and tokens/s served and, at buckets 1, 8
+             and the top one, a program run's wall, device busy and idle
+             share beside the eager block's, each beside the card's name
+             and power limit. The kernels phase holds the flash forward at
+             BERT's shape, (32*12, 128, 64) non-causal with key-padding ids
+             and a length-0 row, fp32 and bf16, to its plain version at
+             every legal tile.
 
-The lines before the last give the card's name and power limit and a JSON
-object of every kernel's numbers with its launches on each path (serve,
-train, train_compiled, train_amp and nd (serve: the warm call and the capture
-of each program; the compiled steps: the warm step and the capture;
-replays move no counter), train_amp_converted, tune, rtc, resnet (all 0);
-a row counts the
-launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16`` row); the
-last line is ``{"ok": true, "device": {...}}``.
+``python3 chip_smoke.py kernels predictor`` (or any of ``kernels``,
+``resnet``, ``predictor``) runs the build and the named phases only, and
+prints no result line. The lines before the last give the card's name and
+power limit and a JSON object of every kernel's numbers with its launches on
+each path (serve, train, train_compiled, train_amp and nd (serve: the warm
+call and the capture of each program; the compiled steps: the warm step and
+the capture; replays move no counter), train_amp_converted, tune, rtc,
+resnet (all 0), predictor (the traces, warm calls and captures); a row
+counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
+row); the last line is ``{"ok": true, "device": {...}}``.
 """
 import gc
 import json
@@ -621,38 +650,55 @@ def phase_kernels():
         "shape": "x (4*512, 768) fp32, gamma/beta (768,) fp32"}
     results["layer_norm:bf16"] = _layer_norm_bf16_row(rng, dev,
                                                       results["layer_norm"])
+    # BERT's serving instance: bf16 gamma/beta (a cast block) at eps 1e-12
+    # on the rows of bucket 32 (32 x 128 tokens)
+    bert_ln = _layer_norm_bf16_row(rng, dev, results["layer_norm"],
+                                   rows=32 * 128, gamma_dtype="bfloat16",
+                                   eps=1e-12)
+    results["layer_norm:bf16"]["more"] = [
+        {k: bert_ln[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                 "device_ms", "plain_ms", "library_ms",
+                                 "library_device_ms", "bound_ms",
+                                 "bound_by")}]
     results.update(_flash_bwd_rows(rng, dev))
     results["softmax"] = _softmax_row(rng, dev)
     _every_tile(rng, dev)
+    results["flash_fwd"]["more"].extend(_flash_fwd_bert_tiles(rng, dev))
     return results
 
 
-def _layer_norm_bf16_row(rng, dev, row):
+def _layer_norm_bf16_row(rng, dev, row, rows=4096,
+                         gamma_dtype="float32", eps=1e-5):
     """LayerNorm with bf16 x and fp32 gamma/beta, as a block converted by
     ``amp.convert_hybrid_block`` runs it, at the training step's rows
-    (4*1024, 768). The kernel normalises in fp32 and rounds once; the plain
-    version (the reference's ``_ln_reference``) rounds x - mean and its
-    product with 1/sigma to bf16 first. So both are held to a float64
-    answer from the same bf16 x: the kernel within one bf16 rounding
-    (2^-8 |exact|) plus fp32's error (2^-18 of the scale below), the plain
-    version within four bf16 roundings (2^-8 each of the scale
-    (|x_hat| + |mean| / sigma) |gamma| + |beta|), and to each other by the
-    sum of the two, each with 1e-6 beside it."""
+    (4*1024, 768); or with bf16 gamma/beta (``gamma_dtype``), as a block
+    cast to bf16 runs it (BERT served after ``cast``, eps 1e-12): the
+    kernel's other load path. The kernel normalises in fp32 and rounds
+    once; the plain version (the reference's ``_ln_reference``) rounds
+    x - mean and its product with 1/sigma to bf16 first, and with bf16
+    gamma/beta also the product with gamma and the sum with beta. So both
+    are held to a float64 answer from the same bf16 x and the same gamma
+    and beta: the kernel within one bf16 rounding (2^-8 |exact|) plus
+    fp32's error (2^-18 of the scale below), the plain version within four
+    bf16 roundings with fp32 gamma/beta, six with bf16 ones (2^-8 each of
+    the scale (|x_hat| + |mean| / sigma) |gamma| + |beta|), and to each
+    other by the sum of the two, each with 1e-6 beside it."""
     import torch
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import cuda_kernels as ck
 
-    rows, d = 4096, 768
+    d = 768
+    gdt = getattr(torch, gamma_dtype)
     x = torch.from_numpy((rng.randn(rows, d) * 2 + 0.5).astype("float32")) \
         .to(dev, torch.bfloat16)
-    g = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
-    b = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
-    out = ck.layer_norm_cuda(x, g, b, 1e-5)
-    ref = ck.layer_norm_plain(x, g, b, 1e-5)
+    g = torch.from_numpy(rng.randn(d).astype("float32")).to(dev, gdt)
+    b = torch.from_numpy(rng.randn(d).astype("float32")).to(dev, gdt)
+    out = ck.layer_norm_cuda(x, g, b, eps)
+    ref = ck.layer_norm_plain(x, g, b, eps)
     xd = x.double()
     mu = xd.mean(-1, keepdim=True)
-    sigma = torch.sqrt(xd.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    sigma = torch.sqrt(xd.var(-1, unbiased=False, keepdim=True) + eps)
     xhat = (xd - mu) / sigma
     exact = xhat * g.double() + b.double()
     # what the plain version's roundings are relative to: x_hat gamma,
@@ -662,32 +708,37 @@ def _layer_norm_bf16_row(rng, dev, row):
     check(out.dtype == ref.dtype == torch.bfloat16,
           f"layer_norm bf16 x: output dtypes {out.dtype}, {ref.dtype}")
     lim_k = 2 ** -8 * exact.abs() + 2 ** -18 * scale + 1e-6
-    lim_p = 4 * 2 ** -8 * scale + 1e-6
+    lim_p = (4 if gdt == torch.float32 else 6) * 2 ** -8 * scale + 1e-6
     over_k = float(((out.double() - exact).abs() - lim_k).max())
     over_p = float(((ref.double() - exact).abs() - lim_p).max())
     over_kp = float(((out.double() - ref.double()).abs()
                      - (lim_k + lim_p)).max())
     err = float((out.float() - ref.float()).abs().max())
+    what = (f"bf16 x, {dict(float32='fp32', bfloat16='bf16')[gamma_dtype]} "
+            f"gamma/beta, eps {eps:g}")
     check(max(over_k, over_p, over_kp) <= 0.0,
-          f"layer_norm bf16 x, fp32 gamma/beta: beyond the limits by "
+          f"layer_norm {what}: beyond the limits by "
           f"kernel {over_k:.3g}, plain {over_p:.3g}, kernel vs plain "
           f"{over_kp:.3g}")
 
     def kernel():
-        ck.layer_norm_cuda(x, g, b, 1e-5)
+        ck.layer_norm_cuda(x, g, b, eps)
 
     g16, b16 = g.to(x.dtype), b.to(x.dtype)
 
     def library():
-        F.layer_norm(x, (d,), g16, b16, 1e-5)
+        F.layer_norm(x, (d,), g16, b16, eps)
 
     ms = time_ms(kernel)
     dev_ms = device_ms(kernel, "layer_norm_kernel")
-    plain_ms = time_ms(lambda: ck.layer_norm_plain(x, g, b, 1e-5))
+    plain_ms = time_ms(lambda: ck.layer_norm_plain(x, g, b, eps))
     lib_ms = time_ms(library)
     lib_dev_ms = device_total_ms(library)
-    bms, by = bound_ms(2 * 2 * rows * d + 4 * 2 * d, 8 * rows * d)
-    log(f"[kernels] layer_norm rows={rows} d={d} bf16 x, fp32 gamma/beta: "
+    bms, by = bound_ms(2 * 2 * rows * d + g.element_size() * 2 * d,
+                       8 * rows * d)
+    log(f"[kernels] layer_norm rows={rows} d={d} {what}: over the limits "
+        f"by kernel {over_k:.3g}, plain {over_p:.3g}, kernel vs plain "
+        f"{over_kp:.3g}; "
         f"max|diff| from plain {err:.3g}; kernel {ms:.4f} ms (device "
         f"{dev_ms}), plain {plain_ms:.4f} ms, F.layer_norm (gamma/beta in "
         f"bf16) {lib_ms:.4f} ms (device {lib_dev_ms}), bound "
@@ -696,8 +747,9 @@ def _layer_norm_bf16_row(rng, dev, row):
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
         "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
         "bound_ms": bms, "bound_by": by,
-        "shape": f"x ({rows}, {d}) bf16, gamma/beta ({d},) fp32"}, err)
-    out_row["dtype"] = "bfloat16 x, float32 gamma/beta"
+        "shape": f"x ({rows}, {d}) bf16, gamma/beta ({d},) "
+                 f"{gamma_dtype}, eps {eps:g}"}, err)
+    out_row["dtype"] = f"bfloat16 x, {gamma_dtype} gamma/beta"
     return out_row
 
 
@@ -959,6 +1011,79 @@ def _every_tile(rng, dev):
         log(f"[kernels] tile block_rows={br} at (2000, 768): max|diff| "
             f"layer_norm {e_ln:.3g}, softmax {e_sm:.3g}; ms layer_norm "
             f"{t_ln:.4f}, softmax {t_sm:.4f}")
+
+
+def _flash_fwd_bert_tiles(rng, dev):
+    """The flash forward at BERT-Base's serving shape, q/k/v (32*12, 128,
+    64), non-causal with key-padding segment ids (q ids 1, kv ids 1 below
+    each row's valid length of 16-128, one row of length 0: every key
+    masked, zeros out), fp32 and bf16, against its plain version at every
+    legal tile (fp32 FLASH_TOL, bf16 one bf16 step of the largest value);
+    returns the default tile's numbers for the JSON row's "more"."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, H, T, D = 32, 12, 128, 64
+    scale = 1.0 / D ** 0.5
+    valid = rng.randint(16, T + 1, size=B)
+    valid[-1] = 0
+    ks = torch.from_numpy((onp.arange(T)[None] < valid[:, None])
+                          .astype("int32")).to(dev)
+    qs = torch.ones_like(ks)
+    mask, pairs = _visible_pairs(qs, ks, B, H, T, T, False)
+    out_rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.randn(B, H, T, D).astype("float32"))
+                   .to(dev).to(dtype) for _ in range(3))
+        ref, ref_lse = ck.attention_plain(q, k, v, scale, False, qs, ks)
+        errs = []
+        for bq in ck.FLASH_BLOCKS:
+            for bk in ck.FLASH_BLOCKS:
+                out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, False,
+                                             bq, bk)
+                torch.cuda.synchronize()
+                e_out = float((out.float() - ref.float()).abs().max())
+                e_lse = float((lse - ref_lse).abs().max())
+                limit = FLASH_TOL if dtype == torch.float32 else \
+                    2 ** -7 * max(float(ref.float().abs().max()), 1.0)
+                check(e_out <= limit and e_lse <= FLASH_TOL and
+                      float(out[-1].float().abs().max()) == 0.0,
+                      f"flash_fwd BERT (block_q={bq}, block_k={bk}) "
+                      f"{dtype}: max |diff| out {e_out:.3g} (limit "
+                      f"{limit:.3g}), lse {e_lse:.3g}, or the length-0 row "
+                      f"is not zero")
+                errs.append(max(e_out, e_lse))
+
+        def kernel():
+            ck.flash_fwd_cuda(q, k, v, qs, ks, scale, False)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q, k, v, scale=scale,
+                                           attn_mask=mask[:, None])
+
+        n_bytes = q.element_size() * 4 * q.numel() + 4 * B * H * T + \
+            4 * 2 * B * T
+        bms, by, core_ms = attention_bound_ms(n_bytes, 4 * D * pairs, dtype)
+        row = {"ms": time_ms(kernel), "graph_ms": graph_ms(kernel),
+               "plain_ms": time_ms(lambda: ck.attention_plain(
+                   q, k, v, scale, False, qs, ks)),
+               "library_ms": time_ms(sdpa), "library_graph_ms":
+               graph_ms(sdpa), "bound_ms": bms, "bound_by": by,
+               "cuda_core_bound_ms": core_ms, "max_abs_err": max(errs),
+               "shape": f"q/k/v ({B}*{H}, {T}, {D}) "
+                        f"{'fp32' if dtype == torch.float32 else 'bf16'}, "
+                        f"non-causal + key-padding ids (BERT-Base serving)"}
+        log(f"[kernels] flash_fwd BERT shape {row['shape']}: max|diff| at "
+            f"the {len(errs)} tiles {max(errs):.3g}; default tile kernel "
+            f"{row['ms']:.4f} ms (graph {row['graph_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, SDPA with the boolean mask "
+            f"{row['library_ms']:.4f} ms (graph "
+            f"{row['library_graph_ms']:.4f}), bound {bms:.4f} ms ({by}), "
+            f"{pairs} visible pairs")
+        out_rows.append(row)
+    return out_rows
 
 
 DKV_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S^T = KQ^T, "
@@ -3200,6 +3325,480 @@ def phase_resnet(smi_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the Predictor serving hybridized ResNet-50 v1 and BERT-Base
+# ---------------------------------------------------------------------------
+PRED_RESNET_BATCH = 64        # ResNet's max_batch: the ladder 1, 2, ..., 64
+PRED_RESNET_REQUESTS = 256    # single-image submits ...
+PRED_THREADS = 16             # ... from this many client threads
+PRED_PREDICTS = (1, 3, 64, 100)
+PRED_BERT_BATCH = 32          # BERT's max_batch: the ladder 1, 2, ..., 32
+PRED_BERT_T = 128             # tokens an item (bench.py's bert_pretrain T)
+PRED_BERT_REQUESTS = 128
+PRED_BERT_VALID = (16, 128)   # valid lengths drawn from this range
+PRED_BERT_PADDED = 5           # a predict of 5 rows: bucket 8, 3 rows of padding
+PRED_BERT_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+#   a row served in a mixed batch against the same row predicted alone, over
+#   each output's largest entry: another bucket runs GEMMs of another M,
+#   which may sum in another order (fp32: FLASH_TOL's bound); in bf16 each
+#   of 12 layers rounds its activations to 8 bits after such sums (bf16's
+#   step 3.9e-3, carried through the layers)
+PRED_BERT_EAGER_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#   a served batch against the eager forward of the same padded batch:
+#   bitwise expected; the limit is that of a GEMM summed in another order
+#   (fp32: the tests' 1e-5; bf16: below PRED_BERT_RTOL, the same M)
+PRED_TIMED = (1, 8)           # buckets timed, with the top one
+BERT_WANT = {"flash_fwd": 12, "layer_norm": 25}  # launches a captured forward
+
+
+def _logged_batches(pred):
+    """Record the requests of every batch ``pred``'s dispatcher runs, in
+    order, and the host seconds each dispatch took (padding the items into
+    a pinned batch, queueing the program's run and the copy out), by
+    wrapping its ``_dispatch``; returns the two lists it fills."""
+    batches, seconds = [], []
+    dispatch = pred._dispatch
+
+    def logged(batch):
+        batches.append(list(batch))
+        t0 = time.perf_counter()
+        try:
+            return dispatch(batch)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    pred._dispatch = logged
+    return batches, seconds
+
+
+def _submit_from_threads(pred, items, threads):
+    """Submit ``items`` (one tuple of inputs each) from ``threads`` client
+    threads started together; returns (futures in item order, wall s until
+    every result is in)."""
+    import threading
+
+    futs = [None] * len(items)
+    barrier = threading.Barrier(threads + 1, timeout=120)
+
+    def client(c):
+        barrier.wait()
+        for i in range(c, len(items), threads):
+            futs[i] = pred.submit(items[i])
+        for i in range(c, len(items), threads):
+            futs[i].result(timeout=300)
+
+    workers = [threading.Thread(target=client, args=(c,))
+               for c in range(threads)]
+    for w in workers:
+        w.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for w in workers:
+        w.join(timeout=600)
+        check(not w.is_alive(), "predictor: a client thread hung")
+    return futs, time.perf_counter() - t0
+
+
+def _bucket_timings(tag, buckets, pred, block, inputs_of, smi_line):
+    """At ``buckets``: one program run
+    (inputs in, replay, outputs cloned) against the eager block's forward on
+    the same batch: wall ms (median of 10), device-busy ms, launches and
+    the idle share. ``inputs_of(b)`` gives the bucket's batch on the card."""
+    import torch
+
+    from mxnet_tpu_torch import cached_op
+
+    out = {}
+    for b in buckets:
+        xs = inputs_of(b)
+        prog = pred._programs[b]
+
+        def eager():
+            with torch.no_grad(), cached_op.inlined():
+                block(*xs)
+
+        row = {}
+        for kind, fn in (("replay", lambda: prog(*xs)), ("eager", eager)):
+            wall = _wall_ms(fn, 10)
+            busy, launches, _ = _profile(fn)
+            row[kind] = (wall, busy, launches, max(0.0, 1 - busy / wall))
+        out[b] = row
+        (rw, rb, rl, ri), (ew, eb, el, ei) = row["replay"], row["eager"]
+        log(f"[predictor] {tag} bucket {b}: replay wall {rw:.3f} ms, device "
+            f"busy {rb:.3f} ms, {rl:.0f} kernels, idle share {ri:.3f}; "
+            f"eager block wall {ew:.3f} ms, busy {eb:.3f} ms, {el:.0f} "
+            f"kernels, idle share {ei:.3f}; card {smi_line}")
+    return out
+
+
+def _pred_serving_line(tag, pred, warm_s, smi_line):
+    """Log the warmup's numbers; returns ``pred.stats()``."""
+    import torch
+
+    st = pred.stats()
+    log(f"[predictor] {tag}: construction (the trace) and warmup "
+        f"{warm_s:.2f} s, captures "
+        f"{st['captures']}, programs {st['programs']}, graph pool "
+        f"{st['pool_bytes'] / 2**20:.1f} MiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB; card {smi_line}")
+    return st
+
+
+def _pred_resnet(smi_line, taken):
+    """(i) ResNet-50 v1 in bf16, hybridized, behind a Predictor with the
+    ladder 1 ... 64: warmup captures 7, 256 submits from 16 threads and
+    predicts of 1, 3, 64 and 100 rows, every served row bitwise equal to the
+    eager block's forward of its padded bucket batch; then bench.py's
+    bench_resnet_infer body through the port's cached_op.trace."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.serve import pick_bucket
+
+    net = _resnet_net(resnet_weights(SEED + 7))
+    net.cast("bfloat16")
+    net.hybridize()
+    example = torch.zeros((2, *RESNET_IMAGE), dtype=torch.bfloat16,
+                          device=DEV)
+    t0 = time.perf_counter()
+    pred = net.predictor(example=example, max_batch=PRED_RESNET_BATCH)
+    try:
+        check(pred.buckets == [1, 2, 4, 8, 16, 32, 64],
+              f"predictor resnet: ladder {pred.buckets}")
+        pred.warmup()
+        warm_s = time.perf_counter() - t0
+        st = _pred_serving_line("resnet", pred, warm_s, smi_line)
+        check(st["captures"] == 7, f"predictor resnet: {st['captures']} "
+              "captures at warmup, not 7")
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+        images = torch.randn((PRED_RESNET_REQUESTS, *RESNET_IMAGE),
+                             generator=gen, device=DEV).to(torch.bfloat16)
+        host = images.cpu()
+        batches, seconds = _logged_batches(pred)
+        futs, wall = _submit_from_threads(
+            pred, [host[i] for i in range(len(host))], PRED_THREADS)
+        st = pred.stats()
+        img_s = PRED_RESNET_REQUESTS / wall
+        log(f"[predictor] resnet: {PRED_RESNET_REQUESTS} submits from "
+            f"{PRED_THREADS} threads in {wall:.3f} s: {img_s:.1f} img/s "
+            f"served, {st['batches']} batches (mean occupancy "
+            f"{st['mean_occupancy']:.3f}), request p50 "
+            f"{st['latency_ms_p50']:.2f} ms, p99 {st['latency_ms_p99']:.2f}"
+            f" ms; the dispatcher's host ms a batch "
+            f"{[round(1e3 * t, 2) for t in seconds]}; card {smi_line}")
+        # every served row against the eager forward of its padded batch
+        index = {id(f): i for i, f in enumerate(futs)}
+        worst = 0.0
+        for batch in batches:
+            rows = [index[id(req.future)] for req in batch]
+            bucket = pick_bucket(len(rows), pred.buckets)
+            x = torch.zeros((bucket, *RESNET_IMAGE), dtype=torch.bfloat16,
+                            device=DEV)
+            x[:len(rows)] = images[rows]
+            with torch.no_grad(), cached_op.inlined():
+                want = net(x)[:len(rows)].float().cpu()
+            got = torch.stack([torch.from_numpy(onp.asarray(
+                futs[i].result(), dtype="float32")) for i in rows])
+            worst = max(worst, float((got - want).abs().max()))
+        log(f"[predictor] resnet: {len(batches)} served batches against the"
+            f" eager block's forward of the same padded bucket batch: max "
+            f"|diff| {worst:.3g} (bitwise expected)")
+        check(worst == 0.0, f"predictor resnet: served rows differ from "
+              f"the eager forward by {worst:.3g}")
+        for n in PRED_PREDICTS:
+            x = images[:n]
+            got = pred.predict(x)._data
+            parts = []
+            for off in range(0, n, PRED_RESNET_BATCH):
+                chunk = x[off:off + PRED_RESNET_BATCH]
+                bucket = pick_bucket(len(chunk), pred.buckets)
+                pad = torch.zeros((bucket, *RESNET_IMAGE),
+                                  dtype=torch.bfloat16, device=DEV)
+                pad[:len(chunk)] = chunk
+                with torch.no_grad(), cached_op.inlined():
+                    parts.append(net(pad)[:len(chunk)])
+            want = torch.cat(parts)
+            check(got.shape == (n, RESNET_CLASSES) and
+                  torch.equal(got, want),
+                  f"predictor resnet: predict({n}) differs from the eager "
+                  f"forward of its buckets")
+        log(f"[predictor] resnet: predict of {PRED_PREDICTS} rows bitwise "
+            f"equal to the eager forward of their padded buckets")
+        st = pred.stats()
+        check(st["captures"] == 7, "predictor resnet: a capture after "
+              "warmup")
+        _take_counts(taken)
+        timings = _bucket_timings(
+            "resnet", PRED_TIMED + (PRED_RESNET_BATCH,), pred, net,
+            lambda b: (images[:b],), smi_line)
+        ck.reset_launch_counts()
+    finally:
+        pred.close()
+    del pred, batches, futs
+    _release()
+
+    # bench.py's bench_resnet_infer body, its imports the port's; the port's
+    # Parameter is the tensor, so the list holds p where bench.py reads
+    # p.data() of the parameters whose p._data is set
+    from mxnet_tpu_torch.cached_op import trace
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    BATCH, WARMUP, ITERS = 128, 3, 10
+    bnet = vision.resnet50_v1()
+    bnet.initialize()
+    bnet.cast("bfloat16")
+    x = mx.np.zeros((BATCH, 3, 224, 224), dtype="bfloat16")
+    params = [(name, p) for name, p in bnet.collect_params().items()]
+    _, _, cop = trace(lambda a: bnet(a), [x], params)
+    arrs = [x] + [arr for _, arr in params]
+    for _ in range(WARMUP):
+        cop(*arrs)._data
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        out = cop(*arrs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    img_s = BATCH * ITERS / dt
+    _take_counts(taken)
+    with torch.no_grad(), cached_op.inlined():
+        want = bnet(x._data)
+    ck.reset_launch_counts()
+    check(cop._captures == 1 and out.shape == (BATCH, 1000) and
+          torch.equal(out._data, want),
+          "predictor: bench_resnet_infer's trace differs from the eager "
+          "forward")
+    log(f"[predictor] bench.py bench_resnet_infer through the port's "
+        f"cached_op.trace: batch {BATCH}, {ITERS} calls in {dt:.4f} s: "
+        f"{img_s:.1f} img/s, MFU "
+        f"{img_s * RESNET50_FWD_FLOPS / PEAK_BF16_FLOPS:.3f}; one capture; "
+        f"output bitwise equal to the eager forward; card {smi_line}")
+    _take_counts(taken)
+    del bnet, cop, arrs, out, want, x
+    _release()
+    return timings
+
+
+def _take_counts(taken):
+    """Add the launches since the last reset, by (kernel, operand dtypes),
+    to ``taken`` and reset the counters: the predictor path's launches are
+    taken before each eager comparison, whose launches are not the path's."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    for key, n in ck.dtype_counts().items():
+        taken[key] = taken.get(key, 0) + n
+    ck.reset_launch_counts()
+
+
+def _pred_bert(smi_line, taken):
+    """(ii) BERT-Base behind a Predictor with items of 128 int32 tokens,
+    128 int32 token types and a float32 valid length, max_batch 32: fp32,
+    then after cast("bfloat16"). 128 requests of valid lengths 16-128 from
+    16 threads; every row against the same row predicted alone; the flash
+    forward and LayerNorm launches of each capture."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.serve import pick_bucket
+
+    bert = bert_base()
+    bert.load_dict(numpy_weights(
+        {n: tuple(p.shape) for n, p in bert.collect_params().items()},
+        SEED + 11))
+    bert.hybridize()
+    n_params = sum(p.numel() for p in bert.parameters())
+    rs = onp.random.default_rng(SEED + 12)
+    tok = rs.integers(0, 30522, (PRED_BERT_REQUESTS, PRED_BERT_T),
+                      dtype="int32")
+    tt = rs.integers(0, 2, (PRED_BERT_REQUESTS, PRED_BERT_T), dtype="int32")
+    vl = rs.integers(PRED_BERT_VALID[0], PRED_BERT_VALID[1] + 1,
+                     PRED_BERT_REQUESTS).astype("float32")
+    items = [(tok[i], tt[i], vl[i]) for i in range(PRED_BERT_REQUESTS)]
+    example = (torch.zeros((2, PRED_BERT_T), dtype=torch.int32),
+               torch.zeros((2, PRED_BERT_T), dtype=torch.int32),
+               torch.zeros(2))
+    log(f"[predictor] BERT-Base: {len(list(bert.parameters()))} parameters, "
+        f"{n_params / 1e6:.2f} M values; dropout 0.1 (inert in predict mode)")
+    timings = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            bert.cast("bfloat16")
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        pred = bert.predictor(example=example, max_batch=PRED_BERT_BATCH)
+        try:
+            pred.warmup()
+            warm_s = time.perf_counter() - t0
+            st = _pred_serving_line(f"bert {dtype}", pred, warm_s, smi_line)
+            check(st["captures"] == len(pred.buckets) == 6,
+                  f"predictor bert {dtype}: {st['captures']} captures")
+            stats = pred._cop.graph_stats()
+            for g in stats:
+                cap = g["captured_launches"] or {}
+                check(all(cap.get(k) == v for k, v in BERT_WANT.items()),
+                      f"predictor bert {dtype}: a capture launched {cap}, "
+                      f"want {BERT_WANT}")
+            at_warm = ck.launch_counts()
+            replays0 = [g["replays"] for g in stats]
+            batches, seconds = _logged_batches(pred)
+            futs, wall = _submit_from_threads(pred, items, PRED_THREADS)
+            st = pred.stats()
+            check(ck.launch_counts() == at_warm,
+                  f"predictor bert {dtype}: a kernel counter moved while "
+                  "serving")
+            check(st["captures"] == 6,
+                  f"predictor bert {dtype}: a capture after warmup")
+            served = {k: sum((g["replays"] - r0) *
+                             (g["captured_launches"] or {}).get(k, 0)
+                             for g, r0 in zip(pred._cop.graph_stats(),
+                                              replays0))
+                      for k in BERT_WANT}
+            check(all(served.values()),
+                  f"predictor bert {dtype}: no kernel launched while "
+                  f"serving: {served}")
+            tokens = PRED_BERT_REQUESTS * PRED_BERT_T
+            log(f"[predictor] bert {dtype}: {PRED_BERT_REQUESTS} requests "
+                f"from {PRED_THREADS} threads in {wall:.3f} s: "
+                f"{tokens / wall:.1f} tokens/s served ("
+                f"{float(vl.sum()) / wall:.1f} valid tokens/s), "
+                f"{st['batches']} batches (mean occupancy "
+                f"{st['mean_occupancy']:.3f}), request p50 "
+                f"{st['latency_ms_p50']:.2f} ms, p99 "
+                f"{st['latency_ms_p99']:.2f} ms; the dispatcher's host ms a "
+                f"batch {[round(1e3 * t, 2) for t in seconds]}; launches at "
+                f"warmup "
+                f"{ {k: at_warm[k] - before[k] for k in BERT_WANT} }, while"
+                f" serving (replays x captured) {served}; card {smi_line}")
+            # every row against the same row predicted alone: the rows that
+            # the batcher served beside others, and a predict of
+            # PRED_BERT_PADDED rows, whose bucket holds padding for certain
+            index = {id(f): i for i, f in enumerate(futs)}
+            mixed = [index[id(r.future)] for b in batches for r in b
+                     if len(b) > 1]
+            n_pad = PRED_BERT_PADDED
+            padded = pred.predict((tok[:n_pad], tt[:n_pad], vl[:n_pad]))
+            worst = {"seq": 0.0, "pooled": 0.0}
+            for i in range(PRED_BERT_REQUESTS):
+                alone = pred.predict((tok[i:i + 1], tt[i:i + 1],
+                                      vl[i:i + 1]))
+                served = [futs[i].result()]
+                if i < n_pad:
+                    served.append([o.asnumpy()[i] for o in padded])
+                for outs in served:
+                    for name, got, want in zip(("seq", "pooled"), outs,
+                                               alone):
+                        got = onp.asarray(got, dtype="float64")
+                        want = want.asnumpy()[0].astype("float64")
+                        check(onp.isfinite(got).all(),
+                              f"predictor bert {dtype}: row {i} not finite")
+                        worst[name] = max(worst[name], float(
+                            abs(got - want).max() / abs(want).max()))
+            limit = PRED_BERT_RTOL[dtype]
+            bucket = pick_bucket(n_pad, pred.buckets)
+            log(f"[predictor] bert {dtype}: every served row against the "
+                f"same row predicted alone (bucket 1), max |diff| over the "
+                f"largest entry: sequence {worst['seq']:.3g}, pooled "
+                f"{worst['pooled']:.3g} (limit {limit}); {len(mixed)} rows "
+                f"were served in batches that held other rows, and "
+                f"{n_pad} by a predict padded to bucket {bucket}")
+            check(max(worst.values()) <= limit and mixed and bucket > n_pad,
+                  f"predictor bert {dtype}: a row served in a batch differs "
+                  f"from it alone by {worst}")
+            _take_counts(taken)
+            _bert_against_eager(dtype, bert, pred, batches, futs, index,
+                                (tok, tt, vl))
+            ck.reset_launch_counts()
+            timings[dtype] = _bucket_timings(
+                f"bert {dtype}", PRED_TIMED + (PRED_BERT_BATCH,), pred, bert,
+                lambda b: tuple(torch.from_numpy(a[:b]).to(DEV)
+                                for a in (tok, tt, vl)), smi_line)
+            ck.reset_launch_counts()
+        finally:
+            pred.close()
+        del pred, batches, futs
+        _release()
+    del bert
+    _release()
+    return timings
+
+
+def _bert_against_eager(dtype, bert, pred, batches, futs, index, arrays):
+    """Every served BERT batch against the eager block's forward (its
+    hybridized children inline) of the same padded bucket batch. Bitwise is
+    expected, as for ResNet: the same kernels on the same operands; the
+    limit (PRED_BERT_EAGER_RTOL of each output's largest entry) allows for
+    a GEMM algorithm that cuBLAS would pick otherwise under capture."""
+    import torch
+
+    from mxnet_tpu_torch import cached_op
+    from mxnet_tpu_torch.serve import pick_bucket
+
+    worst = {"seq": 0.0, "pooled": 0.0}
+    bitwise = True
+    for batch in batches:
+        rows = [index[id(req.future)] for req in batch]
+        bucket = pick_bucket(len(rows), pred.buckets)
+        xs = []
+        for a in arrays:
+            pad = onp.zeros((bucket,) + a.shape[1:], a.dtype)
+            pad[:len(rows)] = a[rows]
+            xs.append(torch.from_numpy(pad).to(DEV))
+        with torch.no_grad(), cached_op.inlined():
+            want = [w[:len(rows)].float().cpu().numpy() for w in bert(*xs)]
+        for j, name in enumerate(("seq", "pooled")):
+            got = onp.stack([onp.asarray(futs[i].result()[j],
+                                         dtype="float32") for i in rows])
+            bitwise = bitwise and onp.array_equal(got, want[j])
+            worst[name] = max(worst[name], float(
+                abs(got.astype("float64") - want[j]).max() /
+                abs(want[j]).max()))
+    limit = PRED_BERT_EAGER_RTOL[dtype]
+    log(f"[predictor] bert {dtype}: {len(batches)} served batches against "
+        f"the eager block's forward of the same padded bucket batch: "
+        f"bitwise {bitwise}; max |diff| over the largest entry: sequence "
+        f"{worst['seq']:.3g}, pooled {worst['pooled']:.3g} (limit {limit})")
+    check(max(worst.values()) <= limit,
+          f"predictor bert {dtype}: served batches differ from the eager "
+          f"forward by {worst}")
+
+
+def phase_predictor(smi_line):
+    """Phase 8: the Predictor serving hybridized ResNet-50 v1 (bf16) and
+    BERT-Base (fp32, then bf16) at full width. Returns the phase's launch
+    counts (the warm calls and the captures; replays move no counter)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    taken = {}
+    _pred_resnet(smi_line, taken)
+    _pred_bert(smi_line, taken)
+    PATH_DTYPES["predictor"] = taken
+    counts = {k: sum(n for (kern, _), n in taken.items() if kern == k)
+              for k in ck.launch_counts()}
+    log(f"[predictor] kernel launches on the path (the eager comparisons "
+        f"left out), by kernel: {counts}; by dtypes: {taken}")
+    check(counts["flash_fwd"] > 0 and counts["layer_norm"] > 0,
+          f"predictor: the flash forward or LayerNorm did not launch: "
+          f"{counts}")
+    log(f"[predictor] both Predictors closed and freed: "
+        f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved")
+    log(f"[predictor] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# phases a partial run may name (``python3 chip_smoke.py predictor``): the
+# build, then those phases; it prints no result line
+PARTIAL = {"kernels": lambda smi: phase_kernels(),
+           "resnet": phase_resnet, "predictor": phase_predictor}
+
+
+# ---------------------------------------------------------------------------
 def main():
     try:
         import torch
@@ -3234,9 +3833,20 @@ def main():
     smi_line = smi[0] if smi else "nvidia-smi: no output"
     for var in ("MXTPU_TUNE", "MXTPU_FLASH_BLOCK_Q", "MXTPU_FLASH_BLOCK_K"):
         os.environ.pop(var, None)            # phases 1-4 run untuned
+    only = sys.argv[1:]
+    if any(name not in PARTIAL for name in only):
+        log(f"chip_smoke: FAIL: a partial run names phases of "
+            f"{sorted(PARTIAL)}, got {only}")
+        return 1
     try:
         t0 = time.perf_counter()
         build_info = phase_build()
+        if only:
+            for name in only:
+                PARTIAL[name](smi_line)
+            log(f"[done] partial run of {only} passed in "
+                f"{time.perf_counter() - t0:.1f} s; no result line")
+            return 0
         kernels = phase_kernels()
         _, agree = phase_serve()
         _, arrays, batches = phase_train(smi_line)
@@ -3247,6 +3857,7 @@ def main():
         phase_tune(agree)
         rtc_row = phase_rtc()
         phase_resnet(smi_line)
+        phase_predictor(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -3267,6 +3878,12 @@ def main():
         row["launches_by_path"] = by_path
         if name in build_info:
             row["build"] = build_info[name]
+        for more in row.get("more", ()):
+            if more.get("dtype") == "bfloat16 x, bfloat16 gamma/beta":
+                more["launches"] = sum(
+                    n for counts in PATH_DTYPES.values()
+                    for (k, dts), n in counts.items()
+                    if k == kernel and tuple(dts) == ("bfloat16",) * 2)
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))

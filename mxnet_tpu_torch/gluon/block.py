@@ -6,8 +6,20 @@ names them exactly as the reference does (``:52-60``): the attribute path
 joined by dots, own parameters before children's, in registration order
 (``blocks.0.attn_qkv.weight``, ``ln_f.gamma``, ...).
 
-Execution is eager; ``hybridize`` is accepted for API parity and changes
-nothing. A block starts in inference mode (``training`` False). Dropout is
+A plain block runs eagerly. ``hybridize()`` (reference :198-291) turns a
+``HybridBlock``'s calls into :mod:`~mxnet_tpu_torch.cached_op` programs,
+one CUDA graph per signature: the shapes, dtypes and devices of its
+tensors (arguments, keyword arguments, and tensors inside their tuples and
+lists, all data operands), the rest of the arguments (static: numbers,
+strings, None, and the structure of the containers), the training flags,
+the AMP state and every parameter's address and dtype, so that a ``cast``
+or a deferred shape's fill (new memory) makes a new program, and the
+programs of the old addresses go, while ``load_parameters`` (a copy in
+place) is read by the next replay. A call with any other argument runs
+eagerly. Under ``autograd.record()``, inside another hybridized block's body
+and while a CUDA stream captures, a hybridized block runs eagerly: its
+gradients come through the tape, and nested blocks capture once, at the
+top. A block starts in inference mode (``training`` False). Dropout is
 active inside ``autograd.record()`` (which sets the training flag, as in the
 reference) or after the torch idiom ``block.train()``; elsewhere it is the
 identity, so serving never drops units.
@@ -21,12 +33,15 @@ there.
 """
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 
 import numpy as onp
 import torch
 
+from .. import amp as _amp
 from .. import autograd as _ag
+from .. import cached_op as _cached_op
 from .. import initializer as init_mod
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
@@ -117,7 +132,12 @@ class Block(torch.nn.Module):
             p.copy_(host)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for API parity: the port runs eagerly."""
+        """Hybridize every child (reference :77); the reference's keyword
+        options (``static_alloc``, ``static_shape``) are what a CUDA graph
+        does anyway and are accepted."""
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
 
     def cast(self, dtype):
         """Cast every parameter to ``dtype`` in place (reference :81)."""
@@ -166,5 +186,142 @@ class Block(torch.nn.Module):
                 params[name].copy_(t)
 
 
+_SCALARS = (int, float, str, bool, type(None))
+_SLOT = object()    # a tensor operand's place in an argument key
+
+
+class _Unkeyable(Exception):
+    """An argument that a signature cannot hold: the call runs eagerly."""
+
+
+def _arg_key(x, tensors):
+    """``x``'s hashable key: every tensor in it (at any depth of tuples and
+    lists) appended to ``tensors`` and replaced by a slot, containers as
+    ``(type, items)``, other values as ``(type, value)``."""
+    if isinstance(x, torch.Tensor):
+        tensors.append(x)
+        return _SLOT
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_arg_key(v, tensors) for v in x))
+    if isinstance(x, _SCALARS):
+        return (type(x), x)
+    raise _Unkeyable
+
+
+def _from_key(key, tensors):
+    """The arguments ``key`` stands for, its slots taken from the iterator
+    ``tensors``."""
+    if key is _SLOT:
+        return next(tensors)
+    typ, val = key
+    if typ in (tuple, list):
+        return typ(_from_key(v, tensors) for v in val)
+    return val
+
+
 class HybridBlock(Block):
-    """Block the reference can compile into one program; eager here."""
+    """A block whose forward ``hybridize()`` turns into cached programs
+    (see the module docstring)."""
+
+    def __init__(self):
+        super().__init__()
+        self._active = False
+        self._cached = {}   # signature -> (CachedOp, out_tree, parameters)
+
+    def hybridize(self, active=True, **kwargs):
+        self._active = bool(active)
+        self._cached = {}
+        super().hybridize(active, **kwargs)
+
+    def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
+        raise MXNetError(f"optimize_for {_cached_op._GRAPH_LAYER}")
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        raise MXNetError(f"export {_cached_op._GRAPH_LAYER}")
+
+    def _ensure_initialized(self, *args, **kwargs):
+        """Fill the parameters still of unknown shape by one eager forward
+        in predict mode (reference :222), before any capture: a fill
+        inside a capture raises."""
+        if any(getattr(p, "is_deferred", False) for p in self.parameters()):
+            with _ag.pause(), torch.no_grad(), _cached_op.inlined():
+                torch.nn.Module.__call__(self, *args, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        if not self._active or _ag.is_recording() or \
+                _cached_op.is_inlined():
+            return super().__call__(*args, **kwargs)
+        nd = _has_nd(args, kwargs)
+        targs = unwrap(args)
+        tkwargs = {k: unwrap(v) for k, v in kwargs.items()}
+        tensors = []
+        try:
+            key = _arg_key((targs, tuple(sorted(tkwargs.items()))), tensors)
+        except _Unkeyable:
+            return super().__call__(*args, **kwargs)
+        self._ensure_initialized(*targs, **tkwargs)
+        where = tuple((p.data_ptr(), p.dtype) for p in self.parameters())
+        sig = (tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
+               key, _ag.is_training(), self.training, _amp._snapshot(),
+               where)
+        entry = self._cached.get(sig)
+        if entry is None:
+            # programs that read the parameters at other addresses (before
+            # a cast or a fill) would not be found again
+            self._cached = {s: e for s, e in self._cached.items()
+                            if s[-1] == where}
+            entry = self._cached[sig] = self._build_cache(key, tensors)
+        cop, tree, params = entry
+        out = cop(*tensors, *params)
+        out = _cached_op.unflatten_out(
+            list(out) if isinstance(out, tuple) else [out], tree)
+        return wrap(out) if nd else out
+
+    def _build_cache(self, key, tensors):
+        """Trace the forward of the call that ``key`` and its ``tensors``
+        stand for into a CachedOp (reference :266); returns
+        ``(cached_op, out_tree, parameters)``."""
+        params = list(self.collect_params().items())
+
+        def fn(*data):
+            args, kwargs = _from_key(key, iter(data))
+            return torch.nn.Module.__call__(self, *args, **dict(kwargs))
+
+        tree, _, cop = _cached_op.trace(fn, tensors, params)
+        return cop, tree, [p for _, p in params]
+
+    # -- serving (serve.Predictor construction) ------------------------------
+    def _serving_graph(self, inputs):
+        """Trace a copy of this block (:meth:`_serving_copy`) in predict
+        mode into ``(CachedOp, out_tree, parameters)``: the
+        ``serve.Predictor``'s hook (reference :293). The reference's
+        predictor serves the immutable arrays it was built with; the port's
+        parameters change in place, so it serves a copy that nothing else
+        calls. Dropout is the identity and BatchNorm reads its running
+        statistics, so the programs write nothing and may replay from the
+        serving thread."""
+        inputs = tuple(unwrap(inputs))
+        self._ensure_initialized(*inputs)
+        tensors = []
+        key = _arg_key((inputs, ()), tensors)
+        with _ag.pause():
+            return self._serving_copy()._build_cache(key, tensors)
+
+    def _serving_copy(self):
+        """This block with a clone of every parameter (``grad_req``
+        ``'null'``) and no programs: a later ``load_parameters``, ``cast``
+        or training step of the block does not reach it."""
+        memo = {id(p): Parameter(p.detach().clone(), grad_req="null")
+                for p in self.parameters()}
+        for blk in self.modules():
+            if isinstance(blk, HybridBlock):
+                memo[id(blk._cached)] = {}
+        return copy.deepcopy(self, memo)
+
+    def predictor(self, example=None, **kwargs):
+        """A ``serve.Predictor`` serving this block (reference :308);
+        keyword arguments pass through: ``max_batch``, ``buckets``,
+        ``max_wait_us``, ``cache_dir``, ``manifest``."""
+        from ..serve import Predictor
+
+        return Predictor(self, example, **kwargs)

@@ -1,8 +1,12 @@
-"""Model zoo of the port: the GPT causal language model family and the
-vision models (ResNet v1/v2)."""
-from . import vision
+"""Model zoo of the port: the GPT causal language model family, the BERT
+encoder family and the vision models (ResNet v1/v2)."""
+from . import bert, vision
+from .bert import (BERTEncoder, BERTForPretraining, BERTModel,
+                   TransformerEncoderLayer, bert_base, bert_large)
 from .gpt import DecoderLayer, GPTModel, gpt2_medium, gpt2_small, gpt_tiny
 from .vision import get_model
 
 __all__ = ["DecoderLayer", "GPTModel", "gpt2_small", "gpt2_medium",
-           "gpt_tiny", "vision", "get_model"]
+           "gpt_tiny", "bert", "TransformerEncoderLayer", "BERTEncoder",
+           "BERTModel", "BERTForPretraining", "bert_base", "bert_large",
+           "vision", "get_model"]

@@ -55,6 +55,7 @@ import torch
 from ... import telemetry as _tm
 from ...base import MXNetError
 from ...context import resolve_device
+from ...telemetry.registry import Histogram
 from ...testing import chaos
 from ..bucketing import pick_bucket
 from .cache import PagedKVCache
@@ -62,8 +63,7 @@ from .prefix import RadixPrefixCache
 from .programs import DecodePrograms, _check_manifest, load_decode_manifest
 from .spec import accept_longest_prefix, make_draft
 
-__all__ = ["DecodeEngine", "DecodeStream", "ShedError", "EngineDeadError",
-           "Histogram"]
+__all__ = ["DecodeEngine", "DecodeStream", "ShedError", "EngineDeadError"]
 
 _STOP = object()
 
@@ -81,43 +81,6 @@ class ShedError(MXNetError):
 
 class EngineDeadError(MXNetError):
     """The scheduler thread died; ``__cause__`` carries the real crash."""
-
-
-class Histogram:
-    """Recent-window sample metric with nearest-rank percentiles (the
-    reference's ``telemetry.registry.Histogram``, reduced to what
-    ``stats()`` reads)."""
-
-    def __init__(self, capacity=8192):
-        self._cap = int(capacity)
-        self._buf = []
-        self._next = 0
-        self._count = 0
-        self._sum = 0.0
-        self._lock = threading.Lock()
-
-    def record(self, value):
-        v = float(value)
-        with self._lock:
-            if len(self._buf) < self._cap:
-                self._buf.append(v)
-            else:
-                self._buf[self._next] = v
-                self._next = (self._next + 1) % self._cap
-            self._count += 1
-            self._sum += v
-
-    def percentiles(self, *ps):
-        with self._lock:
-            data = sorted(self._buf)
-        if not data:
-            return [None] * len(ps)
-        n = len(data)
-        return [data[max(int(-(-(p / 100.0 * n) // 1)), 1) - 1] for p in ps]
-
-    @property
-    def mean(self):
-        return self._sum / self._count if self._count else 0.0
 
 
 class DecodeStream:
@@ -323,9 +286,9 @@ class DecodeEngine:
         self._n_prefix_hit_tokens = 0
         self._occupancy_sum = 0.0
         self._pending_count = 0
-        self._ttft_ms = Histogram()
-        self._tpot_ms = Histogram()
-        self._spec_accept = Histogram()
+        self._ttft_ms = Histogram("serve.ttft_ms")
+        self._tpot_ms = Histogram("serve.tpot_ms")
+        self._spec_accept = Histogram("serve.spec_accept_len")
         # the registry's metrics, resolved once (the hot sites call inc/set)
         reg = _tm.REGISTRY
         self._m = {n: reg.counter(f"serve.{n}") for n in (

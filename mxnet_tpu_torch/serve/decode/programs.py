@@ -57,10 +57,10 @@ import time
 import numpy as onp
 import torch
 
-from ...base import MXNetError, collector_paused
+from ... import cached_op as _cached_op
+from ...base import MXNetError
 from ...context import env_signature
 from ...ops import _build
-from ...ops import cuda_kernels as _ck
 from ...tune import preload as _tune_preload
 from ..bucketing import bucket_ladder
 
@@ -179,55 +179,30 @@ class _Program:
 
     def body(self, kp, vp):
         """The family's forward and argmax on the static operands; the
-        pools are written in place. The family is looked up per call."""
+        pools are written in place. The family is looked up per call.
+        Hybridized blocks of the model run inline: the program is the
+        graph."""
         family = getattr(self.progs, "_" + self.kind)
-        return family(*self.inputs, kp, vp)[0]
+        with _cached_op.inlined():
+            return family(*self.inputs, kp, vp)[0]
 
     def current(self, kp, vp):
         return self.graph is not None and \
             self.pools == (kp.data_ptr(), vp.data_ptr())
 
     def capture(self, kp, vp):
-        """The warm call, then the capture; returns the warm call's
-        tokens."""
+        """The warm call, then the capture (``cached_op.GraphPool``);
+        returns the warm call's tokens."""
         progs = self.progs
-        dev = progs.device
-        if progs._side is None:
-            # one side stream for every warm call: each new stream would
-            # hold a cuBLAS workspace of its own
-            progs._side = torch.cuda.Stream(dev)
-        side = progs._side
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            out = self.body(kp, vp)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if progs._pool is None:
-            progs._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = _ck.launch_counts()
-        try:
-            with collector_paused(), torch.cuda.graph(
-                    graph, pool=progs._pool,
-                    capture_error_mode="thread_local"):
-                self.out = self.body(kp, vp)
-        except RuntimeError as e:
-            raise MXNetError(
-                f"{progs._site(self.key)}: capturing the program into a "
-                f"CUDA graph failed: {e}") from e
-        after = _ck.launch_counts()
-        self.captured_launches = {n: after[n] - before[n] for n in after}
-        self.graph = graph
+        out, self.graph, self.out, self.captured_launches, _ = \
+            progs._gpool.capture(lambda: self.body(kp, vp),
+                                 progs._site(self.key))
         self.pools = (kp.data_ptr(), vp.data_ptr())
         progs._captures += 1
         return out
 
     def replay(self):
-        try:
-            self.graph.replay()
-        except RuntimeError as e:
-            raise MXNetError(
-                f"{self.progs._site(self.key)}: replaying the program's "
-                f"CUDA graph failed: {e}") from e
+        _cached_op.GraphPool.replay(self.graph, self.progs._site(self.key))
         self.replays += 1
         return self.out
 
@@ -303,8 +278,8 @@ class DecodePrograms:
         self._programs = {}    # ("decode", K) | ("prefill"[_ext], B, T)
         self._signatures = {}  # "decode|K" | "prefill|B|T" -> signature
         self._captures = 0     # programs made ready (graphs captured)
-        self._pool = None      # the graphs' shared memory pool
-        self._side = None      # the warm calls' stream
+        # the graphs' shared side stream and memory pool
+        self._gpool = _cached_op.GraphPool(self.device)
         self._graphs = True    # False: run the bodies eagerly on the card
 
     @property
@@ -422,14 +397,9 @@ class DecodePrograms:
                     prog.run(k_pool, v_pool)
 
     def pool_bytes(self):
-        """Bytes the allocator holds in the graphs' shared pool (its
-        segments in ``torch.cuda.memory_snapshot()``); 0 before the first
-        capture."""
-        if self._pool is None:
-            return 0
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) ==
-                   tuple(self._pool))
+        """Bytes the allocator holds in the graphs' shared pool; 0 before
+        the first capture."""
+        return self._gpool.bytes()
 
     def graph_stats(self):
         """Per program (``"decode|K"``, ``"prefill|B|T"``, ...): the kernel

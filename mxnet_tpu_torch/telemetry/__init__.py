@@ -1,19 +1,20 @@
 """mxnet_tpu_torch.telemetry — the process-wide metric registry.
 
 Counterpart of the registry half of ``mxnet_tpu/telemetry/__init__.py``:
-``counter``, ``gauge``, ``metrics`` and ``reset``, with the reference's
-names. Metrics registered by a layer (the tuning tier's ``tune.*``
-counters) move whether or not the reference's gate is on, so the port needs
-no gate yet: ``enable``/``disable``/``MXNET_TELEMETRY`` come with the first
-instrumentation site that reads them, as do timers, histograms, the event
-log, step accounting, watchdog, exporter and memory ledger.
+``counter``, ``gauge``, ``timer``, ``histogram``, ``metrics`` and
+``reset``, with the reference's names. Metrics registered by a layer (the
+tuning tier's ``tune.*`` counters, the serving layers' ``serve.*``) move
+whether or not the reference's gate is on, so the port needs no gate yet:
+``enable``/``disable``/``MXNET_TELEMETRY`` come with the first
+instrumentation site that reads them, as do the event log, request traces,
+step accounting, watchdog, exporter, health checks and memory ledger.
 """
 from __future__ import annotations
 
-from .registry import Counter, Gauge, Registry
+from .registry import Counter, Gauge, Histogram, Registry, Timer
 
-__all__ = ["reset", "counter", "gauge", "metrics", "Counter", "Gauge",
-           "Registry"]
+__all__ = ["reset", "counter", "gauge", "timer", "histogram", "metrics",
+           "Counter", "Gauge", "Timer", "Histogram", "Registry"]
 
 REGISTRY = Registry()
 
@@ -30,6 +31,14 @@ def counter(name) -> Counter:
 
 def gauge(name) -> Gauge:
     return REGISTRY.gauge(name)
+
+
+def timer(name) -> Timer:
+    return REGISTRY.timer(name)
+
+
+def histogram(name) -> Histogram:
+    return REGISTRY.histogram(name)
 
 
 def metrics() -> dict:

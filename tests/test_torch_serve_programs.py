@@ -715,10 +715,10 @@ def test_the_graph_pool_is_shared(cuda):
         pools = set()
         for key in progs.keys():
             if not shared:
-                progs._pool = None
+                progs._gpool.handle = None
             progs.ensure(key[0], *key[1:], pools=(eng._cache.k,
                                                   eng._cache.v))
-            pools.add(tuple(progs._pool))
+            pools.add(tuple(progs._gpool.handle))
         torch.cuda.synchronize()
         held = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) in pools)
