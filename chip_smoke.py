@@ -233,16 +233,50 @@ Phases (any failure exits non-zero without the final line):
              and power limit. The kernels phase holds the flash forward at
              BERT's shape, (32*12, 128, 64) non-causal with key-padding ids
              and a length-0 row, fp32 and bf16, to its plain version at
-             every legal tile.
+             every legal tile, and the two backward kernels at BERT
+             pretraining's shapes, (32*12, 128, 64) and (8*16, 128, 64),
+             non-causal, kv ids 112 of 128 valid and a length-0 row, fp32
+             and bf16, at every legal tile (the length-0 row's and the
+             padded keys' gradients exact zeros), with SDPA's masked
+             backward beside them.
+9. bert_pretrain — BERT pretraining through ``parallel.Learner`` (one CUDA
+             graph a step): (i) one fp32 Learner step of the padded
+             BERT-Base (``bert_base(max_length=128, dropout=0)``, vocab
+             30522, a 112-of-128 valid length, weights from a numpy seed,
+             B = 8, SGD(0.1, momentum 0.9)) on the card and on the CPU: loss
+             within 1e-4, the word embedding's and layer 0's qkv weight's
+             updates within 1e-3 of each one's largest entry; (ii)
+             ``bench.py``'s ``bench_bert_pretrain("base")`` with only its
+             imports changed (B = 32, T = 128, dropout 0.1, AMP bf16,
+             AdamW(1e-4, wd 0.01), 2 warm-up and 8 timed steps): tokens/s,
+             MFU (6 x 110e6 x tokens/s over the 989 TFLOP/s dense bf16
+             peak), a step's wall, device busy and idle share, one capture
+             and no counter moving while it replays, launches a step (12
+             flash forward, 12 dK/dV, 12 dQ, all bf16, 26 LayerNorm), peak
+             memory, first and last loss; then, at dropout 0 from one
+             state, a replayed step bitwise equal to the same step run
+             eagerly (loss, parameters, optimizer states); (iii)
+             ``bench_bert_pretrain("large")`` (B = 8, ``remat=True``: 48
+             flash forward and 100 LayerNorm launches a step) with the same
+             numbers, and a ``remat=False`` run at the same batch, whose
+             peak memory must be higher; (iv) the generic Gluon loop on a
+             hybridized padded BERT-Base (fp32, dropout 0, B = 8):
+             ``autograd.record()``, ``backward()``, ``Trainer.step`` for 5
+             steps beside the un-hybridized block, every loss and gradient
+             bitwise equal, one forward and one backward capture with 12
+             dK/dV and 12 dQ launches inside the captured backward, and a
+             step's wall, device busy and idle share both ways; each
+             beside the card's name and power limit.
 
-``python3 chip_smoke.py kernels predictor`` (or any of ``kernels``,
-``resnet``, ``predictor``) runs the build and the named phases only, and
-prints no result line. The lines before the last give the card's name and
+``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
+``resnet``, ``predictor``, ``bert_pretrain``) runs the build and the named
+phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
 each path (serve, train, train_compiled, train_amp and nd (serve: the warm
 call and the capture of each program; the compiled steps: the warm step and
 the capture; replays move no counter), train_amp_converted, tune, rtc,
-resnet (all 0), predictor (the traces, warm calls and captures); a row
+resnet (all 0), predictor (the traces, warm calls and captures),
+bert_pretrain (the two benches' warm steps and captures); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -664,6 +698,9 @@ def phase_kernels():
     results["softmax"] = _softmax_row(rng, dev)
     _every_tile(rng, dev)
     results["flash_fwd"]["more"].extend(_flash_fwd_bert_tiles(rng, dev))
+    for (name, dtype), more in _flash_bwd_bert_tiles(rng, dev).items():
+        row = results[name if dtype == torch.float32 else name + ":bf16"]
+        row.setdefault("more", []).extend(more)
     return results
 
 
@@ -1084,6 +1121,127 @@ def _flash_fwd_bert_tiles(rng, dev):
             f"{pairs} visible pairs")
         out_rows.append(row)
     return out_rows
+
+
+BERT_BWD_SHAPES = ((32, 12), (8, 16))     # bench.py's Base and Large batches
+BERT_T, BERT_VALID = 128, 112             # T and _PaddedBERT's 7/8 valid
+
+
+def _flash_bwd_bert_tiles(rng, dev):
+    """The two flash backward kernels at BERT pretraining's shapes, q/k/v/g
+    (32*12, 128, 64) (Base, B = 32) and (8*16, 128, 64) (Large, B = 8),
+    non-causal, q ids all 1, kv ids 112 of 128 valid and one row of length
+    0, fp32 and bf16, against the plain backward at every legal tile
+    (fp32 FLASH_TOL, bf16 one bf16 step of each gradient's largest value);
+    the length-0 row's and the padded keys' gradients exact zeros. Returns
+    the default tile's rows for each kernel's JSON "more", by dtype: CUDA
+    events, graph replays and the profiler's device time, the bound, the
+    plain backward and SDPA's backward with the boolean mask (autograd
+    through it less its forward) as the library time."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    T, D = BERT_T, 64
+    scale = 1.0 / D ** 0.5
+    rows = {("flash_bwd_dkv", torch.float32): [],
+            ("flash_bwd_dq", torch.float32): [],
+            ("flash_bwd_dkv", torch.bfloat16): [],
+            ("flash_bwd_dq", torch.bfloat16): []}
+    for B, H in BERT_BWD_SHAPES:
+        valid = onp.full(B, BERT_VALID)
+        valid[-1] = 0
+        ks = torch.from_numpy((onp.arange(T)[None] < valid[:, None])
+                              .astype("int32")).to(dev)
+        qs = torch.ones_like(ks)
+        mask, pairs = _visible_pairs(qs, ks, B, H, T, T, False)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.from_numpy(rng.randn(B, H, T, D)
+                                           .astype("float32"))
+                          .to(dev).to(dtype) for _ in range(4))
+            out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, False)
+            want = ck.attention_bwd_plain(q, k, v, out, lse, g, qs, ks,
+                                          scale, False)
+            limits = [FLASH_TOL if dtype == torch.float32 else
+                      2 ** -7 * max(float(w.float().abs().max()), 1.0)
+                      for w in want]
+            err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+            for bq in ck.FLASH_BLOCKS:
+                for bk in ck.FLASH_BLOCKS:
+                    got = ck.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks,
+                                            scale, False, bq, bk)
+                    torch.cuda.synchronize()
+                    diffs = [float((a.float() - w.float()).abs().max())
+                             for a, w in zip(got, want)]
+                    what = (f"flash_bwd BERT ({B}*{H}, {T}, {D}) {dtype} "
+                            f"(block_q={bq}, block_k={bk})")
+                    check(all(d <= lim for d, lim in zip(diffs, limits)),
+                          f"{what}: max |diff| dq/dk/dv {diffs} over "
+                          f"{limits}")
+                    check(all(float(a[B - 1].float().abs().max()) == 0.0
+                              for a in got) and
+                          float(got[1][:, :, BERT_VALID:].float().abs()
+                                .max()) == 0.0 and
+                          float(got[2][:, :, BERT_VALID:].float().abs()
+                                .max()) == 0.0,
+                          f"{what}: the length-0 row or a padded key has "
+                          f"a gradient")
+                    err["flash_bwd_dq"] = max(err["flash_bwd_dq"], diffs[0])
+                    err["flash_bwd_dkv"] = max(err["flash_bwd_dkv"],
+                                               *diffs[1:])
+            delta = (g.float() * out.float()).sum(dim=-1)
+            args = (q, k, v, g, lse, delta, qs, ks, scale, False)
+            plain_ms = time_ms(lambda: ck.attention_bwd_plain(
+                q, k, v, out, lse, g, qs, ks, scale, False), reps=10)
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def lib_fwd_bwd():
+                o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale,
+                                                   attn_mask=mask[:, None])
+                torch.autograd.grad(o, (qg, kg, vg), g)
+
+            def lib_fwd():
+                F.scaled_dot_product_attention(q, k, v, scale=scale,
+                                               attn_mask=mask[:, None])
+
+            lib_ms = time_ms(lib_fwd_bwd, reps=20) - time_ms(lib_fwd,
+                                                             reps=20)
+            lib_g_ms = graph_ms(lib_fwd_bwd) - graph_ms(lib_fwd)
+            es = q.element_size()
+            n_in = es * 4 * q.numel() + 4 * (lse.numel() + delta.numel()) \
+                + 4 * (qs.numel() + ks.numel())
+            for name, fn, n_out, per_pair in (
+                    ("flash_bwd_dkv", ck.flash_bwd_dkv_cuda, 2 * k.numel(),
+                     8),
+                    ("flash_bwd_dq", ck.flash_bwd_dq_cuda, q.numel(), 6)):
+                ms = time_ms(lambda: fn(*args))
+                g_ms = graph_ms(lambda: fn(*args))
+                dev_ms = device_ms(lambda: fn(*args), name + "_kernel")
+                bms, by, core_ms = attention_bound_ms(
+                    n_in + es * n_out, per_pair * D * pairs, dtype)
+                row = {"ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "library_graph_ms": lib_g_ms, "bound_ms": bms,
+                       "bound_by": by, "cuda_core_bound_ms": core_ms,
+                       "max_abs_err": err[name],
+                       "shape": f"q/k/v/g ({B}*{H}, {T}, {D}) "
+                                f"{'fp32' if dtype == torch.float32 else 'bf16'}"
+                                f", non-causal, kv ids {BERT_VALID} of {T} "
+                                f"valid + a length-0 row (BERT "
+                                f"{'Base' if H == 12 else 'Large'} "
+                                f"pretraining); plain and library times "
+                                f"cover dq, dk and dv together"}
+                rows[(name, dtype)].append(row)
+                log(f"[kernels] {name} BERT {row['shape']}: max|diff| at "
+                    f"the 9 tiles {err[name]:.3g}; default tile kernel "
+                    f"{ms:.4f} ms (graph {g_ms:.4f}, profiler {dev_ms}), "
+                    f"bound {bms:.4f} ms ({by}; CUDA-core {core_ms:.4f}), "
+                    f"plain {plain_ms:.4f} ms, SDPA backward with the "
+                    f"boolean mask {lib_ms:.4f} ms (graph {lib_g_ms:.4f}), "
+                    f"{pairs} visible pairs")
+            del q, k, v, g, qg, kg, vg, out, lse, want
+    return rows
 
 
 DKV_DESIGN = ("mma.sync m16n8k8 TF32 tensor cores for S^T = KQ^T, "
@@ -3792,10 +3950,519 @@ def phase_predictor(smi_line):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: BERT pretraining through parallel.Learner, and the Gluon loop
+# ---------------------------------------------------------------------------
+BASELINE_BERT_TOKENS = 10000.0   # bench.py:30
+BERT_PARAMS = {"base": 110e6, "large": 340e6}   # bench.py:39
+BERT_CHECK_BATCH = 8            # (i) the card against the CPU, fp32
+BERT_LOSS_RTOL = 1e-4           # (i) loss, card vs CPU (fp32 sums)
+BERT_UPDATE_RTOL = 1e-3         # (i) updates over each one's largest entry
+BERT_CHECK_LR = 0.1             # (i) SGD(0.1, momentum 0.9), as phase 7 (i)
+GLUON_STEPS = 5                 # (iv) steps of the generic Gluon loop
+GLUON_SIGNATURES = (7, 6, 5, 4, 3)  # (iv) batch sizes of the pool check
+BERT_LAYERS = {"base": 12, "large": 24}
+
+
+def _sync(data):
+    """``bench.py``'s barrier (:76): one value read back to the host."""
+    return float(data.reshape(-1)[0])
+
+
+def _mfu(flops_per_sec):
+    """``bench.py``'s MFU (:69) over the card's dense bf16 peak
+    (``PEAK_BF16_FLOPS``, H100 SXM, 989 TFLOP/s)."""
+    return round(flops_per_sec / PEAK_BF16_FLOPS, 4)
+
+
+def bench_bert_pretrain(size="base"):
+    """BERT MLM+NSP pretraining step, bf16, one chip (configs 4 and the
+    BERT-Large north-star metric)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, parallel
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_base, BERTForPretraining
+
+    from mxnet_tpu_torch.gluon.model_zoo.bert import bert_large
+
+    B = 32 if size == "base" else 8
+    T, WARMUP, ITERS = 128, 2, 8
+    maker = bert_base if size == "base" else bert_large
+    bert = maker(max_length=T, dropout=0.1, dtype="float32")
+    model = BERTForPretraining(bert, vocab_size=30522)
+
+    padded = os.environ.get("BENCH_BERT_PADDED", "1") == "1"
+    if padded:
+        # realistic padded batches: a fixed 7/8-valid key-padding mask per
+        # row keeps attention on the fused segment-ids flash path (the
+        # HLO carries the masked kernel, not an O(T²) where-mask)
+        class _PaddedBERT(gluon.HybridBlock):
+            def __init__(self, inner, t_valid):
+                super().__init__()
+                self.inner = inner
+                self._t_valid = t_valid
+
+            def forward(self, tokens):
+                vlen = mx.np.full((tokens.shape[0],), self._t_valid,
+                                  dtype="float32")
+                return self.inner(tokens, None, vlen)
+
+        model = _PaddedBERT(model, T * 7 // 8)
+    model.initialize()
+    amp.convert_hybrid_block(model, "bfloat16")
+    amp.init("bfloat16")
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def pretrain_loss(pair, labels):
+        mlm_scores, nsp_scores = pair
+        mlm_labels, nsp_labels = labels[:, :-1], labels[:, -1]
+        return loss_fn(mlm_scores, mlm_labels).mean() + \
+            loss_fn(nsp_scores, nsp_labels).mean()
+
+    learner = parallel.Learner(model, pretrain_loss,
+                               mx.optimizer.AdamW(learning_rate=1e-4,
+                                                  wd=0.01),
+                               remat=(size == "large"))
+    tokens = mx.np.random.randint(0, 30522, size=(B, T))
+    labels = mx.np.concatenate([
+        mx.np.random.randint(0, 30522, size=(B, T)),
+        mx.np.random.randint(0, 2, size=(B, 1))], axis=1).astype("float32")
+    for _ in range(WARMUP):
+        _sync(learner.step(tokens, labels)._data)
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        loss = learner.step(tokens, labels)
+    _sync(loss._data)
+    dt = time.perf_counter() - t0
+    tok_s = B * T * ITERS / dt
+    return {"metric": f"bert_{size}_pretrain_bf16_tokens_per_sec",
+            "value": round(tok_s, 1), "unit": "tokens/s",
+            "vs_baseline": round(tok_s / BASELINE_BERT_TOKENS, 3),
+            "padded": padded,  # workload variant: keeps rounds comparable
+            "mfu": _mfu(tok_s * 6 * BERT_PARAMS[size])}
+
+
+def _watched_bench(size, remat=None):
+    """``bench_bert_pretrain(size)`` as it is, with ``parallel.Learner``
+    swapped for a subclass that keeps each step's loss and inputs (and, with
+    ``remat`` given, forces that flag): returns the bench's result, the
+    learner, and the peak device memory of the run."""
+    import torch
+
+    import mxnet_tpu_torch.parallel as par
+    from mxnet_tpu_torch import amp
+
+    real, made = par.Learner, []
+
+    class Watched(real):
+        def __init__(self, *args, **kwargs):
+            if remat is not None:
+                kwargs["remat"] = remat
+            super().__init__(*args, **kwargs)
+            self.losses, self.batch = [], None
+            made.append(self)
+
+        def step(self, x, y):
+            loss = super().step(x, y)
+            self.losses.append(loss)
+            self.batch = (x, y)
+            return loss
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    par.Learner = Watched
+    try:
+        result = bench_bert_pretrain(size)
+    finally:
+        par.Learner = real
+        amp.disable()
+    torch.cuda.synchronize()
+    return result, made[0], torch.cuda.max_memory_allocated()
+
+
+def _bert_numbers(tag, size, result, learner, peak, smi_line):
+    """The bench's numbers and the learner's: tokens/s and MFU, one step's
+    wall against device busy and the idle share, captures, launches a step
+    by kernel (captured launches, one replay a step), peak memory, first
+    and last loss; checks one capture, no counter moving while it replays,
+    and the launches each kernel of the path should have."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    x, y = learner.batch
+    stats = learner.graph_stats()
+    check(learner._traces == 1 and learner._captures == 1 and
+          len(stats) == 1,
+          f"{tag}: {learner._traces} traces, {learner._captures} captures "
+          f"(one signature, one capture, none after warm-up)")
+    captured = stats[0]["captured_launches"]
+    layers = BERT_LAYERS[size]
+    fwd = 2 if learner._remat else 1
+    want = {"flash_fwd": fwd * layers, "flash_bwd_dkv": layers,
+            "flash_bwd_dq": layers, "layer_norm": fwd * (2 * layers + 2)}
+    got = {k: captured[k] for k in want}
+    check(got == want, f"{tag}: launches a step {got} != {want}")
+    bf16 = {k: n for k, n in stats[0]["captured_dtypes"].items()
+            if k[0].startswith("flash") and k[1][0] == "bfloat16"}
+    check(sum(bf16.values()) == sum(n for k, n in want.items()
+                                    if k.startswith("flash")),
+          f"{tag}: flash launches not all bf16: "
+          f"{stats[0]['captured_dtypes']}")
+
+    def step():
+        learner.step(x, y)
+
+    before = ck.launch_counts()
+    wall = _wall_ms(step, 5)
+    busy, kernels, by_name = _profile(step, reps=3)
+    check(ck.launch_counts() == before,
+          f"{tag}: a kernel counter moved while the step replayed")
+    losses = [float(v._data) for v in learner.losses]
+    check(all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+    idle = max(0.0, 1 - busy / wall)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[bert_pretrain] {tag}: {result['value']} tokens/s, MFU "
+        f"{result['mfu']} (6 x {BERT_PARAMS[size]:.3g} x tokens/s over "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16, H100 SXM); step "
+        f"wall {wall:.3f} ms, device busy {busy:.3f} ms, {kernels:.0f} "
+        f"kernels, idle share {idle:.3f}; captures {learner._captures}; "
+        f"launches a step {got} (captured, one replay a step; replays "
+        f"{stats[0]['replays']}); peak memory {peak / 2**20:.0f} MiB; loss "
+        f"first {losses[0]:.4f} last {losses[-1]:.4f}; card {smi_line}")
+    log(f"[bert_pretrain] {tag}: heaviest kernels (device ms a step): "
+        + "; ".join(f"{n[:70]} {us / 3 / 1e3:.3f}" for n, us in top))
+    return {"tokens_s": result["value"], "mfu": result["mfu"], "wall": wall,
+            "busy": busy, "idle": idle, "peak": peak, "launches": got}
+
+
+def _bert_check_model(arrays, device, dropout=0.0):
+    """``_PaddedBERT(BERTForPretraining(bert_base(max_length=128)))`` on
+    ``device`` holding ``arrays`` (fp32)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTForPretraining,
+                                                      bert_base)
+
+    class _PaddedBERT(gluon.HybridBlock):
+        def __init__(self, inner, t_valid):
+            super().__init__()
+            self.inner = inner
+            self._t_valid = t_valid
+
+        def forward(self, tokens):
+            vlen = mx.np.full((tokens.shape[0],), self._t_valid,
+                              dtype="float32", ctx=tokens.device)
+            return self.inner(tokens, None, vlen)
+
+    model = _PaddedBERT(BERTForPretraining(
+        bert_base(max_length=BERT_T, dropout=dropout, device=device),
+        vocab_size=30522), BERT_VALID)
+    if arrays is not None:
+        model.load_dict(arrays)
+    return model
+
+
+def _pretrain_loss_fn():
+    from mxnet_tpu_torch import gluon
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def pretrain_loss(pair, labels):
+        mlm_scores, nsp_scores = pair
+        mlm_labels, nsp_labels = labels[:, :-1], labels[:, -1]
+        return loss_fn(mlm_scores, mlm_labels).mean() + \
+            loss_fn(nsp_scores, nsp_labels).mean()
+
+    return pretrain_loss
+
+
+def _bert_batch(rng, B):
+    tokens = rng.integers(0, 30522, (B, BERT_T)).astype("int32")
+    labels = onp.concatenate([rng.integers(0, 30522, (B, BERT_T)),
+                              rng.integers(0, 2, (B, 1))], axis=1)
+    return tokens, labels.astype("float32")
+
+
+def _bert_vs_cpu(smi_line):
+    """(i) One fp32 Learner step of the padded BERT-Base at full width,
+    B = 8, dropout 0, weights from a numpy seed, SGD(0.1, momentum 0.9),
+    on the card and on the CPU: the loss within 1e-4, and the updates of
+    the word embedding and of layer 0's qkv weight within 1e-3 of each
+    update's largest entry (fp32 both; TF32 off on the card; the flash
+    kernels' 3xTF32 and the sum orders are what differ)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+
+    rng = onp.random.default_rng(SEED + 14)
+    shapes = {n: tuple(p.shape) for n, p in _bert_check_model(
+        None, "cpu").collect_params().items()}
+    arrays = train_weights(shapes, SEED + 14)   # BERT's init too
+    tokens, labels = _bert_batch(rng, BERT_CHECK_BATCH)
+    names = ("inner.bert.word_embed.weight",
+             "inner.bert.encoder.layers.0.attn_qkv.weight")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = mx.gpu() if dev == "cuda" else mx.cpu()
+        with ctx:
+            model = _bert_check_model(arrays, dev)
+            learner = parallel.Learner(
+                model, _pretrain_loss_fn(),
+                mx.optimizer.SGD(learning_rate=BERT_CHECK_LR, momentum=0.9))
+            t0 = time.perf_counter()
+            loss = learner.step(mx.np.array(tokens), mx.np.array(labels))
+            loss = float(loss._data)
+            params = model.collect_params()
+            upd = {n: (params[n].detach().cpu() - torch.from_numpy(
+                arrays[n])) for n in names}
+            out[dev] = (loss, upd, time.perf_counter() - t0)
+        del model, learner, params
+        _release()
+    (lc, uc, tc), (lh, uh, th) = out["cuda"], out["cpu"]
+    e_loss = abs(lc - lh) / abs(lh)
+    errs = {n: _max_rel(uc[n], uh[n]) for n in names}
+    log(f"[bert_pretrain] (i) fp32 Learner step, padded BERT-Base at B="
+        f"{BERT_CHECK_BATCH}, card against CPU: loss {lc:.6f} / {lh:.6f} "
+        f"(relative {e_loss:.3g}, limit {BERT_LOSS_RTOL}); updates over "
+        f"each one's largest entry {errs} (limit {BERT_UPDATE_RTOL}); "
+        f"seconds card {tc:.1f} (warm step and capture), CPU {th:.1f}; "
+        f"card {smi_line}")
+    check(e_loss <= BERT_LOSS_RTOL, f"(i) loss {lc} against the CPU's {lh}")
+    check(all(e <= BERT_UPDATE_RTOL for e in errs.values()),
+          f"(i) updates against the CPU's: {errs}")
+    check(all(float(uh[n].abs().max()) > 0 for n in names),
+          "(i) a checked weight did not move")
+    return arrays
+
+
+def _replay_vs_eager(smi_line):
+    """(ii, second half) The bench's Base configuration at dropout 0: from
+    one state, a replayed step against the same step run eagerly
+    (``Learner._run_eager``): loss, every parameter and every optimizer
+    state bitwise equal."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, parallel
+
+    rng = onp.random.default_rng(SEED + 15)
+    model = _bert_check_model(None, "cuda")
+    model.initialize(seed=15)
+    amp.convert_hybrid_block(model, "bfloat16")
+    amp.init("bfloat16")
+    try:
+        learner = parallel.Learner(
+            model, _pretrain_loss_fn(),
+            mx.optimizer.AdamW(learning_rate=1e-4, wd=0.01))
+        tokens, labels = (mx.np.array(a) for a in _bert_batch(rng, 32))
+        learner.step(tokens, labels)        # warm step and capture
+        tree = learner._checkpoint_tree()
+        start = {k: v.detach().clone() for k, v in tree.items()}
+        replayed = learner.step(tokens, labels)
+        after = {k: v.detach().clone() for k, v in tree.items()}
+        with torch.no_grad():
+            for k, v in tree.items():
+                v.copy_(start[k])
+        eager = learner._run_eager(tokens, labels)
+        torch.cuda.synchronize()
+    finally:
+        amp.disable()
+    bad = [k for k, v in tree.items() if not torch.equal(v, after[k])]
+    same = torch.equal(replayed._data, eager._data)
+    log(f"[bert_pretrain] (ii) replayed step against the same step run "
+        f"eagerly (Base, bf16, dropout 0, B=32): loss {float(replayed._data)}"
+        f" / {float(eager._data)} bitwise {same}; {len(tree) - len(bad)} of "
+        f"{len(tree)} parameters and optimizer states bitwise equal; card "
+        f"{smi_line}")
+    check(same and not bad, f"(ii) replay against eager: loss equal {same},"
+          f" differing {bad[:5]}")
+    del learner, model, tree, start, after
+    _release()
+
+
+def _gluon_loop(arrays, smi_line):
+    """(iv) The generic Gluon loop on a hybridized padded BERT-Base (fp32,
+    dropout 0, B = 8): ``autograd.record()``, ``backward()`` and
+    ``Trainer.step`` for GLUON_STEPS steps beside the un-hybridized block
+    from the same weights: every gradient of every step bitwise equal; one
+    forward and one backward capture, the backward flash kernels inside the
+    captured backward; a step's wall, device busy and idle share both
+    ways; then the block's graph pool bytes over GLUON_SIGNATURES more
+    batch sizes under ``record()``, beyond the block's limit of recorded
+    programs."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.bert import (BERTForPretraining,
+                                                      bert_base)
+
+    rng = onp.random.default_rng(SEED + 16)
+    tokens, labels = _bert_batch(rng, BERT_CHECK_BATCH)
+    tok = torch.from_numpy(tokens).cuda()
+    lab = torch.from_numpy(labels).cuda()
+    vl = torch.full((BERT_CHECK_BATCH,), float(BERT_VALID), device="cuda")
+    vl[-1] = 57.0
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = []
+    for hybrid in (False, True):
+        model = BERTForPretraining(bert_base(max_length=BERT_T, dropout=0.0),
+                                   vocab_size=30522)
+        model.load_dict({n[len("inner."):]: a for n, a in arrays.items()})
+        if hybrid:
+            model.hybridize()
+        trainer = gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": 0.01, "momentum": 0.9})
+        runs.append((model, trainer))
+
+    def step_loss(pair, labels):
+        mlm, nsp = pair
+        return loss_fn(mlm, labels[:, :-1]).mean() + \
+            loss_fn(nsp, labels[:, -1]).mean()
+
+    def step(model, trainer):
+        with autograd.record():
+            loss = step_loss(model(tok, None, vl), lab)
+        autograd.backward(loss)
+        trainer.step(1)
+        return loss
+
+    for i in range(GLUON_STEPS):
+        losses = [step(m, t) for m, t in runs]
+        check(torch.equal(losses[0], losses[1]),
+              f"(iv) step {i}: loss {float(losses[0])} eager against "
+              f"{float(losses[1])} hybridized")
+        pe = runs[0][0].collect_params()
+        bad = [n for n, p in runs[1][0].collect_params().items()
+               if not torch.equal(p.grad, pe[n].grad)]
+        check(not bad, f"(iv) step {i}: gradients not bitwise equal: "
+                       f"{bad[:5]}")
+    hmodel = runs[1][0]
+    cop = next(iter(hmodel._cached.values()))[0]
+    prog = next(iter(cop._recorded.values()))
+    want = {"flash_bwd_dkv": 12, "flash_bwd_dq": 12}
+    got = {k: prog.backward_launches[k] for k in want}
+    check(len(hmodel._cached) == 1 and cop._captures == 1 and
+          cop._backward_captures == 1 and got == want and
+          prog.captured_launches["flash_fwd"] == 12,
+          f"(iv) captures {cop._captures} forward, "
+          f"{cop._backward_captures} backward; backward launches {got}")
+    timings = {}
+    for tag, (m, t) in zip(("eager", "hybridized"), runs):
+        wall = _wall_ms(lambda: step(m, t), 5)
+        busy, kernels, _ = _profile(lambda: step(m, t), reps=3)
+        timings[tag] = (wall, busy, kernels, max(0.0, 1 - busy / wall))
+    (ew, eb, ek, ei), (hw, hb, hk, hi) = timings["eager"], \
+        timings["hybridized"]
+    log(f"[bert_pretrain] (iv) Gluon loop, padded BERT-Base fp32 B="
+        f"{BERT_CHECK_BATCH}: {GLUON_STEPS} steps, every loss and gradient "
+        f"bitwise equal to the un-hybridized block's; 1 forward and 1 "
+        f"backward capture, forward replays {prog.replays}, backward "
+        f"replays {prog.backward_replays}, backward launches {got}; a step "
+        f"(record, backward, Trainer.step): hybridized wall {hw:.3f} ms, "
+        f"busy {hb:.3f}, {hk:.0f} kernels, idle {hi:.3f}; eager wall "
+        f"{ew:.3f} ms, busy {eb:.3f}, {ek:.0f} kernels, idle {ei:.3f}; card "
+        f"{smi_line}")
+    # the last losses hold their tape nodes, and so their programs
+    del runs, cop, prog, losses
+    _release()
+    _gluon_pool_bytes(hmodel, tok, lab, vl, step_loss, smi_line)
+    return timings
+
+
+def _gluon_pool_bytes(hmodel, tok, lab, vl, step_loss, smi_line):
+    """(iv, last) The hybridized block under ``record()`` at batch sizes
+    GLUON_SIGNATURES after the loop's: its graph pools' bytes after each
+    signature. A block keeps ``GraphPool.recorded_limit`` recorded
+    programs, so the pools grow little once older ones are dropped: the
+    bytes after the last within a fifth of the most after the first
+    ``recorded_limit`` (six kept programs would add about a third; the
+    dropped programs' memory leaves some growth, a twelfth on an H100)."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.cached_op import GraphPool
+
+    def ops():
+        return [e[0] for e in hmodel._cached.values()]
+
+    sizes = [(tok.shape[0], ops()[0].pool_bytes())]
+    for b in GLUON_SIGNATURES:
+        with autograd.record():
+            loss = step_loss(hmodel(tok[:b], None, vl[:b]), lab[:b])
+        autograd.backward(loss)
+        torch.cuda.synchronize()
+        sizes.append((b, ops()[0].pool_bytes()))
+    del loss
+    limit = GraphPool.recorded_limit
+    gpool = ops()[0]._gpool
+    kept = sum(len(op._recorded) for op in ops())
+    most = max(n for _, n in sizes[:limit])
+    log(f"[bert_pretrain] (iv) graph pool bytes of the hybridized block "
+        f"under record() by batch size (each a new signature): "
+        + ", ".join(f"B={b} {n / 2**20:.1f} MiB" for b, n in sizes)
+        + f"; recorded programs kept {kept} (limit {limit}), dropped "
+        f"{gpool.evicted}; card {smi_line}")
+    check(kept <= limit and gpool.evicted == len(sizes) - limit and
+          sizes[-1][1] <= 1.20 * most,
+          f"(iv) recorded programs not bounded: kept {kept}, dropped "
+          f"{gpool.evicted}, bytes {sizes}")
+    del hmodel
+    _release()
+
+
+def phase_bert_pretrain(smi_line):
+    """Phase 9: BERT pretraining on the card through ``parallel.Learner``
+    (one CUDA graph a step) and the hybridized Gluon loop; returns the
+    path's launch counts (the benches' warm steps and captures)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    arrays = _bert_vs_cpu(smi_line)
+    taken = {}
+    ck.reset_launch_counts()
+    base, learner, peak = _watched_bench("base")
+    counts = ck.launch_counts()
+    check(all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "layer_norm")),
+          f"(ii) a kernel of the path did not launch: {counts}")
+    _take_counts(taken)
+    nb = _bert_numbers("(ii) Base, B=32", "base", base, learner, peak,
+                       smi_line)
+    del learner
+    _replay_vs_eager(smi_line)
+    ck.reset_launch_counts()
+    large, learner, peak = _watched_bench("large")
+    _take_counts(taken)
+    nl = _bert_numbers("(iii) Large, B=8, remat", "large", large, learner,
+                       peak, smi_line)
+    del learner
+    plain, learner, peak_plain = _watched_bench("large", remat=False)
+    ck.reset_launch_counts()
+    np_ = _bert_numbers("(iii) Large, B=8, no remat", "large", plain,
+                        learner, peak_plain, smi_line)
+    del learner
+    _release()
+    log(f"[bert_pretrain] (iii) peak memory with remat {nl['peak'] / 2**20:.0f}"
+        f" MiB against {np_['peak'] / 2**20:.0f} MiB without, at B=8; "
+        f"tokens/s {nl['tokens_s']} against {np_['tokens_s']}; card "
+        f"{smi_line}")
+    check(nl["peak"] < np_["peak"], "(iii) remat did not lower peak memory")
+    _gluon_loop(arrays, smi_line)
+    PATH_DTYPES["bert_pretrain"] = taken
+    log(f"[bert_pretrain] kernel launches on the path (the two benches' warm "
+        f"steps and captures), by dtypes: {taken}; Base {nb['tokens_s']} and "
+        f"Large {nl['tokens_s']} tokens/s")
+    log(f"[bert_pretrain] phase took {time.perf_counter() - t_phase:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
-           "resnet": phase_resnet, "predictor": phase_predictor}
+           "resnet": phase_resnet, "predictor": phase_predictor,
+           "bert_pretrain": phase_bert_pretrain}
 
 
 # ---------------------------------------------------------------------------
@@ -3858,6 +4525,7 @@ def main():
         rtc_row = phase_rtc()
         phase_resnet(smi_line)
         phase_predictor(smi_line)
+        phase_bert_pretrain(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()

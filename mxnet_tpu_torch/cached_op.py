@@ -12,10 +12,11 @@ signature:
   next replay overwrites the static ones;
 - a program is made (:meth:`CachedOp.aot_compile`, or its first call) by
   one warm call of the body, then the capture (:class:`GraphPool`, the
-  port's one capture policy, which the decode programs use too); the
-  programs of one op share its side stream and its memory pool, and
-  capture and replay one at a time (one lock), which is what makes the
-  shared pool sound;
+  port's one capture policy, which the decode programs, the compiled step
+  and ``parallel.Learner`` use too); the
+  programs of one op, or of all the ops of a hybridized block, share a side
+  stream and a memory pool, and capture and replay one at a time (one
+  lock), which is what makes the shared pool sound;
 - parameters are operands, in the reference's call order ``[*inputs,
   *params]``. A program reads the traced parameters where they lie: their
   addresses are part of its signature (a ``cast`` moves them, and the next
@@ -38,18 +39,48 @@ signature:
   to eager execution.
 
 On the CPU (an op whose parameters, or inputs, lie there) each call runs the
-body eagerly: that is the tests' path. Under ``autograd.record()`` a call
-runs the body eagerly through the tape on every device; the reference's one
-tape node for a CachedOp (its backward as one program) is ROADMAP A5.
-``lower``/``lower_hlo`` and a ``transform`` pass need the graph layer and
-raise.
+body eagerly: that is the tests' path.
+
+Under ``autograd.record()`` a call records **one** tape node, a
+``torch.autograd.Function`` whose backward is the vjp of the whole body, as
+the reference records the ``jax.vjp`` of its jitted function as one node
+(``mxnet_tpu/cached_op.py:10-12``). A recorded signature is a program of
+its own (:class:`_Recorded`): on the card, a forward graph captured with
+grad mode on (its autograd graph, and the tensors it saves for backward,
+live in the pool that the recorded programs share) and a backward graph,
+the capture of ``torch.autograd.grad`` through it, reading gradient
+buffers and writing the operands' gradients. Those saved tensors are a
+step's activations, kept for the program's life, so a block keeps at most
+``GraphPool.recorded_limit`` recorded programs and drops the least
+recently used. The first call runs the body eagerly on the side
+stream (its warm call, the node of that call) and captures the forward;
+the first backward runs eagerly (through the node's own graph), then
+captures the backward; later calls and backwards replay. Gradients go back
+through the node to the inputs and parameters, so torch accumulates them
+by each parameter's ``grad_req`` as in the eager tape; inside the node a
+hybridized block's body reads aliases of its parameters (``rebind``: the
+same storage, gradient accumulators of their own, made on the capture's
+stream), since an accumulator the tape made on another stream would
+synchronise with the capture and end it. The tensors the
+forward saves are the reference's residual operands: a second call before
+the first node's backward (a siamese use, or two micro-batches) copies the
+first node's saved tensors aside before its replay overwrites them, and
+puts them back for that node's backward. A dropout mask is one of them, so
+the backward sees the forward's mask. On the CPU the node's forward runs
+the body eagerly into a graph of its own and its backward differentiates
+that graph. An op that cannot rebind its body (one that :func:`trace`
+made from a closure) runs the body eagerly under ``record()``, on the tape
+as any other code. ``lower``/``lower_hlo`` and a ``transform`` pass need
+the graph layer and raise.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import amp as _amp
 from . import autograd as _ag
@@ -124,61 +155,127 @@ def unflatten_out(flat, tree):
 
 
 class GraphPool:
-    """The side stream and the memory pool that a family of CUDA graphs
-    shares on ``device``, and the port's capture policy (a CachedOp's
-    programs and the decode engine's use it):
+    """The side stream, the memory pools and the lock that a family of CUDA
+    graphs shares on ``device`` (a hybridized block's programs, of every
+    signature; a traced CachedOp's; the decode engine's; a compiled step's
+    or a ``parallel.Learner``'s), and the port's capture policy:
 
     - the warm call runs on the family's one side stream, fenced against
       the current stream on both sides (each new stream would hold a cuBLAS
       workspace of its own); kernels are built and tuned tiles looked up
       there, outside the capture;
-    - the capture runs with the garbage collector paused and with
-      ``capture_error_mode="thread_local"``, so that other threads may
-      launch work meanwhile; every graph allocates from the one pool, made
-      at the first capture;
+    - the capture runs on that stream too, with the garbage collector
+      paused and with ``capture_error_mode="thread_local"``, so that other
+      threads may launch work meanwhile; every graph allocates from the one
+      pool, made at the first capture, but the recorded programs' forward
+      and backward graphs (:class:`_Recorded`), which share a pool of
+      their own (:meth:`pair_pool`). Graphs that share a pool replay one
+      at a time (under ``lock``), so each reuses the others' temporaries
+      and never a tensor that another keeps;
+    - at most ``recorded_limit`` recorded programs live at once
+      (:meth:`admit`): each keeps the tensors its forward saved for its
+      backward, a training step's activations, so the least recently used
+      is dropped for a new one; a dropped program lives on while a tape
+      node of one of its calls does (an output of the call, or a loss made
+      from one, is still referenced), and its memory then serves the
+      pool's next captures;
     - a failed capture or replay raises :class:`MXNetError` naming the
       site."""
+
+    recorded_limit = 4
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.side = None
         self.handle = None
+        self.pairs = None       # the recorded programs' pool (pair_pool)
+        self.lock = threading.RLock()
+        self._recorded = {}     # id -> weak reference, least recent first
+        self.evicted = 0        # recorded programs dropped (admit)
 
-    def capture(self, body, site, generator=None):
-        """Run ``body()`` once on the side stream, then capture it.
-        ``generator`` is registered with the graph when the warm call moved
-        its state (the body draws random numbers). Returns ``(warm_out,
-        graph, out, captured_launches, uses_rng)``: the warm call's result,
-        the graph, its output tensors (in the pool) and the kernel launches
-        the capture recorded."""
-        dev = self.device
-        cur = torch.cuda.current_stream(dev)
+    def _side(self):
         if self.side is None:
-            self.side = torch.cuda.Stream(dev)
-        state = None if generator is None else generator.get_state()
-        self.side.wait_stream(cur)
-        with torch.cuda.stream(self.side):
-            warm = body()
-        cur.wait_stream(self.side)
-        uses_rng = state is not None and \
-            not torch.equal(generator.get_state(), state)
-        if self.handle is None:
-            self.handle = torch.cuda.graph_pool_handle()
+            self.side = torch.cuda.Stream(self.device)
+        return self.side
+
+    @contextlib.contextmanager
+    def on_side(self):
+        """Run the block on the side stream, fenced against the current
+        stream on both sides."""
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            yield
+        cur.wait_stream(side)
+
+    def pair_pool(self):
+        """The memory pool of the recorded programs' graph pairs."""
+        if self.pairs is None:
+            self.pairs = torch.cuda.graph_pool_handle()
+        return self.pairs
+
+    def admit(self, prog):
+        """Count ``prog`` (a recorded program, new or used again) as the
+        most recent, and drop the least recent beyond ``recorded_limit``
+        from their ops (``prog.drop()``)."""
+        with self.lock:
+            self._recorded.pop(id(prog), None)
+            self._recorded = {k: r for k, r in self._recorded.items()
+                              if r() is not None}
+            self._recorded[id(prog)] = weakref.ref(prog)
+            while len(self._recorded) > self.recorded_limit:
+                victim = self._recorded.pop(next(iter(self._recorded)))()
+                if victim is not None:
+                    victim.drop()
+                    self.evicted += 1
+
+    def record(self, body, site, generators=(), pool=None):
+        """Capture ``body()`` into a new graph, without a warm call (the
+        caller warmed it), registering ``generators``. Returns ``(graph,
+        out, captured_launches, captured_dtypes)``: the graph, its output
+        tensors (in the pool) and the kernel launches the capture recorded,
+        by kernel and by (kernel, operand dtypes)."""
+        if pool is None:
+            if self.handle is None:
+                self.handle = torch.cuda.graph_pool_handle()
+            pool = self.handle
         graph = torch.cuda.CUDAGraph()
-        before = _ck.launch_counts()
+        before, before_dt = _ck.launch_counts(), _ck.dtype_counts()
         try:
-            if uses_rng:
-                graph.register_generator_state(generator)
+            for gen in generators:
+                graph.register_generator_state(gen)
             with collector_paused(), torch.cuda.graph(
-                    graph, pool=self.handle,
+                    graph, pool=pool, stream=self._side(),
                     capture_error_mode="thread_local"):
                 out = body()
         except RuntimeError as e:
             raise MXNetError(f"{site}: capturing the program into a CUDA "
                              f"graph failed: {e}") from e
-        after = _ck.launch_counts()
-        return (warm, graph, out, {n: after[n] - before[n] for n in after},
-                uses_rng)
+        after, after_dt = _ck.launch_counts(), _ck.dtype_counts()
+        dtypes = {k: n - before_dt.get(k, 0) for k, n in after_dt.items()
+                  if n != before_dt.get(k, 0)}
+        return graph, out, {n: after[n] - before[n] for n in after}, dtypes
+
+    def capture(self, body, site, generator=None, companions=None):
+        """Run ``body()`` once on the side stream, then capture it.
+        ``generator`` is registered with the graph when the warm call moved
+        its state (the body draws random numbers), and with it the
+        generators that ``companions(generator)`` returns then (a state the
+        body sets the generator to, as remat's recompute does). Returns
+        ``(warm_out, graph, out, captured_launches, captured_dtypes,
+        uses_rng)``: the warm call's result, then :meth:`record`'s, then
+        whether the body draws."""
+        state = None if generator is None else generator.get_state()
+        with self.on_side():
+            warm = body()
+        uses_rng = state is not None and \
+            not torch.equal(generator.get_state(), state)
+        gens = []
+        if uses_rng:
+            gens = [generator, *(companions(generator) if companions
+                                 else ())]
+        return (warm, *self.record(body, site, gens), uses_rng)
 
     @staticmethod
     def replay(graph, site):
@@ -189,13 +286,14 @@ class GraphPool:
                              f"failed: {e}") from e
 
     def bytes(self):
-        """Bytes the allocator holds in the pool (its segments in
-        ``torch.cuda.memory_snapshot()``); 0 before the first capture."""
-        if self.handle is None:
+        """Bytes the allocator holds in the family's pools (their segments
+        in ``torch.cuda.memory_snapshot()``); 0 before the first capture."""
+        pools = {tuple(h) for h in (self.handle, self.pairs)
+                 if h is not None}
+        if not pools:
             return 0
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) ==
-                   tuple(self.handle))
+                   if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
 class _Program:
@@ -222,8 +320,8 @@ class _Program:
                 for buf, x in zip(self.static, inputs):
                     buf.copy_(_tensor(x), non_blocking=True)
                 if self.graph is None:
-                    _, self.graph, self.out, self.captured_launches, rng = \
-                        op._gpool.capture(
+                    _, self.graph, self.out, self.captured_launches, _, \
+                        rng = op._gpool.capture(
                             lambda: op._run_body(self.static), op._name,
                             _random.generator(op.device))
                     op._uses_rng = op._uses_rng or rng
@@ -231,6 +329,253 @@ class _Program:
                 GraphPool.replay(self.graph, op._name)
                 self.replays += 1
                 return tuple(o.clone() for o in self.out)
+
+
+def _grad(outs, wrt, gouts):
+    """The gradients of ``outs`` (seeded with ``gouts``) for ``wrt``,
+    zeros where a tensor is not reached; the graph is kept."""
+    return list(torch.autograd.grad(outs, wrt, gouts, retain_graph=True,
+                                    allow_unused=True,
+                                    materialize_grads=True))
+
+
+def _forget_fresh(params):
+    """Drop what the parameters' ``'write'`` hooks kept while a gradient
+    was taken for them inside a step or a node (which hands its gradients
+    on to torch, which runs the hooks again for them); nothing for
+    aliases, which carry no hooks."""
+    for p in params:
+        if getattr(p, "_fresh_grad", None) is not None:
+            p._fresh_grad = None
+
+
+def _alias(p, grad):
+    """A parameter of the same class over ``p``'s storage (so layers read
+    it as they read ``p``), taking gradients when ``grad``."""
+    alias = type(p)(p.detach(), requires_grad=grad) \
+        if isinstance(p, torch.nn.Parameter) else p.detach()
+    return alias.requires_grad_(grad)
+
+
+class _Node:
+    """One recorded call: its outputs, and where its backward finds what
+    the forward saved (its own eager graph, the program's residual buffers,
+    or a stash of them)."""
+
+    __slots__ = ("eager", "stash", "pending", "__weakref__")
+
+    def __init__(self, eager=None):
+        self.eager = eager      # (outputs, leaves) of an eager forward
+        self.stash = None       # the residuals, set aside
+        self.pending = True     # its backward has not run
+
+
+class _Recorded:
+    """The recorded program of one signature: a call under
+    ``autograd.record()`` as one tape node (see the module docstring).
+    ``need`` says which operands (inputs, then parameters) take
+    gradients."""
+
+    def __init__(self, op, key, inputs, need):
+        self.op = op
+        self.key = key
+        self.on_card = op.device.type == "cuda"
+        self.n_in = len(inputs)
+        self.need = need
+        # the leaves the node differentiates for the parameters: aliases
+        # (their storage, gradient accumulators of their own, no hooks)
+        # where the op can rebind its body to them, else the parameters
+        need_p = need[self.n_in:]
+        self.params = op._params if op._rebind is None else [
+            _alias(p, n) for p, n in zip(op._params, need_p)]
+        self.static = None      # the forward graph's inputs
+        self.fwd = self.bwd = None
+        self.outs = None        # the forward graph's outputs (in the pool)
+        self.gouts = None       # the backward graph's gradient inputs
+        self.grads = None       # its gradient outputs (in the pool)
+        self.views = None       # byte views of the saved tensors' storages
+        self.owner = None       # the node whose residuals lie in place
+        self.captured_launches = self.backward_launches = None
+        self.replays = self.backward_replays = 0
+
+    def drop(self):
+        """Leave the op's programs (``GraphPool.admit``); the memory goes
+        back to the pool once no tape node holds the program."""
+        self.op._recorded.pop(self.key, None)
+
+    def _wrt(self, leaves):
+        return [x for x, n in zip(leaves, self.need) if n] + \
+            [p for p, n in zip(self.params, self.need[self.n_in:]) if n]
+
+    # -- forward ----------------------------------------------------------
+    def forward(self, inputs):
+        """The outputs of one call and its node."""
+        op = self.op
+        with op._lock:
+            if self.fwd is None:
+                return self._eager(inputs)
+            with torch.cuda.device(op.device):
+                self._evict()
+                for buf, x in zip(self.static, inputs):
+                    buf.copy_(x, non_blocking=True)
+                GraphPool.replay(self.fwd, op._name)
+                self.replays += 1
+                node = _Node()
+                self.owner = weakref.ref(node)
+                return [o.detach().clone() for o in self.outs], node
+
+    def _body(self, leaves):
+        op = self.op
+        rebound = contextlib.nullcontext() if op._rebind is None else \
+            op._rebind(self.params)
+        with torch.enable_grad(), rebound:
+            return op._run_body(leaves)
+
+    def _eager(self, inputs):
+        """The body eagerly into a graph of the node's own (on the card:
+        the warm call, on the side stream, then the forward's capture)."""
+        op = self.op
+        leaves = [x.detach().requires_grad_(n)
+                  for x, n in zip(inputs, self.need)]
+        if not self.on_card:
+            outs = self._body(leaves)
+        else:
+            gen = _random.generator(op.device)
+            state = gen.get_state()
+            with torch.cuda.device(op.device):
+                with op._gpool.on_side():
+                    outs = self._body(leaves)
+                rng = not torch.equal(gen.get_state(), state)
+                op._uses_rng = op._uses_rng or rng
+                self._capture_forward(inputs, [gen] if rng else [])
+        return [o.detach() for o in outs], _Node((outs, leaves))
+
+    def _capture_forward(self, inputs, generators):
+        op = self.op
+        self.static = [torch.empty(x.shape, dtype=x.dtype, device=op.device)
+                       .requires_grad_(n)
+                       for x, n in zip(inputs, self.need)]
+        with torch.no_grad():
+            for buf, x in zip(self.static, inputs):
+                buf.copy_(x)
+        saved = []
+
+        def pack(t):
+            saved.append(t)
+            return t
+
+        def body():
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                return self._body(self.static)
+
+        self.fwd, self.outs, self.captured_launches, _ = op._gpool.record(
+            body, op._name, generators, op._gpool.pair_pool())
+        # the residuals: every saved tensor's storage but the parameters'
+        # (which a replay does not write)
+        held = {p.untyped_storage().data_ptr() for p in op._params}
+        stores = {}
+        for t in saved:
+            st = t.untyped_storage()
+            if st.nbytes() and st.data_ptr() not in held:
+                stores.setdefault(st.data_ptr(), st)
+        self.views = [torch.empty(0, dtype=torch.uint8, device=op.device)
+                      .set_(st) for st in stores.values()]
+        op._captures += 1
+
+    # -- residuals ----------------------------------------------------------
+    def _evict(self):
+        """Set the residuals of the node that owns them aside while its
+        backward is pending: the next replay overwrites them."""
+        node = self.owner() if self.owner is not None else None
+        if node is not None and node.pending and node.stash is None:
+            node.stash = [v.clone() for v in self.views]
+        self.owner = None
+
+    def _restore(self, node):
+        if self.owner is not None and self.owner() is node:
+            return
+        if node.stash is None:
+            raise MXNetError(
+                f"{self.op._name}: the tensors this node saved for backward "
+                "were overwritten by a later call of the block: a second "
+                "backward through a captured node (retain_graph) must come "
+                "before the block's next call under record()")
+        self._evict()
+        for v, st in zip(self.views, node.stash):
+            v.copy_(st, non_blocking=True)
+        node.stash = None
+        self.owner = weakref.ref(node)
+
+    # -- backward -----------------------------------------------------------
+    def backward(self, node, gouts):
+        """The gradients of the operands that take them, for the output
+        gradients ``gouts``; None for the others."""
+        op = self.op
+        with op._lock, (torch.cuda.device(op.device) if self.on_card
+                        else contextlib.nullcontext()):
+            if node.eager is not None:
+                outs, leaves = node.eager
+                grads = self._eager_grad(outs, self._wrt(leaves), gouts)
+            else:
+                self._restore(node)
+                if self.bwd is None:
+                    grads = self._eager_grad(self.outs,
+                                             self._wrt(self.static), gouts)
+                else:
+                    for buf, g, o in zip(self.gouts, gouts, self.outs):
+                        if o.requires_grad:
+                            buf.copy_(g, non_blocking=True)
+                    GraphPool.replay(self.bwd, op._name + " backward")
+                    self.backward_replays += 1
+                    grads = [g.clone() for g in self.grads]
+            node.pending = False
+            if self.on_card and self.bwd is None:
+                self._capture_backward()
+        it = iter(grads)
+        return [next(it) if n else None for n in self.need]
+
+    def _eager_grad(self, outs, wrt, gouts):
+        pairs = [(o, g) for o, g in zip(outs, gouts) if o.requires_grad]
+        if not self.on_card:
+            grads = _grad([o for o, _ in pairs], wrt, [g for _, g in pairs])
+        else:
+            with self.op._gpool.on_side():
+                grads = _grad([o for o, _ in pairs], wrt,
+                              [g for _, g in pairs])
+            grads = [g.clone() for g in grads]
+        _forget_fresh(self.params)
+        return grads
+
+    def _capture_backward(self):
+        op = self.op
+        diff = [o for o in self.outs if o.requires_grad]
+        self.gouts = [torch.empty_like(o) if o.requires_grad else None
+                      for o in self.outs]
+        wrt = self._wrt(self.static)
+        self.bwd, self.grads, self.backward_launches, _ = op._gpool.record(
+            lambda: _grad(diff, wrt, [g for g in self.gouts
+                                      if g is not None]),
+            op._name + " backward", (), op._gpool.pair_pool())
+        _forget_fresh(self.params)
+        op._backward_captures += 1
+
+
+class _Tape(torch.autograd.Function):
+    """The tape node of a recorded call: its forward replays (or runs) the
+    program, its backward the program's backward."""
+
+    @staticmethod
+    def forward(ctx, prog, *operands):
+        outs, node = prog.forward(operands[:prog.n_in])
+        ctx.prog, ctx.node = prog, node
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gouts):
+        return (None, *ctx.prog.backward(ctx.node, gouts))
 
 
 class CachedOp:
@@ -241,11 +586,19 @@ class CachedOp:
     pairs it reads, which every call passes after the inputs; ``nd_inputs``
     which inputs ``fn`` takes as NDArrays. The op runs where its parameters
     lie (its inputs, without parameters), under the AMP state and training
-    flag current at construction."""
+    flag current at construction.
+
+    ``rebind(tensors)``: a context in which ``fn`` reads ``tensors`` in
+    place of the parameters (a hybridized block's, swapped in its modules).
+    A recorded program differentiates such aliases; an op without
+    ``rebind`` runs its body eagerly under ``record()``, on the tape as any
+    other code. ``gpool``: the :class:`GraphPool` of the op's programs (a
+    hybridized block gives all its ops one), else a pool of its own."""
 
     def __init__(self, fn, nd_inputs, params=(), name="cached_op",
-                 device=None):
+                 device=None, rebind=None, gpool=None):
         self._fn = fn
+        self._rebind = rebind
         self._nd_in = [bool(b) for b in nd_inputs]
         self._params = [_tensor(p) for _, p in params]
         self._name = name
@@ -257,9 +610,11 @@ class CachedOp:
         self._tree = None           # their structure (unflatten_out)
         self._uses_rng = False
         self._programs = {}         # signature -> _Program
+        self._recorded = {}         # signature -> _Recorded
         self._captures = 0          # programs made ready (graphs captured)
-        self._lock = threading.RLock()
-        self._gpool = GraphPool(self.device)
+        self._backward_captures = 0     # backward graphs captured
+        self._gpool = gpool if gpool is not None else GraphPool(self.device)
+        self._lock = self._gpool.lock
 
     @property
     def num_inputs(self):
@@ -308,14 +663,41 @@ class CachedOp:
                     self._captures += 1
         return prog
 
+    def _record(self, inputs):
+        """A call under ``record()``: one tape node (:class:`_Tape`) over
+        the recorded program of these inputs' signature and of which
+        operands take gradients; the forward alone when none does; the
+        body eagerly, on the tape, without ``rebind``."""
+        need = tuple(isinstance(t, torch.Tensor) and t.requires_grad and
+                     t.is_floating_point()
+                     for t in list(inputs) + self._params)
+        if not any(need):
+            return self._program(inputs)(*inputs)
+        if self._rebind is None:
+            with self._lock:
+                return self._run_body(inputs)
+        key = (tuple((tuple(x.shape), x.dtype) for x in inputs),
+               tuple((p.data_ptr(), p.dtype) for p in self._params), need)
+        with self._lock:
+            prog = self._recorded.get(key)
+            if prog is None:
+                prog = self._recorded[key] = _Recorded(self, key, inputs,
+                                                       need)
+                if not prog.on_card:
+                    self._captures += 1
+            self._gpool.admit(prog)
+        return _Tape.apply(prog, *inputs, *self._params)
+
     def __call__(self, *datas):
         """The outputs for ``[*inputs, *params]``: one tensor, or a tuple of
         the flat outputs; NDArrays when any operand is one."""
         nd = any(isinstance(x, NDArray) for x in datas)
         inputs = self._split(datas)
-        if _ag.is_recording() or is_inlined():
+        if is_inlined():
             with self._lock:
                 flat = self._run_body(inputs)
+        elif _ag.is_recording():
+            flat = self._record(inputs)
         else:
             flat = self._program(inputs)(*inputs)
         if nd:
@@ -341,32 +723,42 @@ class CachedOp:
         raise MXNetError(f"CachedOp.lower_hlo {_GRAPH_LAYER}")
 
     def pool_bytes(self):
-        """Bytes the allocator holds in the op's graph pool; 0 before the
-        first capture."""
+        """Bytes the allocator holds in the op's graph pools (a hybridized
+        block's: those of all its ops); 0 before the first capture."""
         return self._gpool.bytes()
 
     def graph_stats(self):
-        """Per program, in the order made: the kernel launches its capture
-        recorded (None off the card) and its replays."""
-        return [{"captured_launches": p.captured_launches,
-                 "replays": p.replays} for p in self._programs.values()]
+        """Per program, in the order made (the forward programs, then the
+        recorded ones): the kernel launches its capture recorded (None off
+        the card) and its replays; a recorded program adds its backward
+        graph's."""
+        stats = [{"captured_launches": p.captured_launches,
+                  "replays": p.replays} for p in self._programs.values()]
+        return stats + [
+            {"captured_launches": p.captured_launches, "replays": p.replays,
+             "recorded": True,
+             "backward_captured_launches": p.backward_launches,
+             "backward_replays": p.backward_replays}
+            for p in self._recorded.values()]
 
 
-def trace(fn, inputs, params=(), transform=None):
+def trace(fn, inputs, params=(), transform=None, rebind=None, gpool=None):
     """Trace ``fn(*inputs)`` into ``(out_tree, flat_outputs, CachedOp)``.
 
     ``inputs``: tensors or NDArrays, the data operands in order; ``params``:
     ``(name, tensor)`` pairs that ``fn`` reads, passed after the inputs on
     every call. ``fn`` runs once here, eagerly (filling deferred shapes);
     its flat outputs are returned (NDArrays when an input is one).
-    ``transform`` (a Symbol pass) needs the graph layer and raises."""
+    ``transform`` (a Symbol pass) needs the graph layer and raises.
+    ``rebind`` and ``gpool`` are :class:`CachedOp`'s."""
     if transform is not None:
         raise MXNetError(f"a trace transform (optimize_for) {_GRAPH_LAYER}")
     nd_in = [isinstance(x, NDArray) for x in inputs]
     tensors = [_tensor(x) for x in inputs]
     params = list(params)
     device = None if params else (tensors[0].device if tensors else None)
-    op = CachedOp(fn, nd_in, params, device=device)
+    op = CachedOp(fn, nd_in, params, device=device, rebind=rebind,
+                  gpool=gpool)
     gen = _random.generator(op.device)
     state = gen.get_state()
     with op._lock:

@@ -16,10 +16,15 @@ the AMP state and every parameter's address and dtype, so that a ``cast``
 or a deferred shape's fill (new memory) makes a new program, and the
 programs of the old addresses go, while ``load_parameters`` (a copy in
 place) is read by the next replay. A call with any other argument runs
-eagerly. Under ``autograd.record()``, inside another hybridized block's body
-and while a CUDA stream captures, a hybridized block runs eagerly: its
-gradients come through the tape, and nested blocks capture once, at the
-top. A block starts in inference mode (``training`` False). Dropout is
+eagerly. Under ``autograd.record()`` a hybridized call records one tape
+node whose backward is the vjp of its whole forward: on the card two CUDA
+graphs a signature, the forward and its backward (see
+:mod:`~mxnet_tpu_torch.cached_op`). All the programs of a block share one
+``GraphPool`` (a side stream, memory pools, a lock), which keeps at most
+``GraphPool.recorded_limit`` recorded signatures and drops the least
+recently used. Inside another hybridized block's body
+and while a CUDA stream captures, a hybridized block runs eagerly, so
+nested blocks capture once, at the top. A block starts in inference mode (``training`` False). Dropout is
 active inside ``autograd.record()`` (which sets the training flag, as in the
 reference) or after the torch idiom ``block.train()``; elsewhere it is the
 identity, so serving never drops units.
@@ -33,6 +38,7 @@ there.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from collections import OrderedDict
 
@@ -47,7 +53,8 @@ from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
 
-__all__ = ["Block", "HybridBlock", "new_parameter", "unwrap", "wrap"]
+__all__ = ["Block", "HybridBlock", "new_parameter", "unwrap", "wrap",
+           "rebound"]
 
 
 def unwrap(x):
@@ -68,6 +75,26 @@ def wrap(x):
     if isinstance(x, (tuple, list)):
         return type(x)(wrap(v) for v in x)
     return x
+
+
+@contextlib.contextmanager
+def rebound(block, swap):
+    """Inside the block, ``block``'s modules read ``swap[id(p)]`` (a tensor)
+    in place of each parameter ``p`` that ``swap`` names; restored after.
+    A recorded program and the ``parallel.Learner`` differentiate such
+    aliases (the parameters' storage, gradient accumulators of their own,
+    made on the capture's stream) and hand the gradients on."""
+    saved = []
+    for mod in block.modules():
+        for name, p in mod._parameters.items():
+            if p is not None and id(p) in swap:
+                saved.append((mod, name, p))
+                mod._parameters[name] = swap[id(p)]
+    try:
+        yield
+    finally:
+        for mod, name, p in saved:
+            mod._parameters[name] = p
 
 
 def _has_nd(args, kwargs):
@@ -227,10 +254,12 @@ class HybridBlock(Block):
         super().__init__()
         self._active = False
         self._cached = {}   # signature -> (CachedOp, out_tree, parameters)
+        self._gpools = {}   # device -> the GraphPool of all its CachedOps
 
     def hybridize(self, active=True, **kwargs):
         self._active = bool(active)
         self._cached = {}
+        self._gpools = {}
         super().hybridize(active, **kwargs)
 
     def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
@@ -248,8 +277,7 @@ class HybridBlock(Block):
                 torch.nn.Module.__call__(self, *args, **kwargs)
 
     def __call__(self, *args, **kwargs):
-        if not self._active or _ag.is_recording() or \
-                _cached_op.is_inlined():
+        if not self._active or _cached_op.is_inlined():
             return super().__call__(*args, **kwargs)
         nd = _has_nd(args, kwargs)
         targs = unwrap(args)
@@ -270,25 +298,43 @@ class HybridBlock(Block):
             # a cast or a fill) would not be found again
             self._cached = {s: e for s, e in self._cached.items()
                             if s[-1] == where}
-            entry = self._cached[sig] = self._build_cache(key, tensors)
-        cop, tree, params = entry
+            entry = self._cached[sig] = self._build_cache(
+                key, tensors, traced=not _ag.is_recording())
+        cop, _, params = entry
         out = cop(*tensors, *params)
         out = _cached_op.unflatten_out(
-            list(out) if isinstance(out, tuple) else [out], tree)
+            list(out) if isinstance(out, tuple) else [out], cop._tree)
         return wrap(out) if nd else out
 
-    def _build_cache(self, key, tensors):
+    def _build_cache(self, key, tensors, traced=True):
         """Trace the forward of the call that ``key`` and its ``tensors``
         stand for into a CachedOp (reference :266); returns
-        ``(cached_op, out_tree, parameters)``."""
+        ``(cached_op, out_tree, parameters)``. Without ``traced`` (a call
+        under ``record()``, whose node runs the body once itself) the
+        forward is not run here and the tree is None until the first
+        call."""
         params = list(self.collect_params().items())
+        plist = [p for _, p in params]
+        device = plist[0].device if plist else tensors[0].device
+        gpool = self._gpools.get(device)
+        if gpool is None:
+            gpool = self._gpools[device] = _cached_op.GraphPool(device)
 
         def fn(*data):
             args, kwargs = _from_key(key, iter(data))
             return torch.nn.Module.__call__(self, *args, **dict(kwargs))
 
-        tree, _, cop = _cached_op.trace(fn, tensors, params)
-        return cop, tree, [p for _, p in params]
+        def rebind(aliases):
+            return rebound(self, dict(zip(map(id, plist), aliases)))
+
+        if not traced:
+            cop = _cached_op.CachedOp(fn, [False] * len(tensors), params,
+                                      device=device, rebind=rebind,
+                                      gpool=gpool)
+            return cop, None, plist
+        tree, _, cop = _cached_op.trace(fn, tensors, params, rebind=rebind,
+                                        gpool=gpool)
+        return cop, tree, plist
 
     # -- serving (serve.Predictor construction) ------------------------------
     def _serving_graph(self, inputs):
@@ -316,6 +362,7 @@ class HybridBlock(Block):
         for blk in self.modules():
             if isinstance(blk, HybridBlock):
                 memo[id(blk._cached)] = {}
+                memo[id(blk._gpools)] = {}
         return copy.deepcopy(self, memo)
 
     def predictor(self, example=None, **kwargs):

@@ -12,8 +12,9 @@ x64-off JAX: ``arange(5)`` and integer data are int32, float data float32.
 Functions with data-dependent output shapes (``unique``, ``nonzero``,
 ``flatnonzero`` without ``size``) copy to the host, as the reference's.
 
-Not ported here (they raise :class:`MXNetError` naming ROADMAP A9, the rest
-of the op library): ``mx.np.random`` and the functions over the
+``mx.np.random`` is :mod:`mxnet_tpu_torch.random`, as the reference's is
+its ``random`` module. Not ported here (they raise :class:`MXNetError`
+naming ROADMAP A9, the rest of the op library): the functions over the
 reference's ``ops/extra.py`` (``diagflat``, ``fill_diagonal``,
 ``rollaxis``, ``polyval``, ``blackman``, ``hamming``, ``hanning``,
 ``tril_indices``).
@@ -32,6 +33,7 @@ from ..context import resolve_device as _resolve
 from ..ndarray.ndarray import NDArray, array
 from ..ops.registry import apply_op as _op
 from ..ops import indexing as _indexing
+from .. import random  # noqa: F401 — mx.np.random
 from . import linalg  # noqa: F401
 from ._serialization import (save, savez, savez_compressed,  # noqa: F401
                              load)
@@ -71,9 +73,6 @@ def _not_ported(name):
 
 
 def __getattr__(name):
-    if name == "random":
-        raise MXNetError("mx.np.random is not ported: the samplers are "
-                         "ROADMAP A9")
     raise AttributeError(
         f"module 'mxnet_tpu_torch.numpy' has no attribute {name!r}")
 

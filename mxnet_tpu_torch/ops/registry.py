@@ -41,6 +41,7 @@ from .. import amp as _amp
 from .. import autograd as _ag
 from .. import random as _random
 from ..base import MXNetError, narrow, to_dtype
+from ..context import resolve_device
 
 __all__ = ["Op", "register", "register_alias", "get_op", "list_ops",
            "invoke", "apply_op"]
@@ -146,11 +147,15 @@ def amp_attrs(op, attrs):
     return attrs
 
 
-def _device_of(datas):
+def _device_of(datas, attrs):
+    """Where an op that draws random numbers draws: its first tensor
+    operand's device, else the device its ``ctx`` attribute names (the
+    current context when None), as a sampler without tensor operands
+    makes its values there."""
     for d in datas:
         if isinstance(d, torch.Tensor):
             return d.device
-    raise MXNetError("an op that draws random numbers needs a tensor operand")
+    return resolve_device((attrs or {}).get("ctx"))
 
 
 def invoke(op: Op, inputs, attrs=None, out=None):
@@ -163,7 +168,7 @@ def invoke(op: Op, inputs, attrs=None, out=None):
         else op.fn()
     datas = [x._data if isinstance(x, NDArray) else x for x in inputs]
     if op.needs_rng:
-        datas.insert(0, _random.generator(_device_of(datas)))
+        datas.insert(0, _random.generator(_device_of(datas, attrs)))
     rec = op.differentiable and _ag.is_recording()
     try:
         # grad mode as recording says; it matters only where an operand

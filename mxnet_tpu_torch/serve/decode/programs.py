@@ -194,7 +194,7 @@ class _Program:
         """The warm call, then the capture (``cached_op.GraphPool``);
         returns the warm call's tokens."""
         progs = self.progs
-        out, self.graph, self.out, self.captured_launches, _ = \
+        out, self.graph, self.out, self.captured_launches, _, _ = \
             progs._gpool.capture(lambda: self.body(kp, vp),
                                  progs._site(self.key))
         self.pools = (kp.data_ptr(), vp.data_ptr())

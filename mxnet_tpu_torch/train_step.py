@@ -42,7 +42,10 @@ the body and averages their gradients before the one update.
 
 On CUDA the first call of a signature runs the body once eagerly on a side
 stream (a real, counted step: optimizer states are created, kernels built
-and tuning lookups made there), then captures it. The device generator of
+and tuning lookups made there), then captures it, by the port's one capture
+policy (``cached_op.GraphPool``: one side stream and one memory pool for
+the step's programs, ``capture_error_mode="thread_local"``, the garbage
+collector paused). The device generator of
 :mod:`mxnet_tpu_torch.random` that dropout draws from is registered with
 each graph, so every replay draws fresh masks and ``random.seed`` resets
 them. A failed capture or replay raises :class:`MXNetError`; nothing falls
@@ -96,11 +99,11 @@ import torch
 from . import amp as _amp
 from . import autograd
 from . import random as _random
-from .base import MXNetError, collector_paused, warn_once
+from .base import MXNetError, warn_once
+from .cached_op import GraphPool
 from .gluon.block import unwrap
 from .gluon.trainer import _fused_layout
 from .ndarray.ndarray import NDArray
-from .ops import cuda_kernels as _ck
 
 __all__ = ["CompiledTrainStep"]
 
@@ -250,40 +253,17 @@ class _Program:
         if self.device.type != "cuda":
             self.body()
         elif self.graph is not None:
-            try:
-                self.graph.replay()
-            except RuntimeError as e:
-                raise MXNetError(
-                    f"compile_step: replaying the step's CUDA graph failed: "
-                    f"{e}") from e
+            GraphPool.replay(self.graph, "compile_step")
         else:
             self._warm_and_capture()
 
     def _warm_and_capture(self):
-        dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body()     # the real first step of this signature
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _ck.launch_counts()
-        before_dt = _ck.dtype_counts()
-        try:
-            graph.register_generator_state(_random.generator(dev))
-            with collector_paused(), torch.cuda.graph(graph):
-                self.body()
-        except RuntimeError as e:
-            raise MXNetError(
-                f"compile_step: capturing the step into a CUDA graph "
-                f"failed: {e}") from e
-        after = _ck.launch_counts()
-        self.captured = {n: after[n] - before[n] for n in after}
-        after_dt = _ck.dtype_counts()
-        self.captured_dtypes = {
-            k: n - before_dt.get(k, 0) for k, n in after_dt.items()
-            if n != before_dt.get(k, 0)}
-        self.graph = graph
+        """The real first step of this signature, then its capture
+        (``cached_op.GraphPool``), with the dropout generator registered
+        when the step draws."""
+        _, self.graph, _, self.captured, self.captured_dtypes, _ = \
+            self.step._graph_pool(self.device).capture(
+                self.body, "compile_step", _random.generator(self.device))
 
 
 class CompiledTrainStep:
@@ -320,6 +300,7 @@ class CompiledTrainStep:
         self.accumulate = 1     # microbatches a step
         self.captured_launches = None
         self.captured_dtypes = None
+        self._gpool = None      # the steps' capture policy, on first capture
         opt = trainer._optimizer
         if opt.fused_step is None:
             self.fallback_reason = (
@@ -409,6 +390,13 @@ class CompiledTrainStep:
         return int(x.shape[0]), x, y
 
     # -- building -----------------------------------------------------------
+    def _graph_pool(self, device):
+        """The side stream and memory pool every program of this step
+        captures from (one graph a signature, replayed one at a time)."""
+        if self._gpool is None:
+            self._gpool = GraphPool(device)
+        return self._gpool
+
     def _ensure_initialized(self, x):
         """Fill the net's parameters of unknown shape by one forward of the
         microbatch ``x`` under ``autograd.pause()`` (reference

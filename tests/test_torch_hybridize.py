@@ -7,9 +7,16 @@ Dense MLP, a ResNet v1 thumbnail (``ResNetV1(BottleneckV1, [1, 1, 1, 1],
 [8, 16, 32, 64, 128], thumbnail=True)`` in predict mode) and tiny BERT (2
 layers, 64 units, 4 heads, hidden 128, vocab 100, max_length 32, dropout
 0). Also: the signature cache, ``load_parameters`` after ``hybridize``,
-gradients under ``record()``, deferred shapes, nested blocks, dropout's
-generator, and ``cached_op.trace`` as ``bench.py``'s ResNet inference bench
-uses it. Tolerances, each with its reason:
+gradients under ``record()`` (one tape node a call: two calls before one
+``backward()``, ``grad_req`` ``'add'``/``'null'``, dropout's mask shared by
+the node's forward and backward, a program per signature and after a
+``cast``, at most ``GraphPool.recorded_limit`` recorded programs a block;
+on the card the replayed backward graph and a second call's replay against
+the eager block, and the block's graph pools bounded over six signatures),
+deferred shapes, nested blocks, dropout's generator, and
+``cached_op.trace`` as ``bench.py``'s ResNet inference bench uses it (and
+under ``record()``, where it runs on the tape). Tolerances, each with its
+reason:
 
 - hybridized against eager, on the CPU: bitwise (the same ops on the same
   operands; a CPU program runs its body eagerly), and on the card bitwise
@@ -268,12 +275,15 @@ def test_gradients_under_record_match_eager_and_jax(twins):
         if hybrid:
             net.hybridize()
         with tag.record():
-            loss = (net(x) ** 2).sum()
+            out = net(x)
+            loss = (out ** 2).sum()
         tag.backward(loss)
         grads.append({n: p.grad.clone()
                       for n, p in net.collect_params().items()})
         if hybrid:
-            assert net._cached == {}    # recorded calls run eagerly
+            # one tape node for the whole recorded call
+            assert len(net._cached) == 1
+            assert type(out.grad_fn).__name__ == "_TapeBackward"
     xj = _jnd(xs[0])
     with mx.autograd.record():
         jl = (jnet(xj) ** 2).sum()
@@ -430,6 +440,218 @@ def test_cached_op_under_record_goes_through_the_tape():
     assert onp.array_equal(inp.grad.asnumpy(), [4.0, 6.0, 8.0])
 
 
+# -- a recorded call as one tape node -------------------------------------------
+def _grads(net):
+    return {n: p.grad.clone() for n, p in net.collect_params().items()
+            if p.grad is not None}
+
+
+def _siamese_loss(out_a, out_b):
+    return (out_a ** 2).sum() + (out_a * out_b).sum() + (out_b ** 3).sum()
+
+
+def test_two_calls_before_one_backward_match_eager_and_jax(twins):
+    """A siamese use: the block called twice under one ``record()``, one
+    ``backward()``: each call one node, and the gradients the eager
+    block's (bitwise) and the reference's (1e-5)."""
+    import mxnet_tpu as mx
+
+    jnet, xs, path, _ = twins["mlp"]
+    x1 = torch.from_numpy(xs[0])
+    x2 = torch.from_numpy(xs[0][::-1].copy())
+    grads = []
+    for hybrid in (False, True):
+        net = _port("mlp", path)
+        if hybrid:
+            net.hybridize()
+        with tag.record():
+            a, b = net(x1), net(x2)
+            loss = _siamese_loss(a, b)
+        tag.backward(loss)
+        grads.append(_grads(net))
+        if hybrid:
+            assert type(a.grad_fn).__name__ == "_TapeBackward"
+            assert a.grad_fn is not b.grad_fn
+            cop = next(iter(net._cached.values()))[0]
+            assert len(cop._recorded) == 1
+    with mx.autograd.record():
+        jl = _siamese_loss(jnet(_jnd(xs[0])), jnet(_jnd(xs[0][::-1].copy())))
+    jl.backward()
+    jgrads = {n: p.grad().asnumpy()
+              for n, p in jnet.collect_params().items()}
+    for n, g in grads[0].items():
+        assert torch.equal(g, grads[1][n]), n
+        assert _rel(g.numpy(), jgrads[n]) <= RTOL, n
+
+
+def test_grad_req_add_and_null_keep_their_meaning(twins):
+    """``'add'`` sums two backward calls (two micro-batches), ``'null'``
+    gives no gradient, as the eager block does."""
+    _, xs, path, _ = twins["mlp"]
+    batches = [torch.from_numpy(xs[0]), torch.from_numpy(xs[0] * 0.5)]
+    grads = []
+    for hybrid in (False, True):
+        net = _port("mlp", path)
+        params = net.collect_params()
+        for n, p in params.items():
+            p.grad_req = "null" if n == "0.bias" else "add"
+        if hybrid:
+            net.hybridize()
+        for x in batches:
+            with tag.record():
+                loss = (net(x) ** 2).sum()
+            tag.backward(loss)
+        assert params["0.bias"].grad is None
+        grads.append(_grads(net))
+    assert sorted(grads[0]) == sorted(grads[1])
+    for n, g in grads[0].items():
+        assert torch.equal(g, grads[1][n]), n
+    one = _port("mlp", path)
+    with tag.record():
+        loss = (one(batches[0]) ** 2).sum()
+    tag.backward(loss)
+    assert not torch.equal(one.collect_params()["1.weight"].grad,
+                           grads[1]["1.weight"])
+
+
+class _DropMLP(HybridBlock):
+    def __init__(self, device="cpu"):
+        super().__init__()
+        self.d1 = tnn.Dense(32, activation="relu", in_units=6, device=device)
+        self.d2 = tnn.Dense(3, in_units=32, device=device)
+
+    def forward(self, x):
+        return self.d2(tmx.ops.nn.dropout(self.d1(x), 0.5))
+
+
+def test_dropout_forward_and_backward_share_the_mask():
+    """Dropout under ``record()``: the hybridized node's forward and
+    backward see the same mask, and the whole step equals the eager
+    block's from the same seed (outputs and gradients bitwise)."""
+    x = torch.from_numpy(onp.random.RandomState(2).randn(5, 6)
+                         .astype("float32"))
+    runs = []
+    for hybrid in (False, True):
+        net = _DropMLP()
+        net.initialize(seed=3)
+        if hybrid:
+            net.hybridize()
+        trandom.seed(11)
+        outs = []
+        for _ in range(2):
+            with tag.record():
+                out = net(x)
+                loss = (out ** 2).sum()
+            tag.backward(loss)
+            outs.append(out.detach().clone())
+        runs.append((outs, _grads(net)))
+    (eo, eg), (ho, hg) = runs
+    assert not torch.equal(eo[0], eo[1])         # fresh masks each call
+    for a, b in zip(eo, ho):
+        assert torch.equal(a, b)
+    for n, g in eg.items():
+        assert torch.equal(g, hg[n]), n
+
+
+def test_recorded_program_per_signature_and_cast():
+    """A new input signature, and a ``cast``, make new recorded programs;
+    outside ``record()`` the forward program serves the same block."""
+    net = _mlp(tmx)
+    net.initialize(seed=1)
+    net.hybridize()
+    for rows in (4, 4, 3):
+        with tag.record():
+            loss = (net(torch.randn(rows, 6)) ** 2).sum()
+        tag.backward(loss)
+    cop = next(iter(net._cached.values()))[0]
+    assert len(net._cached) == 2 and len(cop._recorded) == 1
+    with torch.no_grad():
+        net(torch.randn(4, 6))
+    assert len(net._cached) == 3    # predict mode: a signature of its own
+    net.cast("bfloat16")
+    with tag.record():
+        out = net(torch.randn(4, 6, dtype=torch.bfloat16))
+    tag.backward((out.float() ** 2).sum())
+    assert out.dtype == torch.bfloat16 and len(net._cached) == 1
+    assert net[0].weight.grad.dtype == torch.bfloat16
+
+
+def _trace_under_record(device):
+    """A CachedOp that ``trace`` made from a closure (it cannot rebind the
+    closure's parameters) runs its body eagerly under ``record()``, on the
+    tape: the gradients the plain call's, bitwise, and no recorded
+    program."""
+    from mxnet_tpu_torch.cached_op import trace
+
+    net = _mlp(tmx, device=device)
+    net.initialize(seed=2)
+    params = list(net.collect_params().items())
+    x = torch.randn(4, 6, device=device)
+    _, _, cop = trace(lambda a: net(a), [x], params)
+    arrs = [x] + [p for _, p in params]
+    grads = []
+    for call in (lambda: net(x), lambda: cop(*arrs)):
+        for p in net.parameters():
+            p.grad = None
+        with tag.record():
+            loss = (call() ** 2).sum()
+        tag.backward(loss)
+        grads.append(_grads(net))
+    assert cop._recorded == {} and len(grads[1]) == len(params)
+    for n, g in grads[0].items():
+        assert torch.equal(g, grads[1][n]), n
+
+
+def test_trace_under_record_runs_on_the_tape():
+    _trace_under_record("cpu")
+
+
+def _bounded_runs(device, shapes, features, width):
+    """A hybridized two-layer block and its eager twin trained under
+    ``record()`` on inputs of ``shapes`` (each a new signature), one
+    backward a call: the gradients of each call bitwise equal, and the
+    block's pool bytes after each call (0 off the card)."""
+    nets = []
+    for hybrid in (False, True):
+        net = tnn.HybridSequential()
+        net.add(tnn.Dense(width, activation="relu", flatten=False,
+                          in_units=features, device=device),
+                tnn.Dense(10, flatten=False, in_units=width, device=device))
+        net.initialize(seed=3)
+        if hybrid:
+            net.hybridize()
+        nets.append(net)
+    sizes = []
+    for shape in shapes:
+        x = torch.randn(*shape, features, device=device)
+        grads = []
+        for net in nets:
+            for p in net.parameters():
+                p.grad = None
+            with tag.record():
+                loss = (net(x) ** 2).sum()
+            tag.backward(loss)
+            grads.append(_grads(net))
+        for n, g in grads[0].items():
+            assert torch.equal(g, grads[1][n]), (shape, n)
+        ops = [entry[0] for entry in nets[1]._cached.values()]
+        sizes.append(ops[0].pool_bytes() if ops else 0)
+    return nets[1], sizes
+
+
+def test_recorded_programs_are_bounded(monkeypatch):
+    """A block keeps at most ``GraphPool.recorded_limit`` recorded
+    programs, over all its signatures: the least recently used goes, a
+    signature met again is recorded anew, and every call's gradients are
+    the eager block's."""
+    monkeypatch.setattr(cached_op.GraphPool, "recorded_limit", 2)
+    net, _ = _bounded_runs("cpu", [(2,), (3,), (4,), (5,), (2,), (3,)],
+                           6, 8)
+    live = [k for op, _, _ in net._cached.values() for k in op._recorded]
+    gpool = next(iter(net._gpools.values()))
+    assert len(live) == 2 and gpool.evicted == 4
+
+
 # -- on the card --------------------------------------------------------------
 @pytest.fixture
 def cuda():
@@ -489,3 +711,84 @@ def test_captured_dropout_registers_the_generator(cuda):
     cop = _dropout_draws(cuda)
     assert cop._captures == 1
     assert next(iter(cop._programs.values())).replays == 4
+
+
+def _card_runs(cuda, siamese):
+    """The same BERT block trained one recorded call at a time (or two
+    calls a backward), eager and hybridized, on the card: outputs and
+    gradients of three steps."""
+    runs = []
+    tok = torch.randint(0, 100, (3, 16), device=cuda, dtype=torch.int32)
+    tok2 = torch.randint(0, 100, (3, 16), device=cuda, dtype=torch.int32)
+    vl = torch.tensor([16.0, 5.0, 9.0], device=cuda)
+    for hybrid in (False, True):
+        net = TBERT(**BERT_CFG, device=cuda)
+        net.initialize(seed=6)
+        if hybrid:
+            net.hybridize()
+        steps = []
+        for _ in range(3):
+            for p in net.parameters():
+                p.grad = None
+            with tag.record():
+                seq, pooled = net(tok, None, vl)
+                loss = (seq ** 2).mean() + pooled.sum()
+                if siamese:
+                    seq2, _ = net(tok2, None, vl)
+                    loss = loss + (seq * seq2).mean()
+            tag.backward(loss)
+            steps.append((seq.detach().clone(), _grads(net)))
+        runs.append((net, steps))
+    return runs
+
+
+@pytest.mark.cuda
+def test_replayed_backward_matches_eager_on_the_card(cuda):
+    """One forward and one backward capture; the replayed backward's
+    gradients bitwise equal to the eager block's; the backward flash
+    kernels inside the captured backward."""
+    (_, eager), (net, hyb) = _card_runs(cuda, siamese=False)
+    cop = next(iter(net._cached.values()))[0]
+    prog = next(iter(cop._recorded.values()))
+    assert cop._captures == 1 and cop._backward_captures == 1
+    assert prog.replays == 2 and prog.backward_replays == 2
+    assert prog.backward_launches["flash_bwd_dkv"] == 2
+    assert prog.backward_launches["flash_bwd_dq"] == 2
+    assert prog.captured_launches["flash_fwd"] == 2
+    for (eo, eg), (ho, hg) in zip(eager, hyb):
+        assert torch.equal(eo, ho)
+        for n, g in eg.items():
+            assert torch.equal(g, hg[n]), n
+
+
+@pytest.mark.cuda
+def test_second_call_keeps_the_first_nodes_residuals_on_the_card(cuda):
+    """Two calls under one ``record()`` before ``backward()``: the second
+    replay does not disturb what the first node's backward reads."""
+    (_, eager), (net, hyb) = _card_runs(cuda, siamese=True)
+    cop = next(iter(net._cached.values()))[0]
+    assert cop._captures == 1 and cop._backward_captures == 1
+    for (eo, eg), (ho, hg) in zip(eager, hyb):
+        assert torch.equal(eo, ho)
+        for n, g in eg.items():
+            assert torch.equal(g, hg[n]), n
+
+
+@pytest.mark.cuda
+def test_trace_under_record_on_the_card(cuda):
+    _trace_under_record(cuda)
+
+
+@pytest.mark.cuda
+def test_recorded_pool_stays_bounded_on_the_card(cuda, monkeypatch):
+    """Six signatures of one size under ``record()`` with a limit of two
+    recorded programs: the block's graph pools hold at most a quarter more
+    after the sixth than after the second (a dropped program's memory
+    serves the next; six kept programs would hold about three times as
+    much), and every call's gradients are the eager block's."""
+    monkeypatch.setattr(cached_op.GraphPool, "recorded_limit", 2)
+    shapes = [(a, 256 // a) for a in (1, 2, 4, 8, 16, 32)]
+    net, sizes = _bounded_runs(cuda, shapes, 1024, 2048)
+    gpool = next(iter(net._gpools.values()))
+    assert gpool.evicted == 4
+    assert 0 < sizes[-1] <= 1.25 * sizes[1], sizes

@@ -472,6 +472,45 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, B, H, Tq, Tk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(32, 12), (8, 16)])
+def test_flash_bwd_kernels_at_bert_training_shapes_on_card(cuda, dtype, B,
+                                                           H):
+    """BERT pretraining's backward (bench.py's Base and Large batches, T =
+    128, D = 64): non-causal, q ids all 1, kv ids 112 of 128 valid and one
+    row of length 0, at every legal tile; tolerances as above."""
+    T, D = 128, 64
+    rng = onp.random.RandomState(11)
+    q, k, v = (_t(a).to(cuda, dtype) for a in _qkv(rng, B, H, T, T, D))
+    g = _t(rng.randn(B, H, T, D).astype("float32")).to(cuda, dtype)
+    valid = onp.full(B, 112)
+    valid[-1] = 0
+    ks = _t((onp.arange(T)[None] < valid[:, None]).astype("int32")).to(cuda)
+    qs = torch.ones_like(ks)
+    scale = 1 / D ** 0.5
+    out, lse = tk.flash_fwd_cuda(q, k, v, qs, ks, scale, False)
+    want = tk.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale,
+                                  False)
+    for bq in tk.FLASH_BLOCKS:
+        for bk in tk.FLASH_BLOCKS:
+            got = tk.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale,
+                                    False, bq, bk)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                ref = float(b.float().abs().max())
+                tol = 1e-4 if dtype == torch.float32 else \
+                    2 ** -7 * max(ref, 1.0)
+                assert float((a.float() - b.float()).abs().max()) <= tol, \
+                    (bq, bk)
+            # the length-0 row: no query sees a key, every gradient zero;
+            # padded keys get none either
+            for a in got:
+                assert float(a[B - 1].float().abs().max()) == 0.0
+            assert float(got[1][:, :, 112:].float().abs().max()) == 0.0
+            assert float(got[2][:, :, 112:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_runs_backward_kernels_on_card(cuda):
     rng = onp.random.RandomState(10)
     q, k, v = (_t(a).to(cuda).requires_grad_()

@@ -455,8 +455,15 @@ def test_ops_outside_the_slice_raise_naming_the_roadmap_item(name):
 
 
 def test_np_random_is_not_ported():
-    with pytest.raises(MXNetError, match="A9"):
-        tnp.random  # noqa: B018
+    """``mx.np.random`` was not ported until the samplers came; now it is
+    the port's ``random`` module, as the reference's is its own
+    (``tests/test_torch_random.py`` holds the samplers)."""
+    import mxnet_tpu_torch.random as trandom
+
+    assert tnp.random is trandom
+    got = tnp.random.randint(0, 7, size=(3, 4), ctx="cpu")
+    assert isinstance(got, tnp.ndarray) and got.shape == (3, 4)
+    assert dtype_name(got.dtype) == "int32"
 
 
 # -- the numpy dispatch protocol and save / load -------------------------------
