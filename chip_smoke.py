@@ -268,15 +268,45 @@ Phases (any failure exits non-zero without the final line):
              step's wall, device busy and idle share both ways; each
              beside the card's name and power limit.
 
+10. graph — the graph layer: (i) BERT-Base (``bert_base(max_length=128,
+             dropout=0)``, vocab 30522, weights from a numpy seed, fp32),
+             hybridized, run at B = 32, T = 128 with token types and valid
+             lengths 16-128 and one of 0, then ``export``ed and loaded back
+             by ``gluon.SymbolBlock.imports``: the hybridized import's
+             sequence and pooled outputs within 1e-5 of the block's largest
+             entry (the same kernels in the same order), 12 attention nodes
+             carrying the key-padding mask, 12 flash-forward and 25
+             LayerNorm launches in its one captured program; a Predictor
+             over it (ladder 1-32, 128 requests from 16 threads) whose
+             bucket-32 predict equals the block's within 1e-5 and whose rows
+             agree within 1e-4, and the bucket-32 program's wall, device
+             busy and idle share beside the hybridized block's; (ii)
+             ResNet-50 v1 at batch 8, 224 x 224, fp32, predict mode,
+             exported and imported, within phase 7's 1e-3 (no port kernel
+             runs); (iii) ``optimize_for("tpu")`` on the reference's
+             hand-written attention (``_ManualAttention``, through
+             ``mx.np``/``mx.npx``) at (4, 12, 1024, 64) fp32, unmasked and
+             with a (4, 1, 1, 1024) key-padding mask of 3/4 valid keys: one
+             ``flash_attention`` node and no softmax, forward within
+             FLASH_TOL and dq/dk/dv within GRAD_RTOL of the unfused graph
+             (``optimize_for("default")``: the same trace without the
+             pass) under ``record()``, the recorded program's
+             captured launches 1 flash forward and 1 each of dK/dV and dQ,
+             device ms fused against unfused; (iv) an ``mx.sym`` MLP
+             (FullyConnected 768 -> 3072, relu, -> 768, batch 64) through
+             ``simple_bind`` on the card, ``forward(is_train=True)`` and
+             ``backward``, outputs and gradients within 1e-5 of the CPU's.
+
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
-``resnet``, ``predictor``, ``bert_pretrain``) runs the build and the named
-phases only, and prints no result line. The lines before the last give the card's name and
+``resnet``, ``predictor``, ``bert_pretrain``, ``graph``) runs the build and
+the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
 each path (serve, train, train_compiled, train_amp and nd (serve: the warm
 call and the capture of each program; the compiled steps: the warm step and
 the capture; replays move no counter), train_amp_converted, tune, rtc,
 resnet (all 0), predictor (the traces, warm calls and captures),
-bert_pretrain (the two benches' warm steps and captures); a row
+bert_pretrain (the two benches' warm steps and captures), graph (the
+traces, warm calls and captures; also the row's ``graph`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -4458,11 +4488,378 @@ def phase_bert_pretrain(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the graph layer (Symbol, export / SymbolBlock.imports, the
+# Executor, optimize_for("tpu"))
+# ---------------------------------------------------------------------------
+GRAPH_BERT_SHAPE = (32, 128)  # B, T of the BERT-Base round trip
+GRAPH_RTOL = 1e-5             # round trip: the same kernels in the same
+#                               order, so equality is expected; the limit is
+#                               that of fp32 sums in another order
+GRAPH_ATTN_SHAPE = (4, 12, 1024, 64)  # GPT-2 small's attention, fp32
+GRAPH_MLP = dict(x=(64, 768), w1=(3072, 768), b1=(3072,), w2=(768, 3072),
+                 b2=(768,))   # the Executor's MLP: GPT-2 small's FFN widths
+GRAPH_EXEC_RTOL = 1e-5        # Executor card vs CPU, fp32 GEMMs, TF32 off
+
+
+def _graph_bert(smi_line, taken, where):
+    """(i) BERT-Base exported and imported back: the SymbolBlock's outputs
+    against the hybridized block's, 12 flash forward (key-padding ids) and
+    25 LayerNorm launches in its one captured program, then a Predictor
+    over it; returns the phase's numbers."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.symbol import topo_sort
+
+    B, T = GRAPH_BERT_SHAPE
+    bert = bert_base(max_length=T, dropout=0.0)
+    bert.load_dict(numpy_weights(
+        {n: tuple(p.shape) for n, p in bert.collect_params().items()},
+        SEED + 21))
+    bert.hybridize()
+    rs = onp.random.default_rng(SEED + 22)
+    tok = rs.integers(0, 30522, (B, T), dtype="int32")
+    tt = rs.integers(0, 2, (B, T), dtype="int32")
+    vl = rs.integers(16, T + 1, B).astype("float32")
+    vl[0], vl[1] = 0.0, float(T)        # a row with every key masked
+    xs = tuple(torch.from_numpy(a).to(DEV) for a in (tok, tt, vl))
+    with torch.no_grad():
+        want = bert(*xs)
+    t0 = time.perf_counter()
+    sym_file, param_file = bert.export(os.path.join(where, "bert"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blk = SymbolBlock.imports(sym_file, ["data0", "data1", "data2"],
+                              param_file, ctx=mx.gpu())
+    import_s = time.perf_counter() - t0
+    nodes = [n for n in topo_sort(blk._sym._entries) if n.op is not None]
+    ops = {}
+    for n in nodes:
+        ops[n.op.name] = ops.get(n.op.name, 0) + 1
+    mha = [n for n in nodes if n.op.name == "multihead_attention"]
+    check(len(mha) == len(bert.encoder.layers) and
+          all(len(n.inputs) == 4 for n in mha),
+          f"graph: BERT's attention nodes lost the key-padding mask: {ops}")
+    blk.hybridize()
+    _take_counts(taken)
+    with torch.no_grad():
+        got = blk(*xs)
+        torch.cuda.synchronize()
+    (cop, _, _), = blk._cached.values()
+    stats = cop.graph_stats()
+    captured = stats[0]["captured_launches"] or {}
+    check(len(stats) == 1 and all(captured.get(k) == v
+                                  for k, v in BERT_WANT.items()),
+          f"graph: the imported BERT's program launched {captured}, want "
+          f"{BERT_WANT} in one program")
+    errs = [_max_rel(g, w) for g, w in zip(got, want)]
+    log(f"[graph] (i) BERT-Base (B={B}, T={T}, valid lengths 0-{T}) "
+        f"exported in {export_s:.2f} s ({os.path.getsize(sym_file)} bytes "
+        f"of JSON, {len(nodes)} op nodes: {ops}), imported in {import_s:.2f}"
+        f" s; the imported block's sequence and pooled outputs against the "
+        f"hybridized block's, max |diff| over the largest entry: {errs} "
+        f"(limit {GRAPH_RTOL}); its program's captured launches {captured} "
+        f"(one program); card {smi_line}")
+    check(max(errs) <= GRAPH_RTOL, f"graph: BERT round trip differs {errs}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "graph: BERT outputs not finite")
+    with torch.no_grad():
+        for _ in range(3):
+            again = blk(*xs)
+    check(all(torch.equal(a, g) for a, g in zip(again, got)),
+          "graph: a replay of the imported BERT differs from its first run")
+    _take_counts(taken)
+
+    # -- the Predictor over the imported block -----------------------------
+    items = [(tok[i % B], tt[i % B], vl[i % B])
+             for i in range(PRED_BERT_REQUESTS)]
+    example = (torch.zeros((2, T), dtype=torch.int32),
+               torch.zeros((2, T), dtype=torch.int32), torch.zeros(2))
+    t0 = time.perf_counter()
+    pred = blk.predictor(example=example, max_batch=PRED_BERT_BATCH)
+    try:
+        pred.warmup()
+        warm_s = time.perf_counter() - t0
+        st = _pred_serving_line("graph bert", pred, warm_s, smi_line)
+        check(st["captures"] == len(pred.buckets) == 6,
+              f"graph: the Predictor made {st['captures']} programs")
+        served = pred.predict((tok, tt, vl))
+        for name, s, w in zip(("sequence", "pooled"), served, got):
+            err = _max_rel(s._data, w)
+            check(err <= GRAPH_RTOL,
+                  f"graph: the Predictor's {name} differs from the block's "
+                  f"by {err}")
+        at_warm = ck.launch_counts()
+        futs, wall = _submit_from_threads(pred, items, PRED_THREADS)
+        check(ck.launch_counts() == at_warm,
+              "graph: a kernel counter moved while serving")
+        alone_err = 0.0
+        for i, f in enumerate(futs):
+            for s, w in zip(f.result(), got):
+                row = w[i % B].detach().float().cpu().numpy()
+                alone_err = max(alone_err, float(
+                    abs(onp.asarray(s, "float64") - row).max() /
+                    abs(row).max()))
+        log(f"[graph] (i) Predictor over the imported BERT: "
+            f"{PRED_BERT_REQUESTS} requests from {PRED_THREADS} threads in "
+            f"{wall:.3f} s, {pred.stats()['batches']} batches; a bucket-32 "
+            f"predict against the block: equal within {GRAPH_RTOL}; served "
+            f"rows against the block's rows, max |diff| over the largest "
+            f"entry {alone_err:.3g} (limit {PRED_BERT_RTOL['float32']})")
+        check(alone_err <= PRED_BERT_RTOL["float32"],
+              f"graph: a served row differs by {alone_err}")
+        _take_counts(taken)
+        timing = {}
+        prog = pred._programs[PRED_BERT_BATCH]
+        for tag, fn in (("Predictor's imported program",
+                         lambda: prog(*xs)),
+                        ("hybridized block", lambda: bert(*xs))):
+            with torch.no_grad():
+                wall_ms = _wall_ms(fn, 10)
+                busy, kernels, _ = _profile(fn)
+            timing[tag] = (wall_ms, busy, max(0.0, 1 - busy / wall_ms))
+            log(f"[graph] (i) bucket {PRED_BERT_BATCH}, {tag}: wall "
+                f"{wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+                f"{kernels:.0f} kernels, idle share "
+                f"{timing[tag][2]:.3f}; card {smi_line}")
+        ck.reset_launch_counts()
+    finally:
+        pred.close()
+    del pred, blk, bert
+    _release()
+    return timing
+
+
+def _graph_resnet(smi_line, taken, where):
+    """(ii) ResNet-50 v1 exported at batch 8 in predict mode and imported
+    back; no port kernel runs."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    net = _resnet_net(resnet_weights(SEED + 7))
+    net.hybridize()
+    x = torch.from_numpy(onp.random.default_rng(SEED + 23).standard_normal(
+        (RESNET_CHECK_BATCH, *RESNET_IMAGE), dtype="float32")).to(DEV)
+    before = ck.launch_counts()
+    with torch.no_grad():
+        want = net(x)
+        files = net.export(os.path.join(where, "resnet50"))
+        blk = SymbolBlock.imports(*files[:1], "data0", files[1],
+                                  ctx=mx.gpu())
+        blk.hybridize()
+        got = blk(x)
+        torch.cuda.synchronize()
+    err = _max_rel(got, want)
+    log(f"[graph] (ii) ResNet-50 v1 at batch {RESNET_CHECK_BATCH}, 224x224, "
+        f"fp32, predict mode: the imported block against the hybridized "
+        f"one, max |diff| over the largest logit {err} (limit "
+        f"{RESNET_FP32_RTOL}); port kernel launches "
+        f"{ {k: n - before[k] for k, n in ck.launch_counts().items()} }")
+    check(err <= RESNET_FP32_RTOL, f"graph: ResNet round trip differs {err}")
+    check(ck.launch_counts() == before,
+          "graph: a port kernel launched on the ResNet path")
+    _take_counts(taken)
+    del net, blk
+    _release()
+
+
+def _manual_attention_block():
+    """The reference's ``_ManualAttention`` (tests/test_subgraph_passes.py,
+    the "div" style) and its masked form, through ``mx.np``/``mx.npx``."""
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon import HybridBlock
+    from mxnet_tpu_torch.gluon.block import wrap
+
+    class ManualAttention(HybridBlock):
+        def forward(self, q, k, v, mask=None):
+            q, k, v, mask = wrap((q, k, v, mask))
+            logits = mnp.matmul(q, mnp.swapaxes(k, -1, -2)) / \
+                (q.shape[-1] ** 0.5)
+            if mask is not None:
+                logits = mnp.where(mask, logits,
+                                   mnp.array(-1e30, dtype="float32"))
+            return mnp.matmul(npx.softmax(logits, axis=-1), v)
+
+    return ManualAttention
+
+
+def _graph_attention(smi_line, taken):
+    """(iii) ``optimize_for("tpu")`` on hand-written attention at GPT-2
+    small's width, unmasked and with a (B, 1, 1, T) key-padding mask:
+    one ``flash_attention`` node and no softmax, forward within FLASH_TOL
+    and q/k/v gradients within GRAD_RTOL of the unfused graph (the
+    ``"default"`` backend's), one launch of each flash kernel a step,
+    device ms both ways."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.symbol import topo_sort
+
+    Block = _manual_attention_block()
+    B, H, T, D = GRAPH_ATTN_SHAPE
+    rs = onp.random.default_rng(SEED + 24)
+    base = [torch.from_numpy(rs.standard_normal((B, H, T, D),
+                                                dtype="float32")).to(DEV)
+            for _ in range(3)]
+    valid = torch.ones((B, 1, 1, T), device=DEV)
+    valid[..., 3 * T // 4:] = 0.0
+    for masked in (False, True):
+        args = base + ([valid] if masked else [])
+        results = {}
+        for fused in (False, True):
+            # unfused: the same traced graph without the pass (the
+            # "default" backend), so the block's host constant (-1e30) is a
+            # const node placed on the card before the capture; a plain
+            # hybridize would copy it from the host inside the capture
+            net = Block()
+            net.optimize_for(*args, backend="tpu" if fused else "default")
+            (cop, _, _), = net._cached.values()
+            names = [n.op.name for n in topo_sort(cop.sym._entries)
+                     if n.op is not None]
+            check(("softmax" not in names and
+                   names.count("flash_attention") == 1) if fused else
+                  ("softmax" in names and "flash_attention" not in names),
+                  f"graph: the {'optimized' if fused else 'unfused'} graph "
+                  f"holds {names}")
+            _take_counts(taken)
+            outs = grads = None
+            for _ in range(3):
+                xs = [mx.nd.NDArray(a.clone()) for a in args]
+                for a in xs[:3]:
+                    a.attach_grad()
+                with autograd.record():
+                    out = net(*xs)
+                    loss = (out * out).sum()
+                loss.backward()
+                outs, grads = out._data, [a.grad._data for a in xs[:3]]
+            torch.cuda.synchronize()
+            launched = ck.launch_counts()
+            rec = [v for k, v in net._cached.items() if k[2]]
+            stats = rec[0][0].graph_stats() if rec else []
+            _take_counts(taken)
+
+            def fwd():
+                with torch.no_grad():
+                    net(*args)
+
+            xs = [mx.nd.NDArray(a.clone()) for a in args]
+            for a in xs[:3]:
+                a.attach_grad()
+
+            def step():
+                with autograd.record():
+                    out = net(*xs)
+                    loss = (out * out).sum()
+                loss.backward()
+
+            fwd()
+            ms = {"forward": _profile(fwd)[0],
+                  "forward+backward": _profile(step)[0]}
+            ck.reset_launch_counts()
+            results[fused] = (outs, grads, launched, stats, ms)
+        (o0, g0, _, _, ms0), (o1, g1, launched, stats, ms1) = \
+            results[False], results[True]
+        f_err = _max_rel(o1, o0)
+        g_err = [_max_rel(a, b) for a, b in zip(g1, g0)]
+        rec = [s for s in stats if s.get("recorded")]
+        cap = (rec[0]["captured_launches"] if rec else None) or {}
+        bwd = (rec[0]["backward_captured_launches"] if rec else None) or {}
+        tag = "key-padding mask (3/4 of the keys valid)" if masked \
+            else "no mask"
+        log(f"[graph] (iii) optimize_for('tpu') at {GRAPH_ATTN_SHAPE} fp32, "
+            f"{tag}: forward max |diff| over the largest entry {f_err:.3g} "
+            f"(limit {FLASH_TOL}), dq/dk/dv {[f'{e:.3g}' for e in g_err]} "
+            f"(limit {GRAD_RTOL}); the recorded program's captured launches "
+            f"forward {cap}, backward {bwd}; device ms fused "
+            f"{ {k: round(v, 4) for k, v in ms1.items()} } against unfused "
+            f"{ {k: round(v, 4) for k, v in ms0.items()} }; card {smi_line}")
+        check(f_err <= FLASH_TOL and max(g_err) <= GRAD_RTOL,
+              f"graph: fused attention differs: {f_err}, {g_err}")
+        check(cap.get("flash_fwd") == 1 and bwd.get("flash_bwd_dkv") == 1
+              and bwd.get("flash_bwd_dq") == 1,
+              f"graph: fused attention launches {cap}, {bwd}")
+        check(launched["flash_fwd"] >= 1 and launched["flash_bwd_dq"] >= 1,
+              f"graph: the fused path launched {launched}")
+    _release()
+
+
+def _graph_executor(smi_line, taken):
+    """(iv) An ``mx.sym`` MLP through ``simple_bind`` on the card,
+    ``forward(is_train=True)`` and ``backward``, against the same on the
+    CPU."""
+    import mxnet_tpu_torch as mx
+    import mxnet_tpu_torch.symbol as sym
+
+    names = list(GRAPH_MLP)
+    x, w1, b1, w2, b2 = (sym.var(n) for n in names)
+    h = sym.Activation(sym.FullyConnected(x, w1, b1, num_hidden=3072),
+                       act_type="relu")
+    out = sym.FullyConnected(h, w2, b2, num_hidden=768)
+    rs = onp.random.default_rng(SEED + 25)
+    vals = {n: (rs.standard_normal(s, dtype="float32") /
+                onp.float32(onp.sqrt(s[-1]))) for n, s in GRAPH_MLP.items()}
+    got = {}
+    for ctx in (mx.cpu(), mx.gpu()):
+        ex = out.simple_bind(ctx=ctx, **GRAPH_MLP)
+        y = ex.forward(is_train=True, **{
+            n: mx.np.array(v, ctx=ctx) for n, v in vals.items()})[0]
+        ex.backward(mx.np.ones(y.shape, ctx=ctx))
+        got[ctx.device_type] = [y.asnumpy()] + [
+            ex.arg_dict[n].grad.asnumpy() for n in names]
+    errs = {n: float(abs(a - b).max() / abs(b).max()) for n, a, b in zip(
+        ["out"] + names, got["gpu"], got["cpu"])}
+    log(f"[graph] (iv) Executor (FullyConnected 768->3072, relu, ->768 at "
+        f"batch 64, simple_bind, forward(is_train=True), backward): the "
+        f"card against the CPU, max |diff| over each largest entry {errs} "
+        f"(limit {GRAPH_EXEC_RTOL}); card {smi_line}")
+    check(max(errs.values()) <= GRAPH_EXEC_RTOL,
+          f"graph: the Executor on the card differs from the CPU: {errs}")
+    _take_counts(taken)
+
+
+def phase_graph(smi_line):
+    """Phase 10: the graph layer on the card. Returns the phase's launch
+    counts (the traces, warm calls and captures; replays move none)."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    taken = {}
+    with tempfile.TemporaryDirectory(prefix="graph-export-") as where:
+        _graph_bert(smi_line, taken, where)
+        _graph_resnet(smi_line, taken, where)
+    _graph_attention(smi_line, taken)
+    _graph_executor(smi_line, taken)
+    PATH_DTYPES["graph"] = taken
+    counts = {k: sum(n for (kern, _), n in taken.items() if kern == k)
+              for k in ck.launch_counts()}
+    log(f"[graph] kernel launches on the path (traces, warm calls and "
+        f"captures; the timing runs left out), by kernel: {counts}")
+    check(all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "layer_norm")),
+          f"graph: a kernel of the path did not launch: {counts}")
+    log(f"[graph] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "resnet": phase_resnet, "predictor": phase_predictor,
-           "bert_pretrain": phase_bert_pretrain}
+           "bert_pretrain": phase_bert_pretrain, "graph": phase_graph}
 
 
 # ---------------------------------------------------------------------------
@@ -4526,6 +4923,7 @@ def main():
         phase_resnet(smi_line)
         phase_predictor(smi_line)
         phase_bert_pretrain(smi_line)
+        phase_graph(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -4544,6 +4942,7 @@ def main():
         by_path["rtc"] = 0
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        row["graph"] = by_path.get("graph", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -4554,6 +4953,7 @@ def main():
                     if k == kernel and tuple(dts) == ("bfloat16",) * 2)
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
+    rtc_row["graph"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

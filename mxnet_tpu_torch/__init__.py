@@ -26,19 +26,32 @@ autotuner ``tune``) are hand-written CUDA kernels for ``sm_90a``
 (``csrc/``), built with nvcc at first use; see
 :mod:`mxnet_tpu_torch.ops.cuda_kernels`. ``rtc.CudaModule`` compiles CUDA C
 given at run time.
+
+The graph layer is the reference's: ``mx.sym`` / ``mx.var`` / ``Symbol``
+with its JSON (each package loads the other's), deferred-compute tracing of
+a block's forward, ``HybridBlock.export`` and ``gluon.SymbolBlock.imports``,
+the ``Executor`` (``Symbol.bind`` / ``simple_bind``) and ``mx.subgraph``
+with ``optimize_for("tpu")``, which fuses hand-written attention onto the
+flash kernels.
 """
-from . import (amp, autograd, base, context, convert, engine, gluon,
-               initializer, lr_scheduler, ndarray, ops, optimizer, parallel,
-               random, rtc, serve, telemetry, train_step, tune)
+from . import (amp, attribute, autograd, base, context, convert, engine,
+               executor, gluon, initializer, lr_scheduler, name, ndarray, ops,
+               optimizer, parallel, random, rtc, serve, subgraph, symbol,
+               telemetry, train_step, tune, visualization)
 from . import numpy as np
 from . import numpy_extension as npx
+from .attribute import AttrScope
 from .base import MXNetError
+from .name import NameManager
+from .symbol import Symbol, var
 from .context import (Context, Device, cpu, current_context, current_device,
                       device, gpu, gpu_memory_info, num_gpus, resolve_device)
 from .convert import params_from_mxnet_tpu, trainer_states_from_mxnet_tpu
 from .ndarray import NDArray, array
 
 nd = ndarray
+sym = symbol
+viz = visualization
 
 __version__ = "0.1.0"
 
@@ -49,7 +62,9 @@ __all__ = ["MXNetError", "Context", "Device", "NDArray", "array", "cpu",
            "npx", "nd", "amp", "autograd", "base", "context", "convert",
            "engine", "gluon", "initializer", "lr_scheduler", "ndarray",
            "ops", "optimizer", "parallel", "random", "rtc", "serve",
-           "telemetry", "train_step", "tune"]
+           "telemetry", "train_step", "tune", "sym", "symbol", "Symbol",
+           "var", "executor", "subgraph", "attribute", "name", "AttrScope",
+           "NameManager", "visualization", "viz"]
 
 
 def waitall():

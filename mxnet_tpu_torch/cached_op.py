@@ -1,10 +1,23 @@
-"""CachedOp: a traced forward replayed as one CUDA graph per input signature.
+"""CachedOp: a forward, or a Symbol's executor, replayed as one CUDA graph
+per input signature.
 
 Counterpart of ``mxnet_tpu/cached_op.py``. The reference traces a forward
 through deferred compute into a Symbol and compiles it into one XLA program
-per input signature. The port has no graph layer yet (Symbol and deferred
-compute are ROADMAP A10), so its CachedOp keeps the forward as a Python
-callable, and a *program* is one ``torch.cuda.CUDAGraph`` per input
+per input signature. The port's CachedOp has two bodies:
+
+- a traced forward kept as a Python callable (``trace`` without a
+  ``transform``; a hybridized block's programs): its Symbol is made on
+  demand (:attr:`CachedOp.sym`, ``lower``, a block's ``export``) by tracing
+  the callable through deferred compute
+  (:mod:`mxnet_tpu_torch._deferred_compute`) at the inputs of its first
+  program;
+- a Symbol (``CachedOp(sym, var_nodes, aux_updates=(), name=...)`` as in
+  the reference, ``trace(..., transform=pass)``, a block after
+  ``optimize_for``): its body is :func:`build_executor`'s walk of the graph
+  through each node's ``Op.fn(**attrs)``. Constant tensors move to the
+  program's device once, at its first (warm) call, outside any capture.
+
+Either way a *program* is one ``torch.cuda.CUDAGraph`` per input
 signature:
 
 - a program owns static buffers for its inputs; a call copies the inputs in,
@@ -30,8 +43,9 @@ signature:
   so every replay draws fresh numbers (``_uses_rng``);
 - the body runs under the AMP state and the training flag of the call that
   traced it, as the reference's trace fixes both; hybridized blocks called
-  inside it (or while any CUDA stream captures) run their bodies inline, so
-  nested blocks capture once, at the top (:func:`is_inlined`);
+  inside it (or while any CUDA stream captures, or while a deferred-compute
+  trace records) run their bodies inline, so nested blocks capture once, at
+  the top (:func:`is_inlined`);
 - the kernels' launch counters move at the warm call and the capture only:
   a replay moves none (``graph_stats`` gives each program's captured
   launches and replays);
@@ -57,11 +71,13 @@ stream (its warm call, the node of that call) and captures the forward;
 the first backward runs eagerly (through the node's own graph), then
 captures the backward; later calls and backwards replay. Gradients go back
 through the node to the inputs and parameters, so torch accumulates them
-by each parameter's ``grad_req`` as in the eager tape; inside the node a
-hybridized block's body reads aliases of its parameters (``rebind``: the
-same storage, gradient accumulators of their own, made on the capture's
-stream), since an accumulator the tape made on another stream would
-synchronise with the capture and end it. The tensors the
+by each parameter's ``grad_req`` as in the eager tape; inside the node the
+body reads aliases of the parameters (``rebind``: the same storage,
+gradient accumulators of their own, made on the capture's stream), since an
+accumulator the tape made on another stream would synchronise with the
+capture and end it. A Symbol's executor takes its parameters as operands,
+so it rebinds by passing the aliases; a hybridized block's body swaps them
+into its modules. The tensors the
 forward saves are the reference's residual operands: a second call before
 the first node's backward (a siamese use, or two micro-batches) copies the
 first node's saved tensors aside before its replay overwrites them, and
@@ -70,8 +86,8 @@ the backward sees the forward's mask. On the CPU the node's forward runs
 the body eagerly into a graph of its own and its backward differentiates
 that graph. An op that cannot rebind its body (one that :func:`trace`
 made from a closure) runs the body eagerly under ``record()``, on the tape
-as any other code. ``lower``/``lower_hlo`` and a ``transform`` pass need
-the graph layer and raise.
+as any other code. ``lower``/``lower_hlo`` give the program's Symbol (its
+JSON is the port's text of the lowered program).
 """
 from __future__ import annotations
 
@@ -82,18 +98,17 @@ import weakref
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import _deferred_compute as _dc
 from . import amp as _amp
 from . import autograd as _ag
 from . import random as _random
 from .base import MXNetError, collector_paused
 from .ndarray.ndarray import NDArray
 from .ops import cuda_kernels as _ck
+from .symbol.symbol import Literal, Symbol, topo_sort
 
 __all__ = ["CachedOp", "GraphPool", "trace", "unflatten_out", "is_inlined",
-           "inlined"]
-
-_GRAPH_LAYER = ("needs the graph layer (Symbol, deferred compute), which "
-                "comes with ROADMAP A10 of the PyTorch/CUDA port")
+           "inlined", "build_executor"]
 
 _local = threading.local()
 
@@ -112,8 +127,9 @@ def inlined():
 
 def is_inlined():
     """True inside a CachedOp body on this thread (or an :func:`inlined`
-    block), or while the current CUDA stream captures a graph."""
-    if getattr(_local, "depth", 0):
+    block), while a deferred-compute trace records on this thread, or while
+    the current CUDA stream captures a graph."""
+    if getattr(_local, "depth", 0) or _dc._state.ctx is not None:
         return True
     return torch.cuda.is_initialized() and \
         torch.cuda.is_current_stream_capturing()
@@ -121,6 +137,76 @@ def is_inlined():
 
 def _tensor(x):
     return x._data if isinstance(x, NDArray) else x
+
+
+def build_executor(out_entries, var_nodes):
+    """The body of a graph (reference :28-66): ``(fn, uses_rng)``, where
+    ``fn(*tensors)`` takes one tensor per variable of ``var_nodes``, in
+    order, walks the graph through each node's ``Op.fn(**attrs)`` and
+    returns the tuple of the ``out_entries``' tensors. A node of an RNG op
+    gets the port's generator of its operands' device (of the first
+    variable's where it has none), as ``invoke`` gives it. Constants move
+    to the device of the first tensor operand at the first call there
+    (then cached). An op whose function does not take the node's
+    attributes raises :class:`MXNetError` here, naming both. Inside a
+    deferred-compute trace every node is recorded."""
+    topo = topo_sort(out_entries)
+    var_index = {id(n): i for i, n in enumerate(var_nodes)}
+    for n in topo:
+        if n.is_var and id(n) not in var_index:
+            raise MXNetError(f"graph references unbound variable '{n.name}'")
+    fns = {}
+    for n in topo:
+        if n.op is not None:
+            try:
+                fns[id(n)] = n.op.fn(**n.attrs)
+            except (TypeError, ValueError, MXNetError) as e:
+                raise MXNetError(f"op '{n.op.name}' with attributes "
+                                 f"{n.attrs}: {e}") from e
+    uses_rng = any(n.op is not None and n.op.needs_rng for n in topo)
+    placed = {}     # (const node, device) -> its tensor there
+
+    def const(node, device):
+        if device is None or node.value.device == device:
+            return node.value
+        key = (id(node), device)
+        t = placed.get(key)
+        if t is None:
+            t = placed[key] = node.value.to(device)
+        return t
+
+    def fn(*args):
+        device = next((a.device for a in args
+                       if isinstance(a, torch.Tensor)), None)
+        tracing = _dc._state.ctx is not None
+        env = {}
+        for node in topo:
+            if node.is_var:
+                env[id(node)] = (args[var_index[id(node)]],)
+                continue
+            if node.is_const:
+                env[id(node)] = (const(node, device),)
+                continue
+            ins = [e.value if isinstance(e, Literal) else env[id(e[0])][e[1]]
+                   for e in node.inputs]
+            if node.op.needs_rng:
+                at = next((t.device for t in ins
+                           if isinstance(t, torch.Tensor)), device)
+                ins.insert(0, _random.generator(at))
+            f = fns[id(node)]
+            try:
+                out = _dc.call(node.op, node.attrs, f, ins) if tracing \
+                    else f(*ins)
+            except MXNetError:
+                raise
+            except Exception as e:  # noqa: BLE001 — name the failing node
+                raise MXNetError(f"op '{node.op.name}' ({node.name}) "
+                                 f"failed: {e}") from e
+            env[id(node)] = tuple(out) if isinstance(out, (tuple, list)) \
+                else (out,)
+        return tuple(env[id(n)][i] for n, i in out_entries)
+
+    return fn, uses_rng
 
 
 def _flatten_out(out):
@@ -470,13 +556,15 @@ class _Recorded:
 
         self.fwd, self.outs, self.captured_launches, _ = op._gpool.record(
             body, op._name, generators, op._gpool.pair_pool())
-        # the residuals: every saved tensor's storage but the parameters'
-        # (which a replay does not write)
+        # the residuals: every saved tensor's storage on the card but the
+        # parameters' (a replay writes neither those nor a host scalar that
+        # an op saved)
         held = {p.untyped_storage().data_ptr() for p in op._params}
         stores = {}
         for t in saved:
             st = t.untyped_storage()
-            if st.nbytes() and st.data_ptr() not in held:
+            if st.nbytes() and st.device == op.device and \
+                    st.data_ptr() not in held:
                 stores.setdefault(st.data_ptr(), st)
         self.views = [torch.empty(0, dtype=torch.uint8, device=op.device)
                       .set_(st) for st in stores.values()]
@@ -580,7 +668,7 @@ class _Tape(torch.autograd.Function):
 
 class CachedOp:
     """A forward kept as programs, one per input signature (see the module
-    docstring). Built by :func:`trace`.
+    docstring). Built by :func:`trace`, or from a Symbol.
 
     ``fn(*inputs)`` is the forward; ``params`` the ``(name, tensor)``
     pairs it reads, which every call passes after the inputs; ``nd_inputs``
@@ -588,49 +676,139 @@ class CachedOp:
     lie (its inputs, without parameters), under the AMP state and training
     flag current at construction.
 
+    From a Symbol, as the reference: ``CachedOp(sym, var_nodes,
+    aux_updates=(), name=...)``; ``var_nodes`` are the graph's variables in
+    call order, the last ``len(params)`` of them bound to ``params`` (then
+    passed by keyword); ``aux_updates`` ``(target tensor, entry)`` pairs
+    whose entries are extra outputs written into the targets after every
+    call (BatchNorm's running statistics). Without parameters the op runs
+    on the device of its first call's inputs.
+
     ``rebind(tensors)``: a context in which ``fn`` reads ``tensors`` in
     place of the parameters (a hybridized block's, swapped in its modules).
     A recorded program differentiates such aliases; an op without
     ``rebind`` runs its body eagerly under ``record()``, on the tape as any
-    other code. ``gpool``: the :class:`GraphPool` of the op's programs (a
-    hybridized block gives all its ops one), else a pool of its own."""
+    other code (a Symbol's op always rebinds). ``gpool``: the
+    :class:`GraphPool` of the op's programs (a hybridized block gives all
+    its ops one), else a pool of its own."""
 
     def __init__(self, fn, nd_inputs, params=(), name="cached_op",
-                 device=None, rebind=None, gpool=None):
+                 device=None, rebind=None, gpool=None, aux_updates=()):
+        self._sym = self._exec = None
+        self._aux_targets = []
+        params = list(params)
+        if isinstance(fn, Symbol):
+            if params and not isinstance(params[0][0], str):
+                # the reference's positional form: (sym, var_nodes, aux)
+                aux_updates, params = params, []
+            var_nodes = list(nd_inputs)
+            self._sym = fn
+            self._var_nodes = var_nodes
+            self._aux_targets = [t for t, _ in aux_updates]
+            self._n_sym = len(fn._entries)
+            self._exec, self._uses_rng = build_executor(
+                list(fn._entries) + [e for _, e in aux_updates], var_nodes)
+            nd_inputs = [False] * (len(var_nodes) - len(params))
+            fn, rebind = None, self._rebind_params
         self._fn = fn
         self._rebind = rebind
         self._nd_in = [bool(b) for b in nd_inputs]
+        self._param_names = [n for n, _ in params]
         self._params = [_tensor(p) for _, p in params]
+        self._bound = None          # aliases in the parameters' place
         self._name = name
-        self.device = torch.device(device) if device is not None else (
-            self._params[0].device if self._params else torch.device("cpu"))
+        if device is not None:
+            device = torch.device(device)
+        elif self._params:
+            device = self._params[0].device
+        elif self._exec is None:
+            device = torch.device("cpu")
+        self.device = device        # None: the first call's
         self._amp_state = _amp._snapshot()
         self._training = _ag.is_training()
         self._n_main = None         # flat outputs, known after a first run
         self._tree = None           # their structure (unflatten_out)
-        self._uses_rng = False
+        if self._exec is None:
+            self._uses_rng = False
+        else:
+            self._n_main = self._n_sym
+            if self._n_sym > 1:
+                self._tree = (tuple, [(1, None)] * self._n_sym)
+        self._examples = None       # the first call's inputs (sym, export)
         self._programs = {}         # signature -> _Program
         self._recorded = {}         # signature -> _Recorded
         self._captures = 0          # programs made ready (graphs captured)
         self._backward_captures = 0     # backward graphs captured
-        self._gpool = gpool if gpool is not None else GraphPool(self.device)
-        self._lock = self._gpool.lock
+        self._gpool = gpool if gpool is not None or device is None \
+            else GraphPool(device)
+        self._lock = self._gpool.lock if self._gpool is not None \
+            else threading.RLock()
 
     @property
     def num_inputs(self):
         return len(self._nd_in) + len(self._params)
 
+    @contextlib.contextmanager
+    def _rebind_params(self, tensors):
+        """A Symbol's body reads ``tensors`` in place of its parameters."""
+        prev, self._bound = self._bound, list(tensors)
+        try:
+            yield
+        finally:
+            self._bound = prev
+
     def _run_body(self, inputs):
         """The forward on ``inputs``: its flat outputs."""
-        args = [NDArray(_tensor(x)) if nd else _tensor(x)
-                for x, nd in zip(inputs, self._nd_in)]
         grad = contextlib.nullcontext() if _ag.is_recording() \
             else torch.no_grad()
+        if self._exec is not None:
+            params = self._params if self._bound is None else self._bound
+            with inlined(), grad:
+                outs = self._exec(*[_tensor(x) for x in inputs], *params)
+            if self._aux_targets:
+                with torch.no_grad():
+                    for t, o in zip(self._aux_targets, outs[self._n_sym:]):
+                        t.copy_(o)
+            return list(outs[:self._n_sym])
+        args = [NDArray(_tensor(x)) if nd else _tensor(x)
+                for x, nd in zip(inputs, self._nd_in)]
         with inlined(), grad, _amp._scoped(self._amp_state), \
                 _ag._scope(training=self._training):
             flat, self._tree = _flatten_out(self._fn(*args))
         self._n_main = len(flat)
         return flat
+
+    @property
+    def sym(self):
+        """The op's Symbol: a Symbol op's own; a traced forward's, traced
+        through deferred compute at the inputs of the op's first call."""
+        if self._sym is None:
+            if self._examples is None:
+                raise MXNetError(f"{self._name}: call the op once before "
+                                 "asking for its Symbol")
+            self._sym = self.symbolize(self._examples)[0]
+        return self._sym
+
+    def symbolize(self, inputs):
+        """Trace the body at ``inputs`` (the data operands) through deferred
+        compute: ``(sym, var_nodes, aux_updates, flat_outputs)``; the
+        variables are ``data0, data1, ...`` then the parameters by name."""
+        tensors = [_tensor(x) for x in inputs]
+        with self._lock, _ag.pause(train_mode=self._training), \
+                _dc.context() as ctx:
+            var_nodes = [_dc.set_variable(t, f"data{i}")
+                         for i, t in enumerate(tensors)]
+            var_nodes += [_dc.set_variable(p, n) for n, p in
+                          zip(self._param_names, self._params)]
+            flat = self._run_body(tensors)
+            entries = []
+            for o in flat:
+                e = ctx.entries.get(id(o))
+                if e is None:
+                    # an output unconnected to the inputs: bake it
+                    e = _dc._input_entry(ctx, o)
+                entries.append(e)
+        return Symbol(entries), var_nodes, ctx.aux_updates, flat
 
     def _split(self, datas):
         """The data operands of ``datas``; its parameters must be the
@@ -639,6 +817,13 @@ class CachedOp:
             raise MXNetError(f"CachedOp expects {self.num_inputs} inputs, "
                              f"got {len(datas)}")
         n = len(self._nd_in)
+        if self.device is None:
+            first = next((_tensor(x) for x in datas
+                          if isinstance(_tensor(x), torch.Tensor)), None)
+            self.device = first.device if first is not None \
+                else torch.device("cpu")
+            self._gpool = GraphPool(self.device)
+            self._gpool.lock = self._lock
         for i, (p, d) in enumerate(zip(self._params, datas[n:])):
             d = _tensor(d)
             if d is not p and (d.data_ptr() != p.data_ptr() or
@@ -693,6 +878,8 @@ class CachedOp:
         the flat outputs; NDArrays when any operand is one."""
         nd = any(isinstance(x, NDArray) for x in datas)
         inputs = self._split(datas)
+        if self._examples is None:
+            self._examples = [x.detach() for x in inputs]
         if is_inlined():
             with self._lock:
                 flat = self._run_body(inputs)
@@ -717,10 +904,21 @@ class CachedOp:
         return prog
 
     def lower(self, *example_inputs, donate=()):
-        raise MXNetError(f"CachedOp.lower {_GRAPH_LAYER}")
+        """The program at the examples' signature, lowered (the reference's
+        ``jax`` Lowered): ``as_text()`` is its Symbol's JSON, ``compile()``
+        is :meth:`aot_compile`'s program. The examples are the data
+        operands, with or without the parameters after them. ``donate`` is
+        accepted: a CUDA graph's inputs are static buffers of its own."""
+        inputs = self._split(example_inputs) \
+            if len(example_inputs) == self.num_inputs else \
+            [_tensor(x) for x in example_inputs]
+        sym = self._sym if self._exec is not None else \
+            self.symbolize(inputs)[0]
+        return _Lowered(self, sym, inputs)
 
     def lower_hlo(self, *example_inputs):
-        raise MXNetError(f"CachedOp.lower_hlo {_GRAPH_LAYER}")
+        """The lowered program's text: its Symbol JSON."""
+        return self.lower(*example_inputs).as_text()
 
     def pool_bytes(self):
         """Bytes the allocator holds in the op's graph pools (a hybridized
@@ -742,6 +940,19 @@ class CachedOp:
             for p in self._recorded.values()]
 
 
+class _Lowered:
+    """A CachedOp's program at one signature, lowered: its Symbol."""
+
+    def __init__(self, op, sym, inputs):
+        self.op, self.sym, self._inputs = op, sym, inputs
+
+    def as_text(self):
+        return self.sym.tojson()
+
+    def compile(self):
+        return self.op.aot_compile(*self._inputs, *self.op._params)
+
+
 def trace(fn, inputs, params=(), transform=None, rebind=None, gpool=None):
     """Trace ``fn(*inputs)`` into ``(out_tree, flat_outputs, CachedOp)``.
 
@@ -749,10 +960,11 @@ def trace(fn, inputs, params=(), transform=None, rebind=None, gpool=None):
     ``(name, tensor)`` pairs that ``fn`` reads, passed after the inputs on
     every call. ``fn`` runs once here, eagerly (filling deferred shapes);
     its flat outputs are returned (NDArrays when an input is one).
-    ``transform`` (a Symbol pass) needs the graph layer and raises.
-    ``rebind`` and ``gpool`` are :class:`CachedOp`'s."""
-    if transform is not None:
-        raise MXNetError(f"a trace transform (optimize_for) {_GRAPH_LAYER}")
+    ``transform`` (a Symbol -> Symbol pass, the ``optimize_for`` hook):
+    ``fn`` is traced through deferred compute, the pass rewrites the
+    Symbol, and the op's body is the rewritten graph's executor (the
+    returned outputs are the trace's, from before the pass). ``rebind``
+    and ``gpool`` are :class:`CachedOp`'s."""
     nd_in = [isinstance(x, NDArray) for x in inputs]
     tensors = [_tensor(x) for x in inputs]
     params = list(params)
@@ -761,9 +973,17 @@ def trace(fn, inputs, params=(), transform=None, rebind=None, gpool=None):
                   gpool=gpool)
     gen = _random.generator(op.device)
     state = gen.get_state()
-    with op._lock:
-        flat = op._run_body(tensors)
-    op._uses_rng = not torch.equal(gen.get_state(), state)
+    if transform is None:
+        with op._lock:
+            flat = op._run_body(tensors)
+    else:
+        sym, var_nodes, aux, flat = op.symbolize(tensors)
+        tree = op._tree
+        op = CachedOp(transform(sym), var_nodes, params=params,
+                      device=op.device, gpool=gpool, aux_updates=aux)
+        op._tree = tree
+    op._examples = [t.detach() for t in tensors]
+    op._uses_rng = op._uses_rng or not torch.equal(gen.get_state(), state)
     if any(nd_in):
         flat = [NDArray(t) for t in flat]
     return op._tree, flat, op

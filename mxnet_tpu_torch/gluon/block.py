@@ -53,8 +53,8 @@ from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
 from .parameter import Parameter
 
-__all__ = ["Block", "HybridBlock", "new_parameter", "unwrap", "wrap",
-           "rebound"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "new_parameter",
+           "unwrap", "wrap", "rebound"]
 
 
 def unwrap(x):
@@ -255,18 +255,74 @@ class HybridBlock(Block):
         self._active = False
         self._cached = {}   # signature -> (CachedOp, out_tree, parameters)
         self._gpools = {}   # device -> the GraphPool of all its CachedOps
+        self._pass_backend = None   # optimize_for's subgraph backend
 
     def hybridize(self, active=True, **kwargs):
         self._active = bool(active)
         self._cached = {}
         self._gpools = {}
+        self._pass_backend = None   # hybridize() drops an optimize_for
         super().hybridize(active, **kwargs)
 
     def optimize_for(self, x, *args, backend=None, clear=True, **kwargs):
-        raise MXNetError(f"optimize_for {_cached_op._GRAPH_LAYER}")
+        """Hybridize with a subgraph backend's passes applied to the traced
+        graph (reference :204-217): from then on the block's programs are
+        CUDA graphs of the rewritten graph's executor, one per signature,
+        until ``hybridize()``. Runs one forward on ``(x, *args)``; with
+        ``clear=False`` the programs made before are kept."""
+        from .. import subgraph
+
+        if kwargs:
+            raise MXNetError(
+                f"optimize_for: unsupported options {sorted(kwargs)}: "
+                "passes receive only the Symbol")
+        if backend is not None:
+            subgraph.get_passes(backend)
+        kept = {} if clear else dict(self._cached)
+        self.hybridize()
+        self._pass_backend = backend
+        self._cached.update(kept)
+        self(x, *args)
+
+    def infer_shape(self, *args, **kwargs):
+        """Give every parameter of unknown shape its shape from ``args`` by
+        one eager forward in predict mode."""
+        self._ensure_initialized(*unwrap(args), **{
+            k: unwrap(v) for k, v in kwargs.items()})
 
     def export(self, path, epoch=0, remove_amp_cast=True):
-        raise MXNetError(f"export {_cached_op._GRAPH_LAYER}")
+        """Write ``{path}-symbol.json`` (the reference's Symbol JSON) and
+        ``{path}-{epoch:04d}.params.npz`` (the parameters by
+        ``collect_params()`` name), as the reference (:318-332); returns the
+        two file names. The graph is the block's first program's, traced at
+        that program's signature with the inputs it holds (the rewritten one
+        after ``optimize_for``); the AMP cast attribute ``__amp__`` is left
+        out (``remove_amp_cast``). Raises before a hybridized forward, and
+        for bfloat16 parameters (no package of the card's machine reads
+        numpy's bfloat16)."""
+        import json
+
+        if not self._cached:
+            raise MXNetError("hybridize() and run a forward pass before "
+                             "export()")
+        cop = next(iter(self._cached.values()))[0]
+        graph = json.loads(cop.sym.tojson())
+        if remove_amp_cast:
+            for node in graph["nodes"]:
+                node.get("attrs", {}).pop("__amp__", None)
+        params = {}
+        for name, p in self.collect_params().items():
+            if p.dtype == torch.bfloat16:
+                raise MXNetError(f"export: parameter {name} is bfloat16; "
+                                 "bfloat16 graphs are not exported")
+            params[name] = p.detach().cpu().numpy()
+        sym_file = f"{path}-symbol.json"
+        with open(sym_file, "w") as f:
+            json.dump(graph, f, indent=1)
+        param_file = f"{path}-{epoch:04d}.params.npz"
+        with open(param_file, "wb") as fh:
+            onp.savez(fh, **params)
+        return sym_file, param_file
 
     def _ensure_initialized(self, *args, **kwargs):
         """Fill the parameters still of unknown shape by one eager forward
@@ -327,6 +383,15 @@ class HybridBlock(Block):
         def rebind(aliases):
             return rebound(self, dict(zip(map(id, plist), aliases)))
 
+        backend = self._pass_backend
+        if backend is not None:
+            from .. import subgraph
+
+            with _ag.pause(train_mode=_ag.is_training()):
+                tree, _, cop = _cached_op.trace(
+                    fn, tensors, params, gpool=gpool,
+                    transform=lambda s: subgraph.apply_passes(s, backend))
+            return cop, tree, plist
         if not traced:
             cop = _cached_op.CachedOp(fn, [False] * len(tensors), params,
                                       device=device, rebind=rebind,
@@ -363,6 +428,8 @@ class HybridBlock(Block):
             if isinstance(blk, HybridBlock):
                 memo[id(blk._cached)] = {}
                 memo[id(blk._gpools)] = {}
+            if isinstance(blk, SymbolBlock):
+                memo[id(blk._sym)] = blk._sym   # immutable: shared
         return copy.deepcopy(self, memo)
 
     def predictor(self, example=None, **kwargs):
@@ -372,3 +439,126 @@ class HybridBlock(Block):
         from ..serve import Predictor
 
         return Predictor(self, example, **kwargs)
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol run as a block (reference :335-386): the graph's variables
+    named in ``inputs`` are its data operands, in that order; the others
+    are its parameters, filled from ``params`` (``{name: tensor or numpy
+    array}``). It is a ``HybridBlock``: ``hybridize()`` makes one CUDA
+    graph of the graph's executor per signature, it is differentiable under
+    ``autograd.record()`` (one tape node when hybridized), and ``cast``,
+    ``load_parameters``, ``collect_params()``, ``export``,
+    ``optimize_for`` and a ``Predictor`` work as on any block.
+
+    ``torch.nn.Module`` refuses dotted names, so the parameters are
+    registered under ``arg0, arg1, ...``; ``collect_params()`` gives the
+    graph's own names (``encoder.layers.0.attn_qkv.weight``)."""
+
+    def __init__(self, outputs, inputs, params=None, device=None):
+        super().__init__()
+        from ..cached_op import build_executor
+        from ..context import resolve_device
+        from ..symbol import Group, Symbol, topo_sort
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(outputs)
+        if not isinstance(outputs, Symbol):
+            raise MXNetError("SymbolBlock needs a Symbol (or a list of them)")
+        names = [s.name if isinstance(s, Symbol) else s for s in
+                 (inputs if isinstance(inputs, (list, tuple)) else [inputs])]
+        var_nodes = [n for n in topo_sort(outputs._entries) if n.is_var]
+        by_name = {n.name: n for n in var_nodes}
+        unknown = [n for n in names if n not in by_name]
+        if unknown:
+            raise MXNetError(f"SymbolBlock: inputs {unknown} are not "
+                             f"variables of the graph")
+        self._sym = outputs
+        self._input_names = names
+        param_nodes = [n for n in var_nodes if n.name not in names]
+        self._param_names = [n.name for n in param_nodes]
+        self._exec, _ = build_executor(
+            outputs._entries, [by_name[n] for n in names] + param_nodes)
+        self._slots = {}    # graph name -> registered name
+        self._param_device = resolve_device(device)
+        for name, value in (params or {}).items():
+            if name in self._param_names:
+                self._set_param(name, value)
+
+    def _set_param(self, name, value):
+        if isinstance(value, NDArray):
+            value = value._data
+        if not isinstance(value, torch.Tensor):
+            value = _host_array(name, value)
+        slot = self._slots.get(name)
+        if slot is None:
+            slot = self._slots[name] = f"arg{self._param_names.index(name)}"
+        value = value.detach().to(self._param_device).clone()
+        self.register_parameter(slot, Parameter(
+            value, grad_req="write" if value.is_floating_point() else "null"))
+
+    def collect_params(self):
+        return OrderedDict((n, self._parameters[self._slots[n]])
+                           for n in self._param_names if n in self._slots)
+
+    @torch.no_grad()
+    def load_dict(self, arrays):
+        """Set the parameters from ``{name: numpy array or tensor}``: every
+        name must be one of the graph's; a loaded parameter keeps its object
+        (a copy in place) where the shape agrees."""
+        extra = sorted(set(arrays) - set(self._param_names))
+        if extra:
+            raise MXNetError(f"parameters {extra} are not in the graph")
+        for name, value in arrays.items():
+            p = self.collect_params().get(name)
+            t = value if isinstance(value, torch.Tensor) else \
+                _host_array(name, value)
+            if p is not None and tuple(p.shape) == tuple(t.shape):
+                p.copy_(t)
+            else:
+                self._set_param(name, t)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None,
+                allow_missing_params=False):
+        """A SymbolBlock from ``export``'s files (either package's): the
+        graph, its inputs by name, and the parameters on ``ctx``'s device
+        (the GPU by default). A parameter missing from ``param_file``
+        raises unless ``allow_missing_params`` (then ``load_parameters``
+        fills it before the first forward)."""
+        from ..symbol import Symbol
+
+        sym = Symbol.load(symbol_file)
+        params = {}
+        if param_file:
+            with onp.load(param_file) as z:
+                params = {k: _host_array(k, z[k]) for k in z.files}
+        blk = SymbolBlock(sym, [input_names] if isinstance(input_names, str)
+                          else input_names, params, device=ctx)
+        missing = [n for n in blk._param_names if n not in blk._slots]
+        if missing and not allow_missing_params:
+            raise MXNetError(f"parameters {missing} missing in "
+                             f"{param_file}")
+        return blk
+
+    def forward(self, *args):
+        if len(args) != len(self._input_names):
+            raise MXNetError(f"SymbolBlock takes {len(self._input_names)} "
+                             f"inputs {self._input_names}, got {len(args)}")
+        missing = [n for n in self._param_names if n not in self._slots]
+        if missing:
+            raise MXNetError(f"SymbolBlock: parameters {missing} are not "
+                             "loaded")
+        outs = self._exec(*args, *[self._parameters[self._slots[n]]
+                                   for n in self._param_names])
+        return outs[0] if len(outs) == 1 else outs
+
+
+def _host_array(name, a):
+    """A numpy array from a params file as a tensor; numpy's bfloat16
+    (which the card's machine cannot read) raises."""
+    a = onp.asarray(a)
+    if a.dtype.kind not in "fiub":
+        raise MXNetError(f"parameter {name}: dtype {a.dtype} is not read "
+                         "(bfloat16 files are not supported)")
+    return torch.from_numpy(onp.array(a, copy=True))

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from ... import _deferred_compute as _dc
 from ... import autograd as _ag
 from ...base import to_dtype
 from ...context import resolve_device
@@ -93,7 +94,7 @@ class Flatten(HybridBlock):
     """(N, ...) -> (N, everything else)."""
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return x.flatten(1)
 
 
 class Activation(HybridBlock):
@@ -152,7 +153,11 @@ class BatchNorm(HybridBlock):
             eps=self._eps, momentum=self._momentum,
             fix_gamma=not self._scale, use_batch_stats=update,
             axis=self._axis)
-        if update:
+        if update and _dc.is_tracing():
+            # a traced graph writes the statistics after every call
+            _dc.register_aux_update(self.running_mean, new_mean)
+            _dc.register_aux_update(self.running_var, new_var)
+        elif update:
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
                 self.running_var.copy_(new_var)

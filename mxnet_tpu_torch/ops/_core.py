@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, canonical_dtype
-from .registry import register
+from .registry import register, register_alias
 
 _FILL_DT = {torch.bool: True}
 
@@ -150,6 +150,10 @@ _UNARY = {
     torch.zeros_like(x),
     "angle": _float_unary(torch.angle),
     "copy": torch.clone,
+    # the reference's legacy_elemwise ones_like/zeros_like (:136), which
+    # the attention pass's segment ids use
+    "ones_like": torch.ones_like,
+    "zeros_like": torch.zeros_like,
     "stop_gradient": torch.Tensor.detach,
     # extra numpy-parity unary ops (reference :288-296)
     "signbit": torch.signbit,
@@ -687,6 +691,8 @@ register("atleast_2d", lambda **a: torch.atleast_2d)
 register("atleast_3d", lambda **a: torch.atleast_3d)
 register("where", lambda **a: (
     lambda c, x, y: torch.where(c.bool(), *_where_pair(x, y))))
+register_alias("_npi_where", "where")
+register_alias("_npi_ones_like", "ones_like")
 register("searchsorted", lambda side="left": (
     lambda a, v: torch.searchsorted(a, v.contiguous(), side=side)),
     differentiable=False)

@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import _deferred_compute as _dc
 from .. import amp as _amp
 from .. import autograd as _ag
 from .. import random as _random
@@ -67,9 +68,15 @@ class _Door:
         key = (tuple(attrs.items()), amp)
         f = self._fns.get(key)
         if f is None:
+            full = dict(attrs)
+            if amp is not None:
+                full["__amp__"] = amp
+            f = self._fns[key] = self.op.fn(**full)
+        if _dc._state.ctx is not None:
+            # deferred compute: the door call is one node of the trace
             if amp is not None:
                 attrs["__amp__"] = amp
-            f = self._fns[key] = self.op.fn(**attrs)
+            return lambda *args: _dc.call(self.op, attrs, f, args)
         return f
 
 

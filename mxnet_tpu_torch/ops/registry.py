@@ -18,9 +18,10 @@ The reference's three execution modes map onto torch as follows:
   (and inside ``pause()``) it runs with grad mode off, so nothing is
   recorded, as in the reference. Ops registered ``differentiable=False``
   never record;
-- traced: the reference's deferred compute into one ``jax.jit`` program
-  has no counterpart here; the compiled step and the decode programs
-  capture CUDA graphs of the tensor-level doors instead.
+- traced: inside a deferred-compute trace
+  (:mod:`mxnet_tpu_torch._deferred_compute`) ``invoke`` runs the op with
+  recording suspended and appends one node to the trace's Symbol, as the
+  reference's ``invoke`` does.
 
 AMP is cast here and only here, as in the reference: while AMP is on,
 :func:`invoke` (and the tensor-level doors) add the synthetic ``__amp__``
@@ -163,6 +164,13 @@ def invoke(op: Op, inputs, attrs=None, out=None):
     returns an NDArray, or a tuple of them for an op with several outputs.
     ``out`` (an NDArray or a sequence of them) receives the results by
     rebinding, and is returned."""
+    if _dc._state.ctx is not None:
+        # deferred compute: run with recording suspended, record one node
+        attrs = amp_attrs(op, attrs)
+        with _dc.suspend():
+            res = invoke(op, inputs, attrs, out)
+        _dc.record(op, attrs, inputs, res)
+        return res
     NDArray = _nd.NDArray
     fn = op.fn(**amp_attrs(op, attrs)) if attrs or _amp.is_enabled() \
         else op.fn()
@@ -221,5 +229,7 @@ def _amp_wrap(f, dtype_name):
 
 
 # NDArray's module imports this one: bind it once both exist, so invoke
-# reads the class by one attribute lookup and imports nothing per call
+# reads the class by one attribute lookup and imports nothing per call;
+# the recorder imports the Symbol IR, which imports this module
 from ..ndarray import ndarray as _nd  # noqa: E402
+from .. import _deferred_compute as _dc  # noqa: E402

@@ -347,8 +347,9 @@ def test_trace_as_the_resnet_inference_bench_uses_it():
     assert cop._n_main == 1 and cop._captures == 1
 
 
-def test_trace_outputs_rng_and_errors():
+def test_trace_outputs_rng_and_errors(tmp_path):
     from mxnet_tpu_torch.cached_op import trace
+    from mxnet_tpu_torch.symbol import topo_sort
 
     x = tmx.np.array([[1.0, 2.0]])
     tree, flat, cop = trace(lambda a: (a * 2, [a + 1]), [x])
@@ -366,10 +367,13 @@ def test_trace_outputs_rng_and_errors():
     _, _, cop = trace(noisy, [ones])
     assert cop._uses_rng
     assert not onp.array_equal(cop(ones).asnumpy(), cop(ones).asnumpy())
-    with pytest.raises(MXNetError, match="A10"):
-        cop.lower_hlo(ones)
-    with pytest.raises(MXNetError, match="A10"):
-        trace(noisy, [ones], transform=lambda s: s)
+    # the graph layer: the lowered program's text is its Symbol JSON, and a
+    # transform traces through deferred compute into the graph's executor
+    assert '"op": "dropout"' in cop.lower_hlo(ones)
+    _, _, graph_op = trace(noisy, [ones], transform=lambda s: s)
+    assert graph_op._uses_rng and [
+        n.op.name for n in topo_sort(graph_op.sym._entries) if n.op] == \
+        ["dropout"]
     with pytest.raises(MXNetError, match="expects 1 inputs"):
         cop(ones, ones)
     dense = tnn.Dense(2, in_units=3)
@@ -387,10 +391,12 @@ def test_trace_outputs_rng_and_errors():
     with torch.no_grad():
         assert torch.equal(got._data, dense(xb._data))
     net = _mlp(tmx)
-    with pytest.raises(MXNetError, match="A10"):
-        net.export("model")
-    with pytest.raises(MXNetError, match="A10"):
-        net.optimize_for(torch.zeros(1, 6))
+    with pytest.raises(MXNetError, match="hybridize"):
+        net.export(str(tmp_path / "model"))
+    net.optimize_for(torch.zeros(1, 6))     # no backend: hybridize and run
+    assert len(net._cached) == 1
+    sym_file, _ = net.export(str(tmp_path / "model"))
+    assert '"fully_connected"' in open(sym_file).read()
 
 
 class _Noisy(HybridBlock):
