@@ -296,17 +296,49 @@ Phases (any failure exits non-zero without the final line):
              (FullyConnected 768 -> 3072, relu, -> 768, batch 64) through
              ``simple_bind`` on the card, ``forward(is_train=True)`` and
              ``backward``, outputs and gradients within 1e-5 of the CPU's.
+11. script — reference-style Gluon code: ``tests/torch_script_gpt.py``'s
+             ``ScriptGPT`` (the JAX package's GPT body with only its
+             imports changed: ``mx.np``/``npx`` on layer outputs, the tied
+             head through ``tok_embed.weight.data()``) at GPT-2 small's
+             full width and depth, fp32, B = 4, T = 1024: (i) built on the
+             CPU, ``initialize(Normal(0.02), ctx=mx.gpu())`` moves every
+             parameter to the card, ``load_parameters(f, ctx=mx.gpu())``
+             reads phase 4's weights, ``collect_params('.*weight')`` has 50
+             entries, ``p.data()`` shares the parameter's memory,
+             ``p.grad()`` equals torch's ``.grad`` after a backward,
+             ``summary()`` prints a line a parameter; (ii) at dropout 0,
+             logits, loss and every gradient (``tok_embed.weight``'s, by two
+             routes, by name) against the port's ``gpt2_small()`` with the
+             same weights and against the model hybridized (its replayed
+             forward and backward graphs), within 1e-6 (logits, loss) and
+             1e-5 (gradients) of each largest entry; (iii) ten hybridized
+             AdamW steps (phase 4's trainer) at dropout 0.1 on phase 4's
+             batches: the loss falls and ends within 1.25x of phase 4's
+             tenth, one forward and one backward capture; (iv) an eager step
+             launches 12 flash forward, 12 dK/dV, 12 dQ and 25 LayerNorm
+             kernels, the captured forward and backward the same between
+             them, replays x captured launches account for the run, every
+             launch at the default tile; then eager and hybridized steps'
+             wall, device busy and idle share; (v) a hybridized block whose
+             body builds ``mx.np.array(-1e30)`` for a masked fill, captured
+             once, its replays bitwise equal to eager; (vi) the body
+             ``mx.np.tanh(Dense(x))`` under ``record()``, eager and
+             hybridized, x's and the weight's gradients within 1e-6 of the
+             CPU's and nonzero.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
-``resnet``, ``predictor``, ``bert_pretrain``, ``graph``) runs the build and
-the named phases only, and prints no result line. The lines before the last give the card's name and
+``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``; the
+last runs phase 4 first, for its weights, batches and losses) runs the
+build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
 each path (serve, train, train_compiled, train_amp and nd (serve: the warm
 call and the capture of each program; the compiled steps: the warm step and
 the capture; replays move no counter), train_amp_converted, tune, rtc,
 resnet (all 0), predictor (the traces, warm calls and captures),
 bert_pretrain (the two benches' warm steps and captures), graph (the
-traces, warm calls and captures; also the row's ``graph`` key); a row
+traces, warm calls and captures; also the row's ``graph`` key), script
+(phase 11: its eager steps, warm calls and captures; also the row's
+``script`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2071,7 +2103,7 @@ def phase_train(smi_line):
     bad = [(i, ps) for i, ps in enumerate(per_step) if ps != TRAIN_WANT]
     check(not bad, f"launches per step: step {bad[:1]} != {TRAIN_WANT}")
     check_default_tiles("train")
-    return counts, arrays, batches
+    return counts, arrays, batches, losses
 
 
 # ---------------------------------------------------------------------------
@@ -4676,11 +4708,9 @@ def _manual_attention_block():
     from mxnet_tpu_torch import np as mnp
     from mxnet_tpu_torch import npx
     from mxnet_tpu_torch.gluon import HybridBlock
-    from mxnet_tpu_torch.gluon.block import wrap
 
     class ManualAttention(HybridBlock):
         def forward(self, q, k, v, mask=None):
-            q, k, v, mask = wrap((q, k, v, mask))
             logits = mnp.matmul(q, mnp.swapaxes(k, -1, -2)) / \
                 (q.shape[-1] ** 0.5)
             if mask is not None:
@@ -4855,11 +4885,370 @@ def phase_graph(smi_line):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the reference's GPT body, written as a user would, on the card
+# ---------------------------------------------------------------------------
+SCRIPT_RTOL = {"logits": 1e-6, "loss": 1e-6, "grad": 1e-5}
+SCRIPT_STEPS = 10
+SCRIPT_LOSS_RATIO = 1.25   # the 10th hybridized loss against phase 4's
+SCRIPT_TIMED = 5           # steps timed each way, after two untimed
+
+
+def _script_module():
+    """``tests/torch_script_gpt.py`` (the reference's GPT body with only its
+    imports changed), imported by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_script_gpt.py")
+    spec = importlib.util.spec_from_file_location("torch_script_gpt", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _script_step(net, trainer, loss_fn, x, y):
+    """One reference-style step: ``record()``, the loss, ``backward()``,
+    ``trainer.step(B)``; returns the loss (an NDArray)."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss
+
+
+def _script_grads(net):
+    return {n: p.grad.clone() for n, p in net.collect_params().items()}
+
+
+def _script_parity(sg, smi_line, path, x, y):
+    """(i) the reference's idioms and (ii) parity at dropout 0; returns the
+    eager step's launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    # -- (i) the idioms ------------------------------------------------------
+    with mx.cpu():
+        net = sg.ScriptGPT(dropout=0.0)
+    net.initialize(mx.initializer.Normal(0.02), ctx=mx.gpu())
+    params = net.collect_params()
+    check(all(p.device.type == "cuda" for p in params.values()),
+          "(i) initialize(ctx=mx.gpu()) left a parameter off the card")
+    net.load_parameters(path, ctx=mx.gpu())
+    weights = net.collect_params(".*weight")
+    check(len(weights) == 50, f"(i) collect_params('.*weight') has "
+          f"{len(weights)} entries, not 50")
+    emb = params["tok_embed.weight"]
+    nd = emb.data()
+    check(isinstance(nd, mx.nd.NDArray) and
+          nd._data.data_ptr() == emb.data_ptr(),
+          "(i) p.data() is not an NDArray over the parameter")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        net.summary(x)
+    lines = out.getvalue().splitlines()
+    check(len(lines) == len(params) + 2, f"(i) summary printed {len(lines)}"
+          f" lines for {len(params)} parameters")
+
+    # -- (ii) parity: the script model eager, the port's gpt2_small, the
+    # script model hybridized (the second call and backward: replays) -----
+    runs = {}
+    before = ck.launch_counts()
+    with autograd.record():
+        logits = net(x)
+        loss = loss_fn(logits, y).mean()
+    loss.backward()
+    eager_launches = {k: n - before[k] for k, n in ck.launch_counts().items()}
+    check(all(torch.equal(p.grad()._data, p.grad) and
+              p.grad()._data.data_ptr() == p.grad.data_ptr()
+              for p in params.values()),
+          "(i) p.grad() differs from torch's .grad after a backward")
+    runs["script"] = (logits._data.detach().clone(), loss._data.detach(),
+                      _script_grads(net))
+    del logits, loss
+    port = gpt2_small(dropout=0.0)
+    port.load_parameters(path)
+    with autograd.record():
+        logits = port(x._data)
+        loss = loss_fn(logits, y._data).mean()
+    autograd.backward(loss)
+    runs["gpt2_small"] = (logits.detach().clone(), loss.detach(),
+                          _script_grads(port))
+    del port, logits, loss
+    _release()
+    net.hybridize()
+    for _ in range(2):
+        with autograd.record():
+            logits = net(x)
+            loss = loss_fn(logits, y).mean()
+        loss.backward()
+    (cop, _, _), = net._cached.values()
+    prog = next(iter(cop._recorded.values()))
+    check(cop._captures == 1 and cop._backward_captures == 1 and
+          prog.replays == 1 and prog.backward_replays == 1,
+          f"(ii) hybridized: captures {cop._captures} forward, "
+          f"{cop._backward_captures} backward, replays {prog.replays} / "
+          f"{prog.backward_replays}")
+    runs["hybridized"] = (logits._data.detach().clone(),
+                          loss._data.detach(), _script_grads(net))
+    del logits, loss, cop, prog
+    ref_logits, ref_loss, ref_grads = runs["script"]
+    for tag in ("gpt2_small", "hybridized"):
+        lg, ls, gs = runs[tag]
+        e_logits = _max_rel(lg, ref_logits)
+        e_loss = _max_rel(ls, ref_loss)
+        worst = max(((_max_rel(gs[n], g), n) for n, g in ref_grads.items()))
+        e_tied = _max_rel(gs["tok_embed.weight"], ref_grads["tok_embed.weight"])
+        bitwise = torch.equal(lg, ref_logits) and all(
+            torch.equal(gs[n], g) for n, g in ref_grads.items())
+        log(f"[script] (ii) the script GPT eager against {tag}: logits "
+            f"{e_logits:.3g}, loss {e_loss:.3g} (limits "
+            f"{SCRIPT_RTOL['logits']}, {SCRIPT_RTOL['loss']}), worst "
+            f"gradient {worst[0]:.3g} ({worst[1]}; limit "
+            f"{SCRIPT_RTOL['grad']}), tok_embed.weight (two routes) "
+            f"{e_tied:.3g}, relative to each largest entry; bitwise "
+            f"{bitwise}; card {smi_line}")
+        check(e_logits <= SCRIPT_RTOL["logits"] and
+              e_loss <= SCRIPT_RTOL["loss"] and
+              worst[0] <= SCRIPT_RTOL["grad"],
+              f"(ii) the script GPT against {tag}: logits {e_logits:.3g}, "
+              f"loss {e_loss:.3g}, gradient {worst}")
+    check(float(ref_grads["tok_embed.weight"].abs().max()) > 0,
+          "(ii) tok_embed.weight's gradient is zero")
+    log(f"[script] (i) initialize(Normal(0.02), ctx=mx.gpu()) placed all "
+        f"{len(params)} parameters on the card, load_parameters(ctx=gpu) "
+        f"read phase 4's weights, collect_params('.*weight') has "
+        f"{len(weights)}, p.data() shares the parameter's memory, p.grad() "
+        f"equals .grad after a backward, summary(): {lines[-1].strip()}")
+    del net, runs, ref_grads
+    _release()
+    return eager_launches
+
+
+def _script_train(sg, smi_line, path, batches, phase4_losses):
+    """(iii) ten hybridized AdamW steps at dropout 0.1 on phase 4's
+    batches, (iv) the launches, and the eager and hybridized step times."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+    nets = {}
+    for hybrid in (True, False):
+        net = sg.ScriptGPT(dropout=0.1)
+        net.load_parameters(path, ctx=mx.gpu())
+        if hybrid:
+            net.hybridize()
+        nets[hybrid] = (net, make_trainer(net))
+    data = [(mx.np.array(x, ctx=mx.gpu()), mx.np.array(y, ctx=mx.gpu()))
+            for x, y in batches[:SCRIPT_STEPS]]
+    net, trainer = nets[True]
+    mxrandom.seed(SEED)
+    before = ck.launch_counts()
+    losses, ms = [], []
+    for x, y in data:
+        t0 = time.perf_counter()
+        loss = _script_step(net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.mean().asnumpy()))
+    after = ck.launch_counts()
+    moved = {k: after[k] - before[k] for k in after}
+    (cop, _, _), = net._cached.values()
+    prog = next(iter(cop._recorded.values()))
+    fwd = prog.captured_launches or {}     # None off the card
+    bwd = prog.backward_launches or {}
+    captured = {k: fwd.get(k, 0) + bwd.get(k, 0) for k in TRAIN_WANT}
+    ran = {k: moved[k] // 2 + prog.replays * fwd.get(k, 0) +
+           prog.backward_replays * bwd.get(k, 0) for k in TRAIN_WANT}
+    log(f"[script] (iii) ScriptGPT hybridized, dropout 0.1, AdamW as phase "
+        f"4 ({SCRIPT_STEPS} steps of phase 4's batches): loss by step "
+        f"{[round(v, 4) for v in losses]}; phase 4 at step {SCRIPT_STEPS}: "
+        f"{phase4_losses[SCRIPT_STEPS - 1]:.4f}")
+    log(f"[script] (iv) captures {cop._captures} forward, "
+        f"{cop._backward_captures} backward; captured launches forward "
+        f"{fwd}, backward {bwd}; replays {prog.replays} / "
+        f"{prog.backward_replays}; counters moved {moved} (the warm call "
+        f"and the capture); launches run {ran}")
+    check(all(onp.isfinite(losses)), "(iii) a loss is not finite")
+    check(losses[-1] < losses[0], f"(iii) the loss did not fall: "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(losses[-1] <= SCRIPT_LOSS_RATIO * phase4_losses[SCRIPT_STEPS - 1],
+          f"(iii) the last loss {losses[-1]:.4f} is above "
+          f"{SCRIPT_LOSS_RATIO} x phase 4's {phase4_losses[SCRIPT_STEPS - 1]:.4f}")
+    check(len(net._cached) == 1 and cop._captures == 1 and
+          cop._backward_captures == 1,
+          f"(iii) captures: {len(net._cached)} programs, "
+          f"{cop._captures} forward, {cop._backward_captures} backward")
+    check(captured == TRAIN_WANT and
+          prog.replays == prog.backward_replays == SCRIPT_STEPS - 1 and
+          all(moved[k] == 2 * TRAIN_WANT[k] for k in TRAIN_WANT) and
+          all(ran[k] == SCRIPT_STEPS * TRAIN_WANT[k] for k in TRAIN_WANT),
+          f"(iv) captured launches {captured} against {TRAIN_WANT}, "
+          f"replays {prog.replays} / {prog.backward_replays}, moved {moved}")
+    del cop, prog
+
+    timings = {}
+    x, y = data[-1]
+    for hybrid in (False, True):
+        net, trainer = nets[hybrid]
+
+        def step():
+            _script_step(net, trainer, loss_fn, x, y)
+
+        for _ in range(2):
+            step()
+        wall = _wall_ms(step, SCRIPT_TIMED)
+        busy, kernels, _ = _profile(step, reps=3)
+        timings[hybrid] = (wall, busy, kernels, max(0.0, 1 - busy / wall))
+    B, T = batches[0][0].shape
+    for hybrid, name in ((False, "eager"), (True, "hybridized")):
+        wall, busy, kernels, idle = timings[hybrid]
+        log(f"[script] {name} step (record, backward, Trainer.step) at "
+            f"B={B}, T={T}, fp32: wall {wall:.3f} ms (median of "
+            f"{SCRIPT_TIMED}), busy {busy:.3f} ms, {kernels:.0f} kernels, "
+            f"idle share {idle:.3f}, {B * T / wall * 1e3:.0f} training "
+            f"tokens/s; the ten hybridized steps' median {statistics.median(ms[2:]):.3f} ms"
+            f" (first two {ms[0]:.1f}, {ms[1]:.1f}); card {smi_line}")
+    del nets, data
+    _release()
+    return timings
+
+
+def _script_c5_c4(smi_line):
+    """(v) a hybridized body with a host constant, captured once; (vi) the
+    C4 body eager and hybridized under ``record()``, against the CPU."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx  # noqa: F401
+
+    class Masked(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc = gluon.nn.Dense(768, in_units=768, flatten=False)
+
+        def forward(self, x, mask):
+            return mnp.where(mask, self.fc(x),
+                             mnp.array(-1e30, dtype="float32"))
+
+    rng = onp.random.RandomState(SEED + 11)
+    xs = rng.randn(4, 1024, 768).astype("float32")
+    mask = rng.rand(4, 1024, 768) < 0.75
+    net = Masked()
+    net.initialize(seed=11)
+    x, m = mx.np.array(xs), mx.np.array(mask)
+    eager = net(x, m)._data.clone()
+    net.hybridize()
+    outs = [net(x, m)._data.clone() for _ in range(3)]
+    (cop, _, _), = net._cached.values()
+    stats = cop.graph_stats()[0]
+    same = all(torch.equal(o, eager) for o in outs)
+    log(f"[script] (v) a hybridized body building mx.np.array(-1e30): "
+        f"{cop._captures} capture, {stats['replays']} replays, replays "
+        f"equal to the eager output: {same}; host constants kept "
+        f"{len(cop._gpool.consts)}")
+    check(cop._captures == 1 and stats["replays"] == 3 and same,
+          f"(v) captures {cop._captures}, replays {stats['replays']}, "
+          f"equal {same}")
+
+    class C4(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.fc = gluon.nn.Dense(3, in_units=4)
+
+        def forward(self, x):
+            return mnp.tanh(self.fc(x))
+
+    xs = rng.randn(2, 4).astype("float32")
+    results = {}
+    for where, hybrid in (("cpu", False), ("cuda", False), ("cuda", True)):
+        with (mx.cpu() if where == "cpu" else mx.gpu()):
+            net = C4()
+            net.initialize(seed=4)
+            if hybrid:
+                net.hybridize()
+            for _ in range(2):     # the second call replays on the card
+                x = mx.np.array(xs)
+                x.attach_grad()
+                with autograd.record():
+                    y = net(x).sum()
+                y.backward()
+            results[(where, hybrid)] = (x.grad._data.cpu(),
+                                        net.fc.weight.grad()._data.cpu())
+    want = results[("cpu", False)]
+    errs = {k: max(_max_rel(g, w) for g, w in zip(v, want))
+            for k, v in results.items()}
+    nonzero = all(float(g.abs().max()) > 0 for v in results.values()
+                  for g in v)
+    log(f"[script] (vi) mx.np.tanh(Dense(x)) under record(): x and weight "
+        f"gradients against the CPU's, relative to each largest entry: "
+        f"eager {errs[('cuda', False)]:.3g}, hybridized "
+        f"{errs[('cuda', True)]:.3g}; nonzero {nonzero}; card {smi_line}")
+    check(nonzero and errs[("cuda", False)] <= 1e-6 and
+          errs[("cuda", True)] <= 1e-6,
+          f"(vi) C4 gradients: {errs}, nonzero {nonzero}")
+
+
+def phase_script(smi_line, arrays, batches, phase4_losses):
+    """Phase 11: the reference's GPT body, written as a user would
+    (``tests/torch_script_gpt.py``), at GPT-2 small's full width and depth
+    (see the module docstring). Returns the phase's launch counts."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    sg = _script_module()
+    ck.reset_launch_counts()
+    x0, y0 = batches[0]
+    with tempfile.TemporaryDirectory(prefix="script-") as where:
+        path = os.path.join(where, "gpt2_small.params")
+        with open(path, "wb") as fh:
+            onp.savez(fh, **arrays)
+        eager = _script_parity(sg, smi_line, path,
+                               mx.np.array(x0, ctx=mx.gpu()),
+                               mx.np.array(y0, ctx=mx.gpu()))
+        log(f"[script] (iv) launches of one eager step (record, backward): "
+            f"{eager}")
+        check(eager == TRAIN_WANT, f"(iv) an eager step launched {eager}, "
+              f"not {TRAIN_WANT}")
+        _script_train(sg, smi_line, path, batches, phase4_losses)
+    _script_c5_c4(smi_line)
+    check_default_tiles("script")
+    counts = read_counts("script")
+    log(f"[script] kernel launches on the path: {counts}")
+    check(all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "layer_norm")),
+          f"script: a kernel of the path did not launch: {counts}")
+    log(f"[script] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "resnet": phase_resnet, "predictor": phase_predictor,
-           "bert_pretrain": phase_bert_pretrain, "graph": phase_graph}
+           "bert_pretrain": phase_bert_pretrain, "graph": phase_graph,
+           "script": lambda smi: phase_script(smi, *phase_train(smi)[1:])}
 
 
 # ---------------------------------------------------------------------------
@@ -4913,17 +5302,18 @@ def main():
             return 0
         kernels = phase_kernels()
         _, agree = phase_serve()
-        _, arrays, batches = phase_train(smi_line)
+        _, arrays, batches, train_losses = phase_train(smi_line)
         _, fp32_run = phase_train_compiled(smi_line)
         phase_train_amp(smi_line, fp32_run)
         phase_nd(smi_line, arrays, batches)
-        del arrays, batches
         phase_tune(agree)
         rtc_row = phase_rtc()
         phase_resnet(smi_line)
         phase_predictor(smi_line)
         phase_bert_pretrain(smi_line)
         phase_graph(smi_line)
+        phase_script(smi_line, arrays, batches, train_losses)
+        del arrays, batches
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -4943,6 +5333,7 @@ def main():
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
         row["graph"] = by_path.get("graph", 0)
+        row["script"] = by_path.get("script", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -4953,7 +5344,7 @@ def main():
                     if k == kernel and tuple(dts) == ("bfloat16",) * 2)
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
-    rtc_row["graph"] = 0
+    rtc_row["graph"] = rtc_row["script"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -509,13 +509,31 @@ def _torch_call(ctx, func, args, kwargs):
     return call(op, attrs, op.fn(**attrs), inputs)
 
 
+def _has_nd(args, kwargs, nd):
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, nd) or isinstance(a, (tuple, list)) and any(
+                isinstance(b, nd) for b in a):
+            return True
+    return False
+
+
 class _Recorder(TorchFunctionMode):
     """Records the raw torch calls made on traced tensors (module
-    docstring); everything else passes through untouched."""
+    docstring); everything else passes through untouched. A call given
+    NDArrays (``tensor + ndarray``) runs on their tensors and returns
+    NDArrays, as ``NDArray.__torch_function__`` does outside a trace."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
+        from .ndarray import ndarray as nd
+
         kwargs = kwargs or {}
         ctx = _state.ctx
+        wrapped = _has_nd(args, kwargs, nd.NDArray)
+        if wrapped:
+            args = nd.unwrap(args)
+            kwargs = {k: nd.unwrap(v) for k, v in kwargs.items()}
         if ctx is None or not _traced_in(ctx, args, kwargs):
-            return func(*args, **kwargs)
-        return _torch_call(ctx, func, args, kwargs)
+            out = func(*args, **kwargs)
+        else:
+            out = _torch_call(ctx, func, args, kwargs)
+        return nd.wrap(out) if wrapped else out

@@ -49,6 +49,10 @@ signature:
 - the kernels' launch counters move at the warm call and the capture only:
   a replay moves none (``graph_stats`` gives each program's captured
   launches and replays);
+- an array a body makes from host data on the card (``mx.np.array(-1e30)``)
+  is made at the warm call and kept in the family's store
+  (``GraphPool.consts``, by value), so the capture copies nothing from the
+  host and every replay reads the same value;
 - a failed capture or replay raises :class:`MXNetError`; nothing falls back
   to eager execution.
 
@@ -84,7 +88,10 @@ first node's saved tensors aside before its replay overwrites them, and
 puts them back for that node's backward. A dropout mask is one of them, so
 the backward sees the forward's mask. On the CPU the node's forward runs
 the body eagerly into a graph of its own and its backward differentiates
-that graph. An op that cannot rebind its body (one that :func:`trace`
+that graph. A backward whose outputs reach no operand that takes gradients
+(a body that cut its graph) raises :class:`MXNetError`; an operand the
+outputs do not reach, beside others they do, gets zeros. An op that cannot
+rebind its body (one that :func:`trace`
 made from a closure) runs the body eagerly under ``record()``, on the tape
 as any other code. ``lower``/``lower_hlo`` give the program's Symbol (its
 JSON is the port's text of the lowered program).
@@ -103,7 +110,7 @@ from . import amp as _amp
 from . import autograd as _ag
 from . import random as _random
 from .base import MXNetError, collector_paused
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import NDArray, host_constants
 from .ops import cuda_kernels as _ck
 from .symbol.symbol import Literal, Symbol, topo_sort
 
@@ -265,6 +272,9 @@ class GraphPool:
       node of one of its calls does (an output of the call, or a loss made
       from one, is still referenced), and its memory then serves the
       pool's next captures;
+    - the arrays the bodies make from host data on the card are made at
+      the warm call and kept in ``consts`` (by value) for the captures to
+      read (``ndarray.host_constants``);
     - a failed capture or replay raises :class:`MXNetError` naming the
       site."""
 
@@ -278,6 +288,7 @@ class GraphPool:
         self.lock = threading.RLock()
         self._recorded = {}     # id -> weak reference, least recent first
         self.evicted = 0        # recorded programs dropped (admit)
+        self.consts = {}        # the bodies' host constants on the card
 
     def _side(self):
         if self.side is None:
@@ -291,7 +302,7 @@ class GraphPool:
         cur = torch.cuda.current_stream(self.device)
         side = self._side()
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), host_constants(self.consts):
             yield
         cur.wait_stream(side)
 
@@ -331,9 +342,9 @@ class GraphPool:
         try:
             for gen in generators:
                 graph.register_generator_state(gen)
-            with collector_paused(), torch.cuda.graph(
-                    graph, pool=pool, stream=self._side(),
-                    capture_error_mode="thread_local"):
+            with collector_paused(), host_constants(self.consts), \
+                    torch.cuda.graph(graph, pool=pool, stream=self._side(),
+                                     capture_error_mode="thread_local"):
                 out = body()
         except RuntimeError as e:
             raise MXNetError(f"{site}: capturing the program into a CUDA "
@@ -417,12 +428,20 @@ class _Program:
                 return tuple(o.clone() for o in self.out)
 
 
-def _grad(outs, wrt, gouts):
+def _grad(outs, wrt, gouts, site="cached_op"):
     """The gradients of ``outs`` (seeded with ``gouts``) for ``wrt``,
-    zeros where a tensor is not reached; the graph is kept."""
-    return list(torch.autograd.grad(outs, wrt, gouts, retain_graph=True,
-                                    allow_unused=True,
-                                    materialize_grads=True))
+    zeros where a tensor is not reached; the graph is kept. Raises
+    :class:`MXNetError` when no output reaches any tensor of ``wrt`` (a
+    body that cut its graph), rather than handing back zeros."""
+    grads = torch.autograd.grad(outs, wrt, gouts, retain_graph=True,
+                                allow_unused=True) if outs else ()
+    if all(g is None for g in grads):
+        raise MXNetError(
+            f"{site}: no output of the recorded call is connected to an "
+            "input or parameter that takes gradients: the body cut its "
+            "graph (a detached copy, or work outside autograd.record())")
+    return [torch.zeros_like(w) if g is None else g
+            for g, w in zip(grads, wrt)]
 
 
 def _forget_fresh(params):
@@ -436,11 +455,17 @@ def _forget_fresh(params):
 
 
 def _alias(p, grad):
-    """A parameter of the same class over ``p``'s storage (so layers read
-    it as they read ``p``), taking gradients when ``grad``."""
-    alias = type(p)(p.detach(), requires_grad=grad) \
-        if isinstance(p, torch.nn.Parameter) else p.detach()
-    return alias.requires_grad_(grad)
+    """A parameter over ``p``'s storage (so layers read it as they read
+    ``p``, and its ``data()`` wraps it), taking gradients when ``grad``. It
+    carries ``p``'s attributes but none of its hooks: its gradients are
+    taken with ``torch.autograd.grad``, never accumulated, so the
+    ``'write'`` hooks have nothing to do, and registering them costs host
+    time on every recorded call."""
+    if not isinstance(p, torch.nn.Parameter):
+        return p.detach().requires_grad_(grad)
+    alias = torch.Tensor._make_subclass(type(p), p.detach(), grad)
+    alias.__dict__.update(p.__dict__)
+    return alias
 
 
 class _Node:
@@ -625,11 +650,12 @@ class _Recorded:
     def _eager_grad(self, outs, wrt, gouts):
         pairs = [(o, g) for o, g in zip(outs, gouts) if o.requires_grad]
         if not self.on_card:
-            grads = _grad([o for o, _ in pairs], wrt, [g for _, g in pairs])
+            grads = _grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                          self.op._name)
         else:
             with self.op._gpool.on_side():
                 grads = _grad([o for o, _ in pairs], wrt,
-                              [g for _, g in pairs])
+                              [g for _, g in pairs], self.op._name)
             grads = [g.clone() for g in grads]
         _forget_fresh(self.params)
         return grads

@@ -2,8 +2,9 @@
 as ``torch.nn.Module``s and plain PyTorch."""
 from . import loss, model_zoo, nn
 from .block import Block, HybridBlock, SymbolBlock
-from .parameter import Parameter
+from .parameter import Constant, DeferredInitializationError, Parameter
 from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Trainer",
-           "loss", "nn", "model_zoo"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
+           "DeferredInitializationError", "Trainer", "loss", "nn",
+           "model_zoo"]

@@ -29,17 +29,41 @@ active inside ``autograd.record()`` (which sets the training flag, as in the
 reference) or after the torch idiom ``block.train()``; elsewhere it is the
 identity, so serving never drops units.
 
-A block takes tensors or NDArrays. Called with NDArrays (the NDArray door),
-it unwraps them, runs its tensor body and wraps the outputs into NDArrays;
-the torch graph is kept, so ``loss.backward()`` on an NDArray loss reaches
-the parameters. Outside ``autograd.record()`` (and inside ``pause()``) the
-door runs the body with grad mode off, as the reference records nothing
-there.
+A block takes tensors or NDArrays, and its body may mix them. A body
+written as the reference's (a user's block, a container, a lambda) receives
+its arguments as the caller passed them, NDArrays as NDArrays, so it may
+call NDArray methods on them (``valid_length.astype("int32")``); the
+port's own layers and models, whose bodies are torch code
+(``_tensor_body``), receive NDArray arguments as tensors. Either way the
+outputs of a call made with NDArrays come back as NDArrays, and the torch
+graph is kept: ``mx.np``/``mx.npx`` wrap tensor operands without a copy,
+an NDArray's arithmetic takes tensors, a torch function given an NDArray
+runs on its tensor (``NDArray.__torch_function__``), and
+``Parameter.data()`` is an NDArray over the parameter itself; so
+``loss.backward()`` on an NDArray loss reaches the inputs and parameters.
+Outside ``autograd.record()`` (and inside ``pause()``) the door runs the
+body with grad mode off, as the reference records nothing there. Under
+``record()`` a hybridized call's node raises :class:`MXNetError` at its
+backward when none of its outputs is connected to an input or parameter
+that takes gradients (a body that cut its graph), rather than handing back
+zeros. A hybridized body that makes an array from host data
+(``mx.np.array(-1e30)``) is captured too: the array is made at the warm
+call and kept with the block's graphs (``ndarray.host_constants``).
+
+The reference's ``Block`` surface (:34-190): ``initialize(init, ctx,
+verbose, force_reinit, device)`` (and the port's ``seed``),
+``collect_params(select)``, ``zero_grad`` in place, ``reset_ctx``,
+``register_child``, forward hooks with the reference's signatures,
+``summary``, ``save_parameters``/``load_parameters`` with the reference's
+options, ``save``/``load`` by prefix; ``apply`` is torch's, which visits
+the children first and returns the block, as the reference's.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import math
+import re
 from collections import OrderedDict
 
 import numpy as onp
@@ -49,32 +73,13 @@ from .. import amp as _amp
 from .. import autograd as _ag
 from .. import cached_op as _cached_op
 from .. import initializer as init_mod
-from ..base import MXNetError
-from ..ndarray.ndarray import NDArray
+from ..base import MXNetError, dtype_name, to_dtype
+from ..convert import _LOW_PRECISION
+from ..ndarray.ndarray import NDArray, unwrap, wrap
 from .parameter import Parameter
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "new_parameter",
            "unwrap", "wrap", "rebound"]
-
-
-def unwrap(x):
-    """``x`` with every NDArray (at any depth of tuples and lists) replaced
-    by its tensor."""
-    if isinstance(x, NDArray):
-        return x._data
-    if isinstance(x, (tuple, list)):
-        return type(x)(unwrap(v) for v in x)
-    return x
-
-
-def wrap(x):
-    """``x`` with every tensor (at any depth of tuples and lists) wrapped
-    into an NDArray."""
-    if isinstance(x, torch.Tensor):
-        return NDArray(x)
-    if isinstance(x, (tuple, list)):
-        return type(x)(wrap(v) for v in x)
-    return x
 
 
 @contextlib.contextmanager
@@ -103,15 +108,32 @@ def _has_nd(args, kwargs):
 
 
 def new_parameter(shape, dtype, device, init=None, grad_req="write"):
-    """A :class:`~mxnet_tpu_torch.gluon.parameter.Parameter` of ``shape``
-    filled with zeros until ``initialize`` or ``load_parameters``; ``init``
-    is its own initializer (the block's default applies when None)."""
-    return Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                     grad_req=grad_req, init=init_mod.create(init))
+    """A layer's :class:`~mxnet_tpu_torch.gluon.parameter.Parameter` of
+    ``shape`` on ``device``: zeros, not initialized, until ``initialize``,
+    a load or a write fills it (a 0 in ``shape`` defers it); ``init`` is its
+    own initializer (the block's default applies when None)."""
+    p = Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                  grad_req=grad_req, init=init_mod.create(init))
+    p._initialized = False
+    p._v0 = p._version
+    return p
+
+
+def _ignore_result(hook):
+    """``hook`` as a torch hook whose return value is dropped (the
+    reference's hooks observe; torch's may replace args or outputs)."""
+    def run(*args):
+        hook(*args)
+
+    return run
 
 
 class Block(torch.nn.Module):
     """Base container (reference: gluon/block.py:34)."""
+
+    # the port's own blocks, whose bodies are torch code, set this: their
+    # NDArray arguments reach the body as tensors
+    _tensor_body = False
 
     def __init__(self):
         super().__init__()
@@ -120,14 +142,25 @@ class Block(torch.nn.Module):
     def __call__(self, *args, **kwargs):
         if not _has_nd(args, kwargs):
             return super().__call__(*args, **kwargs)
-        args, kwargs = unwrap(args), {k: unwrap(v)
-                                      for k, v in kwargs.items()}
+        if self._tensor_body:
+            args, kwargs = unwrap(args), {k: unwrap(v)
+                                          for k, v in kwargs.items()}
         with torch.set_grad_enabled(_ag.is_recording()):
             return wrap(super().__call__(*args, **kwargs))
 
-    def collect_params(self):
-        """``OrderedDict`` of name -> parameter."""
-        return OrderedDict(self.named_parameters())
+    def collect_params(self, select=None):
+        """``OrderedDict`` of name -> parameter; with ``select``, those
+        whose name the regular expression matches at its start
+        (``re.match``, reference :62)."""
+        params = OrderedDict(self.named_parameters())
+        for name, p in params.items():
+            if isinstance(p, Parameter):
+                p._name = name
+        if select is None:
+            return params
+        pat = re.compile(select)
+        return OrderedDict((n, p) for n, p in params.items()
+                           if pat.match(n))
 
     @property
     def device(self):
@@ -136,27 +169,76 @@ class Block(torch.nn.Module):
         raise MXNetError(f"{type(self).__name__} holds no parameters")
 
     @torch.no_grad()
-    def initialize(self, init=None, seed=None):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, device=None, seed=None):
         """Fill every parameter from its own initializer, else ``init``
         (default ``Uniform(0.07)``), by the reference's fill by name
         (``Initializer.init_array``), drawing from a CPU ``torch.Generator``
         seeded with ``seed`` — so a seed gives the same weights on every
-        device. A parameter of unknown shape records its initializer, the
-        generator and its name, and is drawn at its first forward."""
+        device (reference :70). A parameter already initialized is left as
+        it is unless ``force_reinit``. ``ctx``/``device`` moves every
+        parameter there in place (the same objects, so a ``Trainer`` built
+        before holds them). A parameter of unknown shape records its
+        initializer, the generator and its name, and is drawn at its first
+        forward. ``verbose`` is accepted, as in the reference."""
         default = init_mod.create(init) or init_mod.Uniform(0.07)
         gen = torch.Generator()
         if seed is None:
             gen.seed()
         else:
             gen.manual_seed(int(seed))
+        where = ctx if device is None else device
         for name, p in self.collect_params().items():
-            initializer = getattr(p, "mx_init", None) or default
-            if getattr(p, "is_deferred", False):
-                p._deferred_init = (initializer, gen, name)
+            if isinstance(p, Parameter):
+                p._initialize(None, where, default, force_reinit, gen, name)
                 continue
             host = torch.empty(p.shape, dtype=torch.float32)
-            initializer.init_array(name, host, gen)
+            (getattr(p, "mx_init", None) or default).init_array(
+                name, host, gen)
             p.copy_(host)
+
+    def zero_grad(self):
+        """Zero every parameter's gradient in place (reference :92);
+        torch's ``Module.zero_grad`` would drop them instead."""
+        for p in self.parameters():
+            if isinstance(p, Parameter):
+                p.zero_grad()
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx`` in place (reference :96)."""
+        for p in self.collect_params().values():
+            p.reset_ctx(ctx)
+
+    reset_device = reset_ctx
+
+    def register_child(self, block, name=None):
+        """Register ``block`` as a child under ``name`` (default: the
+        number of children so far), as the reference (:107)."""
+        self.add_module(name or str(len(self._modules)), block)
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after each forward (reference :112);
+        its return value is ignored. Returns torch's removable handle."""
+        return super().register_forward_hook(_ignore_result(hook))
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each forward (reference :116)."""
+        return super().register_forward_pre_hook(_ignore_result(hook))
+
+    def summary(self, *inputs):
+        """Print each parameter's name, shape and dtype and their total, as
+        the reference's lines (:176); ``inputs`` are accepted."""
+        params = self.collect_params()
+        lines = [f"{type(self).__name__}:"]
+        for name, p in params.items():
+            shape = None if p.shape is None else tuple(p.shape)
+            lines.append(f"  {name:<40} {str(shape):<20} "
+                         f"{dtype_name(p.dtype)}")
+        n = sum(math.prod(p.shape) for p in params.values() if p.shape)
+        lines.append(f"  total parameters: {n}")
+        print("\n".join(lines))
 
     def hybridize(self, active=True, **kwargs):
         """Hybridize every child (reference :77); the reference's keyword
@@ -171,12 +253,13 @@ class Block(torch.nn.Module):
         for param in self.collect_params().values():
             param.cast(dtype)
 
-    # -- persistence (reference: block.py:117-153) ---------------------------
-    def save_parameters(self, filename):
+    # -- persistence (reference: block.py:117-159) ---------------------------
+    def save_parameters(self, filename, deduplicate=False):
         """Write the parameters in the reference's ``.params`` format: a
         numpy ``savez`` archive keyed by ``collect_params()`` names
         (bfloat16 stored as float32). A parameter still of unknown shape is
-        left out, as in the reference."""
+        left out, as in the reference; ``deduplicate`` is accepted, as
+        there."""
         arrays = {}
         for name, p in self.collect_params().items():
             if getattr(p, "is_deferred", False):
@@ -188,29 +271,57 @@ class Block(torch.nn.Module):
         with open(filename, "wb") as fh:
             onp.savez(fh, **arrays)
 
-    def load_parameters(self, filename):
-        """Load a ``.params`` file written by either package; every name
-        and shape must match."""
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current", device=None):
+        """Load a ``.params`` file written by either package (reference
+        :133-153) through :meth:`load_dict`."""
         with onp.load(filename) as z:
-            self.load_dict({n: z[n] for n in z.files})
+            loaded = {n: z[n] for n in z.files}
+        self.load_dict(loaded, ctx, allow_missing, ignore_extra, cast_dtype,
+                       dtype_source, device)
+
+    def save(self, prefix):
+        """``save_parameters`` to ``{prefix}-model.params.npz``."""
+        self.save_parameters(f"{prefix}-model.params.npz")
+
+    def load(self, prefix):
+        """``load_parameters`` from ``{prefix}-model.params.npz``."""
+        self.load_parameters(f"{prefix}-model.params.npz")
 
     @torch.no_grad()
-    def load_dict(self, arrays):
-        """Copy ``{name: numpy array or tensor}`` into the parameters
-        through :func:`~mxnet_tpu_torch.convert.params_from_mxnet_tpu`,
-        which checks every name and shape; a parameter of unknown shape
-        takes the array's, in place."""
-        from ..convert import params_from_mxnet_tpu
-
-        arrays = {n: (a.detach().cpu().numpy()
-                      if isinstance(a, torch.Tensor) else a)
-                  for n, a in arrays.items()}
-        params = self.collect_params()
-        for name, t in params_from_mxnet_tpu(arrays, self).items():
-            if getattr(params[name], "is_deferred", False):
-                params[name]._fill(t)
-            else:
-                params[name].copy_(t)
+    def load_dict(self, arrays, ctx=None, allow_missing=False,
+                  ignore_extra=False, cast_dtype=False,
+                  dtype_source="current", device=None):
+        """Set the parameters from ``{name: numpy array, tensor or
+        NDArray}`` with the reference's ``load_parameters`` semantics: each
+        parameter takes its array by name (``Parameter.set_data``: a copy in
+        place where it is initialized, so captured programs read the new
+        values; a placeholder of unknown shape takes the array's), in its
+        own dtype (``dtype_source="current"``) or the array's
+        (``"saved"``); a name missing from ``arrays`` raises unless
+        ``allow_missing``, a name the block lacks unless ``ignore_extra``;
+        ``ctx``/``device`` moves the parameters there. ``cast_dtype`` is
+        accepted, as in the reference."""
+        if dtype_source not in ("current", "saved"):
+            raise MXNetError(f"dtype_source must be 'current' or 'saved', "
+                             f"got {dtype_source!r}")
+        arrays = dict(arrays)
+        where = ctx if device is None else device
+        for name, p in self.collect_params().items():
+            if name not in arrays:
+                if not allow_missing:
+                    raise MXNetError(f"parameter {name} missing in the "
+                                     "loaded arrays")
+                continue
+            t = _host_array(name, arrays.pop(name))
+            if where is not None:
+                p.reset_ctx(where)
+            if dtype_source == "saved" and t.dtype != p.dtype:
+                p.cast(t.dtype)
+            p.set_data(t)
+        if arrays and not ignore_extra:
+            raise MXNetError(f"extra parameters: {sorted(arrays)}")
 
 
 _SCALARS = (int, float, str, bool, type(None))
@@ -221,15 +332,19 @@ class _Unkeyable(Exception):
     """An argument that a signature cannot hold: the call runs eagerly."""
 
 
-def _arg_key(x, tensors):
-    """``x``'s hashable key: every tensor in it (at any depth of tuples and
-    lists) appended to ``tensors`` and replaced by a slot, containers as
+def _arg_key(x, tensors, nds=None):
+    """``x``'s hashable key: every tensor or NDArray in it (at any depth of
+    tuples and lists) appended to ``tensors`` as a tensor (and whether it
+    was an NDArray to ``nds``) and replaced by a slot, containers as
     ``(type, items)``, other values as ``(type, value)``."""
-    if isinstance(x, torch.Tensor):
-        tensors.append(x)
+    if isinstance(x, (torch.Tensor, NDArray)):
+        nd = isinstance(x, NDArray)
+        tensors.append(x._data if nd else x)
+        if nds is not None:
+            nds.append(nd)
         return _SLOT
     if isinstance(x, (tuple, list)):
-        return (type(x), tuple(_arg_key(v, tensors) for v in x))
+        return (type(x), tuple(_arg_key(v, tensors, nds) for v in x))
     if isinstance(x, _SCALARS):
         return (type(x), x)
     raise _Unkeyable
@@ -336,18 +451,22 @@ class HybridBlock(Block):
         if not self._active or _cached_op.is_inlined():
             return super().__call__(*args, **kwargs)
         nd = _has_nd(args, kwargs)
-        targs = unwrap(args)
-        tkwargs = {k: unwrap(v) for k, v in kwargs.items()}
-        tensors = []
+        tensors, nds = [], []
         try:
-            key = _arg_key((targs, tuple(sorted(tkwargs.items()))), tensors)
+            key = _arg_key((args, tuple(sorted(kwargs.items()))), tensors,
+                           nds)
         except _Unkeyable:
             return super().__call__(*args, **kwargs)
-        self._ensure_initialized(*targs, **tkwargs)
+        if self._tensor_body:
+            nds = [False] * len(nds)
+            self._ensure_initialized(*unwrap(args), **{
+                k: unwrap(v) for k, v in kwargs.items()})
+        else:
+            self._ensure_initialized(*args, **kwargs)
         where = tuple((p.data_ptr(), p.dtype) for p in self.parameters())
         sig = (tuple((tuple(t.shape), t.dtype, t.device) for t in tensors),
-               key, _ag.is_training(), self.training, _amp._snapshot(),
-               where)
+               (key, tuple(nds)), _ag.is_training(), self.training,
+               _amp._snapshot(), where)
         entry = self._cached.get(sig)
         if entry is None:
             # programs that read the parameters at other addresses (before
@@ -355,18 +474,19 @@ class HybridBlock(Block):
             self._cached = {s: e for s, e in self._cached.items()
                             if s[-1] == where}
             entry = self._cached[sig] = self._build_cache(
-                key, tensors, traced=not _ag.is_recording())
+                key, tensors, nds, traced=not _ag.is_recording())
         cop, _, params = entry
         out = cop(*tensors, *params)
         out = _cached_op.unflatten_out(
             list(out) if isinstance(out, tuple) else [out], cop._tree)
         return wrap(out) if nd else out
 
-    def _build_cache(self, key, tensors, traced=True):
+    def _build_cache(self, key, tensors, nds, traced=True):
         """Trace the forward of the call that ``key`` and its ``tensors``
         stand for into a CachedOp (reference :266); returns
-        ``(cached_op, out_tree, parameters)``. Without ``traced`` (a call
-        under ``record()``, whose node runs the body once itself) the
+        ``(cached_op, out_tree, parameters)``. The body receives as
+        NDArrays the operands that ``nds`` marks. Without ``traced`` (a
+        call under ``record()``, whose node runs the body once itself) the
         forward is not run here and the tree is None until the first
         call."""
         params = list(self.collect_params().items())
@@ -383,21 +503,21 @@ class HybridBlock(Block):
         def rebind(aliases):
             return rebound(self, dict(zip(map(id, plist), aliases)))
 
+        inputs = [NDArray(t) if n else t for t, n in zip(tensors, nds)]
         backend = self._pass_backend
         if backend is not None:
             from .. import subgraph
 
             with _ag.pause(train_mode=_ag.is_training()):
                 tree, _, cop = _cached_op.trace(
-                    fn, tensors, params, gpool=gpool,
+                    fn, inputs, params, gpool=gpool,
                     transform=lambda s: subgraph.apply_passes(s, backend))
             return cop, tree, plist
         if not traced:
-            cop = _cached_op.CachedOp(fn, [False] * len(tensors), params,
-                                      device=device, rebind=rebind,
-                                      gpool=gpool)
+            cop = _cached_op.CachedOp(fn, nds, params, device=device,
+                                      rebind=rebind, gpool=gpool)
             return cop, None, plist
-        tree, _, cop = _cached_op.trace(fn, tensors, params, rebind=rebind,
+        tree, _, cop = _cached_op.trace(fn, inputs, params, rebind=rebind,
                                         gpool=gpool)
         return cop, tree, plist
 
@@ -412,11 +532,13 @@ class HybridBlock(Block):
         statistics, so the programs write nothing and may replay from the
         serving thread."""
         inputs = tuple(unwrap(inputs))
-        self._ensure_initialized(*inputs)
+        self._ensure_initialized(*(inputs if self._tensor_body
+                                   else wrap(inputs)))
         tensors = []
         key = _arg_key((inputs, ()), tensors)
         with _ag.pause():
-            return self._serving_copy()._build_cache(key, tensors)
+            return self._serving_copy()._build_cache(
+                key, tensors, [not self._tensor_body] * len(tensors))
 
     def _serving_copy(self):
         """This block with a clone of every parameter (``grad_req``
@@ -455,6 +577,8 @@ class SymbolBlock(HybridBlock):
     registered under ``arg0, arg1, ...``; ``collect_params()`` gives the
     graph's own names (``encoder.layers.0.attn_qkv.weight``)."""
 
+    _tensor_body = True
+
     def __init__(self, outputs, inputs, params=None, device=None):
         super().__init__()
         from ..cached_op import build_executor
@@ -486,10 +610,7 @@ class SymbolBlock(HybridBlock):
                 self._set_param(name, value)
 
     def _set_param(self, name, value):
-        if isinstance(value, NDArray):
-            value = value._data
-        if not isinstance(value, torch.Tensor):
-            value = _host_array(name, value)
+        value = _host_array(name, value)
         slot = self._slots.get(name)
         if slot is None:
             slot = self._slots[name] = f"arg{self._param_names.index(name)}"
@@ -497,26 +618,33 @@ class SymbolBlock(HybridBlock):
         self.register_parameter(slot, Parameter(
             value, grad_req="write" if value.is_floating_point() else "null"))
 
-    def collect_params(self):
-        return OrderedDict((n, self._parameters[self._slots[n]])
-                           for n in self._param_names if n in self._slots)
+    def collect_params(self, select=None):
+        params = OrderedDict((n, self._parameters[self._slots[n]])
+                             for n in self._param_names if n in self._slots)
+        for name, p in params.items():
+            p._name = name
+        if select is None:
+            return params
+        pat = re.compile(select)
+        return OrderedDict((n, p) for n, p in params.items()
+                           if pat.match(n))
 
     @torch.no_grad()
-    def load_dict(self, arrays):
-        """Set the parameters from ``{name: numpy array or tensor}``: every
-        name must be one of the graph's; a loaded parameter keeps its object
-        (a copy in place) where the shape agrees."""
+    def load_dict(self, arrays, ctx=None, allow_missing=False,
+                  ignore_extra=False, cast_dtype=False,
+                  dtype_source="current", device=None):
+        """As :meth:`Block.load_dict`; a name that is not one of the graph's
+        parameters raises unless ``ignore_extra``, and a parameter of the
+        graph not yet set (``imports(..., allow_missing_params=True)``)
+        takes its array."""
         extra = sorted(set(arrays) - set(self._param_names))
-        if extra:
+        if extra and not ignore_extra:
             raise MXNetError(f"parameters {extra} are not in the graph")
-        for name, value in arrays.items():
-            p = self.collect_params().get(name)
-            t = value if isinstance(value, torch.Tensor) else \
-                _host_array(name, value)
-            if p is not None and tuple(p.shape) == tuple(t.shape):
-                p.copy_(t)
-            else:
-                self._set_param(name, t)
+        for name in self._param_names:
+            if name not in self._slots and name in arrays:
+                self._set_param(name, arrays[name])
+        super().load_dict(arrays, ctx, allow_missing, True, cast_dtype,
+                          dtype_source, device)
 
     @staticmethod
     def imports(symbol_file, input_names, param_file=None, ctx=None,
@@ -555,9 +683,18 @@ class SymbolBlock(HybridBlock):
 
 
 def _host_array(name, a):
-    """A numpy array from a params file as a tensor; numpy's bfloat16
-    (which the card's machine cannot read) raises."""
+    """A loaded value as a tensor: a tensor or an NDArray as it is, a numpy
+    array copied (the JAX package's bfloat16 and fp8 arrays through
+    float32). A file's bfloat16 array that numpy cannot read (no
+    ``ml_dtypes``: raw bytes) raises."""
+    if isinstance(a, NDArray):
+        a = a._data
+    if isinstance(a, torch.Tensor):
+        return a.detach()
     a = onp.asarray(a)
+    if a.dtype.name in _LOW_PRECISION:
+        return torch.from_numpy(a.astype("float32")).to(
+            to_dtype(a.dtype.name))
     if a.dtype.kind not in "fiub":
         raise MXNetError(f"parameter {name}: dtype {a.dtype} is not read "
                          "(bfloat16 files are not supported)")

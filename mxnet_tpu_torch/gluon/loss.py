@@ -32,6 +32,8 @@ def _reshape_like(pred, label):
 
 
 class Loss(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, weight=None, batch_axis=0):
         super().__init__()
         self._weight = weight

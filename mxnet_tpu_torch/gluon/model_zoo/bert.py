@@ -15,8 +15,8 @@ every key masked and comes out as zeros). The mask is built on the device
 hold it. LayerNorm goes through the fused LayerNorm kernel (eps 1e-12); the
 GEMMs are ``torch.matmul``, as the reference computes them outside Pallas.
 Dropout is active inside ``autograd.record()`` (or after ``train()``) and
-the identity elsewhere. The port has no ``Parameter.data()``: the blocks
-read their parameter tensors directly.
+the identity elsewhere. The blocks are torch code (``_tensor_body``) and
+read their parameter tensors directly, not through ``Parameter.data()``.
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ __all__ = ["TransformerEncoderLayer", "BERTEncoder", "BERTModel",
 
 class TransformerEncoderLayer(HybridBlock):
     """Post-LN transformer layer (BERT convention)."""
+
+    _tensor_body = True
 
     def __init__(self, units=768, hidden_size=3072, num_heads=12,
                  dropout=0.1, attention_dropout=0.1, layer_norm_eps=1e-12,
@@ -76,6 +78,8 @@ class TransformerEncoderLayer(HybridBlock):
 
 
 class BERTEncoder(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, num_layers=12, units=768, hidden_size=3072,
                  num_heads=12, dropout=0.1, layer_norm_eps=1e-12,
                  dtype="float32", device=None):
@@ -97,6 +101,8 @@ class BERTModel(HybridBlock):
     valid_length=None)`` returns ``(sequence (B, T, units), pooled (B,
     units))``. ``device``: where the parameters live; None means the GPU
     (and raises without one)."""
+
+    _tensor_body = True
 
     def __init__(self, vocab_size=30522, num_layers=12, units=768,
                  hidden_size=3072, num_heads=12, max_length=512,
@@ -143,6 +149,8 @@ class BERTForPretraining(HybridBlock):
     """MLM and NSP heads over a :class:`BERTModel`; ``forward`` returns
     ``(mlm_scores (B, T, vocab), nsp_scores (B, 2))``. The MLM decoder
     ties the word-embedding matrix."""
+
+    _tensor_body = True
 
     def __init__(self, bert: BERTModel, vocab_size=30522, device=None):
         super().__init__()

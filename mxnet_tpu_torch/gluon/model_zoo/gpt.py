@@ -62,6 +62,8 @@ __all__ = ["GPTModel", "DecoderLayer", "gpt2_small", "gpt2_medium",
 class DecoderLayer(HybridBlock):
     """Pre-LN causal transformer block (GPT-2 convention)."""
 
+    _tensor_body = True
+
     def __init__(self, units=768, hidden_size=3072, num_heads=12,
                  dropout=0.1, layer_norm_eps=1e-5, dtype="float32",
                  device=None):
@@ -130,6 +132,8 @@ class GPTModel(HybridBlock):
     ``device``: where the parameters live; ``None`` means the GPU (and
     raises without one) — pass ``device="cpu"`` to run on the host.
     """
+
+    _tensor_body = True
 
     def __init__(self, vocab_size=50257, num_layers=12, units=768,
                  hidden_size=None, num_heads=12, max_length=1024,

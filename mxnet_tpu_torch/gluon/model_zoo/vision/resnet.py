@@ -32,6 +32,8 @@ def _conv3x3(channels, stride, in_channels):
 
 
 class BasicBlockV1(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, channels, stride, downsample=False, in_channels=0):
         super().__init__()
         self.body = nn.HybridSequential()
@@ -56,6 +58,8 @@ class BasicBlockV1(HybridBlock):
 
 
 class BottleneckV1(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, channels, stride, downsample=False, in_channels=0):
         super().__init__()
         self.body = nn.HybridSequential()
@@ -80,6 +84,8 @@ class BottleneckV1(HybridBlock):
 
 
 class BasicBlockV2(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, channels, stride, downsample=False, in_channels=0):
         super().__init__()
         self.bn1 = nn.BatchNorm()
@@ -104,6 +110,8 @@ class BasicBlockV2(HybridBlock):
 
 
 class BottleneckV2(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, channels, stride, downsample=False, in_channels=0):
         super().__init__()
         self.bn1 = nn.BatchNorm()
@@ -141,6 +149,8 @@ def _make_layer(block, layers, channels, stride, in_channels=0):
 
 
 class ResNetV1(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False):
         super().__init__()
@@ -167,6 +177,8 @@ class ResNetV1(HybridBlock):
 
 
 class ResNetV2(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False):
         super().__init__()

@@ -1,8 +1,7 @@
-"""Core layers (the subset GPT and ResNet use)."""
-from .basic_layers import (Activation, BatchNorm, Dense, Embedding, Flatten,
-                           HybridSequential, LayerNorm)
+"""Core layers (reference: ``mxnet_tpu/gluon/nn``)."""
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _basic_all
 from .conv_layers import *  # noqa: F401,F403
 from .conv_layers import __all__ as _conv_all
 
-__all__ = ["Activation", "BatchNorm", "Dense", "Embedding", "Flatten",
-           "HybridSequential", "LayerNorm", *_conv_all]
+__all__ = [*_basic_all, *_conv_all]

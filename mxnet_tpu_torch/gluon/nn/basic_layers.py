@@ -1,11 +1,25 @@
-"""Core layers as ``torch.nn.Module``s (the subset GPT and ResNet use).
+"""Core layers as ``torch.nn.Module``s.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Dense`` (:61),
-``Flatten`` (:116), ``Activation`` (:129), ``BatchNorm`` (:211),
-``LayerNorm`` (:281), ``Embedding`` (:365) and ``HybridSequential`` (:56).
-Parameter names and layouts are the reference's: ``Dense.weight`` is
-(units, in_units), the norms keep ``gamma``/``beta``, BatchNorm its
-``running_mean``/``running_var`` (parameters with ``grad_req='null'``).
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``
+(:25) and ``HybridSequential`` (:56) deriving from it, ``Dense`` (:61),
+``Dropout`` (:105), ``Flatten`` (:116), ``Identity`` (:124),
+``Activation`` (:129), ``LeakyReLU`` (:141), ``PReLU`` (:150), ``ELU``
+(:160), ``SELU`` (:169), ``GELU`` (:174), ``Swish``/``SiLU`` (:184),
+``BatchNorm`` (:211), ``LayerNorm`` (:281), ``Embedding`` (:365),
+``Lambda``/``HybridLambda`` (:383, :396) and
+``Concatenate``/``HybridConcatenate`` (:409, :424). Parameter names and
+layouts are the reference's: ``Dense.weight`` is (units, in_units), the
+norms keep ``gamma``/``beta``, BatchNorm its ``running_mean``/
+``running_var`` (parameters with ``grad_req='null'``), PReLU its
+``alpha``.
+
+The layers with parameters and the activations are torch code over the
+``ops.nn`` doors (``_tensor_body``: NDArray arguments reach them as
+tensors, and come back as NDArrays); the containers and the lambdas pass
+their arguments on as they came, as the reference's. A layer whose
+parameters nothing initialized computes with their zeros, as the port's
+layers always have (the reference raises there, in ``data()``, which the
+port's ``Parameter.data()`` does too).
 
 Deferred shapes: ``Dense`` without ``in_units`` and the norms without
 ``in_channels`` hold placeholders (a 0 in the shape) that their first
@@ -20,13 +34,16 @@ import torch
 
 from ... import _deferred_compute as _dc
 from ... import autograd as _ag
-from ...base import to_dtype
+from ... import initializer as init_mod
+from ...base import MXNetError, to_dtype
 from ...context import resolve_device
 from ...ops import nn as F
-from ..block import HybridBlock, new_parameter
+from ..block import Block, HybridBlock, new_parameter
 
-__all__ = ["HybridSequential", "Dense", "Flatten", "Activation",
-           "BatchNorm", "LayerNorm", "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Flatten",
+           "Identity", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "GELU", "Swish", "SiLU", "BatchNorm", "LayerNorm", "Embedding",
+           "Lambda", "HybridLambda", "Concatenate", "HybridConcatenate"]
 
 
 def finish_deferred(shape, *params):
@@ -37,12 +54,14 @@ def finish_deferred(shape, *params):
             p._finish_deferred_init(shape)
 
 
-class HybridSequential(HybridBlock):
-    """Children named ``"0"``, ``"1"``, ... in the order added."""
+class Sequential(Block):
+    """Children named ``"0"``, ``"1"``, ... in the order added, run one
+    after another (reference :25); a slice is a new container of the same
+    type over the same children."""
 
     def add(self, *blocks):
         for b in blocks:
-            self.add_module(str(len(self._modules)), b)
+            self.register_child(b)
         return self
 
     def forward(self, x, *args):
@@ -53,17 +72,29 @@ class HybridSequential(HybridBlock):
     def __len__(self):
         return len(self._modules)
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        children = list(self._modules.values())
+        if isinstance(key, slice):
+            net = type(self)()
+            net.add(*children[key])
+            return net
+        return children[key]
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class HybridSequential(Sequential, HybridBlock):
+    """A :class:`Sequential` that ``hybridize()`` captures (reference
+    :56)."""
 
 
 class Dense(HybridBlock):
     """Fully connected layer: y = act(x W^T + b), W of shape (units,
     in_units); ``in_units=0`` defers it to the first forward (the
     non-batch extent of x with ``flatten``, else its last)."""
+
+    _tensor_body = True
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
@@ -93,13 +124,41 @@ class Dense(HybridBlock):
 class Flatten(HybridBlock):
     """(N, ...) -> (N, everything else)."""
 
+    _tensor_body = True
+
     def forward(self, x):
         return x.flatten(1)
+
+
+class Dropout(HybridBlock):
+    """Inverted dropout at ``rate`` (reference :105): active inside
+    ``autograd.record()`` (or after ``train()``), the identity elsewhere;
+    ``axes`` is accepted, as in the reference, and every entry draws its
+    own mask."""
+
+    _tensor_body = True
+
+    def __init__(self, rate, axes=()):
+        super().__init__()
+        self._rate = rate
+        self._axes = axes
+
+    def forward(self, x):
+        return F.dropout(x, self._rate, self.training)
+
+
+class Identity(HybridBlock):
+    """Returns its input (reference :124)."""
+
+    def forward(self, x):
+        return x
 
 
 class Activation(HybridBlock):
     """``act_type`` of the ``activation`` op (``"relu"``, ``"tanh"``,
     ...)."""
+
+    _tensor_body = True
 
     def __init__(self, activation):
         super().__init__()
@@ -107,6 +166,87 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return F.activation(x, act_type=self._act)
+
+
+class LeakyReLU(HybridBlock):
+    """max(x, alpha x) (reference :141)."""
+
+    _tensor_body = True
+
+    def __init__(self, alpha=0.01):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope ``alpha`` of shape (in_channels,)
+    (reference :150), broadcast over the last axis."""
+
+    _tensor_body = True
+
+    def __init__(self, alpha_initializer=init_mod.Constant(0.25),
+                 in_channels=1, device=None):
+        super().__init__()
+        self.alpha = new_parameter((in_channels,), torch.float32,
+                                   resolve_device(device), alpha_initializer)
+
+    def forward(self, x):
+        return F.leaky_relu(x, self.alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """x, or alpha (exp(x) - 1) below 0 (reference :160)."""
+
+    _tensor_body = True
+
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self._alpha = alpha
+
+    def forward(self, x):
+        return F.leaky_relu(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU (reference :169)."""
+
+    _tensor_body = True
+
+    def forward(self, x):
+        return F.leaky_relu(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """GELU, exact (``approximation="erf"``) or the tanh form (reference
+    :174)."""
+
+    _tensor_body = True
+
+    def __init__(self, approximation="erf"):
+        super().__init__()
+        self._act = "gelu" if approximation == "erf" else "gelu_tanh"
+
+    def forward(self, x):
+        return F.leaky_relu(x, act_type=self._act)
+
+
+class Swish(HybridBlock):
+    """x * sigmoid(beta x) (reference :184)."""
+
+    _tensor_body = True
+
+    def __init__(self, beta=1.0):
+        super().__init__()
+        self._beta = beta
+
+    def forward(self, x):
+        return x * F.activation(x * self._beta, act_type="sigmoid")
+
+
+SiLU = Swish
 
 
 class BatchNorm(HybridBlock):
@@ -119,6 +259,8 @@ class BatchNorm(HybridBlock):
     ``no_grad``), never rebinding them, so a captured step updates the same
     storage on every replay; otherwise it normalises by the running stats.
     ``scale=False`` fixes gamma at ones (``fix_gamma``)."""
+
+    _tensor_body = True
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -168,6 +310,8 @@ class LayerNorm(HybridBlock):
     """LayerNorm over ``axis`` with ``gamma``/``beta`` parameters;
     ``in_channels=0`` defers their shape to the first forward."""
 
+    _tensor_body = True
+
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
                  in_channels=0, dtype="float32", device=None):
@@ -192,6 +336,8 @@ class LayerNorm(HybridBlock):
 class Embedding(HybridBlock):
     """Lookup table of shape (input_dim, output_dim)."""
 
+    _tensor_body = True
+
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, device=None):
         super().__init__()
@@ -203,3 +349,60 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return F.embedding(x, self.weight)
+
+
+def _np_function(name):
+    """The ``mx.np`` (else ``mx.npx``) function named ``name``."""
+    from ... import numpy as mnp
+    from ... import numpy_extension as mnpx
+
+    for mod in (mnp, mnpx):
+        fn = getattr(mod, name, None)
+        if fn is not None:
+            return fn
+    raise MXNetError(f"Lambda: {name!r} names no mx.np or mx.npx function")
+
+
+class Lambda(Block):
+    """``function(*args)`` as a block (reference :383); a string names an
+    ``mx.np`` or ``mx.npx`` function."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _np_function(function) if isinstance(function, str) \
+            else function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A :class:`Lambda` that ``hybridize()`` captures (reference :396)."""
+
+    def __init__(self, function):
+        super().__init__()
+        self._func = _np_function(function) if isinstance(function, str) \
+            else function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class Concatenate(Sequential):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis`` (reference :409)."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+
+    def forward(self, x):
+        from ... import numpy as mnp
+
+        return mnp.concatenate([block(x) for block in
+                                self._modules.values()], axis=self._axis)
+
+
+class HybridConcatenate(Concatenate, HybridBlock):
+    """A :class:`Concatenate` that ``hybridize()`` captures (reference
+    :424)."""

@@ -36,6 +36,8 @@ def _tup(x, n):
 
 
 class _Conv(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
@@ -96,6 +98,8 @@ class Conv3D(_Conv):
 
 
 class _Pool(HybridBlock):
+    _tensor_body = True
+
     def __init__(self, pool_size, strides, padding, global_pool, pool_type,
                  layout, count_include_pad=True, ceil_mode=False):
         super().__init__()

@@ -1,7 +1,7 @@
 """Parameter initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py`` (:25-181) for ``Zero``, ``One``,
-``Uniform``, ``Normal``, ``Xavier`` and ``MSRAPrelu``. An initializer fills
+``Constant``, ``Uniform``, ``Normal``, ``Xavier`` and ``MSRAPrelu``. An initializer fills
 a tensor in place from a ``torch.Generator``. ``init_array(name, tensor,
 generator)`` is the reference's fill by name (:57-66): a parameter whose
 name ends in ``bias``, ``beta``, ``running_mean`` or ``moving_mean`` gets
@@ -23,8 +23,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Normal", "Xavier",
-           "MSRAPrelu", "create"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Xavier", "MSRAPrelu", "create"]
 
 _ZEROS = ("bias", "beta", "running_mean", "moving_mean")
 _ONES = ("gamma", "running_var", "moving_var")
@@ -57,6 +57,22 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, name, tensor, generator):
         tensor.fill_(1.0)
+
+
+class Constant(Initializer):
+    """Every entry ``value`` (reference :94-104): a number, or an array
+    (NDArray, tensor or numpy) broadcast to the parameter's shape."""
+
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def _init_weight(self, name, tensor, generator):
+        v = getattr(self.value, "_data", self.value)
+        if isinstance(v, (int, float)):
+            tensor.fill_(v)
+        else:
+            tensor.copy_(torch.as_tensor(v).to(tensor.dtype)
+                         .expand(tensor.shape))
 
 
 class Uniform(Initializer):
@@ -121,6 +137,7 @@ class MSRAPrelu(Xavier):
 # the reference's registered names (lower-cased class names and aliases)
 # that these classes cover
 _NAMES = {"zero": Zero, "zeros": Zero, "one": One, "ones": One,
+          "constant": Constant,
           "uniform": Uniform, "normal": Normal, "xavier": Xavier,
           "msraprelu": MSRAPrelu}
 

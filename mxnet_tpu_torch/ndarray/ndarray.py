@@ -15,6 +15,20 @@ from the reference:
   autograd only inside ``autograd.record()``;
 - one array class serves ``mx.np`` and ``mx.npx``.
 
+NDArrays and tensors mix: ``mx.np`` / ``mx.npx`` take a tensor operand as
+it is (an NDArray over it, no copy, so autograd sees the op), an NDArray's
+arithmetic takes a tensor operand, and a torch function given an NDArray
+(``tensor + ndarray``, ``torch.tanh(ndarray)``) runs on its tensor and
+returns NDArrays (:meth:`NDArray.__torch_function__`). Only
+:func:`array` of user data copies, as in the reference.
+
+Host constants in a captured body: while a CUDA graph family warms and
+captures a program (:func:`host_constants`, entered by
+``cached_op.GraphPool``), an array made from host data on the card
+(``mx.np.array(-1e30)``) is made once, at the warm call, and kept in the
+family's store by value; the capture reads that tensor, so the program
+copies nothing from the host and every replay sees the same value.
+
 Gradients live in torch's ``.grad`` of the array's tensor, which
 ``attach_grad`` makes a leaf; :attr:`grad` wraps it. ``grad_req`` (the
 reference's ``'write'``, ``'add'``, ``'null'``) is kept by two hooks on
@@ -24,6 +38,8 @@ leaves the zero buffer as it was, ``'add'`` is torch's own accumulation.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 
 import numpy as onp
@@ -35,7 +51,8 @@ from ..base import MXNetError, canonical_dtype, dtype_name, narrow
 from ..context import Context, context_of, resolve_device
 from ..ops.registry import apply_op
 
-__all__ = ["NDArray", "array", "from_torch"]
+__all__ = ["NDArray", "array", "from_torch", "wrap", "unwrap",
+           "host_constants"]
 
 # functions whose mx.np implementation is numpy-compatible: the numpy
 # dispatch protocol routes them to mx.np (reference :42-61)
@@ -480,6 +497,8 @@ class NDArray:
 
     # --------------------------------------------------------- arithmetic
     def _binop(self, name, other, reverse=False):
+        if isinstance(other, torch.Tensor):
+            other = NDArray(other)
         if isinstance(other, NDArray) or onp.isscalar(other) or isinstance(
                 other, (onp.ndarray, list, tuple)):
             if isinstance(other, (onp.ndarray, list, tuple)):
@@ -592,6 +611,13 @@ class NDArray:
     def __hash__(self):
         return id(self)
 
+    # torch functions given an NDArray (``tensor + ndarray``,
+    # ``torch.tanh(ndarray)``): run on the tensors, results as NDArrays
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return wrap(func(*unwrap(args), **{k: unwrap(v) for k, v in
+                                           (kwargs or {}).items()}))
+
 
 def _dt(dtype):
     return None if dtype is None else dtype_name(canonical_dtype(dtype))
@@ -612,6 +638,23 @@ def _as_tensor(obj, dtype, device):
     host = onp.asarray(obj)
     if host.dtype == object:
         raise MXNetError("object arrays cannot become an NDArray")
+    store = _consts.store
+    if store is not None and dev.type == "cuda":
+        key = (host.dtype.str, host.shape, host.tobytes(), dt, dev)
+        t = store.get(key)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise MXNetError(
+                    "an array made from host data of shape "
+                    f"{host.shape} first appears while a CUDA graph "
+                    "captures: the body made other host constants at its "
+                    "warm call")
+            t = store[key] = _host_tensor(host, dt, dev)
+        return t
+    return _host_tensor(host, dt, dev)
+
+
+def _host_tensor(host, dt, dev):
     if dt is None:
         t = torch.from_numpy(onp.array(host, copy=True)) \
             if host.dtype.name != "bfloat16" else \
@@ -620,6 +663,46 @@ def _as_tensor(obj, dtype, device):
     return torch.tensor(host.astype(onp.float32)
                         if host.dtype.name == "bfloat16" else host,
                         device=dev).to(dt)
+
+
+class _Consts(threading.local):
+    store = None
+
+
+_consts = _Consts()
+
+
+@contextlib.contextmanager
+def host_constants(store):
+    """Inside the block, arrays made from host data on the card are taken
+    from ``store`` (a dict, by value) and made into it when missing; one
+    first made while a CUDA graph captures raises (see the module
+    docstring)."""
+    prev, _consts.store = _consts.store, store
+    try:
+        yield
+    finally:
+        _consts.store = prev
+
+
+def unwrap(x):
+    """``x`` with every NDArray (at any depth of tuples and lists) replaced
+    by its tensor."""
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (tuple, list)):
+        return type(x)(unwrap(v) for v in x)
+    return x
+
+
+def wrap(x):
+    """``x`` with every tensor (at any depth of tuples and lists) wrapped
+    into an NDArray, without a copy."""
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(wrap(v) for v in x)
+    return x
 
 
 def array(obj, dtype=None, ctx=None, device=None):

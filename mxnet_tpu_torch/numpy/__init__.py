@@ -78,21 +78,25 @@ def __getattr__(name):
 
 
 def _as_nd(x, like=None):
-    """``x`` as an NDArray (on ``like``'s device when given). A Python
+    """``x`` as an NDArray (on ``like``'s device when given): a tensor
+    wrapped as it is, without a copy, so autograd sees the op. A Python
     scalar beside an array (``like``) stays a scalar, as the ops take it
     with JAX's weak typing."""
     if isinstance(x, NDArray):
         return x
+    if isinstance(x, _torch.Tensor):
+        return NDArray(x)
     if like is not None and _onp.isscalar(x):
         return x
     return array(x, ctx=None if like is None else like._data.device)
 
 
 def _both_nd(x1, x2):
-    # at least one operand must be an NDArray for dispatch
-    if not isinstance(x1, NDArray) and not isinstance(x2, NDArray):
+    # at least one operand must be an array for dispatch
+    arrays = (NDArray, _torch.Tensor)
+    if not isinstance(x1, arrays) and not isinstance(x2, arrays):
         x1 = array(x1)
-    like = x1 if isinstance(x1, NDArray) else x2
+    like = _as_nd(x1 if isinstance(x1, arrays) else x2)
     return _as_nd(x1, like), _as_nd(x2, like)
 
 

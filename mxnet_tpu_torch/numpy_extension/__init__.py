@@ -58,7 +58,13 @@ def waitall():
 
 
 def _nd(x):
-    return x if isinstance(x, NDArray) else array(x)
+    """``x`` as an NDArray: a tensor wrapped as it is, without a copy, so
+    autograd sees the op; other data copied in by :func:`array`."""
+    if isinstance(x, NDArray):
+        return x
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    return array(x)
 
 
 def _not_ported(name, item):

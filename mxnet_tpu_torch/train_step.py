@@ -205,7 +205,7 @@ class _Program:
         for gi in range(g):
             xb, yb = (self.x[gi], self.y[gi]) if g > 1 else (self.x, self.y)
             with autograd.record():
-                li = step.loss_fn(step.net(xb), yb).mean()
+                li = unwrap(step.loss_fn(step.net(xb), yb)).mean()
             gi_grads = torch.autograd.grad(
                 li, self.params,
                 grad_outputs=None if seed is None else seed.to(li.dtype),
@@ -509,7 +509,7 @@ class CompiledTrainStep:
         dev = next(iter(self.net.parameters())).device
         x, y = x.to(dev), y.to(dev)
         with autograd.record():
-            loss = self.loss_fn(self.net(x), y).mean()
+            loss = unwrap(self.loss_fn(self.net(x), y)).mean()
             head = loss if scaler is None else loss * float(scaler.loss_scale)
         autograd.backward(head)
         if scaler is not None:

@@ -87,7 +87,7 @@ def test_initialize_is_seeded_and_uses_each_parameters_initializer():
     emb = pa["tok_embed.weight"]
     assert float(emb.abs().max()) <= 0.07            # default U(0.07)
     assert 0.035 < float(emb.std()) < 0.046          # 0.07 / sqrt(3)
-    b.initialize(seed=4)
+    b.initialize(seed=4, force_reinit=True)
     assert not torch.equal(pa["tok_embed.weight"], pb["tok_embed.weight"])
 
 

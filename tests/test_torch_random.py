@@ -52,10 +52,18 @@ def _host(a):
 
 def _ref(draw):
     """Shape and dtype of the reference's NDArray that ``draw()`` returns,
-    by JAX's abstract evaluation (the same program, not compiled)."""
+    by JAX's abstract evaluation (the same program, not compiled). The
+    trace splits the reference's global key into a tracer, so the key is
+    put back after it: a later draw in the same process would meet the
+    escaped tracer."""
     import jax
+    from mxnet_tpu import random as jrandom
 
-    return jax.eval_shape(lambda: draw()._data)
+    key = jrandom._key
+    try:
+        return jax.eval_shape(lambda: draw()._data)
+    finally:
+        jrandom._key = key
 
 
 # name: (draw(pkg.random, size), mean, variance, support check)
