@@ -325,10 +325,43 @@ Phases (any failure exits non-zero without the final line):
              ``mx.np.tanh(Dense(x))`` under ``record()``, eager and
              hybridized, x's and the weight's gradients within 1e-6 of the
              CPU's and nonzero.
+12. optim — the optimizers, norms and losses: (i) phase 9's
+             ``bench_bert_pretrain("large")`` (B = 8, T = 128, bf16, remat,
+             2 warm steps and 8 replays) with ``LAMB(1e-4, wd=0.01)`` in
+             AdamW's place: one capture, the flash and LayerNorm launches
+             of phase 9's Large run, the float32 predict-mode loss on the
+             bench's batch falling over its 10 steps; wall, busy, idle,
+             kernels a step, tokens/s, MFU and peak memory beside phase 9's
+             AdamW numbers, device ms by kind (the trust ratio's norms);
+             (ii) one fp32 Learner step of BERT-Base (B = 2) with LAMB on
+             the card, its gradients through the CPU's LAMB chain from the
+             same parameters: moments within 1e-6, each weight within 2 x
+             (an fp32 ulp of the larger of it before and after + 1e-6 of its
+             update); (iii) the
+             19 registered optimizers, 3 steps on
+             BERT-Large-shaped parameters (the (30522, 1024) word
+             embedding, a (4096, 1024) and a (1024, 4096) weight, a bias
+             and a gamma) from seeded gradients, fp32 and, for the
+             elementwise ones, bf16 under ``multi_precision``, through the
+             fused ``Trainer`` and a captured ``compile_step``, each against
+             the per-parameter update on the CPU (fp32 within 1e-5 of each
+             largest entry, bf16 weights within 2^-7; the CPU runs LAMB,
+             LARS and LANS on the whole tensors, the other, elementwise or
+             row-wise, recurrences on every 16th row); SGLD by its noise's
+             mean and variance, and its compiled step taking the eager
+             fallback; (iv) ``GroupNorm(32)`` at (32, 256, 56, 56),
+             ``InstanceNorm`` and ``ReflectionPad2D(3)`` at (8, 64, 256,
+             256), ``RMSNorm`` at (8192, 4096), fp32 and bf16, and the 14
+             losses at (1024, 1000) (CTC at T = 400, B = 32, V = 29, labels
+             up to 100, an infeasible row), forward and the input's
+             gradient on the card against the CPU: fp32 norms within 1e-5
+             (forward) and 1e-4 (gradient), bf16 within 2^-7 and 2^-6, the
+             losses within 1e-5 (CTC 2e-4, SDML 5e-4) of each largest entry.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
-``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``; the
-last runs phase 4 first, for its weights, batches and losses) runs the
+``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
+``optim``; ``script`` runs phase 4 first, for its weights, batches and
+losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
 each path (serve, train, train_compiled, train_amp and nd (serve: the warm
@@ -338,7 +371,8 @@ resnet (all 0), predictor (the traces, warm calls and captures),
 bert_pretrain (the two benches' warm steps and captures), graph (the
 traces, warm calls and captures; also the row's ``graph`` key), script
 (phase 11: its eager steps, warm calls and captures; also the row's
-``script`` key); a row
+``script`` key), optim (phase 12 (i)'s bench and (ii)'s step: warm steps
+and captures; also the row's ``optim`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -4024,6 +4058,7 @@ BERT_CHECK_LR = 0.1             # (i) SGD(0.1, momentum 0.9), as phase 7 (i)
 GLUON_STEPS = 5                 # (iv) steps of the generic Gluon loop
 GLUON_SIGNATURES = (7, 6, 5, 4, 3)  # (iv) batch sizes of the pool check
 BERT_LAYERS = {"base": 12, "large": 24}
+BERT_LARGE_ADAMW = {}           # phase 9 (iii)'s numbers, for phase 12 (i)
 
 
 def _sync(data):
@@ -4037,9 +4072,10 @@ def _mfu(flops_per_sec):
     return round(flops_per_sec / PEAK_BF16_FLOPS, 4)
 
 
-def bench_bert_pretrain(size="base"):
+def bench_bert_pretrain(size="base", optimizer=None):
     """BERT MLM+NSP pretraining step, bf16, one chip (configs 4 and the
-    BERT-Large north-star metric)."""
+    BERT-Large north-star metric); ``optimizer`` replaces the bench's
+    AdamW (phase 12 runs it with LAMB)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import amp, gluon, parallel
     from mxnet_tpu_torch.gluon.model_zoo.bert import bert_base, BERTForPretraining
@@ -4081,8 +4117,8 @@ def bench_bert_pretrain(size="base"):
             loss_fn(nsp_scores, nsp_labels).mean()
 
     learner = parallel.Learner(model, pretrain_loss,
-                               mx.optimizer.AdamW(learning_rate=1e-4,
-                                                  wd=0.01),
+                               optimizer or mx.optimizer.AdamW(
+                                   learning_rate=1e-4, wd=0.01),
                                remat=(size == "large"))
     tokens = mx.np.random.randint(0, 30522, size=(B, T))
     labels = mx.np.concatenate([
@@ -4103,11 +4139,29 @@ def bench_bert_pretrain(size="base"):
             "mfu": _mfu(tok_s * 6 * BERT_PARAMS[size])}
 
 
-def _watched_bench(size, remat=None):
-    """``bench_bert_pretrain(size)`` as it is, with ``parallel.Learner``
-    swapped for a subclass that keeps each step's loss and inputs (and, with
-    ``remat`` given, forces that flag): returns the bench's result, the
-    learner, and the peak device memory of the run."""
+def _fp32_pretrain_loss(net, x, y):
+    """The bench's pretraining loss of ``net`` on ``(x, y)`` in predict
+    mode (no dropout), the scores upcast to float32: a loss at float32's
+    resolution, where the bench's bf16 loss moves in steps of 1/16."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.block import unwrap
+
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.pause():
+        mlm, nsp = (unwrap(o).float() for o in net(x))
+        y = unwrap(y)
+        return float(loss_fn(mlm, y[:, :-1]).mean() +
+                     loss_fn(nsp, y[:, -1]).mean())
+
+
+def _watched_bench(size, remat=None, optimizer=None, probe=False):
+    """``bench_bert_pretrain(size, optimizer)`` as it is, with
+    ``parallel.Learner`` swapped for a subclass that keeps each step's loss
+    and inputs (and, with ``remat`` given, forces that flag): returns the
+    bench's result, the learner, and the peak device memory of the run.
+    With ``probe`` the learner also keeps :func:`_fp32_pretrain_loss`
+    before its first step (``probe_first``) and after its last
+    (``probe_last``, under the bench's AMP state)."""
     import torch
 
     import mxnet_tpu_torch.parallel as par
@@ -4124,6 +4178,8 @@ def _watched_bench(size, remat=None):
             made.append(self)
 
         def step(self, x, y):
+            if probe and self.batch is None:
+                self.probe_first = _fp32_pretrain_loss(self.net, x, y)
             loss = super().step(x, y)
             self.losses.append(loss)
             self.batch = (x, y)
@@ -4133,12 +4189,17 @@ def _watched_bench(size, remat=None):
     torch.cuda.reset_peak_memory_stats()
     par.Learner = Watched
     try:
-        result = bench_bert_pretrain(size)
+        result = bench_bert_pretrain(size, optimizer)
+        peak = torch.cuda.max_memory_allocated()
+        if probe:
+            made[0].probe_last = _fp32_pretrain_loss(made[0].net,
+                                                     *made[0].batch)
+            made[0].probe_steps = len(made[0].losses)
     finally:
         par.Learner = real
         amp.disable()
     torch.cuda.synchronize()
-    return result, made[0], torch.cuda.max_memory_allocated()
+    return result, made[0], peak
 
 
 def _bert_numbers(tag, size, result, learner, peak, smi_line):
@@ -4192,7 +4253,8 @@ def _bert_numbers(tag, size, result, learner, peak, smi_line):
     log(f"[bert_pretrain] {tag}: heaviest kernels (device ms a step): "
         + "; ".join(f"{n[:70]} {us / 3 / 1e3:.3f}" for n, us in top))
     return {"tokens_s": result["value"], "mfu": result["mfu"], "wall": wall,
-            "busy": busy, "idle": idle, "peak": peak, "launches": got}
+            "busy": busy, "idle": idle, "peak": peak, "launches": got,
+            "kernels": kernels, "by_name": by_name, "losses": losses}
 
 
 def _bert_check_model(arrays, device, dropout=0.0):
@@ -4511,6 +4573,7 @@ def phase_bert_pretrain(smi_line):
         f"tokens/s {nl['tokens_s']} against {np_['tokens_s']}; card "
         f"{smi_line}")
     check(nl["peak"] < np_["peak"], "(iii) remat did not lower peak memory")
+    BERT_LARGE_ADAMW.update(nl)
     _gluon_loop(arrays, smi_line)
     PATH_DTYPES["bert_pretrain"] = taken
     log(f"[bert_pretrain] kernel launches on the path (the two benches' warm "
@@ -5243,12 +5306,595 @@ def phase_script(smi_line, arrays, batches, phase4_losses):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the optimizers (LAMB through the Learner, the Trainer's
+# nineteen), the norms, ReflectionPad2D and the losses
+# ---------------------------------------------------------------------------
+OPTIM_LR = 1e-4                 # (i) LAMB(1e-4, wd 0.01) in the bench
+OPTIM_CHECK_BATCH = 2           # (ii) BERT-Base fp32 batch
+OPTIM_MOMENT_RTOL = 1e-6        # (ii) LAMB moments, card against CPU
+OPTIM_WEIGHT_ULPS = 2.0         # (ii) LAMB's updated weights: within 2 x
+OPTIM_RATIO_RTOL = 1e-6         # (fp32 ulp of the larger of the weight
+#   before and after + 1e-6 of the entry's update). The ulp is the sum's
+#   rounding; 1e-6 the card's float32 tree norm of 2.4 M values against
+#   the CPU's float64 one, which moves the trust ratio
+OPTIM_SHAPES = {"word_embed.weight": (30522, 1024),
+                "ffn_1.weight": (4096, 1024), "ffn_2.weight": (1024, 4096),
+                "ffn_2.bias": (1024,), "ln.gamma": (1024,)}
+OPTIM_STEPS = 3
+OPTIM_WHOLE = ("lamb", "lans", "lars")  # (iii) norms of whole tensors
+OPTIM_ROW_STRIDE = 16           # (iii) the CPU holds every 16th row of the
+#   others: their recurrences are elementwise (GroupAdaGrad's row-wise), so
+#   a row's trajectory is its own, and the CPU's seconds drop 16-fold
+OPTIM_RTOL = 1e-5               # (iii) fp32 weights, masters and states
+OPTIM_BF16_RTOL = 2.0 ** -7     # (iii) bf16 weights: one bf16 rounding
+NORM_RTOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -6)}
+LOSS_RTOL = 1e-5                # (iv) losses and gradients, fp32; but
+LOSS_RTOL_OF = {"CTCLoss": 2e-4,   # T = 400 log-space steps: T eps x 4
+                "SDMLLoss": 5e-4}  # logits: ~2e3 squared distances, whose
+#   float32 ulp (1.2e-4) moves the softmax
+NORM_SHAPES = {"group": (32, 256, 56, 56),      # ResNet stage 2, 103 MB
+               "image": (8, 64, 256, 256),      # a style generator's input
+               "rms": (8 * 1024, 4096)}         # a 7B-class decoder's rows
+LOSS_SHAPE = (1024, 1000)
+CTC_SHAPE = dict(T=400, B=32, V=29, L=100)
+_OPTIM_KINDS = (("trust-ratio norms (foreach LpNorm)", ("lpnorm",)),
+                ("other multi-tensor passes (foreach)",
+                 ("multi_tensor_apply",)),
+                ("GEMMs", ("gemm", "cutlass", "sm90_", "xmma", "cublas")),
+                ("flash and LayerNorm (port kernels)", ("flash", "ln_",
+                                                        "layer_norm")))
+
+
+def _by_kind(by_name, reps=3):
+    kinds = {}
+    for name, us in by_name.items():
+        low = name.lower()
+        kind = next((k for k, keys in _OPTIM_KINDS
+                     if any(w in low for w in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / reps / 1e3
+    return {k: round(v, 4) for k, v in sorted(kinds.items())}
+
+
+def _optim_bert_large(smi_line, taken):
+    """(i) ``bench_bert_pretrain("large")`` with LAMB in AdamW's place."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    if not BERT_LARGE_ADAMW:       # a partial run: phase 9's Large first
+        adamw, learner, peak = _watched_bench("large")
+        ck.reset_launch_counts()
+        BERT_LARGE_ADAMW.update(_bert_numbers(
+            "(i) Large, B=8, remat, AdamW", "large", adamw, learner, peak,
+            smi_line))
+        del learner
+        _release()
+    ck.reset_launch_counts()
+    lamb, learner, peak = _watched_bench(
+        "large", optimizer=mx.optimizer.LAMB(learning_rate=OPTIM_LR,
+                                             wd=0.01), probe=True)
+    probe = (learner.probe_first, learner.probe_last, learner.probe_steps)
+    counts = ck.launch_counts()
+    check(all(counts[k] > 0 for k in ("flash_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "layer_norm")),
+          f"(i) a kernel of the path did not launch: {counts}")
+    _take_counts(taken)
+    nl = _bert_numbers("(i) Large, B=8, remat, LAMB", "large", lamb,
+                       learner, peak, smi_line)
+    del learner
+    _release()
+    aw = BERT_LARGE_ADAMW
+    check(nl["launches"] == aw["launches"],
+          f"(i) LAMB's launches a step {nl['launches']} != phase 9's "
+          f"{aw['launches']}")
+    losses = nl["losses"]
+    check(all(math.isfinite(v) for v in probe[:2]) and probe[1] < probe[0],
+          f"(i) LAMB's float32 loss on the bench's batch did not fall over "
+          f"the bench's {probe[2]} steps: {probe}")
+    log(f"[optim] (i) BERT-Large pretraining, B=8, T=128, bf16, remat, one "
+        f"replay a step: LAMB against AdamW (phase 9, this run): wall "
+        f"{nl['wall']:.3f} / {aw['wall']:.3f} ms, busy {nl['busy']:.3f} / "
+        f"{aw['busy']:.3f} ms, idle {nl['idle']:.3f} / {aw['idle']:.3f}, "
+        f"kernels a step {nl['kernels']:.0f} / {aw['kernels']:.0f}, "
+        f"tokens/s {nl['tokens_s']} / {aw['tokens_s']}, MFU {nl['mfu']} / "
+        f"{aw['mfu']}, peak {nl['peak'] / 2**20:.0f} / "
+        f"{aw['peak'] / 2**20:.0f} MiB; LAMB's bf16 loss {losses[0]:.4f} "
+        f"-> {losses[probe[2] - 1]:.4f} over the bench's {probe[2]} steps, "
+        f"float32 predict-mode loss on the batch {probe[0]:.6f} -> "
+        f"{probe[1]:.6f}; card {smi_line}")
+    log(f"[optim] (i) device ms a step by kind, LAMB: "
+        f"{_by_kind(nl['by_name'])}; AdamW: {_by_kind(aw['by_name'])}")
+    return nl
+
+
+class _KeepGrads:
+    """A ``GradientTransformation`` that keeps copies of the gradients of
+    its first update (the warm step), then updates as ``tx`` does."""
+
+    def __init__(self, tx):
+        self.tx = tx
+        self.grads = None
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state, params):
+        if self.grads is None:
+            self.grads = [g.detach().clone() for g in grads]
+        return self.tx.update(grads, state, params)
+
+    def apply(self, params, updates):
+        self.tx.apply(params, updates)
+
+
+def _optim_lamb_vs_cpu(smi_line, taken):
+    """(ii) One fp32 Learner step of BERT-Base with LAMB on the card; the
+    same gradients through the port's LAMB chain on the CPU from the same
+    parameters and state."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel.learner import GradientTransformation
+
+    rng = onp.random.default_rng(SEED + 17)
+    shapes = {n: tuple(p.shape) for n, p in _bert_check_model(
+        None, "cpu").collect_params().items()}
+    arrays = train_weights(shapes, SEED + 17)
+    tokens, labels = _bert_batch(rng, OPTIM_CHECK_BATCH)
+
+    def lamb():
+        return mx.optimizer.LAMB(learning_rate=1e-3, wd=0.01)
+
+    class Keep(_KeepGrads, GradientTransformation):
+        pass
+
+    with mx.gpu():
+        model = _bert_check_model(arrays, DEV)
+        keep = Keep(parallel.to_optax(lamb()))
+        learner = parallel.Learner(model, _pretrain_loss_fn(), keep)
+        loss = float(learner.step(mx.np.array(tokens),
+                                  mx.np.array(labels))._data)
+        names = learner._param_names
+        params = model.collect_params()
+        after = {n: params[n].detach().cpu() for n in names}
+        adam = learner._opt_state[0]
+        mu = [m.detach().cpu() for m in adam["mu"]]
+        nu = [v.detach().cpu() for v in adam["nu"]]
+        grads = [g.cpu() for g in keep.grads]
+    _take_counts(taken)
+    del model, learner, params, keep
+    _release()
+    before = [torch.from_numpy(arrays[n].copy()) for n in names]
+    tx = parallel.to_optax(lamb())
+    state = tx.init(before)
+    with torch.no_grad():
+        upd = tx.update([g.clone() for g in grads], state, before)
+        want = [p.clone() for p in before]
+        tx.apply(want, upd)
+    e_mom = max(max(_max_rel(a, b) for a, b in zip(mu, state[0]["mu"])),
+                max(_max_rel(a, b) for a, b in zip(nu, state[0]["nu"])))
+    e_upd = max(_max_rel(after[n] - b, w - b) for n, b, w in
+                zip(names, before, want))
+    eps = torch.finfo(torch.float32).eps
+    e_ulp = max(float(((after[n] - w).abs() / (
+        eps * torch.maximum(w.abs(), b.abs()) +
+        OPTIM_RATIO_RTOL * (w - b).abs()).clamp_min(1e-30)).max())
+        for n, b, w in zip(names, before, want))
+    moved = sum(int(bool((w != b).any())) for b, w in zip(before, want))
+    log(f"[optim] (ii) one fp32 Learner step of BERT-Base (B="
+        f"{OPTIM_CHECK_BATCH}, dropout 0, loss {loss:.4f}) with LAMB on the "
+        f"card, the same gradients through the CPU's LAMB chain: moments "
+        f"within {e_mom:.3g} (limit {OPTIM_MOMENT_RTOL}), updated weights "
+        f"within {e_ulp:.3g} x (ulp + {OPTIM_RATIO_RTOL} of the update) "
+        f"(limit {OPTIM_WEIGHT_ULPS}), updates "
+        f"within {e_upd:.3g} of each update's largest entry, {moved} of "
+        f"{len(names)} tensors moved; card {smi_line}")
+    check(e_mom <= OPTIM_MOMENT_RTOL, f"(ii) LAMB moments off by {e_mom}")
+    check(e_ulp <= OPTIM_WEIGHT_ULPS,
+          f"(ii) LAMB's weights off by {e_ulp} ulps")
+    check(moved == len(names), f"(ii) {len(names) - moved} tensors did "
+          "not move")
+
+
+def _grad_net(weights, grads):
+    """A block holding ``weights`` whose output, for a one-hot selector
+    ``sel`` of step ``k``, has the gradients ``grads[k]``: the compiled
+    step's backward hands it the seeded gradients."""
+    from mxnet_tpu_torch import gluon
+
+    class GradNet(gluon.HybridBlock):
+        _tensor_body = True
+
+        def __init__(self):
+            super().__init__()
+            self.names = list(weights)
+            for i, w in enumerate(weights.values()):
+                setattr(self, f"p{i}", gluon.Parameter(w.clone()))
+            self._grads = grads
+
+        def forward(self, sel):
+            ps = [getattr(self, f"p{i}") for i in range(len(self.names))]
+            total = None
+            for k, gk in enumerate(self._grads):
+                part = sum((p * g).sum().float() for p, g in zip(ps, gk))
+                term = sel[k] * part
+                total = term if total is None else total + term
+            return total.reshape(1)
+
+    return GradNet()
+
+
+def _optim_host_data():
+    """fp32 weights and OPTIM_STEPS gradient sets from the seed."""
+    rng = onp.random.default_rng(SEED + 12)
+    weights = {}
+    for n, s in OPTIM_SHAPES.items():
+        if n.endswith("gamma"):
+            weights[n] = 1 + 0.1 * rng.standard_normal(s, dtype="float32")
+        else:
+            weights[n] = 0.02 * rng.standard_normal(s, dtype="float32")
+    grads = [{n: 1e-2 * rng.standard_normal(s, dtype="float32")
+              for n, s in OPTIM_SHAPES.items()} for _ in range(OPTIM_STEPS)]
+    return weights, grads
+
+
+def _optim_kw(name, mp):
+    kw = dict(learning_rate=1e-2, multi_precision=mp)
+    if name != "groupadagrad":
+        kw["wd"] = 0.01
+    return kw
+
+
+def _optim_rows(name):
+    """The rows (first axis) of each tensor the CPU reference holds."""
+    return slice(None) if name in OPTIM_WHOLE else \
+        slice(None, None, OPTIM_ROW_STRIDE)
+
+
+def _optim_cpu(name, mp, weights, grads):
+    """The per-parameter update on the CPU over ``_optim_rows(name)``:
+    weights and states after OPTIM_STEPS steps."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+
+    dt = torch.bfloat16 if mp else torch.float32
+    rows = _optim_rows(name)
+    ps = {n: gluon.Parameter(torch.from_numpy(w[rows].copy()).to(dt))
+          for n, w in weights.items()}
+    tr = gluon.Trainer(ps, name, _optim_kw(name, mp))
+    tr._fuse = False
+    for gk in grads:
+        for n, p in ps.items():
+            p.grad = torch.from_numpy(gk[n][rows].copy()).to(dt)
+        tr.update(1)
+    return [p.detach() for p in ps.values()], tr._states, rows
+
+
+def _optim_errors(params, states, want):
+    """(weights, float32 states, bfloat16 states) against the CPU's, each
+    the largest error over its tensor's largest entry (DCASGD keeps its
+    previous weight in the weight's dtype)."""
+    import torch
+
+    wp, ws, rows = want
+    errs = [_max_rel(p[rows], w) for p, w in zip(params, wp)]
+    serrs = {torch.float32: [0.0], torch.bfloat16: [0.0]}
+    for i, st in enumerate(states):
+        for k in st:
+            serrs[st[k].dtype].append(_max_rel(st[k][rows], ws[i][k]))
+    return max(errs), max(serrs[torch.float32]), max(serrs[torch.bfloat16])
+
+
+def _optim_card(name, mp, weights, grads_dev, want, smi_line):
+    """(iii) One optimizer through the fused Trainer and compile_step on the
+    card, each held against the CPU's per-parameter update."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+
+    dt = torch.bfloat16 if mp else torch.float32
+    dev_w = {n: torch.from_numpy(w).to(DEV, dt)
+             for n, w in weights.items()}
+    ps = {n: gluon.Parameter(w.clone()) for n, w in dev_w.items()}
+    tr = gluon.Trainer(ps, name, _optim_kw(name, mp))
+    t0 = time.perf_counter()
+    for gk in grads_dev:
+        for p, g in zip(ps.values(), gk):
+            p.grad = g
+        tr.update(1)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    fused = _optim_errors([p.detach() for p in ps.values()], tr._states,
+                          want)
+    check(tr._fused_dispatches == OPTIM_STEPS,
+          f"(iii) {name}: {tr._fused_dispatches} fused dispatches")
+    del ps, tr
+    net = _grad_net(dev_w, grads_dev)
+    tr = gluon.Trainer(net.collect_params(), name, _optim_kw(name, mp))
+    step = tr.compile_step(net, lambda out, y: out)
+    check(step.fallback_reason is None,
+          f"(iii) {name}: compile_step falls back: {step.fallback_reason}")
+    y = torch.zeros(1, device=DEV)
+    t0 = time.perf_counter()
+    for k in range(OPTIM_STEPS):
+        sel = torch.zeros(OPTIM_STEPS, device=DEV)
+        sel[k] = 1.0
+        step(sel, y)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    progs = list(step._cache.values())
+    check(step._traces == 1 and len(progs) == 1 and
+          progs[0].graph is not None,
+          f"(iii) {name}: {step._traces} programs, captured "
+          f"{[p.graph is not None for p in progs]}")
+    comp = _optim_errors([p.detach() for p in net.collect_params().values()],
+                         tr._states, want)
+    del net, tr, step, progs
+    _release()
+    limit = OPTIM_BF16_RTOL if mp else OPTIM_RTOL
+    how = "bf16 + multi_precision" if mp else "fp32"
+    log(f"[optim] (iii) {name:12s} {how:22s} fused Trainer: weights "
+        f"{fused[0]:.3g}, states {fused[1]:.3g} / {fused[2]:.3g}; "
+        f"compile_step (1 capture): weights {comp[0]:.3g}, states "
+        f"{comp[1]:.3g} / {comp[2]:.3g} (fp32 / bf16 states; limits "
+        f"{limit:.3g}, {OPTIM_RTOL:.3g} / {OPTIM_BF16_RTOL:.3g}); seconds "
+        f"{t_fused:.2f} / {t_comp:.2f}")
+    check(fused[0] <= limit and comp[0] <= limit,
+          f"(iii) {name}: weights off the CPU's by {fused[0]} / {comp[0]}")
+    check(max(fused[1], comp[1]) <= OPTIM_RTOL and
+          max(fused[2], comp[2]) <= OPTIM_BF16_RTOL,
+          f"(iii) {name}: states off the CPU's by {fused[1:]} / {comp[1:]}")
+
+
+def _optim_sgld(weights, grads_dev, smi_line):
+    """(iii) SGLD: the noise's mean and variance; its compiled step takes
+    the reference's fallback."""
+    import warnings
+
+    import torch
+
+    from mxnet_tpu_torch import gluon
+
+    lr, wd = 1e-2, 0.01
+    ps = {n: gluon.Parameter(torch.from_numpy(w).to(DEV))
+          for n, w in weights.items()}
+    tr = gluon.Trainer(ps, "sgld", dict(learning_rate=lr, wd=wd))
+    before = [p.detach().clone() for p in ps.values()]
+    for p, g in zip(ps.values(), grads_dev[0]):
+        p.grad = g
+    tr.update(1)
+    noise = torch.cat([(p.detach() - b + lr / 2 * (g + wd * b)).reshape(-1)
+                       for p, b, g in zip(ps.values(), before,
+                                          grads_dev[0])]).double()
+    n = noise.numel()
+    mean, var = float(noise.mean()), float(noise.var())
+    log(f"[optim] (iii) sgld: noise over {n} values mean {mean:.3g} (4 "
+        f"sigma {4 * math.sqrt(lr / n):.3g}), variance / lr {var / lr:.6f} "
+        f"(4 sigma {4 * math.sqrt(2 / n):.3g}); card {smi_line}")
+    check(abs(mean) < 4 * math.sqrt(lr / n), f"(iii) sgld noise mean {mean}")
+    check(abs(var / lr - 1) < 4 * math.sqrt(2 / n),
+          f"(iii) sgld noise variance {var} for lr {lr}")
+    del ps, tr, before, noise
+    net = _grad_net({n: torch.from_numpy(w).to(DEV) for n, w in
+                     weights.items()}, grads_dev)
+    tr = gluon.Trainer(net.collect_params(), "sgld", dict(learning_rate=lr))
+    step = tr.compile_step(net, lambda out, y: out)
+    check(step.fallback_reason is not None and
+          "SGLD" in step.fallback_reason,
+          f"(iii) sgld compile_step: fallback {step.fallback_reason!r}")
+    sel = torch.zeros(OPTIM_STEPS, device=DEV)
+    sel[0] = 1.0
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        step(sel, torch.zeros(1, device=DEV))
+    check(step._traces == 0 and any("falling back" in str(r.message)
+                                    for r in rec),
+          "(iii) sgld compile_step did not take the eager fallback")
+    del net, tr, step
+    _release()
+
+
+def _optim_trainer(smi_line):
+    """(iii) The nineteen registered optimizers on BERT-Large-shaped
+    parameters; the CPU's references over ``_optim_rows``."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    weights, grads = _optim_host_data()
+    names = sorted(mx.optimizer.optimizer._registry)
+    t0 = time.perf_counter()
+    cpu_s = 0.0
+    for mp in (False, True):
+        dt = torch.bfloat16 if mp else torch.float32
+        grads_dev = [[torch.from_numpy(gk[n]).to(DEV, dt)
+                      for n in OPTIM_SHAPES] for gk in grads]
+        if not mp:
+            _optim_sgld(weights, grads_dev, smi_line)
+        for name in names:
+            opt = mx.optimizer.create(name, learning_rate=1e-2)
+            if opt.fused_step is None or (mp and not opt.fused_step[3]):
+                continue        # SGLD above; bf16 for elementwise ones
+            tc = time.perf_counter()
+            want = _optim_cpu(name, mp, weights, grads)
+            cpu_s += time.perf_counter() - tc
+            _optim_card(name, mp, weights, grads_dev, want, smi_line)
+        del grads_dev
+        _release()
+    log(f"[optim] (iii) {len(names)} optimizers in "
+        f"{time.perf_counter() - t0:.1f} s ({cpu_s:.1f} s of it the CPU's "
+        f"references)")
+
+
+def _norm_case(tag, make, shape, dtype, arrays=None):
+    """Forward and the input's gradient of ``make()`` on the card and on
+    the CPU from the same input, parameters and upstream gradient."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    rng = onp.random.default_rng(SEED + 121)
+    x = rng.standard_normal(shape, dtype="float32")
+    outs, t_dev, g = [], None, None
+    for dev in (DEV, "cpu"):
+        with (mx.gpu() if dev == DEV else mx.cpu()):
+            net = make()
+            net.initialize()
+            xt = torch.from_numpy(x).to(dev, dtype).requires_grad_(True)
+            y = net(xt)             # fills the deferred shapes
+            if arrays is None:
+                arrays = {n: (1 + 0.1 * rng.standard_normal(p.shape,
+                                                            dtype="float32"))
+                          for n, p in net.collect_params().items()}
+                arrays = {n: a if "gamma" in n else a - 1
+                          for n, a in arrays.items()}
+            if g is None:
+                g = rng.standard_normal(tuple(y.shape), dtype="float32")
+            net.load_dict(arrays)
+            t = time.perf_counter()
+            y = net(xt)
+            (y * torch.from_numpy(g).to(dev, y.dtype)).sum().backward()
+            if dev == DEV:
+                torch.cuda.synchronize()
+                t_dev = time.perf_counter() - t
+            outs.append((y.detach().float().cpu(), xt.grad.float().cpu()))
+        del net, xt, y
+    fwd, bwd = (_max_rel(a, b) for a, b in zip(*outs))
+    tol = NORM_RTOL[str(dtype).replace("torch.", "")]
+    log(f"[optim] (iv) {tag} {tuple(shape)} {str(dtype)[6:]}: forward "
+        f"{fwd:.3g}, input gradient {bwd:.3g} of each largest entry (limits "
+        f"{tol[0]:.3g} / {tol[1]:.3g}); card s {t_dev:.3f}")
+    check(fwd <= tol[0] and bwd <= tol[1],
+          f"(iv) {tag} {dtype}: card against CPU {fwd} / {bwd}")
+
+
+def _loss_cases():
+    """The fourteen losses at (1024, 1000): (name, class, kwargs, inputs,
+    call kwargs); CTC at T = 400, B = 32, V = 29 with labels up to 100 and
+    an infeasible row."""
+    rng = onp.random.default_rng(SEED + 122)
+    n, c = LOSS_SHAPE
+
+    def f(a):
+        return onp.asarray(a, dtype="float32")
+
+    pred = f(rng.standard_normal((n, c)))
+    target = f(rng.standard_normal((n, c)))
+    binary = f(rng.integers(0, 2, (n, c)))
+    dist = onp.exp(target) / onp.exp(target).sum(-1, keepdims=True)
+    cls = f(rng.integers(0, c, (n,)))
+    T, B, V, L = (CTC_SHAPE[k] for k in ("T", "B", "V", "L"))
+    ctc = f(rng.standard_normal((B, T, V)))
+    lens = rng.integers(L // 5, L + 1, B)
+    label = onp.full((B, L), -1.0, "float32")
+    for b in range(B):
+        label[b, :lens[b]] = rng.integers(0, V - 1, lens[b])
+    label[0, :] = 1.0               # 100 repeats need 199 frames ...
+    plen = f(onp.full(B, T))
+    plen[0] = L + L // 2            # ... and get 150: infeasible
+    lens[0] = L
+    return [
+        ("L2Loss", {}, [pred, target], {}),
+        ("L1Loss", {}, [pred, target], {}),
+        ("HuberLoss", {"rho": 0.5}, [pred, target], {}),
+        ("SigmoidBCELoss", {}, [pred, binary], {}),
+        ("SoftmaxCELoss", {}, [pred, cls], {}),
+        ("KLDivLoss", {"from_logits": False}, [pred, f(dist)], {}),
+        ("CTCLoss", {}, [ctc, label], {"pred_lengths": plen,
+                                       "label_lengths": f(lens)}),
+        ("HingeLoss", {}, [pred, 2 * binary - 1], {}),
+        ("SquaredHingeLoss", {}, [pred, 2 * binary - 1], {}),
+        ("LogisticLoss", {}, [pred, 2 * binary - 1], {}),
+        ("TripletLoss", {}, [pred, target, f(rng.standard_normal((n, c)))],
+         {}),
+        ("CosineEmbeddingLoss", {}, [pred, target,
+                                     f(2 * rng.integers(0, 2, n) - 1)], {}),
+        ("PoissonNLLLoss", {}, [pred, f(abs(target))], {}),
+        ("SDMLLoss", {}, [pred, target], {}),
+    ]
+
+
+def _optim_losses(smi_line):
+    """(iv) Each loss and its first input's gradient, card against CPU."""
+    import torch
+
+    from mxnet_tpu_torch.gluon import loss as gloss
+
+    worst = {}
+    for name, kw, inputs, call in _loss_cases():
+        outs = []
+        for dev in (DEV, "cpu"):
+            ts = [torch.from_numpy(a).to(dev) for a in inputs]
+            ts[0].requires_grad_(True)
+            out = getattr(gloss, name)(**kw)(
+                *ts, **{k: torch.from_numpy(v).to(dev)
+                        for k, v in call.items()})
+            out.sum().backward()
+            outs.append((out.detach().cpu(), ts[0].grad.cpu()))
+        errs = [_max_rel(a, b) for a, b in zip(*outs)]
+        worst[name] = max(errs)
+        if name == "CTCLoss":
+            ctc = outs[0][0]
+            check(bool(torch.isfinite(ctc).all()) and float(ctc[0]) > 1e4 >
+                  float(ctc[1:].max()),
+                  f"(iv) CTC: infeasible row {float(ctc[0])}, others up to "
+                  f"{float(ctc[1:].max())}")
+            log(f"[optim] (iv) CTC T={CTC_SHAPE['T']}, B={CTC_SHAPE['B']}, "
+                f"V={CTC_SHAPE['V']}, labels up to {CTC_SHAPE['L']}: the "
+                f"infeasible row's loss {float(ctc[0]):.1f} (finite), the "
+                f"others {float(ctc[1:].min()):.2f}-{float(ctc[1:].max()):.2f}")
+    log(f"[optim] (iv) losses at {LOSS_SHAPE}, card against CPU, loss and "
+        f"gradient over each largest entry (limit {LOSS_RTOL}, "
+        f"{LOSS_RTOL_OF}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; card {smi_line}")
+    check(all(v <= LOSS_RTOL_OF.get(k, LOSS_RTOL)
+              for k, v in worst.items()),
+          f"(iv) losses against the CPU: {worst}")
+
+
+def phase_optim(smi_line):
+    """Phase 12: LAMB through ``parallel.Learner`` at BERT-Large, LAMB's
+    update card against CPU, the Trainer's optimizers fused and compiled,
+    and the norms, padding and losses card against CPU; returns the path's
+    launch counts ((i)'s bench and (ii)'s step: warm steps and captures)."""
+    import torch
+
+    from mxnet_tpu_torch import gluon
+
+    t_phase = time.perf_counter()
+    taken = {}
+    _optim_bert_large(smi_line, taken)
+    _optim_lamb_vs_cpu(smi_line, taken)
+    _optim_trainer(smi_line)
+    nn = gluon.nn
+    for dt in (torch.float32, torch.bfloat16):
+        _norm_case("GroupNorm(32)", lambda: nn.GroupNorm(32),
+                   NORM_SHAPES["group"], dt)
+        _norm_case("InstanceNorm", lambda: nn.InstanceNorm(),
+                   NORM_SHAPES["image"], dt)
+        _norm_case("ReflectionPad2D(3)", lambda: nn.ReflectionPad2D(3),
+                   NORM_SHAPES["image"], dt, arrays={})
+        _norm_case("RMSNorm", lambda: nn.RMSNorm(), NORM_SHAPES["rms"], dt)
+        _release()
+    _optim_losses(smi_line)
+    _release()
+    PATH_DTYPES["optim"] = taken
+    log(f"[optim] kernel launches on the path ((i)'s bench and (ii)'s step: "
+        f"warm steps and captures), by dtypes: {taken}")
+    log(f"[optim] phase took {time.perf_counter() - t_phase:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "resnet": phase_resnet, "predictor": phase_predictor,
            "bert_pretrain": phase_bert_pretrain, "graph": phase_graph,
-           "script": lambda smi: phase_script(smi, *phase_train(smi)[1:])}
+           "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
+           "optim": phase_optim}
 
 
 # ---------------------------------------------------------------------------
@@ -5314,6 +5960,7 @@ def main():
         phase_graph(smi_line)
         phase_script(smi_line, arrays, batches, train_losses)
         del arrays, batches
+        phase_optim(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -5334,6 +5981,7 @@ def main():
         row["launches_by_path"] = by_path
         row["graph"] = by_path.get("graph", 0)
         row["script"] = by_path.get("script", 0)
+        row["optim"] = by_path.get("optim", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -5344,7 +5992,7 @@ def main():
                     if k == kernel and tuple(dts) == ("bfloat16",) * 2)
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
-    rtc_row["graph"] = rtc_row["script"] = 0
+    rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,7 +73,8 @@ def trainer_states_from_mxnet_tpu(payload, params, names=None):
     port) into the port's: each state array becomes a float32 tensor on its
     parameter's device. ``params`` are the trainer's parameters in order;
     ``names`` name them in errors. Raises :class:`MXNetError` when the
-    number of entries or a state's shape does not match."""
+    number of entries or a state's shape does not match (a state has its
+    parameter's shape, or one value a row as GroupAdaGrad's history)."""
     names = names or [f"param{i}" for i in range(len(params))]
     states = payload["states"]
     if len(states) != len(params):
@@ -88,7 +89,9 @@ def trainer_states_from_mxnet_tpu(payload, params, names=None):
         conv = {}
         for key, arr in st.items():
             t = torch.from_numpy(onp.array(arr, dtype="float32", copy=True))
-            if tuple(t.shape) != tuple(p.shape):
+            rows = tuple(p.shape[:1]) + (1,) * (p.dim() - 1)
+            # the parameter's shape, or one value a row (GroupAdaGrad)
+            if tuple(t.shape) not in (tuple(p.shape), rows):
                 raise MXNetError(
                     f"parameter {name}: state {key!r} of shape "
                     f"{tuple(t.shape)}, parameter of shape {tuple(p.shape)}")

@@ -5,7 +5,9 @@ Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``
 ``Dropout`` (:105), ``Flatten`` (:116), ``Identity`` (:124),
 ``Activation`` (:129), ``LeakyReLU`` (:141), ``PReLU`` (:150), ``ELU``
 (:160), ``SELU`` (:169), ``GELU`` (:174), ``Swish``/``SiLU`` (:184),
-``BatchNorm`` (:211), ``LayerNorm`` (:281), ``Embedding`` (:365),
+``BatchNorm`` (:211), ``SyncBatchNorm`` (:273), ``LayerNorm`` (:281),
+``GroupNorm`` (:304), ``InstanceNorm`` (:326), ``RMSNorm`` (:347),
+``Embedding`` (:365), ``BatchNormReLU`` (:431), ``ReflectionPad2D`` (:439),
 ``Lambda``/``HybridLambda`` (:383, :396) and
 ``Concatenate``/``HybridConcatenate`` (:409, :424). Parameter names and
 layouts are the reference's: ``Dense.weight`` is (units, in_units), the
@@ -38,12 +40,18 @@ from ... import initializer as init_mod
 from ...base import MXNetError, to_dtype
 from ...context import resolve_device
 from ...ops import nn as F
+from ...ops.nn import _Door
 from ..block import Block, HybridBlock, new_parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Flatten",
            "Identity", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
-           "GELU", "Swish", "SiLU", "BatchNorm", "LayerNorm", "Embedding",
-           "Lambda", "HybridLambda", "Concatenate", "HybridConcatenate"]
+           "GELU", "Swish", "SiLU", "BatchNorm", "SyncBatchNorm",
+           "BatchNormReLU", "LayerNorm", "GroupNorm", "InstanceNorm",
+           "RMSNorm", "ReflectionPad2D", "Embedding", "Lambda",
+           "HybridLambda", "Concatenate", "HybridConcatenate"]
+
+
+_PAD = _Door("pad")     # the registered op's tensor-level door
 
 
 def finish_deferred(shape, *params):
@@ -306,6 +314,23 @@ class BatchNorm(HybridBlock):
         return out
 
 
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm (reference :273): on the one device the port
+    trains on, the batch is the whole batch, so this is
+    :class:`BatchNorm`; ``num_devices`` is accepted (across devices it
+    comes with ROADMAP A8)."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
+class BatchNormReLU(BatchNorm):
+    """BatchNorm, then ReLU (reference :431)."""
+
+    def forward(self, x):
+        return F.activation(super().forward(x), act_type="relu")
+
+
 class LayerNorm(HybridBlock):
     """LayerNorm over ``axis`` with ``gamma``/``beta`` parameters;
     ``in_channels=0`` defers their shape to the first forward."""
@@ -331,6 +356,110 @@ class LayerNorm(HybridBlock):
         finish_deferred((x.shape[self._axis],), self.gamma, self.beta)
         return F.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                             eps=self._eps)
+
+
+class _NormBase(HybridBlock):
+    """The ``gamma``/``beta`` pair of the channel norms (reference :198):
+    (in_channels,) float32, ``in_channels=0`` deferring the shape to the
+    first forward (channel axis 1); ``scale``/``center`` False freeze
+    them (``grad_req='null'``)."""
+
+    _tensor_body = True
+
+    def __init__(self, in_channels, center, scale, gamma_initializer,
+                 beta_initializer, device):
+        super().__init__()
+        device = resolve_device(device)
+        shape = (in_channels or 0,)
+        self.gamma = new_parameter(shape, torch.float32, device,
+                                   gamma_initializer,
+                                   "write" if scale else "null")
+        self.beta = new_parameter(shape, torch.float32, device,
+                                  beta_initializer,
+                                  "write" if center else "null")
+
+
+class GroupNorm(_NormBase):
+    """GroupNorm over (N, C, ...) with ``num_groups`` groups of channels
+    (reference :304)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None):
+        super().__init__(in_channels, center, scale, gamma_initializer,
+                         beta_initializer, device)
+        self._num_groups = num_groups
+        self._eps = epsilon
+
+    def forward(self, x):
+        finish_deferred((x.shape[1],), self.gamma, self.beta)
+        return F.group_norm(x, self.gamma, self.beta,
+                            num_groups=self._num_groups, eps=self._eps)
+
+
+class InstanceNorm(_NormBase):
+    """InstanceNorm over (N, C, ...) (reference :326): each sample's
+    channel normalised over its spatial extent. ``axis`` is accepted, as
+    in the reference, which normalises the channels of axis 1."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None):
+        super().__init__(in_channels, center, scale, gamma_initializer,
+                         beta_initializer, device)
+        self._eps = epsilon
+
+    def forward(self, x):
+        finish_deferred((x.shape[1],), self.gamma, self.beta)
+        return F.instance_norm(x, self.gamma, self.beta, eps=self._eps)
+
+
+class RMSNorm(HybridBlock):
+    """RMSNorm over ``axis`` with a ``gamma`` of ones (reference :347);
+    ``in_channels=0`` defers its shape to the first forward."""
+
+    _tensor_body = True
+
+    def __init__(self, axis=-1, epsilon=1e-6, in_channels=0, device=None):
+        super().__init__()
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = new_parameter((in_channels or 0,), torch.float32,
+                                   resolve_device(device), "ones")
+
+    def forward(self, x):
+        finish_deferred((x.shape[self._axis],), self.gamma)
+        return F.rms_norm(x, self.gamma, axis=self._axis, eps=self._eps)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of the H and W axes of NCHW input (reference
+    :439): ``padding`` an int (all four sides), a ``(left, right, top,
+    bottom)`` 4-tuple, or the reference's 8-tuple ``pad_width`` ``(0, 0,
+    0, 0, top, bottom, left, right)``. It runs the registered ``pad`` op in
+    ``"reflect"`` mode (one gather an axis), which the graph layer records
+    and exports."""
+
+    _tensor_body = True
+
+    def __init__(self, padding=0):
+        super().__init__()
+        if isinstance(padding, (tuple, list)):
+            p = tuple(int(v) for v in padding)
+            if len(p) == 8:
+                p = (p[6], p[7], p[4], p[5])
+            elif len(p) != 4:
+                raise MXNetError(
+                    "ReflectionPad2D takes an int, a (left, right, top, "
+                    "bottom) 4-tuple, or the reference 8-tuple pad_width")
+        else:
+            p = (int(padding),) * 4
+        self._pad = p   # (left, right, top, bottom)
+
+    def forward(self, x):
+        left, right, top, bottom = self._pad
+        return _PAD.fn(pad_width=((0, 0), (0, 0), (top, bottom),
+                                  (left, right)), mode="reflect")(x)
 
 
 class Embedding(HybridBlock):

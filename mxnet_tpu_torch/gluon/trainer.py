@@ -24,8 +24,15 @@ instead of 148. The arithmetic per element is the per-parameter path's: on
 the CPU the two give the same bits; on CUDA the loop's Python-scalar hypers
 divide by a reciprocal multiply, so they differ in the last bits.
 ``MXNET_FUSED_TRAINER=0`` keeps the
-per-parameter loop; ``multi_precision``, non-float parameters and
-optimizers without a fusable step take it too.
+per-parameter loop; non-float parameters and optimizers without a fusable
+step take it too. Under ``multi_precision`` the fused update runs the
+recurrence on the float32 master copies (the ``weight_fp32`` states) and
+rounds them into the low-precision weights with one multi-tensor copy a
+bucket, as the per-parameter path does one tensor at a time (the
+reference's fused update leaves ``multi_precision`` to the per-parameter
+loop). An optimizer that is not elementwise (LAMB, LARS, LANS,
+GroupAdaGrad, NAG) runs the recurrence once a tensor, never over the
+flattened small tensors, so its whole-tensor norms see one tensor.
 
 ``compile_step(net, loss_fn)`` builds the compiled train step
 (:class:`mxnet_tpu_torch.train_step.CompiledTrainStep`): forward, loss,
@@ -105,6 +112,10 @@ class _FusedBucket:
                 args.append(t)
             out = raw(*args)
             out = out if keys else (out,)
+            # an output that is an input (DCASGD's previous weight) is
+            # read before its tensor is written
+            out = [o.clone() if any(o is x for x in (w, *st)) else o
+                   for o in out]
             for old, new, dst in zip((w, *st), out, dsts):
                 if keep is not None:
                     new = torch.where(keep, old, new)
@@ -124,6 +135,21 @@ class _FusedBucket:
                 flat([gs[k] for k in self.small]), self._spread(lrs),
                 self._spread(wds), self._spread(ts), [sw, *sst])
         return self.calls
+
+
+def update_targets(params, states):
+    """The tensors the recurrence updates: each parameter's float32 master
+    copy (``multi_precision``'s ``weight_fp32`` state) where it has one,
+    else the parameter."""
+    return [st.get("weight_fp32", p) for p, st in zip(params, states)]
+
+
+def round_masters(params, targets):
+    """Round the updated master copies into their low-precision
+    parameters, one multi-tensor copy."""
+    pairs = [(p, w) for p, w in zip(params, targets) if w is not p]
+    if pairs:
+        torch._foreach_copy_([p for p, _ in pairs], [w for _, w in pairs])
 
 
 def _fused_layout(weights, states, state_keys, elementwise):
@@ -272,8 +298,7 @@ class Trainer:
         the indices left to the per-parameter path."""
         opt = self._optimizer
         spec = opt.fused_step
-        if not self._fuse or spec is None or opt.multi_precision \
-                or not active:
+        if not self._fuse or spec is None or not active:
             return active
         buckets, rest = {}, []
         for i in active:
@@ -294,7 +319,8 @@ class Trainer:
         does."""
         opt = self._optimizer
         _, keys, _, elementwise = spec
-        ws = [self._params[i] for i in idxs]
+        ps = [self._params[i] for i in idxs]
+        ws = update_targets(ps, [self._states[i] for i in idxs])
         ss = [tuple(self._states[i][k] for k in keys) for i in idxs]
         key = (str(ws[0].dtype), tuple(idxs))
         layout = self._fused_fn.get(key)
@@ -308,8 +334,9 @@ class Trainer:
                             ws[0].device)
         self._fused_dispatches += 1
         self._fused_calls += layout.update(
-            spec, ws, ss, [w.grad for w in ws], table[0].float(),
+            spec, ws, ss, [p.grad for p in ps], table[0].float(),
             table[1].float(), table[2], opt.rescale_grad)
+        round_masters(ps, ws)
 
     # -- checkpoint ---------------------------------------------------------
     def states_payload(self):

@@ -1,9 +1,11 @@
 """Parameter initializers.
 
-Counterpart of ``mxnet_tpu/initializer.py`` (:25-181) for ``Zero``, ``One``,
-``Constant``, ``Uniform``, ``Normal``, ``Xavier`` and ``MSRAPrelu``. An initializer fills
-a tensor in place from a ``torch.Generator``. ``init_array(name, tensor,
-generator)`` is the reference's fill by name (:57-66): a parameter whose
+Counterpart of ``mxnet_tpu/initializer.py`` (:25-297): ``Zero``, ``One``,
+``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
+``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``InitDesc``, ``Load`` and
+``Mixed``. An initializer fills a tensor in place from a
+``torch.Generator``. ``init_array(name, tensor, generator)`` is the
+reference's fill by name (:57-66): a parameter whose
 name ends in ``bias``, ``beta``, ``running_mean`` or ``moving_mean`` gets
 zeros, one ending in ``gamma``, ``running_var`` or ``moving_var`` ones,
 whatever the initializer; any other gets the initializer's own draw
@@ -17,22 +19,55 @@ moments.
 """
 from __future__ import annotations
 
+import logging
 import math
+import re
 
+import numpy as onp
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
-           "Xavier", "MSRAPrelu", "create"]
+__all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Load", "Mixed", "create"]
 
 _ZEROS = ("bias", "beta", "running_mean", "moving_mean")
 _ONES = ("gamma", "running_var", "moving_var")
 
 
+class InitDesc(str):
+    """A parameter's name carrying ``attrs`` and a fallback initializer
+    (reference :212): an ``__init__`` attribute (an initializer's name)
+    wins over the initializer called, then ``global_init``."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
 class Initializer:
     """Base initializer; subclasses implement ``_init_weight(name, tensor,
     generator)``."""
+
+    def __call__(self, name, tensor=None, generator=None):
+        """Fill ``tensor`` for ``name`` (reference :42); ``init(tensor)``
+        fills it with no name. An :class:`InitDesc` name's ``__init__``
+        attribute, else its ``global_init``, fills it instead."""
+        if tensor is None:
+            tensor, name = name, ""
+        if isinstance(name, InitDesc):
+            spec = name.attrs.get("__init__")
+            if spec:
+                create(spec).init_array(str(name), tensor, generator)
+                return
+            if name.global_init is not None and \
+                    name.global_init is not self:
+                name.global_init.init_array(str(name), tensor, generator)
+                return
+        self.init_array(str(name or ""), tensor, generator)
 
     def init_array(self, name, tensor, generator):
         """Fill ``tensor`` for the parameter ``name``: by name first (the
@@ -97,6 +132,28 @@ class Normal(Initializer):
                      * self.sigma)
 
 
+class Orthogonal(Initializer):
+    """A (scaled) orthogonal matrix over (shape[0], prod(shape[1:]))
+    (reference :131): the Q of a QR of a square Gaussian draw of the larger
+    extent, its signs fixed by R's diagonal so Q is Haar-distributed (as
+    ``jax.random.orthogonal``), cut to the shape and times ``scale``. The
+    draws differ from the reference's; the property holds: the rows (or
+    columns, whichever are fewer) are orthonormal times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, tensor, generator):
+        nout = tensor.shape[0]
+        nin = math.prod(tensor.shape[1:])
+        n = max(nout, nin)
+        a = torch.randn((n, n), generator=generator, dtype=torch.float64)
+        q, r = torch.linalg.qr(a.to(tensor.device))
+        q = q * torch.sign(torch.diagonal(r)).unsqueeze(0)
+        tensor.copy_((q[:nout, :nin] * self.scale).reshape(tensor.shape))
+
+
 class Xavier(Initializer):
     """Glorot's initialisation (reference :145-173), the convolutions'
     default: scale = sqrt(magnitude / factor), the factor the fan in, out or
@@ -134,12 +191,106 @@ class MSRAPrelu(Xavier):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
 
 
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a (C, 1, H, W) deconvolution
+    weight (reference :184)."""
+
+    def _init_weight(self, name, tensor, generator):
+        shape = tuple(tensor.shape)
+        f = shape[3] / 2.0
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = onp.arange(math.prod(shape))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        w = (1 - onp.abs(x / f - c)) * (1 - onp.abs(y / f - c))
+        tensor.copy_(torch.from_numpy(
+            w.astype("float32").reshape(shape)))
+
+
+class LSTMBias(Initializer):
+    """An LSTM's bias: zeros, the forget gate's quarter ``forget_bias``
+    (reference :198; gates in the order i, f, g, o). As in the reference,
+    the fill by name comes first: a name ending in ``bias`` gets zeros."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, tensor, generator):
+        n = tensor.shape[0] // 4
+        tensor.zero_()
+        tensor[n:2 * n] = self.forget_bias
+
+
+class Load(Initializer):
+    """Fill from saved parameters (reference :225): a ``.params`` file or a
+    ``{name: array}`` dict, ``arg:``/``aux:`` prefixes dropped; a name
+    absent from it falls to ``default_init``, else raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            with onp.load(param) as z:
+                param = {n: z[n] for n in z.files}
+        if not isinstance(param, dict):
+            raise MXNetError("Load needs a file path or a name->NDArray "
+                             f"dict, got {type(param).__name__}")
+        self.param = {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def init_array(self, name, tensor, generator=None):
+        log = logging.getLogger("mxnet_tpu_torch")
+        if name in self.param:
+            src = self.param[name]
+            src = getattr(src, "_data", src)
+            if tuple(tensor.shape) != tuple(src.shape):
+                raise MXNetError(
+                    f"parameter {name!r} cannot be initialized by loading: "
+                    f"target shape {tuple(tensor.shape)} vs loaded "
+                    f"{tuple(src.shape)}")
+            tensor.copy_(torch.as_tensor(onp.asarray(
+                src.detach().cpu() if isinstance(src, torch.Tensor)
+                else src)).to(tensor.dtype))
+            if self.verbose:
+                log.info("Initialized %s by loading", name)
+        elif self.default_init is not None:
+            self.default_init(name, tensor, generator)
+            if self.verbose:
+                log.info("Initialized %s by default", name)
+        else:
+            raise MXNetError(
+                f"cannot initialize {name!r}: not in the loaded params and "
+                "no default initializer provided")
+
+
+class Mixed(Initializer):
+    """The initializer of the first regex in ``patterns`` matching the
+    name (reference :274); a last ``".*"`` gives the fallback."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("Mixed needs equally many patterns and "
+                             "initializers")
+        self.map = [(re.compile(p), init)
+                    for p, init in zip(patterns, initializers)]
+
+    def init_array(self, name, tensor, generator=None):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, tensor, generator)
+                return
+        raise MXNetError(
+            f"parameter {name!r} did not match any Mixed pattern — add a "
+            "'.*' fallback pattern")
+
+
 # the reference's registered names (lower-cased class names and aliases)
 # that these classes cover
 _NAMES = {"zero": Zero, "zeros": Zero, "one": One, "ones": One,
-          "constant": Constant,
-          "uniform": Uniform, "normal": Normal, "xavier": Xavier,
-          "msraprelu": MSRAPrelu}
+          "constant": Constant, "uniform": Uniform, "normal": Normal,
+          "orthogonal": Orthogonal, "xavier": Xavier,
+          "msraprelu": MSRAPrelu, "bilinear": Bilinear,
+          "lstmbias": LSTMBias, "load": Load, "mixed": Mixed}
 
 
 def create(spec, **kwargs):

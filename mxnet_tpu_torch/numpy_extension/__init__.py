@@ -11,8 +11,10 @@ reference's signatures: the framework controls (``set_np``, ``use_np``,
 run torch's convolution and pooling (cuDNN on the card) and the
 reference's BatchNorm formula.
 
-Not ported (they raise :class:`MXNetError` naming their ROADMAP item):
-deconvolution, the other norms, sequence and loss ops, the vision and
+``group_norm``, ``instance_norm``, ``rms_norm``, ``smooth_l1`` and
+``ctc_loss`` are the reference's formulas in plain torch (CTC as optax's
+recursion). Not ported (they raise :class:`MXNetError` naming their
+ROADMAP item): deconvolution, the sequence ops, the vision and
 detection ops and control flow (A9, the rest of the op library); ``custom``
 (A10). Any other registered
 op is reachable by name through :func:`__getattr__`.
@@ -129,6 +131,19 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
                eps=eps)
 
 
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    return _op("group_norm", _nd(data), _nd(gamma), _nd(beta),
+               num_groups=num_groups, eps=eps)
+
+
+def instance_norm(data, gamma, beta, eps=1e-5):
+    return _op("instance_norm", _nd(data), _nd(gamma), _nd(beta), eps=eps)
+
+
+def rms_norm(data, gamma, axis=-1, eps=1e-6):
+    return _op("rms_norm", _nd(data), _nd(gamma), axis=axis, eps=eps)
+
+
 def activation(data, act_type="relu"):
     return _op("activation", _nd(data), act_type=act_type)
 
@@ -239,6 +254,23 @@ def stop_gradient(data):
     return _op("stop_gradient", _nd(data))
 
 
+def smooth_l1(data, scalar=1.0):
+    return _op("smooth_l1", _nd(data), scalar=scalar)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             blank_label="first"):
+    """CTC loss of (T, B, V) logits (reference :186); one value a row."""
+    args = [_nd(data), _nd(label)]
+    if data_lengths is not None:
+        args.append(_nd(data_lengths))
+    if label_lengths is not None:
+        args.append(_nd(label_lengths))
+    return _op("ctc_loss", *args, use_data_lengths=data_lengths is not None,
+               use_label_lengths=label_lengths is not None,
+               blank_label=blank_label)
+
+
 def cast(data, dtype):
     return _nd(data).astype(dtype)
 
@@ -270,8 +302,7 @@ def slice_like(data, shape_like, axes=None):
 
 # the reference's ops outside ops/_core, ops/indexing and ops/nn's ported
 # subset: the rest of the op library (ROADMAP A9) and custom ops (A10)
-for _name in ("deconvolution", "group_norm", "instance_norm", "rms_norm",
-              "smooth_l1", "ctc_loss", "sequence_mask", "sequence_reverse",
+for _name in ("deconvolution", "sequence_mask", "sequence_reverse",
               "sequence_last", "box_iou", "box_nms",
               "box_encode", "box_decode", "roi_pooling", "roi_align",
               "upsampling", "bilinear_resize_2d", "moments", "foreach",

@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT and
 ResNet training and serving paths call. Each op is registered in
 :mod:`.registry` under the reference's name and attributes
 (``fully_connected``, ``convolution``, ``pooling``,
-``adaptive_avg_pool2d``, ``batch_norm``, ``layer_norm``, ``embedding``,
+``adaptive_avg_pool2d``, ``batch_norm``, ``layer_norm``, ``group_norm``,
+``instance_norm``, ``rms_norm``, ``smooth_l1``, ``ctc_loss``, ``embedding``,
 ``leaky_relu``, ``activation``, ``softmax``, ``log_softmax``,
 ``masked_softmax``, ``dropout``, ``pick``, ``multihead_attention``,
 ``flash_attention``), so ``mx.npx`` and NDArrays reach them through
@@ -42,7 +43,8 @@ from ._core import fill_value, take_along_axis, wrap_fill_index
 from .registry import get_op, register
 
 __all__ = ["fully_connected", "matmul", "convolution", "pooling",
-           "adaptive_avg_pool2d", "batch_norm", "layer_norm", "embedding",
+           "adaptive_avg_pool2d", "batch_norm", "layer_norm", "group_norm",
+           "instance_norm", "rms_norm", "smooth_l1", "ctc_loss", "embedding",
            "leaky_relu", "activation", "dropout", "softmax", "log_softmax",
            "masked_softmax", "pick", "one_hot", "multihead_attention",
            "flash_attention"]
@@ -310,6 +312,55 @@ def _layer_norm(axis=-1, eps=1e-5):
     return f
 
 
+@register("group_norm")
+def _group_norm(num_groups=1, eps=1e-5):
+    """GroupNorm over (N, C, ...) (reference :274): the channels cut into
+    ``num_groups`` groups, each normalised by its biased variance (two
+    passes, as ``jnp.var``) and ``rsqrt`` in the input's dtype."""
+    def f(x, gamma, beta):
+        n, c = x.shape[0], x.shape[1]
+        xg = x.reshape(n, num_groups, c // num_groups, *x.shape[2:])
+        red = tuple(range(2, xg.dim()))
+        mean = xg.mean(dim=red, keepdim=True)
+        centered = xg - mean
+        var = (centered * centered).mean(dim=red, keepdim=True)
+        out = (centered * torch.rsqrt(var + eps)).reshape(x.shape)
+        shape = [1] * x.dim()
+        shape[1] = c
+        return out * gamma.reshape(shape) + beta.reshape(shape)
+
+    return f
+
+
+@register("instance_norm")
+def _instance_norm(eps=1e-5):
+    """InstanceNorm over (N, C, ...) (reference :291): each (sample,
+    channel) normalised over its spatial extent."""
+    def f(x, gamma, beta):
+        red = tuple(range(2, x.dim()))
+        mean = x.mean(dim=red, keepdim=True)
+        centered = x - mean
+        var = (centered * centered).mean(dim=red, keepdim=True)
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        return centered * torch.rsqrt(var + eps) * gamma.reshape(shape) + \
+            beta.reshape(shape)
+
+    return f
+
+
+@register("rms_norm")
+def _rms_norm(axis=-1, eps=1e-6):
+    """RMSNorm over ``axis`` (reference :305): the mean of squares in
+    float32, its ``rsqrt`` cast to x's dtype before the product, so a bf16
+    x rounds as the reference's does."""
+    def f(x, gamma):
+        ms = x.float().square().mean(dim=axis, keepdim=True)
+        return (x * torch.rsqrt(ms + eps).to(x.dtype)) * gamma
+
+    return f
+
+
 @register("embedding")
 def _embedding(input_dim=0, output_dim=0, sparse_grad=False):
     """Rows of ``weight`` at ``idx``, as the reference's ``jnp.take``
@@ -436,6 +487,103 @@ def _pick(axis=-1, keepdims=False, mode="clip"):
     return f
 
 
+@register("smooth_l1")
+def _smooth_l1(scalar=1.0):
+    """0.5 (s x)^2 where |x| < 1 / s^2, else |x| - 0.5 / s^2 (reference
+    :486)."""
+    def f(x):
+        s2 = scalar * scalar
+        return torch.where(x.abs() < 1.0 / s2, 0.5 * s2 * x * x,
+                           x.abs() - 0.5 / s2)
+
+    return f
+
+
+_LOG_EPSILON = -1e5   # optax's stand-in for log(0): a finite loss
+
+
+def _ctc(logits, logit_pad, labels, label_pad, blank_id):
+    """Per-sequence CTC loss of ``logits`` (B, T, V) against ``labels`` (B,
+    N), optax's ``ctc_loss`` (the reference's route) step for step: the
+    forward recursion in log space over blank (``phi``) and label
+    (``emit``) states, log(0) as ``-1e5``, so an infeasible alignment
+    costs a large finite loss where ``F.ctc_loss`` gives inf. A padded
+    step keeps the states; the answer is read at each row's label
+    length."""
+    logprobs = torch.log_softmax(logits, dim=-1)
+    b, t_len, v = logits.shape
+    n = labels.shape[1]
+    dt = torch.promote_types(logprobs.dtype, torch.float32)
+    labellens = n - label_pad.sum(dim=1).to(torch.int64)
+    repeat = (labels[:, :-1] == labels[:, 1:]).to(dt)
+    repeat = F.pad(repeat, (0, 1))
+    lp_phi = logprobs[:, :, blank_id].transpose(0, 1).unsqueeze(-1).to(dt)
+    # optax's einsum with one_hot(labels): a label outside [0, V) emits 0
+    valid = (labels >= 0) & (labels < v)
+    idx = labels.clamp(0, v - 1).long().unsqueeze(1).expand(b, t_len, n)
+    lp_emit = torch.where(valid.unsqueeze(1), logprobs.gather(2, idx),
+                          torch.zeros((), dtype=logprobs.dtype,
+                                      device=logprobs.device))
+    lp_emit = lp_emit.transpose(0, 1).to(dt)            # (T, B, N)
+    phi = torch.full((b, n + 1), _LOG_EPSILON, dtype=torch.float32,
+                     device=logits.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), _LOG_EPSILON, dtype=torch.float32,
+                      device=logits.device)
+
+    def update_phi(p, added):
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], added)], 1)
+
+    pads = logit_pad.transpose(0, 1).to(dt).unsqueeze(-1)   # (T, B, 1)
+    skip_rep = _LOG_EPSILON * repeat
+    skip_new = _LOG_EPSILON * (1.0 - repeat)
+    for t in range(t_len):
+        prev_orig = phi
+        prev_phi = update_phi(phi, emit + skip_rep)
+        e, ph, pad = lp_emit[t], lp_phi[t], pads[t]
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + e, emit + e)
+        next_phi = update_phi(prev_phi + ph, emit + ph + skip_new)
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_orig + (1.0 - pad) * next_phi
+    last = update_phi(phi, emit)
+    return -last.gather(1, labellens.unsqueeze(1)).squeeze(1)
+
+
+@register("ctc_loss")
+def _ctc_loss(use_data_lengths=False, use_label_lengths=False,
+              blank_label="first"):
+    """CTC loss of ``data`` (T, B, V) logits against ``label`` (B, L)
+    (reference :496). The blank is class 0 for ``blank_label="first"``
+    (labels <= 0 are then padding when no lengths are given) and V - 1 for
+    ``"last"`` (labels < 0 padding); optional operands give each row's data
+    and label lengths. One loss a row, (B,)."""
+    def f(data, label, *lens):
+        logits = data.transpose(0, 1)
+        b, t_len, v = logits.shape
+        dev = data.device
+        i = 0
+        if use_data_lengths:
+            dl = lens[i].to(torch.int32)
+            i += 1
+        else:
+            dl = torch.full((b,), t_len, dtype=torch.int32, device=dev)
+        if use_label_lengths:
+            ll = lens[i].to(torch.int32)
+        elif blank_label == "first":
+            ll = ((label >= 0) & (label != 0)).sum(-1).to(torch.int32)
+        else:
+            ll = (label >= 0).sum(-1).to(torch.int32)
+        logit_pad = (torch.arange(t_len, device=dev)[None, :] >=
+                     dl[:, None]).float()
+        label_pad = (torch.arange(label.shape[1], device=dev)[None, :] >=
+                     ll[:, None]).float()
+        blank = 0 if blank_label == "first" else v - 1
+        return _ctc(logits, logit_pad, label.to(torch.int32), label_pad,
+                    blank)
+
+    return f
+
+
 @register("multihead_attention")
 def _multihead_attention(num_heads=1, dropout=0.0, causal=False, scale=None,
                          num_kv_heads=None):
@@ -542,6 +690,11 @@ _POOLING = _Door("pooling")
 _ADAPTIVE_AVG = _Door("adaptive_avg_pool2d")
 _BATCH_NORM = _Door("batch_norm")
 _LN = _Door("layer_norm")
+_GROUP_NORM = _Door("group_norm")
+_INSTANCE_NORM = _Door("instance_norm")
+_RMS_NORM = _Door("rms_norm")
+_SMOOTH_L1 = _Door("smooth_l1")
+_CTC = _Door("ctc_loss")
 _EMBEDDING = _Door("embedding")
 _LEAKY = _Door("leaky_relu")
 _ACTIVATION = _Door("activation")
@@ -605,6 +758,36 @@ def batch_norm(x, gamma, beta, running_mean, running_var, eps=1e-5,
 def layer_norm(x, gamma, beta, axis=-1, eps=1e-5):
     """LayerNorm over ``axis`` (reference :255)."""
     return _LN.fn(axis=axis, eps=eps)(x, gamma, beta)
+
+
+def group_norm(x, gamma, beta, num_groups=1, eps=1e-5):
+    """GroupNorm of (N, C, ...) ``x`` (reference :274)."""
+    return _GROUP_NORM.fn(num_groups=num_groups, eps=eps)(x, gamma, beta)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    """InstanceNorm of (N, C, ...) ``x`` (reference :291)."""
+    return _INSTANCE_NORM.fn(eps=eps)(x, gamma, beta)
+
+
+def rms_norm(x, gamma, axis=-1, eps=1e-6):
+    """RMSNorm over ``axis`` (reference :305)."""
+    return _RMS_NORM.fn(axis=axis, eps=eps)(x, gamma)
+
+
+def smooth_l1(x, scalar=1.0):
+    """The smooth L1 function (reference :486)."""
+    return _SMOOTH_L1.fn(scalar=scalar)(x)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             blank_label="first"):
+    """CTC loss of (T, B, V) logits against (B, L) labels (reference
+    :496); see the registered op."""
+    args = [a for a in (data_lengths, label_lengths) if a is not None]
+    return _CTC.fn(use_data_lengths=data_lengths is not None,
+                   use_label_lengths=label_lengths is not None,
+                   blank_label=blank_label)(data, label, *args)
 
 
 def embedding(idx, weight):

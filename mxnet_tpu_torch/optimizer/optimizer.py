@@ -1,19 +1,30 @@
 """Optimizers of the port: each one a plain per-tensor recurrence.
 
 Counterpart of ``mxnet_tpu/optimizer/optimizer.py``: the ``Optimizer`` base
-(:42-297) and ``SGD`` (:349-380), ``NAG`` (:392-407), ``Adam`` and ``AdamW``
-(:410-479). Each optimizer declares its recurrence once
-(``_register_step``, reference :199-222) as a plain function on tensors,
-``step(w, *states, g, lr, wd[, t])``, returning the new weight and states.
-One declaration serves both paths: ``update`` runs it on one parameter
-under ``torch.no_grad()`` and writes the results into the weight and state
-tensors in place, where the reference rebinds donated buffers; the
-``Trainer``'s fused multi-tensor update and the compiled train step read it
-through :attr:`Optimizer.fused_step`. ``elementwise=True`` (SGD, Adam,
-AdamW; not NAG, as the reference declares it) lets the fused path run the
-recurrence once over many small tensors flattened into one vector, with
-the hypers spread per element. The reference's other optimizers and its
-lazy row-sparse updates are not ported yet.
+(:42-297) and the reference's nineteen registered optimizers: ``SGD``
+(:349), ``NAG`` (:392), ``Adam`` and ``AdamW`` (:410-479), ``Adamax``
+(:482), ``Nadam`` (:502), ``RMSProp`` (:524), ``AdaGrad`` (:557),
+``AdaDelta`` (:583), ``Ftrl`` (:603), ``FTML`` (:640), ``Signum`` (:663),
+``LAMB`` (:691), ``LARS`` (:728), ``LANS`` (:754), ``AdaBelief`` (:792),
+``SGLD`` (:813), ``DCASGD`` (:829) and ``GroupAdaGrad`` (:858). Each
+optimizer declares its recurrence once (``_register_step``, reference
+:199-222) as a plain function on tensors, ``step(w, *states, g, lr, wd[,
+t])``, returning the new weight and states. One declaration serves both
+paths: ``update`` runs it on one parameter under ``torch.no_grad()`` and
+writes the results into the weight and state tensors in place, where the
+reference rebinds donated buffers; the ``Trainer``'s fused multi-tensor
+update and the compiled train step read it through
+:attr:`Optimizer.fused_step`. ``elementwise=True`` lets the fused path run
+the recurrence once over many small tensors flattened into one vector,
+with the hypers spread per element; LAMB, LARS, LANS, GroupAdaGrad and NAG
+are not elementwise (whole-tensor norms, row sums), so each of their
+tensors runs alone. ``SGLD`` draws noise in its ``_apply`` and declares no
+step, so it has no fused path (the compiled step falls back to the eager
+loop for it, as the reference's does).
+
+Inside a captured step the hypers are device tensors, so no recurrence
+reads a value to the host: guards are ``torch.where`` on device scalars,
+never a Python branch on a norm.
 
 Semantics kept from the reference: ``rescale_grad`` multiplies the gradient
 outside the step (:183-188) and ``clip_gradient`` then clips it, where a
@@ -26,16 +37,23 @@ states are float32 whatever the weight's dtype; with ``multi_precision`` a
 bfloat16/float16 weight is updated through a float32 master copy
 (:145-151, :189-194). The hypers ``lr``, ``wd`` and ``t`` arrive as Python
 numbers on the per-parameter path and as tensors (float32 ``lr``/``wd``,
-float64 ``t``) on the fused paths; Adam's bias correction ``1 - beta ** t``
-is computed in double either way and rounded to float32 where it divides.
+float64 ``t``) on the fused paths; a bias correction ``1 - beta ** t`` is
+computed in double either way and rounded to float32 where it divides.
+``lazy_update`` is accepted; row-sparse gradients (and so the lazy
+updates) are not ported yet.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create", "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "Adamax", "Nadam",
+           "RMSProp", "AdaGrad", "AdaDelta", "Ftrl", "FTML", "Signum",
+           "LAMB", "LARS", "LANS", "AdaBelief", "SGLD", "DCASGD",
+           "GroupAdaGrad", "create", "register"]
 
 _registry = {}
 
@@ -172,6 +190,8 @@ class Optimizer:
         else:
             self._update_one(index, weight, grad, state)
 
+    update_multi_precision = update
+
     def _update_one(self, index, weight, grad, state):
         t = self._update_count(index)
         lr = self._get_lr(index)
@@ -213,9 +233,10 @@ class Optimizer:
             args.append(t)
         out = step(*args)
         if keys:
-            weight.copy_(out[0])
+            # the states first: a state may take the old weight (DCASGD)
             for k, new in zip(keys, out[1:]):
                 state[k].copy_(new)
+            weight.copy_(out[0])
         else:
             weight.copy_(out)
 
@@ -234,9 +255,11 @@ class SGD(Optimizer):
     """SGD with optional momentum (reference: sgd_mom_update); the step
     runs in float32."""
 
-    def __init__(self, learning_rate=0.01, momentum=0.0, **kwargs):
+    def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=True,
+                 **kwargs):
         super().__init__(learning_rate, **kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
         def step(w, mom, g, lr, wd):
             g = self._pre(g).float()
@@ -282,6 +305,23 @@ class NAG(Optimizer):
                                    device=weight.device)}
 
 
+def _zeros(weight, *keys):
+    """float32 zero states of ``weight``'s shape, one a key."""
+    return {k: torch.zeros(weight.shape, dtype=torch.float32,
+                           device=weight.device) for k in keys}
+
+
+def _norm(x):
+    """The whole tensor's 2-norm (``jnp.linalg.norm`` of any shape), a
+    0-dim tensor of x's dtype on x's device. On the CPU it is summed in
+    float64: torch's CPU norm of float32 sums in float32 lanes, which is
+    6.8e-4 off at 2.4 M values near 1 (a trust ratio's update), where the
+    card's tree sum, and XLA's, are not."""
+    if x.device.type == "cpu":
+        return torch.linalg.vector_norm(x, dtype=torch.float64).to(x.dtype)
+    return torch.linalg.vector_norm(x)
+
+
 def _bias_correction(beta, t):
     """``1 - beta ** t`` in double; float32 where ``t`` is a tensor (the
     fused paths), so it divides a float32 moment as the Python double of
@@ -293,10 +333,12 @@ def _bias_correction(beta, t):
 
 class _AdamBase(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, correct_bias=True, adamw=False, **kwargs):
+                 epsilon=1e-8, correct_bias=True, adamw=False,
+                 lazy_update=True, **kwargs):
         super().__init__(learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
         self.correct_bias = correct_bias
+        self.lazy_update = lazy_update
         b1, b2, eps = beta1, beta2, epsilon
         decoupled = adamw
 
@@ -321,9 +363,7 @@ class _AdamBase(Optimizer):
                             elementwise=True)
 
     def create_state(self, index, weight):
-        z = dict(dtype=torch.float32, device=weight.device)
-        return {"mean": torch.zeros(weight.shape, **z),
-                "var": torch.zeros(weight.shape, **z)}
+        return _zeros(weight, "mean", "var")
 
 
 @register
@@ -340,3 +380,415 @@ class AdamW(_AdamBase):
 
     def __init__(self, learning_rate=0.001, **kwargs):
         super().__init__(learning_rate, adamw=True, **kwargs)
+
+
+@register
+class Adamax(Optimizer):
+    """Adam with the infinity norm (reference :482)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        b1, b2 = beta1, beta2
+
+        def step(w, m, u, g, lr, wd, t):
+            g = self._pre(g) + wd * w
+            m = b1 * m + (1 - b1) * g
+            u = torch.maximum(b2 * u, g.abs())
+            return w - lr / _bias_correction(b1, t) * m / (u + 1e-8), m, u
+
+        self._register_step(step, ("mean", "u"), needs_t=True,
+                            elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "mean", "u")
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (reference :502)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        b1, b2, eps = beta1, beta2, epsilon
+
+        def step(w, m, v, g, lr, wd, t):
+            g = self._pre(g) + wd * w
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mhat = m / _bias_correction(b1, t + 1)
+            vhat = v / _bias_correction(b2, t)
+            upd = b1 * mhat + (1 - b1) * g / _bias_correction(b1, t)
+            return w - lr * upd / (torch.sqrt(vhat) + eps), m, v
+
+        self._register_step(step, ("mean", "var"), needs_t=True,
+                            elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "mean", "var")
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain or ``centered`` (reference :524)."""
+
+    def __init__(self, learning_rate=0.001, rho=0.9, momentum=0.9,
+                 epsilon=1e-8, centered=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.centered = centered
+        self.momentum = momentum
+
+        def step(w, n, g_avg, mom, g, lr, wd):
+            g = self._pre(g) + wd * w
+            n = rho * n + (1 - rho) * g * g
+            if centered:
+                g_avg = rho * g_avg + (1 - rho) * g
+                denom = torch.sqrt(n - g_avg * g_avg + epsilon)
+            else:
+                denom = torch.sqrt(n + epsilon)
+            if momentum > 0:
+                mom = momentum * mom - lr * g / denom
+                w = w + mom
+            else:
+                w = w - lr * g / denom
+            return w, n, g_avg, mom
+
+        self._register_step(step, ("n", "g", "mom"), elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "n", "g", "mom")
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference :557)."""
+
+    def __init__(self, learning_rate=0.01, epsilon=1e-7, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+
+        def step(w, h, g, lr, wd):
+            g = self._pre(g) + wd * w
+            h = h + g * g
+            return w - lr * g / (torch.sqrt(h) + epsilon), h
+
+        self._register_step(step, ("history",), elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "history")
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference :583)."""
+
+    def __init__(self, learning_rate=1.0, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+
+        def step(w, acc_g, acc_d, g, lr, wd):
+            g = self._pre(g) + wd * w
+            acc_g = rho * acc_g + (1 - rho) * g * g
+            delta = torch.sqrt(acc_d + epsilon) / \
+                torch.sqrt(acc_g + epsilon) * g
+            acc_d = rho * acc_d + (1 - rho) * delta * delta
+            return w - lr * delta, acc_g, acc_d
+
+        self._register_step(step, ("acc_g", "acc_delta"), elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "acc_g", "acc_delta")
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularized leader (reference :603)."""
+
+    def __init__(self, learning_rate=0.1, lamda1=0.01, beta=1.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+
+        def step(w, z, n, g, lr, wd):
+            g = self._pre(g)
+            sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / lr
+            z = z + g - sigma * w
+            n = n + g * g
+            w = torch.where(
+                z.abs() > lamda1,
+                -(z - torch.sign(z) * lamda1) /
+                ((beta + torch.sqrt(n)) / lr + wd),
+                torch.zeros_like(z))
+            return w, z, n
+
+        self._register_step(step, ("z", "n"), elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "z", "n")
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader (reference :640)."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        b1, b2, eps = beta1, beta2, epsilon
+
+        def step(w, d, s, z, g, lr, wd, t):
+            g = self._pre(g) + wd * w
+            s = b2 * s + (1 - b2) * g * g
+            sigma_t = torch.sqrt(s / _bias_correction(b2, t)) + eps
+            d_new = _bias_correction(b1, t) / lr * sigma_t
+            z = b1 * z + (1 - b1) * g - (d_new - b1 * d) * w
+            return -z / d_new, d_new, s, z
+
+        self._register_step(step, ("d", "s", "z"), needs_t=True,
+                            elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "d", "s", "z")
+
+
+@register
+class Signum(Optimizer):
+    """signSGD with momentum (reference :663); ``wd_lh`` is accepted, as
+    in the reference, which does not read it."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.momentum = momentum
+
+        def step(w, mom, g, lr, wd):
+            g = self._pre(g) + wd * w
+            mom = self.momentum * mom - (1 - self.momentum) * g
+            return w + lr * torch.sign(mom), mom
+
+        def step_nomom(w, g, lr, wd):
+            g = self._pre(g) + wd * w
+            return w - lr * torch.sign(g)
+
+        if momentum == 0.0:
+            self._register_step(step_nomom, elementwise=True)
+        else:
+            self._register_step(step, ("mom",), elementwise=True)
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return {}
+        return _zeros(weight, "mom")
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments (reference :691): Adam's direction plus
+    decoupled decay, scaled by the trust ratio ``|w| / |r|`` of the whole
+    tensor (1 where either norm is 0); ``lower_bound``/``upper_bound``
+    clamp ``|w|``. Not elementwise."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+        b1, b2, eps = beta1, beta2, epsilon
+
+        def step(w, m, v, g, lr, wd, t):
+            g = self._pre(g).float()
+            wf = w.float()
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            if bias_correction:
+                mhat = m / _bias_correction(b1, t)
+                vhat = v / _bias_correction(b2, t)
+            else:
+                mhat, vhat = m, v
+            r = mhat / (torch.sqrt(vhat) + eps) + wd * wf
+            w_norm = _norm(wf)
+            if lower_bound is not None:
+                w_norm = w_norm.clamp(min=lower_bound)
+            if upper_bound is not None:
+                w_norm = w_norm.clamp(max=upper_bound)
+            r_norm = _norm(r)
+            ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                                torch.ones_like(w_norm))
+            return (wf - lr * ratio * r).to(w.dtype), m, v
+
+        self._register_step(step, ("mean", "var"), needs_t=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "mean", "var")
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling (reference :728): momentum SGD
+    whose step is scaled by ``eta |w| / (|g| + wd |w| + eps)`` of the whole
+    tensor (1 where either norm is 0). Not elementwise."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.momentum = momentum
+
+        def step(w, mom, g, lr, wd):
+            g = self._pre(g)
+            w_norm = _norm(w)
+            g_norm = _norm(g)
+            trust = torch.where(
+                (w_norm > 0) & (g_norm > 0),
+                eta * w_norm / (g_norm + wd * w_norm + epsilon),
+                torch.ones_like(w_norm))
+            g = g + wd * w
+            mom = self.momentum * mom + trust * lr * g
+            return w - mom, mom
+
+        self._register_step(step, ("mom",))
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "mom")
+
+
+@register
+class LANS(Optimizer):
+    """LAMB on the normalised gradient, with two trust ratios (reference
+    :754): the moment's and the gradient's directions, each scaled by its
+    own ``|w| / |r|``, mixed by ``beta1``. Not elementwise."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        b1, b2, eps = beta1, beta2, epsilon
+
+        def step(w, m, v, g, lr, wd, t):
+            g = self._pre(g).float()
+            g = g / _norm(g).clamp(min=1e-12)
+            wf = w.float()
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mhat = m / _bias_correction(b1, t)
+            vhat = v / _bias_correction(b2, t)
+            w_norm = _norm(wf)
+
+            def trust(update):
+                r = update + wd * wf
+                r_norm = _norm(r)
+                ratio = torch.where((w_norm > 0) & (r_norm > 0),
+                                    w_norm / r_norm, torch.ones_like(r_norm))
+                return ratio * r
+
+            r1 = trust(mhat / (torch.sqrt(vhat) + eps))
+            r2 = trust(g / (torch.sqrt(vhat) + eps))
+            upd = b1 * r1 + (1 - b1) * r2
+            return (wf - lr * upd).to(w.dtype), m, v
+
+        self._register_step(step, ("mean", "var"), needs_t=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "mean", "var")
+
+
+@register
+class AdaBelief(Optimizer):
+    """AdaBelief (reference :792): Adam with the variance of the gradient
+    around its moment."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        b1, b2, eps = beta1, beta2, epsilon
+
+        def step(w, m, v, g, lr, wd, t):
+            g = self._pre(g) + wd * w
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * (g - m) ** 2 + eps
+            mhat = m / _bias_correction(b1, t)
+            vhat = v / _bias_correction(b2, t)
+            return w - lr * mhat / (torch.sqrt(vhat) + eps), m, v
+
+        self._register_step(step, ("mean", "var"), needs_t=True,
+                            elementwise=True)
+
+    def create_state(self, index, weight):
+        return _zeros(weight, "mean", "var")
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference :813): a half step
+    down the gradient plus N(0, lr) noise, drawn from the generator of
+    :mod:`mxnet_tpu_torch.random` on the weight's device. It declares no
+    fused step (its ``_apply`` draws), so the ``Trainer`` updates it per
+    parameter and the compiled step takes the eager loop."""
+
+    def __init__(self, learning_rate=0.01, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+
+    def _apply(self, w, g, state, lr, wd, t):
+        from .. import random as _random
+
+        noise = torch.randn(w.shape, generator=_random.generator(w.device),
+                            device=w.device) * math.sqrt(lr)
+        gd = self._pre(g) + wd * w
+        w.copy_(w - lr / 2 * gd + noise.to(w.dtype))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD (reference :829): the gradient corrected by
+    ``lamda g² (w - w_prev)``, the previous weight kept as a state."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+        def step(w, prev_w, mom, g, lr, wd):
+            g = self._pre(g) + wd * w
+            g = g + self.lamda * g * g * (w - prev_w)
+            mom = self.momentum * mom - lr * g
+            return w + mom, w, mom
+
+        self._register_step(step, ("prev", "mom"), elementwise=True)
+
+    def create_state(self, index, weight):
+        return {"prev": weight.detach().clone(),
+                **_zeros(weight, "mom")}
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """AdaGrad with one history value a row (reference :858): the mean of
+    the squared gradient over the non-row axes accumulates per row. Weight
+    decay is rejected, as in the reference. Not elementwise (its state is
+    (rows, 1, ...))."""
+
+    @staticmethod
+    def _reject_wd(wd):
+        if wd:
+            raise ValueError("GroupAdaGrad does not support weight decay "
+                             "(the reference's restriction)")
+
+    def __init__(self, learning_rate=0.01, epsilon=1e-6, **kwargs):
+        self._reject_wd(kwargs.get("wd"))
+        super().__init__(learning_rate, **kwargs)
+
+        def step(w, h, g, lr, wd):
+            g = self._pre(g)
+            if g.dim() > 1:
+                h = h + (g * g).mean(dim=tuple(range(1, g.dim())),
+                                     keepdim=True)
+            else:
+                h = h + g * g
+            return w - lr * g / (torch.sqrt(h) + epsilon), h
+
+        self._register_step(step, ("history",))
+
+    def create_state(self, index, weight):
+        shape = (weight.shape[0],) + (1,) * (weight.dim() - 1) \
+            if weight.dim() else ()
+        return {"history": torch.zeros(shape, dtype=torch.float32,
+                                       device=weight.device)}
+
+    def _apply(self, w, g, state, lr, wd, t):
+        self._reject_wd(float(wd))
+        super()._apply(w, g, state, lr, wd, t)

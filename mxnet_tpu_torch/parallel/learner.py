@@ -210,6 +210,41 @@ class _ScaleByAdam:
         return out
 
 
+class _ScaleByTrustRatio:
+    """``optax.scale_by_trust_ratio()`` (LAMB's): each update times
+    ``|p| / |u|`` of its whole tensor, 1 where either norm is 0. The
+    groups never split a tensor, so each norm is whole. The norms are
+    returned in the tensor's dtype, as optax's ``safe_norm`` reduces in the
+    array's dtype (``_norms``: summed in float32 on the card, float64 on
+    the CPU); the ratio and the product are in the update's dtype, as
+    optax's."""
+
+    def init(self, params):
+        return {}
+
+    @staticmethod
+    def _norms(ts):
+        """The tensors' 2-norms, stacked, in their dtype: one multi-tensor
+        pass on the card; on the CPU the optimizers' ``_norm`` (summed in
+        float64: torch's CPU ``_foreach_norm`` sums float32 in float32
+        lanes)."""
+        if ts[0].device.type == "cpu":
+            from ..optimizer.optimizer import _norm
+
+            return torch.stack([_norm(t) for t in ts])
+        return torch.stack(torch._foreach_norm(ts))
+
+    def update(self, updates, state, params):
+        for dt, idx in _groups(updates):
+            u = _take(updates, idx)
+            p_norm = self._norms(_take(params, idx))
+            u_norm = self._norms(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            torch._foreach_mul_(u, list(ratio.to(dt).unbind()))
+        return updates
+
+
 class _ScaleByLearningRate:
     """``optax.scale_by_learning_rate(lr)``: the update times ``-lr``."""
 
@@ -262,16 +297,18 @@ def to_optax(optimizer):
     does not use optax; a ``GradientTransformation`` passes through).
     Mapped: ``SGD`` (heavy-ball momentum, decay by
     ``add_decayed_weights``), ``Adam`` (decay by ``add_decayed_weights``
-    before the chain), ``AdamW``; ``clip_gradient`` is an elementwise
-    ``clip``. ``rescale_grad`` and ``lr_mult``/``wd_mult`` are not read, as
-    in the reference."""
+    before the chain), ``AdamW``, and ``LAMB`` as ``optax.lamb``:
+    ``scale_by_adam``, ``add_decayed_weights(wd)`` over every parameter,
+    ``scale_by_trust_ratio``, ``scale_by_learning_rate`` (LAMB's
+    ``lower_bound``, ``upper_bound`` and ``bias_correction`` are not read,
+    as in the reference: optax's LAMB always corrects the bias and bounds
+    nothing). ``clip_gradient`` is an elementwise ``clip``.
+    ``rescale_grad`` and ``lr_mult``/``wd_mult`` are not read, as in the
+    reference."""
     from .. import optimizer as opt_mod
 
     if isinstance(optimizer, GradientTransformation):
         return optimizer
-    if type(optimizer).__name__ == "LAMB":
-        raise MXNetError("LAMB is not ported yet (ROADMAP A5: the other "
-                         "optimizers of the PyTorch/CUDA port)")
     lr = optimizer.learning_rate
     chain = []
     if optimizer.clip_gradient is not None:
@@ -287,6 +324,12 @@ def to_optax(optimizer):
                                optimizer.epsilon), _ScaleByLearningRate(lr)]
         if optimizer.wd:
             chain.insert(0, _AddDecayedWeights(optimizer.wd))
+    elif isinstance(optimizer, opt_mod.LAMB):
+        chain.append(_ScaleByAdam(optimizer.beta1, optimizer.beta2,
+                                  optimizer.epsilon))
+        if optimizer.wd:
+            chain.append(_AddDecayedWeights(optimizer.wd))
+        chain += [_ScaleByTrustRatio(), _ScaleByLearningRate(lr)]
     elif isinstance(optimizer, opt_mod.SGD):
         if optimizer.wd:
             chain.append(_AddDecayedWeights(optimizer.wd))

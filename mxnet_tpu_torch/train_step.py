@@ -79,8 +79,13 @@ the warm step by one forward under ``autograd.pause()`` (the reference's
 ``_ensure_initialized``), which leaves the statistics as they were; never
 inside a capture.
 
-Semantic fallback (reference :660-670): an optimizer without a fusable
-step or with ``multi_precision`` runs the eager loop
+Under ``multi_precision`` the recurrence updates the float32 master
+copies (the ``weight_fp32`` states, part of the graph's state) and rounds
+them into the low-precision parameters inside the graph, so such a step
+captures too (the reference's compiled step takes its eager fallback
+there). Semantic fallback (reference :660-670): an optimizer without a
+fusable step (SGLD, which draws its noise in ``_apply``) runs the eager
+loop
 ``loss_fn(net(x), y).mean(); backward(); trainer.step(1)`` with a warning
 once per (reason, net). A graph holds raw addresses: a call whose
 trainables or optimizer states no longer lie where the graph captured them
@@ -102,7 +107,7 @@ from . import random as _random
 from .base import MXNetError, warn_once
 from .cached_op import GraphPool
 from .gluon.block import unwrap
-from .gluon.trainer import _fused_layout
+from .gluon.trainer import _fused_layout, round_masters, update_targets
 from .ndarray.ndarray import NDArray
 
 __all__ = ["CompiledTrainStep"]
@@ -128,13 +133,15 @@ class _Program:
         self.aux = [p for p in step.net.parameters() if id(p) not in held]
         self.device = dev = self.params[0].device
         self.states = [tr._states[i] for i in idxs]
+        # the tensors the recurrence updates: float32 masters or the params
+        self.targets = update_targets(self.params, self.states)
         keys = spec[1]
         buckets = {}
         for k, p in enumerate(self.params):
             buckets.setdefault(p.dtype, []).append(k)
         self.buckets = []
         for pos in buckets.values():
-            layout = _fused_layout([self.params[k] for k in pos],
+            layout = _fused_layout([self.targets[k] for k in pos],
                                    [self.states[k] for k in pos], keys,
                                    spec[3])
             sel = None if pos == list(range(len(idxs))) else \
@@ -158,7 +165,8 @@ class _Program:
 
     def _addresses(self, states):
         return [(p.data_ptr(), p.dtype) for p in self.params + self.aux] + [
-            st[k].data_ptr() for st in states for k in self.spec[1]]
+            st[k].data_ptr() for st in states
+            for k in (*self.spec[1], "weight_fp32") if k in st]
 
     def current(self):
         """True while every parameter of the net and trainer, and every
@@ -233,11 +241,13 @@ class _Program:
             for layout, pos, sel in self.buckets:
                 hyp = [v if sel is None else v.index_select(0, sel)
                        for v in (lrs, wds, ts)]
+                targets = [self.targets[k] for k in pos]
                 layout.update(
-                    self.spec, [self.params[k] for k in pos],
+                    self.spec, targets,
                     [tuple(self.states[k][key] for key in keys)
                      for k in pos],
                     [grads[k] for k in pos], *hyp, rescale, keep)
+                round_masters([self.params[k] for k in pos], targets)
             j = self.ctr[1:]
             self.losses.index_copy_(0, j, loss.float().reshape(1))
             if scaler_on:
@@ -305,9 +315,6 @@ class CompiledTrainStep:
         if opt.fused_step is None:
             self.fallback_reason = (
                 f"{type(opt).__name__} declares no fusable per-tensor step")
-        elif opt.multi_precision:
-            self.fallback_reason = ("multi_precision uses the per-param "
-                                    "master-weight path")
 
     # -- multi-step configuration (reference :770) --------------------------
     def compile_multi_step(self, multi_step, accumulate=1):

@@ -378,8 +378,9 @@ def test_create_knows_the_reference_names():
     assert tinit.create("xavier", magnitude=2).magnitude == 2.0
     assert isinstance(tinit.create("zero"), tinit.Zero)
     assert isinstance(tinit.create("ones"), tinit.One)
+    assert isinstance(tinit.create("orthogonal"), tinit.Orthogonal)
     with pytest.raises(MXNetError, match="unknown initializer"):
-        tinit.create("orthogonal")
+        tinit.create("no_such_initializer")
 
 
 def test_gpt_initialisation_is_unchanged_by_the_fill_by_name():

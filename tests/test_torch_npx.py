@@ -359,8 +359,8 @@ def test_framework_controls():
         tnpx.no_such_op  # noqa: B018
 
 
-@pytest.mark.parametrize("name", ["deconvolution", "group_norm",
-                                  "instance_norm", "roi_align", "box_nms", "upsampling",
+@pytest.mark.parametrize("name", ["deconvolution", "sequence_reverse",
+                                  "box_iou", "roi_align", "box_nms", "upsampling",
                                   "sequence_mask", "foreach"])
 def test_ops_left_for_a9_raise(name):
     with pytest.raises(MXNetError, match="A9"):

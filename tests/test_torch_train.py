@@ -122,7 +122,8 @@ def test_optimizer_recurrences_match_reference(name, extra):
 
 def test_optimizer_registry_and_clip_off():
     with pytest.raises(MXNetError, match="not registered"):
-        topt.create("lamb")
+        topt.create("no_such_optimizer")
+    assert isinstance(topt.create("LAMB"), topt.LAMB)
     o = topt.create("sgd", learning_rate=1.0, clip_gradient=0.0)
     w = torch.zeros(3)
     o.update(0, w, torch.tensor([5.0, -5.0, 1.0]), {})

@@ -266,31 +266,51 @@ def test_loss_scaler_skip_matches_jax():
 # -- (e) the semantic fallback -------------------------------------------------
 def test_multi_precision_falls_back_to_eager_once():
     """Analog of tests/test_train_step.py:230: the step warns once, names
-    its reason, and trains as the eager loop does."""
+    its reason, and trains as the eager loop does. The port's compiled step
+    captures ``multi_precision`` (its masters are states of the update;
+    ``tests/test_torch_optimizers.py`` holds that path), so the fallback is
+    shown with SGLD, the one optimizer without a fused step; its noise
+    draws from the port's generator, reseeded before each twin's step."""
     import warnings
+
+    from mxnet_tpu_torch import random as trandom
 
     a, b = _twin_ports(seed=25)
     loss_fn = tloss.SoftmaxCELoss()
-    params = {"learning_rate": 0.05, "momentum": 0.9,
-              "multi_precision": True}
-    ta = Trainer(a.collect_params(), "sgd", dict(params))
-    tb = Trainer(b.collect_params(), "sgd", dict(params))
+    params = {"learning_rate": 0.05, "multi_precision": True}
+    ta = Trainer(a.collect_params(), "sgld", dict(params))
+    tb = Trainer(b.collect_params(), "sgld", dict(params))
     step = ta.compile_step(a, loss_fn)
-    assert "multi_precision" in step.fallback_reason
+    assert "SGLD declares no fusable" in step.fallback_reason
+    assert Trainer(a.collect_params(), "sgd", dict(params)).compile_step(
+        a, loss_fn).fallback_reason is None
     batches = _batches(8, 3)
+    step = _reseeded(step, trandom)
+    eager = _reseeded(_eager_step, trandom)
     with pytest.warns(RuntimeWarning, match="falling back"):
         loss = step(*map(_t, batches[0]))
     assert math.isfinite(float(loss))
-    _eager_step(b, tb, loss_fn, *map(_t, batches[0]))
+    eager(b, tb, loss_fn, *map(_t, batches[0]))
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         for x, y in batches[1:]:
             step(_t(x), _t(y))
-            _eager_step(b, tb, loss_fn, _t(x), _t(y))
+            eager(b, tb, loss_fn, _t(x), _t(y))
     assert not [r for r in rec if issubclass(r.category, RuntimeWarning)]
     _same(a, b)
     with pytest.raises(MXNetError, match="eager"):
         step.compile_multi_step(2)
+
+
+def _reseeded(fn, trandom, seed=7):
+    """``fn`` with the port's generators reseeded before each call, so two
+    twins draw the same noise."""
+    def run(*args):
+        trandom.seed(seed)
+        return fn(*args)
+
+    run.compile_multi_step = getattr(fn, "compile_multi_step", None)
+    return run
 
 
 def test_step_fn_requires_compile_and_mesh_is_not_ported():
