@@ -357,11 +357,43 @@ Phases (any failure exits non-zero without the final line):
              gradient on the card against the CPU: fp32 norms within 1e-5
              (forward) and 1e-4 (gradient), bf16 within 2^-7 and 2^-6, the
              losses within 1e-5 (CTC 2e-4, SDML 5e-4) of each largest entry.
+13. data — the input pipeline (``gluon.data``, ``metric``, ``callback``,
+             ``io``): (i) ``tests/torch_script_mnist.py`` (the JAX package's
+             ``examples/gluon_mnist.py``, imports changed, ``mx.gpu()``):
+             synthetic MNIST (8192 / 1024), ``DataLoader(num_workers=2)``
+             with spawned workers, the hybridized MLP, adam,
+             ``metric.Accuracy``, 2 epochs: the loss falls and validation
+             accuracy reaches 0.9; (ii) GPT-2 small (fp32, dropout 0, B = 4,
+             T = 1024) fed 34 batches of seeded token windows by
+             ``DataLoader(batch_size=4, sampler=RandomSampler(n, rng=0),
+             num_workers=4, pin_memory=True).device_prefetch(4)`` into
+             ``compile_step(...).compile_multi_step(4)``: 8 groups of 4 and
+             a trailing group of 2, one capture (the trailing group replays
+             the one-step program), ``metric.Loss`` over the losses,
+             ``callback.Speedometer(4, frequent=4)`` on ``BatchEndParam``,
+             ``metric.Perplexity`` over a 4-batch validation loader through
+             the predict-mode forward; flash forward, dK/dV, dQ and
+             LayerNorm launches under the ``data`` path; losses and weights
+             bitwise equal to a twin fed the same batches by a serial loader,
+             stacked by hand on the card; then the step fed by the
+             prefetcher (A) and from groups staged before (B), A B B A: wall,
+             busy and idle a group, the top kernels of a profiled group, and
+             the streams of the H2D copies and their overlap with kernels on
+             other streams; (iii) batches a second of the serial, 4-thread
+             and 4-process loaders on the token windows and on MNIST through
+             ``ToTensor`` and ``Normalize``, and ``Perplexity.update``'s time
+             and bytes to the host against ``.asnumpy()`` of the same
+             probabilities; (iv) the spawned workers' own reports (no CUDA
+             initialised, no GPU visible, no kernel library, arrays on the
+             CPU) and ``nvidia-smi --query-compute-apps`` listing none of
+             them, a mid-epoch ``state_dict``/``load_state_dict`` resume of
+             the prefetcher giving exactly the unconsumed groups, and no
+             ``psm_*`` shared-memory segment left in ``/dev/shm``.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
-``optim``; ``script`` runs phase 4 first, for its weights, batches and
-losses, and ``optim`` phase 9's AdamW Large bench) runs the
+``optim``, ``data``; ``script`` runs phase 4 first, for its weights,
+batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
 each path (serve, train, train_compiled, train_amp and nd (serve: the warm
@@ -372,10 +404,13 @@ bert_pretrain (the two benches' warm steps and captures), graph (the
 traces, warm calls and captures; also the row's ``graph`` key), script
 (phase 11: its eager steps, warm calls and captures; also the row's
 ``script`` key), optim (phase 12 (i)'s bench and (ii)'s step: warm steps
-and captures; also the row's ``optim`` key); a row
+and captures; also the row's ``optim`` key), data (phase 13 (ii): the
+compiled step's warm step and capture and the predict-mode forwards; also
+the row's ``data`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import gc
 import json
 import math
@@ -5888,13 +5923,554 @@ def phase_optim(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the input pipeline (gluon.data, metric, callback, io)
+# ---------------------------------------------------------------------------
+DATA_BATCHES = 34          # (ii) batches of TRAIN_SHAPE: 8 groups of 4 + 2
+DATA_K = 4                 # (ii) steps a group (compile_multi_step)
+DATA_VAL_BATCHES = 4       # (ii) Perplexity's validation loader
+DATA_WORKERS = 4           # (ii), (iii) spawned workers / threads
+DATA_TIMED_GROUPS = 4      # (ii) groups a timed run, A B B A
+MNIST_EPOCHS = 2           # (i) examples/gluon_mnist.py's body
+MNIST_MIN_ACC = 0.9
+MNIST_NORM = (0.13, 0.31)  # (iii) the transform pipeline's Normalize
+PPL_REPS = 3               # (iii) Perplexity.update against .asnumpy()
+DATA_RATE_EPOCHS = 3       # (iii) epochs a loader rate, after a first
+DATA_WANT = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "layer_norm")
+
+
+class _WorkerProbe:
+    """Sample i: what the process that loads it reports about itself (pid,
+    CUDA initialised, CUDA_VISIBLE_DEVICES, devices torch sees, kernel
+    libraries loaded or built, the device an NDArray made there lands on,
+    the wall clock when it answered). Each call waits (up to 120 s) until
+    ``workers`` processes have checked in under ``where``, so every worker
+    of the pool answers. At module level, so spawned workers unpickle it by
+    re-importing this script."""
+
+    def __init__(self, n, where, workers):
+        self.n, self.where, self.workers = n, where, workers
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import torch
+
+        from mxnet_tpu_torch import np as mnp
+        from mxnet_tpu_torch.ops import _build
+
+        t = time.time()
+        open(os.path.join(self.where, str(os.getpid())), "w").close()
+        deadline = time.time() + 120
+        while len(os.listdir(self.where)) < self.workers and \
+                time.time() < deadline:
+            time.sleep(0.01)
+        where = str(mnp.zeros((1,))._data.device)
+        return (os.getpid(), bool(torch.cuda.is_initialized()),
+                os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.device_count(),
+                len(_build._funcs) + len(_build.build_log), where, t)
+
+
+def _shm_segments():
+    """POSIX shared-memory segments Python's ``shared_memory`` made."""
+    try:
+        return {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+    except FileNotFoundError:
+        return set()
+
+
+def _mnist_module():
+    """``tests/torch_script_mnist.py``, imported by name with ``tests/`` on
+    the path, so spawned workers can import it to unpickle ``transform``."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_script_mnist
+
+    return torch_script_mnist
+
+
+def _gpu_trace(fn):
+    """Run ``fn`` under ``torch.profiler`` and return its device events from
+    the Chrome trace: (category, name, stream, start us, duration us,
+    bytes)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="trace-") as where:
+        path = os.path.join(where, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    out = []
+    for e in events:
+        cat = e.get("cat", "")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            args = e.get("args", {})
+            out.append((cat, e.get("name", ""), args.get("stream"),
+                        float(e["ts"]), float(e["dur"]),
+                        int(args.get("bytes", 0) or 0)))
+    return out
+
+
+def _busy_us(events):
+    """Time the device was doing anything: the union of the events'
+    intervals (copies on the staging stream may overlap kernels)."""
+    spans = sorted((ts, ts + dur) for _, _, _, ts, dur, _ in events)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi <= end:
+            continue
+        busy += hi - max(lo, end)
+        end = hi
+    return busy
+
+
+def _h2d_overlap(events):
+    """Host-to-device copies: their streams, bytes, and the share of their
+    time that overlaps a kernel running on another stream."""
+    copies = [e for e in events if e[0] == "gpu_memcpy" and "HtoD" in e[1]]
+    kernels = [e for e in events if e[0] == "kernel"]
+    streams = sorted({e[2] for e in copies}, key=str)
+    total = sum(e[4] for e in copies)
+    over = 0.0
+    for _, _, s, ts, dur, _ in copies:
+        hits = [(max(ts, k[3]), min(ts + dur, k[3] + k[4])) for k in kernels
+                if k[2] != s and k[3] < ts + dur and k[3] + k[4] > ts]
+        end = ts
+        for lo, hi in sorted(hits):
+            if hi > end:
+                over += hi - max(lo, end)
+                end = hi
+    return {"copies": len(copies), "streams": streams,
+            "bytes": sum(e[5] for e in copies), "us": total,
+            "overlap_share": over / total if total else 0.0}
+
+
+def _data_mnist(smi_line):
+    """(i) examples/gluon_mnist.py's body on the card."""
+    import functools
+    import tempfile
+
+    sm = _mnist_module()
+    t0 = time.perf_counter()
+    mnist = sm.MNIST
+    with tempfile.TemporaryDirectory(prefix="mnist-") as where:
+        # the script's datasets read their files (none: the synthetic
+        # sets) from inside the run's temporary directory
+        sm.MNIST = functools.partial(mnist, root=where)
+        try:
+            hist = sm.main(["--epochs", str(MNIST_EPOCHS), "--params",
+                            os.path.join(where, "mnist_mlp.params.npz")])
+        finally:
+            sm.MNIST = mnist
+    secs = time.perf_counter() - t0
+    losses = [h[0] for h in hist]
+    accs = [h[1] for h in hist]
+    log(f"[data] (i) examples/gluon_mnist.py (imports changed, mx.gpu()): "
+        f"synthetic MNIST 8192 / 1024, DataLoader(num_workers=2) spawned, "
+        f"hybridized MLP, adam, metric.Accuracy: loss by epoch "
+        f"{[round(v, 4) for v in losses]}, validation accuracy "
+        f"{[round(v, 4) for v in accs]}, epochs "
+        f"{[round(h[2], 2) for h in hist]} s ({secs:.1f} s with the "
+        f"workers' start); card {smi_line}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"(i) the MNIST loss did not fall: {losses}")
+    check(accs[-1] >= MNIST_MIN_ACC,
+          f"(i) validation accuracy {accs[-1]:.4f} < {MNIST_MIN_ACC}")
+
+
+def _token_windows(rng, n):
+    """``n`` windows of TRAIN_SHAPE's T tokens on phase 4's cyclic task
+    (one cycle, each window from its own offset), and their shifted
+    targets."""
+    (x, y), = cyclic_batches(rng, 50257, n, TRAIN_SHAPE[1], 1)
+    return x, y
+
+
+def _data_trainer(model):
+    from mxnet_tpu_torch.gluon import Trainer
+
+    return Trainer(model.collect_params(), "adamw",
+                   {"learning_rate": TRAIN_LR, "beta2": 0.95, "wd": 0.01})
+
+
+@contextlib.contextmanager
+def _logged(name, prefix):
+    """Print what logger ``name`` reports at INFO, each line after
+    ``prefix``, while the block runs."""
+    import logging
+
+    logger = logging.getLogger(name)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter(prefix + "%(message)s"))
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def _data_gpt(smi_line):
+    """(ii) GPT-2 small trained through a DataLoader with spawned workers,
+    the DevicePrefetcher and compile_multi_step; returns the launches of
+    the path (its warm step, capture and the Perplexity forwards), by
+    dtypes, and what (iii) and (iv) reuse."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import callback, metric
+    from mxnet_tpu_torch import model as mxmodel
+    from mxnet_tpu_torch.gluon.data import (ArrayDataset, DataLoader,
+                                            RandomSampler)
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    B, T = TRAIN_SHAPE
+    n = DATA_BATCHES * B
+    rng = onp.random.RandomState(SEED + 13)
+    x, y = _token_windows(rng, n + DATA_VAL_BATCHES * B)
+    x, vx, y, vy = x[:n], x[n:], y[:n], y[n:]
+    data = ArrayDataset(x, y)
+    model, arrays = _train_model(None, 0.0)
+    twin, _ = _train_model(arrays, 0.0)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    step = _data_trainer(model).compile_step(model, loss_fn) \
+        .compile_multi_step(DATA_K)
+    twin_step = _data_trainer(twin).compile_step(twin, loss_fn) \
+        .compile_multi_step(DATA_K)
+    loader = DataLoader(data, batch_size=B, sampler=RandomSampler(n,
+                                                                  rng=SEED),
+                        num_workers=DATA_WORKERS, pin_memory=True)
+    losses, window, total = [], metric.Loss(), metric.Loss()
+    speed = callback.Speedometer(B, frequent=DATA_K, sync=True)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _logged("mxnet_tpu_torch", "[data] (ii) Speedometer: "):
+        for g, (xs, ys) in enumerate(loader.device_prefetch(DATA_K)):
+            out = step(xs, ys)
+            losses.append(out)
+            total.update(None, out)
+            window.update(None, out)
+            speed(mxmodel.BatchEndParam(0, g * DATA_K, window))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    ppl = metric.Perplexity()
+    val = DataLoader(ArrayDataset(vx, vy), batch_size=B)
+    for xv, yv in val:
+        ppl.update(yv, mx.npx.softmax(model(xv)))
+    probs = mx.npx.softmax(model(xv))
+    counts = read_counts("data")
+    taken = PATH_DTYPES["data"]
+    log(f"[data] (ii) GPT-2 small, fp32, dropout 0, B={B}, T={T}: "
+        f"{DATA_BATCHES} batches from DataLoader(batch_size={B}, "
+        f"RandomSampler(rng={SEED}), num_workers={DATA_WORKERS} spawned, "
+        f"pin_memory=True).device_prefetch({DATA_K}) into "
+        f"compile_multi_step({DATA_K}): {len(losses)} groups "
+        f"{[tuple(v.shape) for v in losses]}, {step._traces} capture; "
+        f"epoch {epoch_s:.2f} s with the workers' start; metric.Loss "
+        f"{total.get()[1]:.4f} over {total.num_inst} steps; losses "
+        f"{[round(float(v), 4) for g in losses for v in g.asnumpy()][::4]}"
+        f" (every 4th); Perplexity on {DATA_VAL_BATCHES} validation "
+        f"batches {ppl.get()[1]:.4f}")
+    log(f"[data] (ii) kernel launches on the path (the compiled step's warm "
+        f"step and capture, {DATA_VAL_BATCHES + 1} predict-mode forwards): "
+        f"{counts}")
+    check(all(counts[k] > 0 for k in DATA_WANT),
+          f"data: a kernel of the path did not launch: {counts}")
+    check([tuple(v.shape) for v in losses] ==
+          [(DATA_K,)] * (DATA_BATCHES // DATA_K) + [(DATA_BATCHES % DATA_K,)],
+          f"(ii) groups {[tuple(v.shape) for v in losses]}")
+    check(step._traces == 1, f"(ii) {step._traces} captures, not 1 (a "
+          "trailing group replays the one-step program)")
+    check(math.isfinite(ppl.get()[1]) and ppl.get()[1] > 1.0,
+          f"(ii) perplexity {ppl.get()[1]}")
+    check(all(bool(torch.isfinite(v._data).all()) for v in losses),
+          "(ii) a loss is not finite")
+
+    # the twin: the same batches by a serial loader, stacked by hand
+    serial = list(DataLoader(data, batch_size=B,
+                             sampler=RandomSampler(n, rng=SEED)))
+    groups = [(torch.stack([b[0]._data for b in serial[i:i + DATA_K]]),
+               torch.stack([b[1]._data for b in serial[i:i + DATA_K]]))
+              for i in range(0, len(serial), DATA_K)]
+    twin_losses = [twin_step(xs, ys) for xs, ys in groups]
+    torch.cuda.synchronize()
+    same_loss = all(torch.equal(a._data, b)
+                    for a, b in zip(losses, twin_losses))
+    differ = [name for (name, p), q in zip(model.collect_params().items(),
+                                           twin.collect_params().values())
+              if not torch.equal(p.detach(), q.detach())]
+    log(f"[data] (ii) parity with the hand-fed twin (serial loader, "
+        f"torch.stack on the card): losses bitwise {same_loss}, "
+        f"{len(differ)} of {len(arrays)} weights differ {differ[:4]}")
+    check(same_loss and not differ,
+          f"(ii) the prefetcher-fed step is not bitwise equal to its "
+          f"hand-fed twin: losses {same_loss}, weights {differ[:4]}")
+    del twin, twin_step, twin_losses
+    _release()
+    _data_timing(smi_line, step, groups, loader)
+    return taken, data, loader, yv, probs
+
+
+def _data_timing(smi_line, step, groups, loader):
+    """(ii) the step fed by the prefetcher (A: the first groups of an epoch
+    of phase (ii)'s loader, whose workers are up) and from groups staged on
+    the card before (B), A B B A in one call; wall, busy and idle a group,
+    the top kernels of one profiled group and where the H2D copies ran."""
+    import torch
+
+    B = TRAIN_SHAPE[0]
+    staged = groups[:DATA_TIMED_GROUPS]
+
+    def fed():
+        pf = loader.device_prefetch(DATA_K)
+        for g, (xs, ys) in enumerate(pf):
+            step(xs, ys)
+            if g + 1 == DATA_TIMED_GROUPS:
+                break
+        pf.close()
+
+    def pre():
+        for xs, ys in staged:
+            step(xs, ys)
+
+    fed()
+    pre()
+    torch.cuda.synchronize()
+    walls = {"A": [], "B": []}
+    for tag in "ABBA":
+        t0 = time.perf_counter()
+        (fed if tag == "A" else pre)()
+        torch.cuda.synchronize()
+        walls[tag].append((time.perf_counter() - t0) * 1e3 /
+                          DATA_TIMED_GROUPS)
+    traces = {"A": _gpu_trace(fed), "B": _gpu_trace(pre)}
+    for tag, name in (("A", "fed by the DevicePrefetcher"),
+                      ("B", "from groups staged before")):
+        wall = statistics.mean(walls[tag])
+        busy = _busy_us(traces[tag]) / 1e3 / DATA_TIMED_GROUPS
+        log(f"[data] (ii) timing {name}: wall {walls[tag][0]:.3f} / "
+            f"{walls[tag][1]:.3f} ms a group of {DATA_K} steps (runs "
+            f"{'1, 4' if tag == 'A' else '2, 3'}), busy {busy:.3f} ms, "
+            f"idle share {max(0.0, 1 - busy / wall):.4f}, "
+            f"{DATA_K * B * TRAIN_SHAPE[1] / wall * 1e3:.0f} training "
+            f"tokens/s; card {smi_line}")
+    by_name = {}
+    for cat, name, _, _, dur, _ in traces["A"]:
+        if cat == "kernel":
+            by_name[name] = by_name.get(name, 0.0) + dur
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[data] (ii) top kernels of a prefetcher-fed group (device ms): "
+        + "; ".join(f"{k[:60]} {v / 1e3 / DATA_TIMED_GROUPS:.3f}"
+                    for k, v in top))
+    for tag in "AB":
+        ov = _h2d_overlap(traces[tag])
+        log(f"[data] (ii) H2D copies in run {tag}: {ov['copies']} on "
+            f"streams {ov['streams']}, {ov['bytes']} bytes, "
+            f"{ov['us']:.1f} us, {ov['overlap_share']:.3f} of it overlapping"
+            f" a kernel on another stream")
+
+
+def _mnist_pipeline(where):
+    """(iii)'s MNIST set: the synthetic training images through
+    ``ToTensor`` and ``Normalize``."""
+    from mxnet_tpu_torch.gluon.data.vision import MNIST
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+
+    return MNIST(root=where, train=True).transform_first(
+        T.Compose([T.ToTensor(), T.Normalize(*MNIST_NORM)]))
+
+
+def _data_loaders(smi_line, data, loaders, yv, pv):
+    """(iii) batches a second of the three worker models on the token
+    windows and on the MNIST transform pipeline (the 4-process loaders:
+    phase (ii)'s, and one whose workers started with the phase), the median
+    of DATA_RATE_EPOCHS epochs after a first; Perplexity.update's time and
+    host bytes against a host copy of the same probabilities."""
+    import torch
+
+    from mxnet_tpu_torch import metric
+    from mxnet_tpu_torch.gluon.data import DataLoader
+
+    sets = {"tokens": (data, TRAIN_SHAPE[0]),
+            "mnist": (loaders["mnist"]._dataset, 256)}
+    models = {"serial": {}, "threads": dict(num_workers=DATA_WORKERS,
+                                            thread_pool=True),
+              "processes": dict(num_workers=DATA_WORKERS)}
+    for set_name, (ds, bs) in sets.items():
+        for model_name, kw in models.items():
+            ld = loaders[set_name] if model_name == "processes" else \
+                DataLoader(ds, batch_size=bs, pin_memory=True, **kw)
+            t0 = time.perf_counter()
+            it = iter(ld)
+            next(it)
+            first_batch = time.perf_counter() - t0
+            first = 1 + sum(1 for _ in it)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            per_epoch = []
+            for _ in range(DATA_RATE_EPOCHS):
+                t0 = time.perf_counter()
+                nb = sum(1 for _ in ld)
+                torch.cuda.synchronize()
+                per_epoch.append(nb / (time.perf_counter() - t0))
+            rate = statistics.median(per_epoch)
+            log(f"[data] (iii) {set_name} {model_name}: {rate:.1f} batches/s"
+                f" of {bs} (median of {DATA_RATE_EPOCHS} epochs of {nb}: "
+                f"{[round(r, 1) for r in per_epoch]}; before them an epoch "
+                f"of {warm:.3f} s, its first batch after {first_batch:.3f} s"
+                f"{'; the workers started earlier' if model_name == 'processes' else ''}"
+                f"); card {smi_line}")
+            check(first == nb == len(ld), f"(iii) {set_name} {model_name}: "
+                  f"{first} / {nb} batches")
+            del it, ld
+    m = metric.Perplexity()
+    upd, host = [], []
+    for _ in range(PPL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.update(yv, pv)
+        upd.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        arr = pv.asnumpy()
+        host.append((time.perf_counter() - t0) * 1e3)
+    want = onp.exp(-onp.log(arr.reshape(-1, arr.shape[-1])[
+        onp.arange(arr.shape[0] * arr.shape[1]),
+        yv.asnumpy().reshape(-1)].astype("float64") + 1e-12).mean())
+    moved = sum(e[5] for e in _gpu_trace(lambda: m.update(yv, pv))
+                if e[0] == "gpu_memcpy" and "DtoH" in e[1])
+    log(f"[data] (iii) Perplexity.update on {tuple(pv.shape)} fp32: "
+        f"{statistics.median(upd):.3f} ms, {moved} bytes to the host; "
+        f".asnumpy() of the same probabilities {statistics.median(host):.3f}"
+        f" ms, {arr.nbytes} bytes; value {m.get()[1]:.6f} against the host "
+        f"formula's {want:.6f}; card {smi_line}")
+    check(abs(m.get()[1] - want) <= 1e-5 * want,
+          f"(iii) perplexity {m.get()[1]} against the host's {want}")
+    check(moved < 1024, f"(iii) Perplexity.update moved {moved} bytes")
+
+
+def _data_hygiene(smi_line, data, probe, started):
+    """(iv) workers without CUDA (``probe``, a loader over ``_WorkerProbe``
+    whose workers started at wall time ``started``), and a mid-epoch resume
+    of the prefetcher."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.data import DataLoader, RandomSampler
+
+    t0 = time.time()
+    got = [r for batch in probe for r in batch]
+    ready = sorted(r[6] - started for r in got)
+    reports = sorted({r[:6] for r in got})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+    apps = sorted({int(p) for p in smi if p.strip().isdigit()})
+    pids = sorted({r[0] for r in reports})
+    log(f"[data] (iv) worker reports (pid, CUDA initialised, "
+        f"CUDA_VISIBLE_DEVICES, devices, kernel libraries, NDArray "
+        f"device): {reports}; answers {ready[0]:.2f}-{ready[-1]:.2f} s after"
+        f" the workers' start, {time.time() - t0:.2f} s after iter(); "
+        f"nvidia-smi compute apps {apps}, this process "
+        f"{os.getpid()}")
+    check(os.getpid() not in pids and len(pids) == DATA_WORKERS,
+          f"(iv) the probe ran in {pids}")
+    check(all(r[1:] == (False, "", 0, 0, "cpu") for r in reports),
+          f"(iv) a worker saw CUDA: {reports}")
+    check(not set(apps) & set(pids) and len(apps) <= 1,
+          f"(iv) nvidia-smi lists {apps}; workers {pids}")
+    del probe
+    B = TRAIN_SHAPE[0]
+    n = 3 * DATA_K * B
+
+    def feed():
+        return DataLoader(data.take(n), batch_size=B,
+                          sampler=RandomSampler(n, rng=SEED + 1),
+                          pin_memory=True).device_prefetch(DATA_K)
+
+    whole = [[a._data.clone() for a in g] for g in feed()]
+    pf = feed()
+    it = iter(pf)
+    next(it)
+    state = pf.state_dict()
+    pf.close()
+    again = feed()
+    again.load_state_dict(state)
+    rest = [[a._data.clone() for a in g] for g in again]
+    same = len(rest) == len(whole) - 1 and all(
+        torch.equal(a, b) for g, h in zip(rest, whole[1:])
+        for a, b in zip(g, h))
+    log(f"[data] (iv) resume: state {state} after one of {len(whole)} "
+        f"groups; the resumed prefetcher gave {len(rest)} groups, equal to "
+        f"the unconsumed ones: {same}")
+    check(state == {"epoch": 0, "offset": DATA_K} and same,
+          f"(iv) resume {state}: {len(rest)} groups, equal {same}")
+
+
+def phase_data(smi_line):
+    """Phase 13: the input pipeline (see the module docstring). Returns the
+    path's launch counts by dtypes ((ii)'s warm step, capture and
+    predict-mode forwards)."""
+    import tempfile
+
+    from mxnet_tpu_torch.gluon.data import DataLoader
+
+    t_phase = time.perf_counter()
+    before = _shm_segments()
+    _release()
+    with tempfile.TemporaryDirectory(prefix="data-") as where:
+        # the workers of (iii)'s MNIST loader and of (iv)'s probe start
+        # now: they import torch (~8 s) while (i) and (ii) run
+        os.mkdir(os.path.join(where, "probe"))
+        loaders = {"mnist": DataLoader(_mnist_pipeline(where), batch_size=256,
+                                       pin_memory=True,
+                                       num_workers=DATA_WORKERS)}
+        probe = DataLoader(_WorkerProbe(2 * DATA_WORKERS,
+                                        os.path.join(where, "probe"),
+                                        DATA_WORKERS),
+                           batch_size=1, num_workers=DATA_WORKERS,
+                           batchify_fn=list)
+        started = time.time()
+        for ld in (loaders["mnist"], probe):
+            ld._ensure_pool()
+        _data_mnist(smi_line)
+        taken, data, loaders["tokens"], yv, probs = _data_gpt(smi_line)
+        _data_loaders(smi_line, data, loaders, yv, probs)
+        del probs, loaders
+        _release()
+        _data_hygiene(smi_line, data, probe, started)
+        del probe
+    gc.collect()
+    time.sleep(0.5)
+    left = _shm_segments() - before
+    log(f"[data] (iv) shared-memory segments left by this phase: "
+        f"{sorted(left)}")
+    check(not left, f"(iv) segments left in /dev/shm: {sorted(left)}")
+    _release()
+    log(f"[data] phase took {time.perf_counter() - t_phase:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "resnet": phase_resnet, "predictor": phase_predictor,
            "bert_pretrain": phase_bert_pretrain, "graph": phase_graph,
            "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
-           "optim": phase_optim}
+           "optim": phase_optim, "data": phase_data}
 
 
 # ---------------------------------------------------------------------------
@@ -5961,6 +6537,7 @@ def main():
         phase_script(smi_line, arrays, batches, train_losses)
         del arrays, batches
         phase_optim(smi_line)
+        phase_data(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -5982,6 +6559,7 @@ def main():
         row["graph"] = by_path.get("graph", 0)
         row["script"] = by_path.get("script", 0)
         row["optim"] = by_path.get("optim", 0)
+        row["data"] = by_path.get("data", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -5993,6 +6571,7 @@ def main():
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
+    rtc_row["data"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

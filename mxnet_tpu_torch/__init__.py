@@ -33,11 +33,19 @@ a block's forward, ``HybridBlock.export`` and ``gluon.SymbolBlock.imports``,
 the ``Executor`` (``Symbol.bind`` / ``simple_bind``) and ``mx.subgraph``
 with ``optimize_for("tpu")``, which fuses hand-written attention onto the
 flash kernels.
+
+The input pipeline and training utilities are the reference's too:
+``gluon.data`` (datasets, samplers, batchify functions, the ``DataLoader``
+with serial, thread and spawned-process workers, the ``DevicePrefetcher``
+that stages groups of batches for the compiled multi-step on a CUDA stream
+of its own, ``vision`` datasets and transforms), ``mx.metric``,
+``mx.callback``, ``mx.model`` and the Python iterators of ``mx.io``.
 """
-from . import (amp, attribute, autograd, base, context, convert, engine,
-               executor, gluon, initializer, lr_scheduler, name, ndarray, ops,
-               optimizer, parallel, random, rtc, serve, subgraph, symbol,
-               telemetry, train_step, tune, visualization)
+from . import (amp, attribute, autograd, base, callback, context, convert,
+               engine, executor, gluon, initializer, io, lr_scheduler, metric,
+               model, name, ndarray, ops, optimizer, parallel, random, rtc,
+               serve, subgraph, symbol, telemetry, train_step, tune,
+               visualization)
 from . import numpy as np
 from . import numpy_extension as npx
 from .attribute import AttrScope
@@ -64,7 +72,8 @@ __all__ = ["MXNetError", "Context", "Device", "NDArray", "array", "cpu",
            "ops", "optimizer", "parallel", "random", "rtc", "serve",
            "telemetry", "train_step", "tune", "sym", "symbol", "Symbol",
            "var", "executor", "subgraph", "attribute", "name", "AttrScope",
-           "NameManager", "visualization", "viz"]
+           "NameManager", "visualization", "viz", "metric", "callback",
+           "model", "io"]
 
 
 def waitall():

@@ -3,8 +3,10 @@ dtypes.
 
 Counterpart of ``mxnet_tpu/base.py``. Only what the ported slices need is
 carried: :class:`MXNetError`, the exception every layer of the port raises,
-:func:`warn_once` (reference :30), :func:`to_dtype` and the reference's
-dtype aliases with :func:`canonical_dtype` / :func:`dtype_name` (:77-110).
+:func:`warn_once` (reference :30), :class:`Registry` (reference :116, the
+name -> class store behind ``metric.create``), :func:`to_dtype` and the
+reference's dtype aliases with :func:`canonical_dtype` / :func:`dtype_name`
+(:77-110).
 
 The reference runs JAX with 64-bit types off, so its arrays are never
 int64, uint64 or float64: a request for one gives int32, uint32 or
@@ -22,8 +24,8 @@ import warnings
 
 import torch
 
-__all__ = ["MXNetError", "to_dtype", "canonical_dtype", "dtype_name",
-           "narrow", "warn_once", "collector_paused"]
+__all__ = ["MXNetError", "Registry", "to_dtype", "canonical_dtype",
+           "dtype_name", "narrow", "warn_once", "collector_paused"]
 
 # process-level dedup of degradation warnings: a hot path may meet the same
 # unsupported configuration every step, and the useful signal is "this run
@@ -45,6 +47,37 @@ def warn_once(key, message, category=RuntimeWarning, stacklevel=2):
 
 class MXNetError(RuntimeError):
     """Framework error type (reference: MXGetLastError / dmlc::Error)."""
+
+
+class Registry:
+    """Name -> object registry with decorator support (reference :116, its
+    ``register``, ``get`` and ``list``); names are case-insensitive."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._store: dict[str, object] = {}
+
+    def register(self, obj=None, name=None):
+        def _do(o):
+            key = (name or getattr(o, "__name__", None) or str(o)).lower()
+            self._store[key] = o
+            return o
+
+        if obj is None:
+            return _do
+        return _do(obj)
+
+    def get(self, name: str):
+        key = name.lower() if isinstance(name, str) else name
+        if key not in self._store:
+            raise KeyError(
+                f"{self.kind} '{name}' is not registered. "
+                f"Known: {sorted(self._store)}"
+            )
+        return self._store[key]
+
+    def list(self):
+        return sorted(self._store)
 
 
 @contextlib.contextmanager

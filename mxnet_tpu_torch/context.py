@@ -5,8 +5,10 @@ Counterpart of ``mxnet_tpu/context.py``: :class:`Context` (:42-122, a
 ``gpu``, ``device``, ``current_context`` (:123-160, :548-585), ``num_gpus``
 and ``gpu_memory_info``; plus the kernel tuning cache's location
 (:func:`tuning_cache_path`, reference :629) and the environment signature it
-is keyed by (reference ``_probe_env_signature``, :253). The TPU backend
-probe of the reference has no analog: the port targets one NVIDIA GPU.
+is keyed by (reference ``_probe_env_signature``, :253); and the data
+workers' pin to the host (:func:`spawn_cpu_pinned_env`,
+:func:`pin_process_to_cpu`, reference :481-520). The TPU backend probe of
+the reference has no analog: the port targets one NVIDIA GPU.
 
 The placement rule every entry point of the port follows: it runs on
 ``cuda`` unless the caller asks for the CPU, by ``device="cpu"`` (or
@@ -16,6 +18,7 @@ device outside such a scope raises :class:`MXNetError`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import os
@@ -30,7 +33,8 @@ from .base import MXNetError
 
 __all__ = ["Context", "Device", "cpu", "gpu", "device", "current_context",
            "current_device", "num_gpus", "gpu_memory_info",
-           "resolve_device", "env_signature", "tuning_cache_path"]
+           "resolve_device", "env_signature", "tuning_cache_path",
+           "spawn_cpu_pinned_env", "pin_process_to_cpu"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _DEVTYPES = ("cpu", "gpu", "cpu_pinned", "cpu_shared")
@@ -209,3 +213,45 @@ def tuning_cache_path() -> str | None:
     return os.path.join(tempfile.gettempdir(),
                         f"mxtpu_torch_tune_{os.getuid()}", env_signature(),
                         "tuning_cache.json")
+
+
+# os.environ is process-wide: one spawn at a time changes it
+_spawn_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def spawn_cpu_pinned_env():
+    """``CUDA_VISIBLE_DEVICES=""`` around ``Process.start()``, so a spawned
+    child sees no GPU from its first instruction: it can create no CUDA
+    context and build no kernel, even while it re-imports the parent's
+    ``__main__`` (reference :481, which pins the children's JAX to the
+    CPU). Workers are spawned, never forked: CUDA cannot be initialised
+    again in a forked child.
+
+    The variable is read by the CUDA runtime once, when a process first
+    asks for its devices; ``torch.cuda.is_available()`` here makes this
+    process do so first, with its own value, before the value changes. A
+    thread of this process that has not touched CUDA before and calls
+    ``torch.cuda.device_count()`` inside the window would still read the
+    empty value (torch counts through NVML until CUDA is initialised), so
+    the window is only the ``start()`` calls, under one lock."""
+    torch.cuda.is_available()
+    with _spawn_lock:
+        saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""
+        try:
+            yield
+        finally:
+            if saved is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = saved
+
+
+def pin_process_to_cpu() -> None:
+    """Worker side (reference :506): hide every GPU from this process and
+    make the host this thread's device, so arrays a dataset or batchify
+    function makes land on the CPU and nothing initialises CUDA. Spawned
+    workers call it first thing."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    Context._local.stack = [cpu()]

@@ -1,0 +1,369 @@
+"""mx.io — iterator-style data pipeline (reference: python/mxnet/io/io.py:
+DataIter:179, NDArrayIter:490, MXDataIter:799 over src/io/ N15).
+
+Counterpart of the Python iterators of ``mxnet_tpu/io/__init__.py``
+(:24-224, :490-599): ``DataBatch``, ``DataIter``, ``NDArrayIter``,
+``ResizeIter`` and ``PrefetchingIter``. Arrays are held on the host and each
+batch becomes NDArrays on the current context. Every iterator's ``__next__``
+records its wait in the port's telemetry registry (the
+``io.<class>.batch`` timer; always on, where the reference records it only
+with its telemetry enabled).
+
+``CSVIter``, ``LibSVMIter`` and ``ImageRecordIter`` read through the
+reference's native engines (``_native.py``, ``librecordio.so``) and CSR
+arrays, which the port has not ported: they raise, naming ROADMAP A10 (3)
+or A4.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as onp
+
+from ..base import MXNetError
+from ..context import current_context
+from ..ndarray.ndarray import NDArray
+
+__all__ = ["DataBatch", "DataIter", "NDArrayIter", "CSVIter", "LibSVMIter",
+           "ImageRecordIter", "ResizeIter", "PrefetchingIter"]
+
+
+class DataBatch:
+    def __init__(self, data, label=None, pad=0, index=None,
+                 provide_data=None, provide_label=None):
+        self.data = data if isinstance(data, list) else [data]
+        self.label = (label if isinstance(label, list) else
+                      [label] if label is not None else [])
+        self.pad = pad
+        self.index = index
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+    def __repr__(self):
+        shapes = [d.shape for d in self.data]
+        return f"DataBatch: data shapes: {shapes} pad: {self.pad}"
+
+
+def _timed_next(nxt):
+    """Wrap a ``__next__`` with the batch-latency timer (per-class timer
+    names, as the reference's step report reads them)."""
+    import functools
+    import time as _time
+
+    from .. import telemetry as _tm
+
+    @functools.wraps(nxt)
+    def timed(self):
+        t0 = _time.perf_counter()
+        batch = nxt(self)  # StopIteration propagates untimed
+        _tm.timer(f"io.{type(self).__name__}.batch").record(
+            _time.perf_counter() - t0)
+        return batch
+
+    timed._telemetry_wrapped = True
+    return timed
+
+
+class DataIter:
+    """Iterator base (reference: io.py DataIter:179)."""
+
+    def __init__(self, batch_size=0):
+        self.batch_size = batch_size
+
+    def __init_subclass__(cls, **kwargs):
+        # every concrete iterator gets the batch timer, whether it uses the
+        # base __next__ or overrides it
+        super().__init_subclass__(**kwargs)
+        nxt = cls.__dict__.get("__next__")
+        if nxt is not None and not getattr(nxt, "_telemetry_wrapped", False):
+            cls.__next__ = _timed_next(nxt)
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self):
+        """Legacy-style accessor ('while True: batch = it.next()')."""
+        if type(self).__next__ is not DataIter.__next__:
+            return self.__next__()
+        if self.iter_next():
+            return DataBatch(self.getdata(), self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        if self.iter_next():
+            return DataBatch(self.getdata(), self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def iter_next(self):
+        raise NotImplementedError
+
+    def getdata(self):
+        raise NotImplementedError
+
+    def getlabel(self):
+        raise NotImplementedError
+
+    def getindex(self):
+        return None
+
+    def device_prefetch(self, multi_step=None, depth=None, sharding=None):
+        """Wrap this iterator in a ``gluon.data.DevicePrefetcher``: stack
+        groups of ``multi_step`` batches into ``[K, batch, ...]`` super-
+        batches on the device, staged on a stream of their own while the
+        previous group computes. ``reset()`` is driven by the prefetcher at
+        epoch starts."""
+        from ..gluon.data.prefetcher import DevicePrefetcher
+
+        return DevicePrefetcher(self, multi_step=multi_step, depth=depth,
+                                sharding=sharding)
+
+    def getpad(self):
+        return 0
+
+
+# the base __next__ serves every iterator that doesn't override it
+# (NDArrayIter et al.); wrap it once so those are timed too
+DataIter.__next__ = _timed_next(DataIter.__next__)
+
+
+class NDArrayIter(DataIter):
+    """Iterate over in-memory arrays (reference: io.py NDArrayIter:490)."""
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label"):
+        super().__init__(batch_size)
+        if last_batch_handle not in ("pad", "discard", "roll_over"):
+            raise MXNetError(f"invalid last_batch_handle "
+                             f"{last_batch_handle!r}")
+        self.data = self._init_data(data, data_name)
+        self.label = self._init_data(label, label_name) if label is not None \
+            else []
+        self.num_data = self.data[0][1].shape[0]
+        self.shuffle = shuffle
+        self.last_batch_handle = last_batch_handle
+        self.cursor = -batch_size
+        self._leftover = onp.array([], dtype=onp.int64)
+        self._order = onp.arange(self.num_data)
+        if shuffle:
+            onp.random.shuffle(self._order)
+
+    @staticmethod
+    def _init_data(data, default_name):
+        if data is None:
+            return []
+        if isinstance(data, (onp.ndarray, NDArray)):
+            data = [(default_name, data)]
+        elif isinstance(data, dict):
+            data = list(data.items())
+        elif isinstance(data, (list, tuple)):
+            data = [(f"{default_name}_{i}" if i else default_name, d)
+                    for i, d in enumerate(data)]
+        out = []
+        for name, d in data:
+            arr = d.asnumpy() if isinstance(d, NDArray) else onp.asarray(d)
+            out.append((name, arr))
+        return out
+
+    @property
+    def provide_data(self):
+        return [(name, (self.batch_size,) + d.shape[1:])
+                for name, d in self.data]
+
+    @property
+    def provide_label(self):
+        return [(name, (self.batch_size,) + d.shape[1:])
+                for name, d in self.label]
+
+    def reset(self):
+        self.cursor = -self.batch_size
+        base = onp.arange(self.num_data)
+        if self.shuffle:
+            onp.random.shuffle(base)
+        if self.last_batch_handle == "roll_over" and len(self._leftover):
+            # rolled-over samples lead the next epoch (reference semantics)
+            base = onp.concatenate([self._leftover, base])
+            self._leftover = onp.array([], dtype=onp.int64)
+        self._order = base
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        n = len(self._order)
+        if self.last_batch_handle == "pad":
+            return self.cursor < n
+        if self.cursor + self.batch_size <= n:
+            return True
+        if self.last_batch_handle == "roll_over" and self.cursor < n:
+            self._leftover = self._order[self.cursor:]
+        return False
+
+    def _slice(self, arrays):
+        out = []
+        for _, arr in arrays:
+            idx = self._order[self.cursor:self.cursor + self.batch_size]
+            chunk = arr[idx]
+            if len(chunk) < self.batch_size and \
+                    self.last_batch_handle == "pad":
+                need = self.batch_size - len(chunk)
+                chunk = onp.concatenate([chunk, arr[self._order[:need]]])
+            out.append(NDArray(chunk))
+        return out
+
+    def getdata(self):
+        return self._slice(self.data)
+
+    def getlabel(self):
+        return self._slice(self.label)
+
+    def getpad(self):
+        n = len(self._order)
+        if self.last_batch_handle == "pad" and \
+                self.cursor + self.batch_size > n:
+            return self.cursor + self.batch_size - n
+        return 0
+
+
+_NATIVE = {
+    "CSVIter": "its reader is the reference's native threaded scanner "
+               "(src/io_native/textparse.cc), ROADMAP A10 (3)",
+    "LibSVMIter": "it yields CSR arrays (ndarray/sparse.py, ROADMAP A4) "
+                  "read by the reference's native scanner (A10 (3))",
+    "ImageRecordIter": "it reads through the reference's native RecordIO "
+                       "engine (src/io_native/recordio.cc) and decodes with "
+                       "mx.image, ROADMAP A10 (3)",
+}
+
+
+def _not_ported(name):
+    class Iter(DataIter):
+        def __init__(self, *args, **kwargs):
+            raise MXNetError(f"io.{name} is not ported: {_NATIVE[name]}")
+
+    Iter.__name__ = Iter.__qualname__ = name
+    Iter.__doc__ = f"Not ported: {_NATIVE[name]}."
+    return Iter
+
+
+CSVIter = _not_ported("CSVIter")
+LibSVMIter = _not_ported("LibSVMIter")
+ImageRecordIter = _not_ported("ImageRecordIter")
+
+
+class ResizeIter(DataIter):
+    """Stretch/limit another iterator to a fixed number of batches."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def __next__(self):
+        if self.cur >= self.size:
+            raise StopIteration
+        self.cur += 1
+        try:
+            return next(self.data_iter)
+        except StopIteration:
+            self.data_iter.reset()
+            return next(self.data_iter)
+
+
+class PrefetchingIter(DataIter):
+    """Thread that stays one batch ahead (reference: iter_prefetcher.h)."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        if isinstance(iters, list):
+            if len(iters) != 1:
+                raise MXNetError("multi-iterator prefetching is not "
+                                 "supported; pass one iterator")
+            iters = iters[0]
+        if rename_data is not None or rename_label is not None:
+            raise MXNetError("rename_data/rename_label are not supported")
+        super().__init__(iters.batch_size)
+        self._iter = iters
+        self._queue: list = []
+        self._cv = threading.Condition()
+        self._done = False
+        self._thread = None
+        self._start_worker()
+
+    def _start_worker(self):
+        # generation-scoped state: a stale worker from a previous epoch holds
+        # references to ITS OWN queue/flag objects, so even if it outlives a
+        # reset it can never pollute the new epoch's queue
+        self._queue = []
+        self._done = [False]
+        self._error = None
+        # the caller's context, entered by the worker: a context scope is
+        # per thread, and the wrapped iterator makes its NDArrays there
+        self._thread = threading.Thread(
+            target=self._worker,
+            args=(self._queue, self._done, current_context()), daemon=True)
+        self._thread.start()
+
+    def _worker(self, queue, done, ctx):
+        try:
+            with ctx:
+                for batch in self._iter:
+                    with self._cv:
+                        while len(queue) >= 2 and not done[0]:
+                            self._cv.wait(0.1)
+                        if done[0]:
+                            return
+                        queue.append(batch)
+                        self._cv.notify_all()
+        except BaseException as e:  # noqa: BLE001 — surface in consumer
+            with self._cv:
+                if not done[0]:
+                    self._error = e
+        finally:
+            with self._cv:
+                queue.append(None)
+                self._cv.notify_all()
+
+    def reset(self):
+        """Stop the worker, reset the wrapped iterator, start a new epoch."""
+        with self._cv:
+            self._done[0] = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+            if self._thread.is_alive():
+                # the worker is still inside next(self._iter): re-entering
+                # the iterator now would have two threads driving it —
+                # fail loudly instead of corrupting state
+                raise MXNetError(
+                    "PrefetchingIter.reset: worker still busy after 30s; "
+                    "the wrapped iterator is blocked — cannot safely reset")
+        self._iter.reset()
+        self._start_worker()
+
+    def __next__(self):
+        with self._cv:
+            while not self._queue:
+                self._cv.wait()
+            batch = self._queue.pop(0)
+            self._cv.notify_all()
+        if batch is None:
+            if self._error is not None:
+                raise self._error
+            raise StopIteration
+        return batch
+
+    def __del__(self):
+        try:
+            self._done[0] = True
+        except Exception:  # noqa: BLE001
+            pass

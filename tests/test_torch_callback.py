@@ -1,0 +1,251 @@
+"""PyTorch/CUDA port: ``mx.callback``, ``mx.model`` and ``mx.io``'s Python
+iterators against the JAX package's.
+
+- ``Speedometer`` (``auto_reset`` on and off), ``log_train_metric`` and
+  ``ProgressBar`` print the JAX package's lines (the speed's digits aside)
+  for the same calls; the port logs under ``mxnet_tpu_torch``.
+- ``model.save_checkpoint`` / ``load_checkpoint`` and
+  ``callback.do_checkpoint``: each package loads the other's
+  ``{prefix}-symbol.json`` and ``{prefix}-{epoch:04d}.params.npz`` (a
+  parameter dict with ``arg:``/``aux:`` entries, or a Block's parameters),
+  and the loaded graph computes the same values in both.
+- ``io``: ``NDArrayIter`` (every ``last_batch_handle``, shuffled from the
+  same numpy seed, several arrays by name), ``ResizeIter``,
+  ``PrefetchingIter`` (its thread makes its NDArrays under the caller's
+  ``with mx.cpu():``) and the legacy ``next()`` give the JAX package's
+  batches, pads and ``provide_data``; the iterators over native readers
+  raise naming ROADMAP A10 (3) or A4.
+
+Tolerance: bitwise, except the graph's outputs across packages (1e-6
+relative: the two packages' matmuls sum in another order).
+"""
+import logging
+import re
+
+import numpy as onp
+import pytest
+
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import MXNetError, callback as tcb, io as tio
+from mxnet_tpu_torch import metric as tmetric, model as tmodel
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    with tmx.cpu():
+        yield
+
+
+def _jax():
+    import mxnet_tpu as jmx
+
+    return jmx
+
+
+# -- callbacks ---------------------------------------------------------------------
+def _drive(mx, logger, caplog, make):
+    caplog.clear()
+    acc = mx.metric.Accuracy()
+    cb = make(mx)
+    with caplog.at_level(logging.INFO, logger=logger):
+        for epoch in range(2):
+            for nbatch in range(7):
+                acc.update(onp.array([0, 1, nbatch % 2]),
+                           onp.array([[0.9, 0.1], [0.2, 0.8], [0.6, 0.4]]))
+                cb(mx.model.BatchEndParam(epoch, nbatch, acc))
+    return [re.sub(r"Speed: [0-9.]+", "Speed: x", r.getMessage())
+            for r in caplog.records if r.name == logger]
+
+
+CALLBACKS = {
+    "speedometer": lambda mx: mx.callback.Speedometer(8, frequent=2),
+    "speedometer_keep": lambda mx: mx.callback.Speedometer(
+        8, frequent=3, auto_reset=False, sync=True),
+    "log_train_metric": lambda mx: mx.callback.log_train_metric(
+        2, auto_reset=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CALLBACKS))
+def test_callbacks_log_the_reference_lines(name, caplog):
+    got = _drive(tmx, "mxnet_tpu_torch", caplog, CALLBACKS[name])
+    want = _drive(_jax(), "mxnet_tpu", caplog, CALLBACKS[name])
+    assert got == want and got
+
+
+def test_progress_bar_matches_jax(capsys):
+    out = []
+    for mx in (tmx, _jax()):
+        bar = mx.callback.ProgressBar(total=5, length=10)
+        for n in range(7):
+            bar(mx.model.BatchEndParam(0, n))
+        out.append(capsys.readouterr().out)
+    assert out[0] == out[1] and "[##########] 100.0%" in out[0]
+
+
+# -- checkpoints across the packages ------------------------------------------------
+def _graph(mx):
+    S = mx.sym
+    return S.relu(S.FullyConnected(S.var("x"), S.var("w"), S.var("b"),
+                                   num_hidden=4))
+
+
+def _params():
+    rng = onp.random.RandomState(3)
+    return ({"w": rng.randn(4, 5).astype("float32"),
+             "b": rng.randn(4).astype("float32")},
+            {"stat": rng.randn(4).astype("float32")})
+
+
+def _run_graph(mx, sym, args, x):
+    feed = dict(args)
+    feed["x"] = mx.np.array(x)
+    return sym.bind(args=feed).forward()[0].asnumpy()
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_checkpoint_crosses_between_the_packages(writer, tmp_path):
+    jmx = _jax()
+    w_mx = tmx if writer == "torch" else jmx
+    arg, aux = _params()
+    prefix = str(tmp_path / "net")
+    w_mx.model.save_checkpoint(
+        prefix, 3, _graph(w_mx), {k: w_mx.np.array(v) for k, v in
+                                  arg.items()},
+        {k: w_mx.np.array(v) for k, v in aux.items()})
+    x = onp.random.RandomState(4).randn(2, 5).astype("float32")
+    outs = []
+    for mx in (tmx, jmx):
+        sym, args, auxs = mx.model.load_checkpoint(prefix, 3)
+        assert sorted(args) == ["b", "w"] and sorted(auxs) == ["stat"]
+        for k, v in arg.items():
+            assert onp.array_equal(args[k].asnumpy(), v)
+        assert onp.array_equal(auxs["stat"].asnumpy(), aux["stat"])
+        outs.append(_run_graph(mx, sym, args, x))
+    want = onp.maximum(x @ arg["w"].T + arg["b"], 0)
+    for out in outs:
+        onp.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-6)
+
+
+def _mlp(mx):
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(3, in_units=4), mx.gluon.nn.Dense(2,
+                                                                in_units=3))
+    net.initialize()
+    return net
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_do_checkpoint_with_a_block(writer, tmp_path):
+    jmx = _jax()
+    w_mx, r_mx = (tmx, jmx) if writer == "torch" else (jmx, tmx)
+    net = _mlp(w_mx)
+    prefix = str(tmp_path / "mlp")
+    save = w_mx.callback.do_checkpoint(prefix, period=2)
+    for epoch in range(4):
+        save(epoch, None, net)
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["mlp-0002.params.npz", "mlp-0004.params.npz"]
+    other = _mlp(r_mx)
+    other.load_parameters(prefix + "-0004.params.npz")
+    for (n, p), q in zip(net.collect_params().items(),
+                         other.collect_params().values()):
+        a = p.data().asnumpy()
+        b = q.data().asnumpy()
+        assert onp.array_equal(a, b), n
+    _, args, auxs = r_mx.model.load_checkpoint(prefix, 2)
+    assert sorted(args) == sorted(net.collect_params()) and not auxs
+
+
+def test_batch_end_param_defaults():
+    p = tmodel.BatchEndParam()
+    assert (p.epoch, p.nbatch, p.eval_metric, p.locals) == (0, 0, None,
+                                                            None)
+
+
+# -- io iterators ---------------------------------------------------------------------
+def _iter_batches(it, epochs=2):
+    out = []
+    for _ in range(epochs):
+        it.reset()
+        for b in it:
+            out.append(([d.asnumpy() for d in b.data],
+                        [lb.asnumpy() for lb in b.label], b.pad))
+    return out
+
+
+def _iters(io, seed):
+    rng = onp.random.RandomState(1)
+    x = rng.randn(11, 3).astype("float32")
+    y = onp.arange(11)
+    onp.random.seed(seed)
+    return {
+        "pad": io.NDArrayIter(x, y, batch_size=4),
+        "discard": io.NDArrayIter({"a": x, "b": x * 2}, y, batch_size=4,
+                                  last_batch_handle="discard"),
+        "roll_over": io.NDArrayIter(x, y, batch_size=4,
+                                    last_batch_handle="roll_over"),
+        "shuffle": io.NDArrayIter(x, [y, y + 1], batch_size=3,
+                                  shuffle=True),
+        "resize": io.ResizeIter(io.NDArrayIter(x, y, batch_size=5), 5),
+        "prefetching": io.PrefetchingIter(io.NDArrayIter(x, y,
+                                                         batch_size=4)),
+    }
+
+
+def _same_batches(a, b):
+    assert len(a) == len(b)
+    for (da, la, pa), (db, lb, pb) in zip(a, b):
+        assert pa == pb
+        for u, v in zip(da + la, db + lb):
+            assert u.dtype == v.dtype and onp.array_equal(u, v)
+
+
+def test_io_iterators_match_jax():
+    mine, ref = _iters(tio, 8), _iters(_jax().io, 8)
+    for name in mine:
+        if name == "shuffle":
+            continue
+        _same_batches(_iter_batches(mine[name]), _iter_batches(ref[name]))
+    onp.random.seed(2)
+    got = _iter_batches(mine["shuffle"])
+    onp.random.seed(2)
+    _same_batches(got, _iter_batches(ref["shuffle"]))
+    assert mine["discard"].provide_data == ref["discard"].provide_data
+    assert mine["shuffle"].provide_label == ref["shuffle"].provide_label
+    it, jit = _iters(tio, 0)["pad"], _iters(_jax().io, 0)["pad"]
+    n = 0
+    while True:
+        try:
+            b, jb = it.next(), jit.next()
+        except StopIteration:
+            break
+        assert repr(b) == repr(jb) and b.pad == jb.pad
+        n += 1
+    assert n == 3
+    with pytest.raises(MXNetError):
+        tio.NDArrayIter(onp.zeros(3), last_batch_handle="nope")
+
+
+def test_io_native_iterators_are_not_ported():
+    for cls, item in ((tio.CSVIter, r"A10 \(3\)"), (tio.LibSVMIter, "A4"),
+                      (tio.ImageRecordIter, r"A10 \(3\)")):
+        with pytest.raises(MXNetError, match=item):
+            cls("x", (1,), batch_size=1)
+
+
+def test_io_records_its_batch_timer():
+    from mxnet_tpu_torch import telemetry
+
+    before = telemetry.timer("io.NDArrayIter.batch").count
+    list(tio.NDArrayIter(onp.zeros((6, 2)), batch_size=2))
+    assert telemetry.timer("io.NDArrayIter.batch").count - before == 3
+
+
+def test_speedometer_resets_on_a_new_epoch():
+    sp = tcb.Speedometer(4, frequent=1)
+    acc = tmetric.Accuracy()
+    sp(tmodel.BatchEndParam(0, 5, acc))
+    assert sp._last_batch == 5
+    sp(tmodel.BatchEndParam(1, 0, acc))
+    assert sp._last_batch == 0
