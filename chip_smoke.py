@@ -389,10 +389,46 @@ Phases (any failure exits non-zero without the final line):
              them, a mid-epoch ``state_dict``/``load_state_dict`` resume of
              the prefetcher giving exactly the unconsumed groups, and no
              ``psm_*`` shared-memory segment left in ``/dev/shm``.
+14. sparse — A4's remainder, fp32 on the card: (i)
+             ``tests/torch_script_sparse.py`` (the JAX package's
+             ``examples/sparse_linear.py``, imports changed) at Avazu's
+             shape: a synthetic LibSVM file from the seed (262,144 rows,
+             1,000,000 features, 15 nonzeros a row, batches balanced),
+             ``LibSVMIter(sparse=True)`` through the native parser,
+             ``sparse.dot``, the ``nd`` loss, 5 epochs at batch 8192: train
+             accuracy > 0.9, the first epoch's losses within 1e-5 of the
+             CPU's, every loss within 1e-5 and the accuracy within 1e-3 of
+             the same loop in float64 numpy (which also gives the accuracy
+             on ``make_synthetic``'s i.i.d. labels), peak memory far under
+             a dense batch; parse seconds, rows/s, steps/s, a step of the
+             script's loop: wall against device busy and the top device
+             operations; (ii) the lazy row-sparse updates of
+             SGD, AdaGrad, Adam, Ftrl and GroupAdaGrad on a (1,000,000, 64)
+             table, 3 steps whose rows are the feature ids of (i)'s batches,
+             through ``Optimizer.update`` and a ``Trainer``: untouched rows
+             and states bitwise, touched ones within 1e-6 of the CPU, no
+             ``todense`` (also with a bf16 weight under
+             ``multi_precision``), ms a step beside the dense update; (iii)
+             the sequence ops at (35, 32, 200), DCGAN's generator built of
+             ``nn.Conv2DTranspose`` layers (batch 64, z 100 -> 64x64x3):
+             each layer forward and backward, the chain's forward eager and
+             hybridized, the chain recorded and hybridized, SSD-300's ``box_nms`` (8 x 8,732 x 21 rows,
+             top 400, bitwise), ``box_encode``/``decode``, ``roi_align``
+             (with its gradient) and ``roi_pooling`` over (2, 256, 50, 50)
+             with 256 ROIs an image, ``upsampling``, ``bilinear_resize_2d``
+             and ``moments`` at (8, 256, 64, 64), card against CPU within
+             1e-5 with their ms, and ``mx.nd.save``/``load`` round-tripped;
+             (iv) ``npx.foreach`` over a 2-layer LSTM cell in ``mx.np``
+             (word_lm's T 35, B 32, H 200) eagerly (outputs and gradients
+             into the data and initial states within 1e-5 of the CPU),
+             hybridized (one CUDA graph) and hybridized under ``record()``
+             (forward and backward ms),
+             ``while_loop`` (``max_iterations``) and ``cond`` hybridized:
+             one capture each, replays equal to eager.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
-``optim``, ``data``; ``script`` runs phase 4 first, for its weights,
+``optim``, ``data``, ``sparse``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -406,7 +442,8 @@ traces, warm calls and captures; also the row's ``graph`` key), script
 ``script`` key), optim (phase 12 (i)'s bench and (ii)'s step: warm steps
 and captures; also the row's ``optim`` key), data (phase 13 (ii): the
 compiled step's warm step and capture and the predict-mode forwards; also
-the row's ``data`` key); a row
+the row's ``data`` key), sparse (phase 14: no port kernel
+on it; also the row's ``sparse`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -6464,13 +6501,839 @@ def phase_data(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sparse — A4's remainder (legacy nd, CSR / row-sparse arrays and
+# the lazy updates, LibSVMIter, the vision and sequence ops, control flow)
+# ---------------------------------------------------------------------------
+SPARSE_ROWS = 262144          # (i) 32 batches of Avazu's 8192
+SPARSE_FEATURES = 1_000_000   # the reference's example/sparse/linear_classification
+SPARSE_NNZ = 15               # nonzeros a row
+SPARSE_BATCH = 8192
+SPARSE_EPOCHS = 5
+SPARSE_MIN_ACC = 0.9          # the example's own assert
+SPARSE_LOSS_RTOL = 1e-5       # (i) losses, card vs CPU and vs float64 numpy
+SPARSE_ACC_GAP = 1e-3         # (i) train accuracy, card vs float64 numpy
+SPARSE_PEAK = 2 << 30         # (i) a dense (8192, 1e6) fp32 batch is 32.8 GB
+SPARSE_TABLE = (1_000_000, 64)   # (ii) tests/test_kvstore.py's 1M-row table
+SPARSE_STEPS = 3
+SPARSE_OPT_RTOL = 1e-6        # (ii) touched rows and states, card vs CPU
+SPARSE_OPTS = (("sgd", {}), ("adagrad", {}), ("adam", {"lazy_update": True}),
+               ("ftrl", {}), ("groupadagrad", {}))
+SPARSE_OP_RTOL = 1e-5         # (iii) ops, card vs CPU, of each largest entry
+SEQ_SHAPE = (35, 32, 200)     # (iii) word_lm's bptt x batch x hidden
+DCGAN = dict(batch=64, nz=100, widths=(512, 256, 128, 64, 3))
+SSD = dict(batch=8, anchors=8732, classes=21, topk=400, gt=20)
+ROI = dict(data=(2, 256, 50, 50), per_image=256, pooled=(7, 7), ratio=2,
+           scale=0.5)
+RESIZE_SHAPE = (8, 256, 64, 64)
+LSTM = dict(T=35, B=32, H=200, layers=2)   # examples/word_lm.py's defaults
+CF_RTOL = 1e-5                # (iv) LSTM outputs and gradients, card vs CPU
+
+
+def _np_rel(got, want):
+    """Largest |got - want| over the largest |want| (numpy arrays)."""
+    got = onp.asarray(got, dtype="float64")
+    want = onp.asarray(want, dtype="float64")
+    check(got.shape == want.shape, f"shapes {got.shape} != {want.shape}")
+    return float(onp.abs(got - want).max(initial=0.0) /
+                 max(float(onp.abs(want).max(initial=0.0)), 1e-30))
+
+
+def _sparse_script():
+    """``tests/torch_script_sparse.py`` (the JAX package's
+    ``examples/sparse_linear.py``, imports changed)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_script_sparse
+
+    return torch_script_sparse
+
+
+def _avazu_synthetic(rows, feats, nnz, seed):
+    """``make_synthetic``'s recipe at Avazu's size, vectorised: ``nnz``
+    distinct sorted features a row, N(0, 1) values, the label 1 where a
+    seeded true weight's product with the row is positive. Returns the
+    columns, the values and those i.i.d. labels, and a balanced set on the
+    same columns: labels alternating 1, 0, ..., a row whose product has the
+    other sign negated (still N(0, 1)), so every batch holds as many
+    positives as negatives. The script's bias steps by a mean over the whole
+    batch: with i.i.d. labels a batch's share of positives, varying by
+    1/sqrt(8192), moves it further than 5 epochs move a row's logit (the
+    float64 loop of ``_plain_sparse_linear`` shows it on both sets)."""
+    rng = onp.random.RandomState(seed)
+    w_true = rng.randn(feats)
+    cols = onp.sort(rng.randint(0, feats, (rows, nnz)), axis=1)
+    dup = (cols[:, 1:] == cols[:, :-1]).any(1)
+    while dup.any():
+        cols[dup] = onp.sort(rng.randint(0, feats, (int(dup.sum()), nnz)),
+                             axis=1)
+        dup = (cols[:, 1:] == cols[:, :-1]).any(1)
+    vals = rng.randn(rows, nnz)
+    iid = (w_true[cols] * vals).sum(1) > 0
+    label = onp.arange(rows) % 2 == 0
+    balanced = onp.where((iid != label)[:, None], -vals, vals)
+    return cols, vals, iid, balanced, label
+
+
+def _write_libsvm(path, cols, vals, label):
+    """One row a line, ``label col:val ...``, the values with 4 decimals as
+    ``make_synthetic`` writes them."""
+    table = onp.empty((len(label), 1 + 2 * cols.shape[1]))
+    table[:, 0] = label
+    table[:, 1::2] = cols
+    table[:, 2::2] = vals
+    onp.savetxt(path, table, fmt="%d" + " %d:%.4f" * cols.shape[1])
+
+
+def _plain_sparse_linear(cols, vals, label, feats, batch, epochs, lr=1.0):
+    """The script's loop in float64 numpy, independent of the port: the
+    file's rows (values rounded to 4 decimals as written) in batches of
+    ``batch``, the last partial one discarded; the logistic loss's gradient
+    as autograd takes the script's expression (``relu`` and ``abs`` have
+    slope 0 at 0, which the first step, at w = 0, meets); the same SGD step
+    and the accuracy pass. Returns (train accuracy, the losses a step)."""
+    vals = onp.round(vals, 4)
+    y = label.astype("float64")
+    n = len(y) // batch
+    w, b, losses = onp.zeros(feats), 0.0, []
+
+    def logit(k):
+        s = slice(k * batch, (k + 1) * batch)
+        return cols[s], vals[s], y[s], (w[cols[s]] * vals[s]).sum(1) + b
+
+    for _ in range(epochs):
+        for k in range(n):
+            c, v, t, z = logit(k)
+            e = onp.exp(-onp.abs(z))
+            losses.append(float(onp.mean(onp.maximum(z, 0) - z * t +
+                                         onp.log1p(e))))
+            d = ((z > 0) - t - onp.sign(z) * e / (1 + e)) / batch
+            w -= lr * onp.bincount(c.ravel(), (v * d[:, None]).ravel(),
+                                   feats)
+            b -= lr * d.sum()
+    hit = sum(int(((z > 0) == (t > 0.5)).sum())
+              for _, _, t, z in map(logit, range(n)))
+    return hit / (n * batch), losses
+
+
+def _top_ops(events, n=6):
+    """Device us by operation name, the ``n`` largest (all with None)."""
+    by = {}
+    for cat, name, _, _, dur, _ in events:
+        by[name] = by.get(name, 0.0) + dur
+    return sorted(by.items(), key=lambda kv: -kv[1])[:n]
+
+
+def _sparse_linear(smi_line, where):
+    """(i) the script's loop at Avazu's shape on the card."""
+    import io
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io as mio
+    from mxnet_tpu_torch.io import _textparse
+
+    ss = _sparse_script()
+    F, B = SPARSE_FEATURES, SPARSE_BATCH
+    path = os.path.join(where, "avazu_synthetic.libsvm")
+    t0 = time.perf_counter()
+    cols, vals, iid, balanced, label = _avazu_synthetic(
+        SPARSE_ROWS, F, SPARSE_NNZ, SEED + 14)
+    _write_libsvm(path, cols, balanced, label)
+    gen_s = time.perf_counter() - t0
+    n0 = _textparse.counts()["libsvm_native"]
+    t0 = time.perf_counter()
+    it = mio.LibSVMIter(path, data_shape=(F,), batch_size=B, sparse=True,
+                        last_batch_handle="discard")
+    parse_s = time.perf_counter() - t0
+    check(_textparse.counts()["libsvm_native"] == n0 + 1,
+          "(i) the native parser did not take the file")
+    nnz = int(it.csr[0][-1])
+    log(f"[sparse] (i) synthetic LibSVM: {SPARSE_ROWS} rows, {F} features, "
+        f"{nnz} nonzeros, {os.path.getsize(path)} bytes, written in "
+        f"{gen_s:.2f} s; native parse {parse_s:.3f} s "
+        f"({SPARSE_ROWS / parse_s:.0f} rows/s)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    acc, losses = ss.main(path, F, batch_size=B, epochs=SPARSE_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check(_textparse.counts()["libsvm_native"] == n0 + 2,
+          "(i) the script's iterator did not go through the native parser")
+    with mx.cpu():
+        acc_cpu, cpu_losses = ss.main(path, F, batch_size=B, epochs=1)
+    per_epoch = SPARSE_ROWS // B
+    gap = _np_rel(onp.array(losses[:per_epoch]), onp.array(cpu_losses))
+    # the plain reference: the same loop in float64 numpy on the same rows;
+    # and, on make_synthetic's own i.i.d. labels, what the example's
+    # hyperparameters reach at this size
+    acc_np, np_losses = _plain_sparse_linear(cols, balanced, label, F, B,
+                                             SPARSE_EPOCHS)
+    acc_iid, iid_losses = _plain_sparse_linear(cols, vals, iid, F, B,
+                                               SPARSE_EPOCHS)
+    np_gap = _np_rel(onp.array(losses), onp.array(np_losses))
+    steps = SPARSE_EPOCHS * per_epoch
+    log(f"[sparse] (i) tests/torch_script_sparse.py at Avazu's shape, "
+        f"{SPARSE_EPOCHS} epochs x {per_epoch} steps of {B}: loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}, train accuracy {acc:.4f} "
+        f"(CPU, 1 epoch: {acc_cpu:.4f}); first epoch's losses card vs CPU "
+        f"{gap:.3e} (limit {SPARSE_LOSS_RTOL}); main() {wall:.2f} s (a "
+        f"parse, {steps} steps, the accuracy pass over {per_epoch} "
+        f"batches): {SPARSE_EPOCHS * SPARSE_ROWS / wall:.0f} training "
+        f"rows/s, {steps / wall:.2f} steps/s; peak allocated {peak} bytes; "
+        f"card {smi_line}")
+    log(f"[sparse] (i) the loop in float64 numpy on the same rows: train "
+        f"accuracy {acc_np:.4f} (card {acc:.4f}, limit {SPARSE_ACC_GAP} "
+        f"apart), losses card vs numpy {np_gap:.3e} (limit "
+        f"{SPARSE_LOSS_RTOL}); on make_synthetic's i.i.d. labels "
+        f"({int(iid.sum())} positives of {SPARSE_ROWS}) the same loop "
+        f"reaches train accuracy {acc_iid:.4f}, loss {iid_losses[0]:.6f} -> "
+        f"{iid_losses[-1]:.6f}")
+    check(acc > SPARSE_MIN_ACC, f"(i) train accuracy {acc:.4f}")
+    check(gap <= SPARSE_LOSS_RTOL, f"(i) losses card vs CPU {gap:.3e}")
+    check(np_gap <= SPARSE_LOSS_RTOL and abs(acc - acc_np) <= SPARSE_ACC_GAP,
+          f"(i) card vs float64 numpy: losses {np_gap:.3e}, accuracy "
+          f"{acc:.4f} against {acc_np:.4f}")
+    check(peak < SPARSE_PEAK, f"(i) peak {peak} bytes")
+    # a step of the script's own loop: main() over the file parsed once
+    # (its LibSVMIter is (i)'s iterator), one epoch against more
+    class _Parsed:
+        @staticmethod
+        def LibSVMIter(*args, **kwargs):
+            return it
+
+    def run(epochs):
+        with contextlib.redirect_stdout(io.StringIO()):
+            ss.main(path, F, batch_size=B, epochs=epochs)
+        torch.cuda.synchronize()
+
+    real_io, ss.io = ss.io, _Parsed
+    try:
+        step_ms = (_wall_ms(lambda: run(3), 3) -
+                   _wall_ms(lambda: run(1), 3)) / (2 * per_epoch)
+        ev1 = _gpu_trace(lambda: run(1))
+        ev2 = _gpu_trace(lambda: run(2))
+    finally:
+        ss.io = real_io
+    busy = (_busy_us(ev2) - _busy_us(ev1)) / 1e3 / per_epoch
+    it.reset()
+    t0 = time.perf_counter()
+    for _ in range(per_epoch):
+        next(it)
+    batch_ms = (time.perf_counter() - t0) / per_epoch * 1e3
+    log(f"[sparse] (i) a step of the script's loop (its batch from "
+        f"LibSVMIter, the product, loss, backward, update and zeroing; "
+        f"batch {B}, ~{nnz // per_epoch} nonzeros; main() over 3 epochs "
+        f"less 1, and traced over 2 less 1): wall {step_ms:.3f} ms, device "
+        f"busy {busy:.3f} ms, idle share {1 - busy / step_ms:.3f}; of it a "
+        f"batch made by LibSVMIter (host gather + CSRNDArray) "
+        f"{batch_ms:.3f} ms; card {smi_line}")
+    one = dict(_top_ops(ev1, n=None))
+    epoch = sorted(((us - one.get(name, 0.0), name)
+                    for name, us in _top_ops(ev2, n=None)), reverse=True)
+    for us, name in epoch[:6]:
+        log(f"[sparse] (i) top: {us / 1e3 / per_epoch:8.4f} ms a step  "
+            f"{name[:100]}")
+    return it
+
+
+def _count_todense():
+    """Patch ``RowSparseNDArray.todense`` to count its calls; returns the
+    count list and the original."""
+    from mxnet_tpu_torch.ndarray import sparse
+
+    calls, real = [], sparse.RowSparseNDArray.todense
+
+    def counted(self):
+        calls.append(1)
+        return real(self)
+
+    sparse.RowSparseNDArray.todense = counted
+    return calls, real
+
+
+def _sparse_updates(smi_line, it):
+    """(ii) the lazy row-sparse updates on the 1M-row table."""
+    import torch
+
+    from mxnet_tpu_torch import optimizer as mopt
+    from mxnet_tpu_torch.gluon import Parameter, Trainer
+    from mxnet_tpu_torch.ndarray import sparse
+
+    R, D = SPARSE_TABLE
+    ip, ix, _ = it.csr
+    rng = onp.random.RandomState(SEED + 141)
+    w0 = (0.1 * rng.randn(R, D)).astype("float32")
+    grads = []
+    for k in range(SPARSE_STEPS):
+        ids = onp.unique(ix[ip[k * SPARSE_BATCH]:ip[(k + 1) * SPARSE_BATCH]])
+        grads.append((ids.astype("int32"),
+                      rng.randn(len(ids), D).astype("float32")))
+    touched = onp.zeros(R, bool)
+    for ids, _ in grads:
+        touched[ids] = True
+    mask = torch.from_numpy(touched).to(DEV)
+    w0_g = torch.from_numpy(w0).to(DEV)
+    dense_g = torch.randn(R, D, device=DEV)
+    calls, real = _count_todense()
+    try:
+        for name, kw in SPARSE_OPTS:
+            kw = dict(kw, learning_rate=0.1)
+            opt_c = mopt.create(name, **kw)
+            w_c = torch.from_numpy(w0.copy())
+            st_c = opt_c.create_state(0, w_c)
+            for ids, g in grads:
+                opt_c.update(0, w_c, sparse.RowSparseNDArray(
+                    g, ids, (R, D), ctx="cpu"), st_c)
+            opt = mopt.create(name, **kw)
+            w = w0_g.clone()
+            st = opt.create_state(0, w)
+            st0 = {k: v.clone() for k, v in st.items()}
+            rs = [sparse.RowSparseNDArray(g, ids, (R, D), ctx=DEV)
+                  for ids, g in grads]
+            for r in rs:
+                opt.update(0, w, r, st)
+            torch.cuda.synchronize()
+            check(torch.equal(w[~mask], w0_g[~mask]) and all(
+                torch.equal(st[k][~mask], st0[k][~mask]) for k in st),
+                f"(ii) {name}: untouched rows moved")
+            gap = max([_np_rel(w[mask].cpu().numpy(),
+                                w_c[torch.from_numpy(touched)].numpy())] +
+                      [_np_rel(st[k][mask].cpu().numpy(),
+                                st_c[k][torch.from_numpy(touched)].numpy())
+                       for k in st])
+            p = Parameter(w0_g.clone())
+            tr = Trainer([p], name, kw)
+            for r in rs:
+                p.grad = r
+                tr.step(1)
+            tgap = _np_rel(p.detach().cpu().numpy(), w.cpu().numpy())
+            check(gap <= SPARSE_OPT_RTOL and tgap <= SPARSE_OPT_RTOL,
+                  f"(ii) {name}: card vs CPU {gap:.3e}, Trainer vs update "
+                  f"{tgap:.3e}")
+            lazy_ms = time_ms(lambda: opt.update(0, w, rs[0], st), reps=10,
+                              rounds=3)
+            opt_d = mopt.create(name, **kw)
+            w_d = w0_g.clone()
+            st_d = opt_d.create_state(0, w_d)
+            dense_ms = time_ms(lambda: opt_d.update(0, w_d, dense_g, st_d),
+                               reps=10, rounds=3)
+            log(f"[sparse] (ii) {name}: {len(grads[0][0])} of {R} rows a "
+                f"step, untouched rows and states bitwise, touched card vs "
+                f"CPU {gap:.3e}, Trainer vs update {tgap:.3e}; lazy "
+                f"{lazy_ms:.4f} ms a step against dense {dense_ms:.4f} ms "
+                f"on the same table; card {smi_line}")
+            del w, st, st0, p, tr, w_d, st_d, w_c, st_c, rs
+        # bf16 weight, multi_precision: the fp32 master takes the step
+        opt = mopt.create("adam", learning_rate=0.1, multi_precision=True)
+        w = w0_g.to(torch.bfloat16)
+        st = opt.create_state_multi_precision(0, w)
+        wb = w.clone()
+        for ids, g in grads:
+            opt.update_multi_precision(0, w, sparse.RowSparseNDArray(
+                g, ids, (R, D), ctx=DEV), st)
+        check(torch.equal(w[~mask], wb[~mask]) and torch.equal(
+            w, st["weight_fp32"].to(torch.bfloat16)),
+            "(ii) multi-precision: untouched rows moved or the weight is "
+            "not the master's rounding")
+    finally:
+        sparse.RowSparseNDArray.todense = real
+    check(not calls, f"(ii) RowSparseNDArray.todense called {len(calls)} "
+          "times on a lazy path")
+    log(f"[sparse] (ii) RowSparseNDArray.todense calls on the lazy paths "
+        f"(fp32 and bf16 multi_precision): {len(calls)}")
+    del w0_g, dense_g
+    _release()
+
+
+def _both_devices(fn, inputs, grads=()):
+    """``fn`` over NDArrays of ``inputs`` on the CPU and on the card under
+    ``record()``: (outputs, gradients of sum(out * c) into ``grads``) of
+    each, as numpy, and the card's forward ms."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import np as mnp
+
+    res = []
+    for ctx in (mx.cpu(), mx.gpu()):
+        with ctx:
+            arrs = [mnp.array(a) for a in inputs]
+            for i in grads:
+                arrs[i].attach_grad()
+            with autograd.record():
+                outs = fn(*arrs)
+                outs = list(outs) if isinstance(outs, (list, tuple)) \
+                    else [outs]
+                if grads:
+                    rng = onp.random.RandomState(1)
+                    loss = None
+                    for o in outs:
+                        c = mnp.array(onp.asarray(rng.randn(*o.shape),
+                                                  "float32"))
+                        t = (o * c).sum()
+                        loss = t if loss is None else loss + t
+            if grads:
+                loss.backward()
+            res.append(([o.asnumpy() for o in outs],
+                        [arrs[i].grad.asnumpy() for i in grads]))
+    ms = time_ms(lambda: fn(*arrs), reps=5, rounds=3)   # the card's
+    return res[0], res[1], ms
+
+
+def _op_row(tag, cpu, card, ms, exact=False, limit=SPARSE_OP_RTOL):
+    gaps = [_np_rel(g, w) for g, w in zip(card[0] + card[1],
+                                          cpu[0] + cpu[1])]
+    gap = max(gaps) if gaps else 0.0
+    if len(gaps) > 1:
+        log(f"[sparse] (iii) {tag}: gaps of the outputs, then of each "
+            f"gradient: {['%.3e' % g for g in gaps]}")
+    if exact:
+        check(all(onp.array_equal(g, w) for g, w in
+                  zip(card[0], cpu[0])), f"(iii) {tag}: card != CPU")
+    check(gap <= limit, f"(iii) {tag}: card vs CPU {gap:.3e}")
+    log(f"[sparse] (iii) {tag}: card vs CPU {gap:.3e} (limit "
+        f"{0 if exact else limit}), {ms:.4f} ms a forward")
+
+
+def _ssd_rows(rng):
+    b, n = SSD["batch"], SSD["anchors"] * SSD["classes"]
+    xy = rng.uniform(0.05, 0.95, (b, n, 2))
+    wh = rng.uniform(0.02, 0.3, (b, n, 2))
+    cls = onp.repeat(onp.arange(SSD["classes"]), SSD["anchors"])
+    return onp.concatenate(
+        [onp.broadcast_to(cls[None, :, None], (b, n, 1)),
+         rng.uniform(0, 1, (b, n, 1)), xy - wh / 2, xy + wh / 2],
+        -1).astype("float32")
+
+
+def _dcgan_weights(rng):
+    """Seeded (in, out, 4, 4) weights of DCGAN's five transposed
+    convolutions."""
+    widths = DCGAN["widths"]
+    return [(0.02 * rng.randn(ci, co, 4, 4)).astype("float32")
+            for ci, co in zip((DCGAN["nz"],) + widths[:-1], widths)]
+
+
+def _dcgan_generator(ws):
+    """DCGAN's generator as its users build it, on the current context:
+    ``nn.Conv2DTranspose`` layers without ``in_channels`` (inferred at the
+    first forward), ReLU between, tanh last; then the seeded weights set
+    through ``set_data``. (No BatchNorm: the layers are what is checked.)"""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    for i, co in enumerate(DCGAN["widths"]):
+        net.add(nn.Conv2DTranspose(co, 4, 1 if i == 0 else 2,
+                                   0 if i == 0 else 1, use_bias=False),
+                nn.Activation("relu" if i < len(ws) - 1 else "tanh"))
+    net.initialize()
+    net(mx.np.zeros((1, DCGAN["nz"], 1, 1)))
+    for i, w in enumerate(ws):
+        check(tuple(net[2 * i].weight.shape) == w.shape,
+              f"(iii) Conv2DTranspose {i + 1} inferred "
+              f"{tuple(net[2 * i].weight.shape)}, not {w.shape}")
+        net[2 * i].weight.set_data(mx.np.array(w))
+    return net
+
+
+def _dcgan_rows(rng, smi_line):
+    """(iii) ``nn.Conv2DTranspose`` through DCGAN's generator: each layer
+    alone, forward and backward, on the activations the CPU's generator
+    feeds it; the chain's forward eager and hybridized (one CUDA graph),
+    card against CPU; the chain recorded and hybridized."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    ws = _dcgan_weights(rng)
+    z = rng.randn(DCGAN["batch"], DCGAN["nz"], 1, 1).astype("float32")
+    nets, pres = {}, {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu())):
+        with ctx:
+            nets[where] = _dcgan_generator(ws)
+            h, pre = mx.np.array(z), []
+            for i in range(len(ws)):
+                pre.append(nets[where][2 * i](h))
+                h = nets[where][2 * i + 1](pre[-1])
+            pres[where] = [p.asnumpy() for p in pre] + [h.asnumpy()]
+    h = z
+    for i in range(len(ws)):
+        runs = []
+        for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu())):
+            layer = nets[where][2 * i]
+            with ctx:
+                x = mx.np.array(h)
+                x.attach_grad()
+                c = mx.np.array(onp.random.RandomState(i).randn(
+                    *pres["cpu"][i].shape).astype("float32"))
+                with autograd.record():
+                    out = layer(x)
+                    (out * c).sum().backward()
+                runs.append(([out.asnumpy()], [x.grad.asnumpy(),
+                             layer.weight.grad.detach().cpu().numpy()]))
+        with mx.gpu():
+            ms = time_ms(lambda: layer(x), reps=5, rounds=3)
+        _op_row(f"nn.Conv2DTranspose {i + 1} of DCGAN's generator, "
+                f"{h.shape} -> {runs[1][0][0].shape}, forward and the "
+                f"input's and weight's gradients", runs[0], runs[1], ms)
+        out = pres["cpu"][i]
+        h = onp.maximum(out, 0) if i < len(ws) - 1 else onp.tanh(out)
+    out_cpu = pres["cpu"][-1]
+    check(pres["card"][-1].shape == (DCGAN["batch"], 3, 64, 64),
+          f"(iii) DCGAN output {pres['card'][-1].shape}")
+    fwd = _np_rel(pres["card"][-1], out_cpu)
+    flips = sum(int(((g > 0) != (c > 0)).sum()) for g, c in
+                zip(pres["card"][:-2], pres["cpu"][:-2]))
+    grads = {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu())):
+        net = nets[where]
+        with ctx:
+            zz = mx.np.array(z)
+            with autograd.record():
+                net(zz).backward()
+            grads[where] = [net[2 * i].weight.grad.detach().cpu().numpy()
+                            for i in range(len(ws))]
+    bwd = max(_np_rel(g, c) for g, c in zip(grads["card"], grads["cpu"]))
+    with mx.gpu():
+        card = nets["card"]
+        zz = mx.np.array(z)
+        eager_ms = time_ms(lambda: card(zz), reps=5, rounds=3)
+
+        def step(net):
+            with autograd.record():
+                out = net(zz)
+            out.backward()
+
+        eager_step_ms = time_ms(lambda: step(card), reps=5, rounds=3)
+        card.hybridize()
+        for _ in range(3):
+            hy = card(zz)
+        (cop, _, _), = card._cached.values()
+        replays = sum(s["replays"] for s in cop.graph_stats())
+        hy_gap = _np_rel(hy.asnumpy(), out_cpu)
+        check(cop._captures == 1 and replays >= 2 and
+              hy_gap <= SPARSE_OP_RTOL,
+              f"(iii) hybridized DCGAN generator: {cop._captures} captures, "
+              f"{replays} replays, card vs CPU {hy_gap:.3e}")
+        hy_ms = time_ms(lambda: card(zz), reps=5, rounds=3)
+        rec = _dcgan_generator(ws)
+        rec.hybridize()
+        for _ in range(2):
+            step(rec)
+        (rcop, _, _), = rec._cached.values()
+        prog = next(iter(rcop._recorded.values()))
+        rec_gap = max(_np_rel(rec[2 * i].weight.grad.detach().cpu().numpy(),
+                              g) for i, g in enumerate(grads["card"]))
+        rec_ok = all(torch.isfinite(rec[2 * i].weight.grad).all()
+                     for i in range(len(ws)))
+        check(rcop._backward_captures == 1 and prog.backward_replays == 1
+              and rec_ok, f"(iii) recorded hybridized DCGAN generator: "
+              f"{rcop._backward_captures} backward captures, "
+              f"{prog.backward_replays} backward replays, finite {rec_ok}")
+        hy_step_ms = time_ms(lambda: step(rec), reps=5, rounds=3)
+    check(fwd <= SPARSE_OP_RTOL and all(onp.isfinite(g).all()
+                                        for g in grads["card"]),
+          f"(iii) DCGAN generator forward card vs CPU {fwd:.3e}")
+    log(f"[sparse] (iii) DCGAN's generator of nn.Conv2DTranspose layers "
+        f"(batch {DCGAN['batch']}, z {DCGAN['nz']} -> 64x64x3, in_channels "
+        f"inferred): forward card vs CPU {fwd:.3e} eager, {hy_gap:.3e} "
+        f"hybridized (one CUDA graph, {replays} replays) (limit "
+        f"{SPARSE_OP_RTOL}); ms a forward eager {eager_ms:.4f}, hybridized "
+        f"{hy_ms:.4f}; forward + backward eager {eager_step_ms:.4f}, "
+        f"hybridized under record() {hy_step_ms:.4f} (backward captured "
+        f"once); the chain's weight gradients card vs CPU {bwd:.3e}, "
+        f"hybridized vs eager on the card {rec_gap:.3e}, with {flips} ReLU "
+        f"inputs of the {sum(p.size for p in pres['cpu'][:-2])} on the "
+        f"other side of 0 on the card than on the CPU (such an input passes "
+        f"a whole gradient entry on one device only; each layer alone is "
+        f"held above); card {smi_line}")
+
+
+def _sparse_ops(smi_line, where):
+    """(iii) the ops at model sizes, card against CPU."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import npx
+
+    rng = onp.random.RandomState(SEED + 143)
+    T, B, H = SEQ_SHAPE
+    x = rng.randn(T, B, H).astype("float32")
+    ln = rng.randint(1, T + 1, B).astype("float32")
+    for name in ("sequence_mask", "sequence_reverse", "sequence_last"):
+        cpu, card, ms = _both_devices(
+            lambda d, l, _n=name: getattr(npx, _n)(d, l), [x, ln], (0,))
+        _op_row(f"{name} {SEQ_SHAPE}", cpu, card, ms)
+    _dcgan_rows(rng, smi_line)
+    # SSD-300's NMS, encode and decode
+    rows = _ssd_rows(rng)
+    cpu, card, ms = _both_devices(
+        lambda d: npx.box_nms(d, overlap_thresh=0.45, valid_thresh=0.01,
+                              topk=SSD["topk"], id_index=0, score_index=1,
+                              coord_start=2), [rows])
+    kept = int((card[0][0][..., 0] >= 0).sum())
+    _op_row(f"box_nms {rows.shape} topk {SSD['topk']} ({kept} kept)", cpu,
+            card, ms, exact=True)
+    b, n, m = SSD["batch"], SSD["anchors"], SSD["gt"]
+    anchors = onp.concatenate([rng.uniform(0, 0.7, (b, n, 2)),
+                               rng.uniform(0.75, 1.0, (b, n, 2))], -1)
+    refs = onp.concatenate([rng.uniform(0, 0.5, (b, m, 2)),
+                            rng.uniform(0.55, 1.0, (b, m, 2))], -1)
+    enc_in = [rng.choice([-1.0, 0.0, 1.0], (b, n)),
+              rng.randint(0, m, (b, n)).astype("float64"), anchors, refs]
+    cpu, card, ms = _both_devices(npx.box_encode, [a.astype("float32")
+                                                   for a in enc_in], (2, 3))
+    _op_row(f"box_encode ({b}, {n}, 4) against {m} boxes", cpu, card, ms)
+    deltas = (0.5 * rng.randn(b, n, 4)).astype("float32")
+    cpu, card, ms = _both_devices(
+        lambda d, a: npx.box_decode(d, a, format="corner"),
+        [deltas, anchors.astype("float32")], (0, 1))
+    _op_row(f"box_decode ({b}, {n}, 4)", cpu, card, ms)
+    # ROI align / pooling over (2, 256, 50, 50), 256 ROIs an image
+    data = rng.randn(*ROI["data"]).astype("float32")
+    R = ROI["per_image"] * ROI["data"][0]
+    size = ROI["data"][2] / ROI["scale"]
+    lo = rng.uniform(0, size * 0.7, (R, 2))
+    rois = onp.concatenate([onp.repeat(onp.arange(ROI["data"][0]),
+                                       ROI["per_image"])[:, None], lo,
+                            lo + rng.uniform(4, size * 0.3, (R, 2))],
+                           1).astype("float32")
+    cpu, card, ms = _both_devices(
+        lambda d, r: npx.roi_align(d, r, pooled_size=ROI["pooled"],
+                                   spatial_scale=ROI["scale"],
+                                   sample_ratio=ROI["ratio"]),
+        [data, rois], (0,))
+    _op_row(f"roi_align {ROI['data']} {R} ROIs 7x7 ratio 2, with the "
+            f"gradient", cpu, card, ms)
+    cpu, card, ms = _both_devices(
+        lambda d, r: npx.roi_pooling(d, r, pooled_size=ROI["pooled"],
+                                     spatial_scale=ROI["scale"]),
+        [data, rois])
+    _op_row(f"roi_pooling {ROI['data']} {R} ROIs 7x7", cpu, card, ms)
+    img = rng.randn(*RESIZE_SHAPE).astype("float32")
+    for tag, fn in (("upsampling nearest x2",
+                     lambda d: npx.upsampling(d, scale=2)),
+                    ("bilinear_resize_2d to 128x128",
+                     lambda d: npx.bilinear_resize_2d(d, height=128,
+                                                      width=128)),
+                    ("moments over (2, 3)",
+                     lambda d: npx.moments(d, axes=(2, 3)))):
+        cpu, card, ms = _both_devices(fn, [img], (0,))
+        _op_row(f"{tag} {RESIZE_SHAPE}", cpu, card, ms)
+    # mx.nd.save / load round trip on the card
+    with mx.gpu():
+        arrs = {f"w{i}": mx.np.array(w) for i, w in enumerate(_dcgan_weights(
+            onp.random.RandomState(SEED + 145)))}
+        fname = os.path.join(where, "dcgan.params")
+        nd.save(fname, arrs)
+        back = nd.load(fname)
+    check(sorted(back) == sorted(arrs) and all(
+        back[k]._data.is_cuda and torch.equal(back[k]._data, arrs[k]._data)
+        for k in arrs), "(iii) nd.save/load round trip")
+    log(f"[sparse] (iii) mx.nd.save/load of {len(arrs)} DCGAN weights "
+        f"({os.path.getsize(fname)} bytes): bitwise, back on the card")
+    _release()
+
+
+def _lstm_case(rng):
+    """examples/word_lm.py's 2-layer LSTM cell written in mx.np for
+    ``npx.foreach``: (data, h/c of each layer, numpy weights)."""
+    T, B, H, L = LSTM["T"], LSTM["B"], LSTM["H"], LSTM["layers"]
+    ws = [((rng.randn(H, 4 * H) / onp.sqrt(H)).astype("float32"),
+           (rng.randn(H, 4 * H) / onp.sqrt(H)).astype("float32"))
+          for _ in range(L)]
+    data = rng.randn(T, B, H).astype("float32")
+    states = [(0.1 * rng.randn(B, H)).astype("float32")
+              for _ in range(2 * L)]
+    return data, states, ws
+
+
+def _lstm_fn(ws_nd):
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+
+    H = LSTM["H"]
+
+    def body(x, states):
+        new = []
+        for k, (wi, wh) in enumerate(ws_nd):
+            h, c = states[2 * k], states[2 * k + 1]
+            g = mnp.dot(x, wi) + mnp.dot(h, wh)
+            i, f, o, u = (g[:, j * H:(j + 1) * H] for j in range(4))
+            c = npx.sigmoid(f) * c + npx.sigmoid(i) * mnp.tanh(u)
+            h = npx.sigmoid(o) * mnp.tanh(c)
+            new += [h, c]
+            x = h
+        return x, new
+
+    def run(data, *states):
+        outs, final = npx.foreach(body, data, list(states))
+        return (outs, *final)
+
+    return run
+
+
+def _sparse_control_flow(smi_line):
+    """(iv) foreach (the LSTM), while_loop and cond, eager and hybridized."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon.block import HybridBlock
+
+    class Fn(HybridBlock):
+        def __init__(self, fn):
+            super().__init__()
+            self._fn = fn
+
+        def forward(self, *args):
+            return self._fn(*args)
+
+    rng = onp.random.RandomState(SEED + 144)
+    data, states, ws = _lstm_case(rng)
+    inputs = [data] + states
+    runs = {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu())):
+        with ctx:
+            fn = _lstm_fn([(mnp.array(a), mnp.array(b)) for a, b in ws])
+            arrs = [mnp.array(a) for a in inputs]
+            for a in arrs:
+                a.attach_grad()
+            with autograd.record():
+                outs = fn(*arrs)
+                loss = sum((o * o).sum() for o in outs)
+            loss.backward()
+            runs[where] = ([o.asnumpy() for o in outs],
+                           [a.grad.asnumpy() for a in arrs])
+            if where == "card":
+                eager_ms = time_ms(lambda: fn(*arrs), reps=3, rounds=3)
+
+                def train_step(f):
+                    with autograd.record():
+                        outs = f(*arrs)
+                        loss = sum((o * o).sum() for o in outs)
+                    loss.backward()
+
+                eager_step_ms = time_ms(lambda: train_step(fn), reps=3,
+                                        rounds=3)
+                net = Fn(fn)
+                net.hybridize()
+                for _ in range(3):
+                    hy = net(*arrs)
+                (cop, _, _), = net._cached.values()
+                replays = sum(s["replays"] for s in cop.graph_stats())
+                hy_gap = max(_np_rel(h.asnumpy(), e) for h, e in
+                             zip(hy, runs["card"][0]))
+                check(cop._captures == 1 and replays >= 2 and
+                      hy_gap <= 1e-6,
+                      f"(iv) hybridized foreach: {cop._captures} captures, "
+                      f"{replays} replays, gap {hy_gap:.3e}")
+                hy_ms = time_ms(lambda: net(*arrs), reps=3, rounds=3)
+                rec = Fn(fn)
+                rec.hybridize()
+                for _ in range(2):
+                    for a in arrs:
+                        a.grad._data.zero_()
+                    train_step(rec)
+                (rcop, _, _), = rec._cached.values()
+                prog = next(iter(rcop._recorded.values()))
+                rgap = max(_np_rel(a.grad.asnumpy(), g) for a, g in
+                           zip(arrs, runs["card"][1]))
+                check(rcop._backward_captures == 1 and prog.replays == 1
+                      and prog.backward_replays == 1 and rgap <= 1e-6,
+                      f"(iv) recorded foreach: {rcop._captures} / "
+                      f"{rcop._backward_captures} captures, replays "
+                      f"{prog.replays} / {prog.backward_replays}, gradient "
+                      f"gap {rgap:.3e}")
+                rec_ms = time_ms(lambda: train_step(rec), reps=3, rounds=3)
+    gap = max(_np_rel(g, c) for g, c in
+              zip(runs["card"][0] + runs["card"][1],
+                  runs["cpu"][0] + runs["cpu"][1]))
+    check(gap <= CF_RTOL, f"(iv) LSTM via foreach card vs CPU {gap:.3e}")
+    log(f"[sparse] (iv) npx.foreach over a 2-layer LSTM cell (T {LSTM['T']},"
+        f" B {LSTM['B']}, H {LSTM['H']}): outputs and gradients into the "
+        f"data and the 4 initial states card vs CPU {gap:.3e}; eager "
+        f"{eager_ms:.3f} ms, hybridized (one CUDA graph, {replays} replays) "
+        f"{hy_ms:.3f} ms a forward, gap {hy_gap:.3e}; under record() "
+        f"forward and backward (the body run once) {eager_step_ms:.3f} ms "
+        f"eager, {rec_ms:.3f} ms hybridized (captured once), gradients "
+        f"{rgap:.3e} from eager; card {smi_line}")
+    with mx.gpu():
+        i0, v0 = mnp.array(0.0), mnp.array(rng.randn(1024).astype("float32"))
+
+        def wl(i, v):
+            return npx.while_loop(lambda i, v: i < 5,
+                                  lambda i, v: (v * 2, (i + 1, v + 1)),
+                                  (i, v), max_iterations=8)
+
+        want = wl(i0, v0)
+        net = Fn(lambda i, v: (lambda o, f: (o, *f))(*wl(i, v)))
+        net.hybridize()
+        for _ in range(3):
+            got = net(i0, v0)
+        (cop, _, _), = net._cached.values()
+        ok = all(onp.array_equal(g.asnumpy(), w.asnumpy()) for g, w in
+                 zip(got, [want[0]] + want[1]))
+        check(cop._captures == 1 and ok,
+              f"(iv) while_loop hybridized: {cop._captures} captures, "
+              f"equal {ok}")
+        x = mnp.array(rng.randn(1024).astype("float32"))
+        cnet = Fn(lambda p, a: npx.cond(p, lambda t: t * 2,
+                                        lambda t: t - 1, [a]))
+        cnet.hybridize()
+        for p in (1.0, 0.0, 1.0, 0.0):
+            got = cnet(mnp.array(p), x)
+            want = npx.cond(mnp.array(p), lambda t: t * 2, lambda t: t - 1,
+                            [x])
+            check(onp.array_equal(got.asnumpy(), want.asnumpy()),
+                  f"(iv) cond hybridized, predicate {p}")
+        (ccop, _, _), = cnet._cached.values()
+        check(ccop._captures == 1, f"(iv) cond: {ccop._captures} captures")
+    log(f"[sparse] (iv) while_loop (max_iterations 8, masked form) and cond "
+        f"(both branches and a select) hybridized: one capture each, "
+        f"replays equal to eager for both predicates")
+    _release()
+
+
+def phase_sparse(smi_line):
+    """Phase 14: A4's remainder (see the module docstring). Returns the
+    path's launch counts by dtypes (no port kernel on it)."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="sparse-") as where:
+        it = _sparse_linear(smi_line, where)
+        _sparse_updates(smi_line, it)
+        del it
+        _sparse_ops(smi_line, where)
+    _sparse_control_flow(smi_line)
+    taken = read_counts("sparse")
+    log(f"[sparse] launches of the port's kernels on this path: {taken}")
+    log(f"[sparse] phase took {time.perf_counter() - t_phase:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "resnet": phase_resnet, "predictor": phase_predictor,
            "bert_pretrain": phase_bert_pretrain, "graph": phase_graph,
            "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
-           "optim": phase_optim, "data": phase_data}
+           "optim": phase_optim, "data": phase_data,
+           "sparse": phase_sparse}
 
 
 # ---------------------------------------------------------------------------
@@ -6538,6 +7401,7 @@ def main():
         del arrays, batches
         phase_optim(smi_line)
         phase_data(smi_line)
+        phase_sparse(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -6560,6 +7424,7 @@ def main():
         row["script"] = by_path.get("script", 0)
         row["optim"] = by_path.get("optim", 0)
         row["data"] = by_path.get("data", 0)
+        row["sparse"] = by_path.get("sparse", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -6571,7 +7436,7 @@ def main():
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
-    rtc_row["data"] = 0
+    rtc_row["data"] = rtc_row["sparse"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,15 @@ The input pipeline and training utilities are the reference's too:
 with serial, thread and spawned-process workers, the ``DevicePrefetcher``
 that stages groups of batches for the compiled multi-step on a CUDA stream
 of its own, ``vision`` datasets and transforms), ``mx.metric``,
-``mx.callback``, ``mx.model`` and the Python iterators of ``mx.io``.
+``mx.callback``, ``mx.model`` and the iterators of ``mx.io`` (``CSVIter``
+and ``LibSVMIter`` over the reference's native text parser, built with the
+host's C++ compiler at first use).
+
+The legacy ``mx.nd`` namespace (:mod:`mxnet_tpu_torch.nd`) and the sparse
+arrays of ``mx.nd.sparse`` (CSR and row-sparse, on the device; ``sparse.dot``
+and the optimizers' lazy row-sparse updates) are the reference's, as are
+the sequence, detection, ROI and resize ops of ``mx.npx``, the transposed
+convolutions and ``npx.foreach`` / ``while_loop`` / ``cond``.
 """
 from . import (amp, attribute, autograd, base, callback, context, convert,
                engine, executor, gluon, initializer, io, lr_scheduler, metric,
@@ -48,6 +56,7 @@ from . import (amp, attribute, autograd, base, callback, context, convert,
                visualization)
 from . import numpy as np
 from . import numpy_extension as npx
+from . import nd
 from .attribute import AttrScope
 from .base import MXNetError
 from .name import NameManager
@@ -57,7 +66,6 @@ from .context import (Context, Device, cpu, current_context, current_device,
 from .convert import params_from_mxnet_tpu, trainer_states_from_mxnet_tpu
 from .ndarray import NDArray, array
 
-nd = ndarray
 sym = symbol
 viz = visualization
 

@@ -9,9 +9,13 @@ in every layout and starts from ``Xavier`` unless given another
 initializer; without ``in_channels`` its shape waits for the first forward
 (the reference's ``_infer``, :57-69).
 
-Not ported (they raise naming ROADMAP A9, which holds the ``deconvolution``
-and deformable ops they need): the transposed convolutions, the deformable
-convolutions and ``PixelShuffle1D/2D/3D``.
+``Conv1DTranspose``, ``Conv2DTranspose`` and ``Conv3DTranspose`` (reference
+:117-143) run the ``deconvolution`` op (torch's transposed convolution);
+their weight is (in_channels, channels / groups, *kernel), and
+``output_padding`` is the reference's ``adj``.
+
+Not ported (they raise naming ROADMAP A9, which holds the deformable ops
+they need): the deformable convolutions and ``PixelShuffle1D/2D/3D``.
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 dtype="float32", device=None):
+                 dtype="float32", device=None, transpose=False,
+                 output_padding=0):
         super().__init__()
         ndim = len(kernel_size)
         device = resolve_device(device)
@@ -54,22 +59,37 @@ class _Conv(HybridBlock):
         self._groups = groups
         self._layout = layout
         self._activation = activation
-        wshape = (channels, in_channels // groups if in_channels else 0) + \
+        self._transpose = transpose
+        self._adj = _tup(output_padding, ndim)
+        wshape = self._wshape(in_channels) if in_channels else \
+            ((0, channels // groups) if transpose else (channels, 0)) + \
             kernel_size
         self.weight = new_parameter(wshape, dtype, device,
                                     weight_initializer or "xavier")
         self.bias = new_parameter((channels,), dtype, device,
                                   bias_initializer) if use_bias else None
 
+    def _wshape(self, in_c):
+        if self._transpose:
+            return (in_c, self._channels // self._groups) + self._kernel
+        return (self._channels, in_c // self._groups) + self._kernel
+
     def forward(self, x):
         if self.weight.is_deferred:
-            in_c = x.shape[self._layout.index("C")]
             self.weight._finish_deferred_init(
-                (self._channels, in_c // self._groups) + self._kernel)
-        out = F.convolution(x, self.weight, self.bias, kernel=self._kernel,
-                            stride=self._stride, dilate=self._dilate,
-                            pad=self._pad, num_filter=self._channels,
-                            num_group=self._groups, layout=self._layout)
+                self._wshape(x.shape[self._layout.index("C")]))
+        if self._transpose:
+            out = F.deconvolution(
+                x, self.weight, self.bias, kernel=self._kernel,
+                stride=self._stride, dilate=self._dilate, pad=self._pad,
+                adj=self._adj, num_filter=self._channels,
+                num_group=self._groups, layout=self._layout)
+        else:
+            out = F.convolution(
+                x, self.weight, self.bias, kernel=self._kernel,
+                stride=self._stride, dilate=self._dilate, pad=self._pad,
+                num_filter=self._channels, num_group=self._groups,
+                layout=self._layout)
         if self._activation is not None:
             out = F.activation(out, act_type=self._activation)
         return out
@@ -95,6 +115,33 @@ class Conv3D(_Conv):
                  layout="NCDHW", **kwargs):
         super().__init__(channels, _tup(kernel_size, 3), strides, padding,
                          dilation, groups, layout, **kwargs)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 **kwargs):
+        super().__init__(channels, _tup(kernel_size, 1), strides, padding,
+                         dilation, groups, layout, transpose=True,
+                         output_padding=output_padding, **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", **kwargs):
+        super().__init__(channels, _tup(kernel_size, 2), strides, padding,
+                         dilation, groups, layout, transpose=True,
+                         output_padding=output_padding, **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW", **kwargs):
+        super().__init__(channels, _tup(kernel_size, 3), strides, padding,
+                         dilation, groups, layout, transpose=True,
+                         output_padding=output_padding, **kwargs)
 
 
 class _Pool(HybridBlock):
@@ -208,9 +255,6 @@ def _not_ported(name):
     return _Layer
 
 
-Conv1DTranspose = _not_ported("Conv1DTranspose")
-Conv2DTranspose = _not_ported("Conv2DTranspose")
-Conv3DTranspose = _not_ported("Conv3DTranspose")
 DeformableConvolution = _not_ported("DeformableConvolution")
 ModulatedDeformableConvolution = _not_ported(
     "ModulatedDeformableConvolution")

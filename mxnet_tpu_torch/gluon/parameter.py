@@ -57,6 +57,13 @@ captured steps work as on any parameter.
 A backward that does not reach a parameter leaves its ``.grad`` as it was,
 in every mode, as in the reference.
 
+A row-sparse gradient (``p.grad = RowSparseNDArray(...)``, as a
+``row_sparse_pull`` or a sparse embedding backward gives one) is held
+beside torch's slot and read back by ``p.grad`` until ``p.grad`` is set
+again, ``zero_grad`` drops it or a backward reaches the parameter (its
+dense gradient is then ``p.grad``); the ``Trainer`` updates such a
+parameter alone, through the optimizer's lazy row-sparse path.
+
 Initialization (reference :79-130). ``initialize(init, ctx,
 default_init, force_reinit, device)`` fills the parameter by the
 reference's fill by name from its own initializer, else ``init``, else
@@ -95,6 +102,7 @@ from .. import initializer as init_mod
 from ..base import MXNetError, dtype_name, to_dtype
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
+from ..ndarray.sparse import RowSparseNDArray
 
 __all__ = ["Parameter", "Constant", "DeferredInitializationError"]
 
@@ -219,8 +227,12 @@ class Parameter(torch.nn.Parameter):
         _DATA.__set__(self, value)
         self._initialized = True
 
+    _row_sparse_grad = None
+
     @property
     def grad(self):
+        if self._row_sparse_grad is not None:
+            return self._row_sparse_grad
         g = _GRAD.__get__(self)
         if type(g) is torch.Tensor:    # not a subclass of its own
             g.__class__ = _GradView
@@ -228,10 +240,15 @@ class Parameter(torch.nn.Parameter):
 
     @grad.setter
     def grad(self, value):
+        if isinstance(value, RowSparseNDArray):
+            self._row_sparse_grad = value
+            return
+        self._row_sparse_grad = None
         _GRAD.__set__(self, value)
 
     @grad.deleter
     def grad(self):
+        self._row_sparse_grad = None
         _GRAD.__set__(self, None)
 
     @property
@@ -434,7 +451,9 @@ class Parameter(torch.nn.Parameter):
             self._attach_grad()
 
     def zero_grad(self):
-        """Zero the gradient in place (reference :196)."""
+        """Zero the gradient in place (reference :196); a row-sparse one
+        is dropped (no rows)."""
+        self._row_sparse_grad = None
         g = _GRAD.__get__(self)
         if g is not None:
             g.zero_()
@@ -565,7 +584,9 @@ def _reference_form(name="param", shape=None, dtype="float32", lr_mult=1.0,
 
 def _overwrite(p):
     """After torch accumulated into ``p.grad``: under ``'write'``, put the
-    fresh gradient in place of the sum."""
+    fresh gradient in place of the sum. The dense gradient takes the place
+    of a row-sparse one (the reference's one slot, which backward writes)."""
+    p._row_sparse_grad = None
     fresh, p._fresh_grad = p._fresh_grad, None
     g = _GRAD.__get__(p)
     if fresh is not None and g is not fresh:

@@ -24,8 +24,9 @@ instead of 148. The arithmetic per element is the per-parameter path's: on
 the CPU the two give the same bits; on CUDA the loop's Python-scalar hypers
 divide by a reciprocal multiply, so they differ in the last bits.
 ``MXNET_FUSED_TRAINER=0`` keeps the
-per-parameter loop; non-float parameters and optimizers without a fusable
-step take it too. Under ``multi_precision`` the fused update runs the
+per-parameter loop; non-float parameters, optimizers without a fusable
+step and parameters whose gradient is a ``RowSparseNDArray`` (the
+optimizer's lazy row-sparse update, reference :255-263) take it too. Under ``multi_precision`` the fused update runs the
 recurrence on the float32 master copies (the ``weight_fp32`` states) and
 rounds them into the low-precision weights with one multi-tensor copy a
 bucket, as the per-parameter path does one tensor at a time (the
@@ -55,6 +56,7 @@ import torch
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..ndarray.sparse import RowSparseNDArray
 from ..parallel.collectives import BucketSpec
 
 __all__ = ["Trainer"]
@@ -295,7 +297,9 @@ class Trainer:
     def _fused_update(self, active):
         """Fused multi-tensor update (reference :240-274): dense float
         parameters bucketed by dtype, one fused update a bucket. Returns
-        the indices left to the per-parameter path."""
+        the indices left to the per-parameter path (row-sparse gradients,
+        which take the optimizer's lazy update there, non-float
+        parameters)."""
         opt = self._optimizer
         spec = opt.fused_step
         if not self._fuse or spec is None or not active:
@@ -303,7 +307,8 @@ class Trainer:
         buckets, rest = {}, []
         for i in active:
             w = self._params[i]
-            if not w.is_floating_point() or \
+            if isinstance(w.grad, RowSparseNDArray) or \
+                    not w.is_floating_point() or \
                     any(k not in self._states[i] for k in spec[1]):
                 rest.append(i)
                 continue

@@ -9,10 +9,15 @@ records its wait in the port's telemetry registry (the
 ``io.<class>.batch`` timer; always on, where the reference records it only
 with its telemetry enabled).
 
-``CSVIter``, ``LibSVMIter`` and ``ImageRecordIter`` read through the
-reference's native engines (``_native.py``, ``librecordio.so``) and CSR
-arrays, which the port has not ported: they raise, naming ROADMAP A10 (3)
-or A4.
+``CSVIter`` and ``LibSVMIter`` (:226-330) read through the native
+threaded text parser of ``src/io_native/textparse.cc``, built with the
+host's C++ compiler at first use (:mod:`._textparse`). ``LibSVMIter``
+yields dense batches, or with ``sparse=True`` ``CSRNDArray`` batches on the
+current context that feed ``mx.nd.sparse.dot`` without densifying; a
+batch's entries are gathered with a few numpy calls, not one per row.
+``ImageRecordIter`` reads through the reference's native RecordIO engine
+and ``mx.image``, which the port has not ported: it raises, naming ROADMAP
+A10 (3).
 """
 from __future__ import annotations
 
@@ -228,30 +233,132 @@ class NDArrayIter(DataIter):
         return 0
 
 
-_NATIVE = {
-    "CSVIter": "its reader is the reference's native threaded scanner "
-               "(src/io_native/textparse.cc), ROADMAP A10 (3)",
-    "LibSVMIter": "it yields CSR arrays (ndarray/sparse.py, ROADMAP A4) "
-                  "read by the reference's native scanner (A10 (3))",
-    "ImageRecordIter": "it reads through the reference's native RecordIO "
-                       "engine (src/io_native/recordio.cc) and decodes with "
-                       "mx.image, ROADMAP A10 (3)",
-}
+class CSVIter(DataIter):
+    """CSV reader (reference: src/io iter_csv.cc): the whole file parsed
+    by the native scanner, then batched as :class:`NDArrayIter` batches."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, **kwargs):
+        from ._textparse import parse_csv
+
+        data = parse_csv(str(data_csv))
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = parse_csv(str(label_csv))
+            if tuple(label_shape) == (1,):
+                label = label.reshape(-1)
+        self._inner = NDArrayIter(data, label, batch_size, **kwargs)
+        super().__init__(batch_size)
+
+    def __getattr__(self, name):
+        if name == "_inner":  # half-built instance (pickle/failed init)
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+    def __next__(self):
+        return next(self._inner)
+
+    def reset(self):
+        self._inner.reset()
 
 
-def _not_ported(name):
-    class Iter(DataIter):
-        def __init__(self, *args, **kwargs):
-            raise MXNetError(f"io.{name} is not ported: {_NATIVE[name]}")
+class LibSVMIter(DataIter):
+    """LibSVM reader (reference: src/io/iter_libsvm.cc), rows ``label
+    idx:val ...``: dense (batch, num_features) batches, or with
+    ``sparse=True`` ``CSRNDArray`` batches on the current context (the
+    matrix is never densified). Features at or past ``data_shape[0]`` are
+    dropped; a last partial batch is padded from the file's start
+    (``last_batch_handle="pad"``, its ``pad`` set) or dropped
+    (``"discard"``). The whole parsed CSR triple is ``csr``."""
 
-    Iter.__name__ = Iter.__qualname__ = name
-    Iter.__doc__ = f"Not ported: {_NATIVE[name]}."
-    return Iter
+    def __init__(self, data_libsvm, data_shape, batch_size=1,
+                 last_batch_handle="pad", sparse=False, **kwargs):
+        from ._textparse import parse_libsvm
+
+        self._sparse = sparse
+        labels, indptr, indices, values = parse_libsvm(str(data_libsvm))
+        self._labels = labels
+        self._indptr = indptr
+        self._indices = indices
+        self._values = values
+        self._num_feat = int(data_shape[0]) if data_shape else \
+            (int(indices.max()) + 1 if indices.size else 1)
+        self._cursor = 0
+        self._last_batch_handle = last_batch_handle
+        super().__init__(batch_size)
+        self.provide_data = [("data", (batch_size, self._num_feat))]
+        self.provide_label = [("softmax_label", (batch_size,))]
+
+    @property
+    def csr(self):
+        return self._indptr, self._indices, self._values
+
+    def _row_entries(self, rows):
+        """(batch_row_ids, entry_ids) of the stored entries of ``rows``,
+        features >= num_feat dropped; the entries of each row are a run
+        of the file's arrays, expanded for all rows at once."""
+        starts = self._indptr[rows]
+        counts = self._indptr[rows + 1] - starts
+        ends = onp.cumsum(counts)
+        flat_r = onp.repeat(onp.arange(len(rows)), counts)
+        flat_i = onp.arange(ends[-1] if len(rows) else 0) + \
+            onp.repeat(starts - (ends - counts), counts)
+        keep = self._indices[flat_i] < self._num_feat
+        return flat_r[keep], flat_i[keep]
+
+    def _dense_rows(self, rows):
+        out = onp.zeros((len(rows), self._num_feat), "float32")
+        flat_r, flat_i = self._row_entries(rows)
+        out[flat_r, self._indices[flat_i]] = self._values[flat_i]
+        return out
+
+    def __next__(self):
+        n = len(self._labels)
+        if self._cursor >= n:
+            raise StopIteration
+        idx = onp.arange(self._cursor,
+                         min(self._cursor + self.batch_size, n))
+        pad = self.batch_size - len(idx)
+        if pad and self._last_batch_handle == "discard":
+            self._cursor = n
+            raise StopIteration
+        if pad:  # wrap around (the reference's "pad")
+            idx = onp.concatenate([idx, onp.arange(pad)])
+        self._cursor += self.batch_size
+        if self._sparse:
+            data = self._csr_rows(idx)
+        else:
+            data = NDArray(self._dense_rows(idx))
+        label = NDArray(self._labels[idx])
+        return DataBatch(data=[data], label=[label], pad=pad)
+
+    def _csr_rows(self, rows):
+        from ..ndarray.sparse import CSRNDArray
+
+        flat_r, flat_i = self._row_entries(rows)
+        counts = onp.bincount(flat_r, minlength=len(rows))
+        indptr = onp.zeros(len(rows) + 1, "int64")
+        onp.cumsum(counts, out=indptr[1:])
+        return CSRNDArray(self._values[flat_i].astype("float32"),
+                          self._indices[flat_i], indptr,
+                          (len(rows), self._num_feat), ctx=current_context(),
+                          indptr_host=indptr)
+
+    def reset(self):
+        self._cursor = 0
 
 
-CSVIter = _not_ported("CSVIter")
-LibSVMIter = _not_ported("LibSVMIter")
-ImageRecordIter = _not_ported("ImageRecordIter")
+class ImageRecordIter(DataIter):
+    """Not ported: it reads through the reference's native RecordIO engine
+    (src/io_native/recordio.cc) and decodes with mx.image, ROADMAP A10
+    (3)."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("io.ImageRecordIter is not ported: it reads "
+                         "through the reference's native RecordIO engine "
+                         "(src/io_native/recordio.cc) and decodes with "
+                         "mx.image, ROADMAP A10 (3)")
 
 
 class ResizeIter(DataIter):

@@ -1,5 +1,6 @@
-"""NDArray package of the port (the reference's ``mx.nd`` here holds only
-the NDArray type; the legacy ``mx.nd`` op namespace is not ported)."""
+"""NDArray package of the port: the NDArray type and the sparse arrays
+(``sparse``); the legacy op namespace ``mx.nd`` is :mod:`mxnet_tpu_torch.nd`."""
+from . import sparse
 from .ndarray import NDArray, array, from_torch
 
-__all__ = ["NDArray", "array", "from_torch"]
+__all__ = ["NDArray", "array", "from_torch", "sparse"]

@@ -490,10 +490,17 @@ class NDArray:
         return apply_op("norm", self, ord=ord, axis=axis, keepdims=keepdims)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError("sparse storage is not ported (ROADMAP A9, "
-                             "ndarray/sparse.py): only 'default' is dense")
-        return self
+        """This array in storage ``stype``: ``'default'`` (itself),
+        ``'csr'`` (2-D) or ``'row_sparse'``, on its device."""
+        if stype == "default":
+            return self
+        from . import sparse
+
+        if stype == "csr":
+            return sparse.csr_matrix(self, dtype=self._data.dtype)
+        if stype == "row_sparse":
+            return sparse.row_sparse_array(self, dtype=self._data.dtype)
+        raise MXNetError(f"unknown storage type {stype!r}")
 
     # --------------------------------------------------------- arithmetic
     def _binop(self, name, other, reverse=False):

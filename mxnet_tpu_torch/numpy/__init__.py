@@ -13,11 +13,9 @@ Functions with data-dependent output shapes (``unique``, ``nonzero``,
 ``flatnonzero`` without ``size``) copy to the host, as the reference's.
 
 ``mx.np.random`` is :mod:`mxnet_tpu_torch.random`, as the reference's is
-its ``random`` module. Not ported here (they raise :class:`MXNetError`
-naming ROADMAP A9, the rest of the op library): the functions over the
-reference's ``ops/extra.py`` (``diagflat``, ``fill_diagonal``,
-``rollaxis``, ``polyval``, ``blackman``, ``hamming``, ``hanning``,
-``tril_indices``).
+its ``random`` module. ``diagflat``, ``fill_diagonal``, ``rollaxis``,
+``polyval``, ``blackman``, ``hamming``, ``hanning`` and ``tril_indices``
+run the ops of :mod:`mxnet_tpu_torch.ops.extra`.
 """
 from __future__ import annotations
 
@@ -26,7 +24,6 @@ import builtins as _bi
 import numpy as _onp
 import torch as _torch
 
-from ..base import MXNetError
 from ..base import canonical_dtype as _canon
 from ..base import dtype_name as _dname
 from ..context import resolve_device as _resolve
@@ -59,17 +56,6 @@ uint16 = _onp.uint16
 uint32 = _onp.uint32
 uint64 = _onp.uint64
 bool_ = _onp.bool_
-
-
-def _not_ported(name):
-    def f(*args, **kwargs):
-        raise MXNetError(
-            f"mx.np.{name} is not ported: its op is outside ops/_core, "
-            "ops/indexing and ops/nn (ROADMAP A9, the rest of the op "
-            "library)")
-
-    f.__name__ = name
-    return f
 
 
 def __getattr__(name):
@@ -859,12 +845,40 @@ def percentile(a, q, axis=None, out=None, overwrite_input=None,
                method=interpolation or "linear", keepdims=keepdims, out=out)
 
 
-# the reference's functions over ops/extra.py: ROADMAP A9
-diagflat = _not_ported("diagflat")
-fill_diagonal = _not_ported("fill_diagonal")
-rollaxis = _not_ported("rollaxis")
-polyval = _not_ported("polyval")
-blackman = _not_ported("blackman")
-hamming = _not_ported("hamming")
-hanning = _not_ported("hanning")
-tril_indices = _not_ported("tril_indices")
+# numpy stragglers over the ops of ops/extra.py (reference :784-820)
+def diagflat(v, k=0):
+    return _op("diagflat", _as_nd(v), k=k)
+
+
+def fill_diagonal(a, val, wrap=False):
+    """In place, as numpy's: rebinds ``a`` and returns None."""
+    if _onp.isscalar(val):
+        res = _op("fill_diagonal", _as_nd(a), val=val, wrap=wrap)
+    else:
+        res = _op("fill_diagonal", _as_nd(a), _as_nd(val), wrap=wrap)
+    a._set_data(res._data)
+
+
+def rollaxis(a, axis, start=0):
+    return _op("rollaxis", _as_nd(a), axis=axis, start=start)
+
+
+def polyval(p, x):
+    return _op("polyval", _as_nd(p), _as_nd(x))
+
+
+def blackman(M, dtype=None, ctx=None):
+    return _op("blackman", M=int(M), ctx=ctx)
+
+
+def hamming(M, dtype=None, ctx=None):
+    return _op("hamming", M=int(M), ctx=ctx)
+
+
+def hanning(M, dtype=None, ctx=None):
+    return _op("hanning", M=int(M), ctx=ctx)
+
+
+def tril_indices(n, k=0, m=None, ctx=None):
+    return _op("tril_indices", n=int(n), k=int(k),
+               m=int(m) if m is not None else None, ctx=ctx)

@@ -13,11 +13,12 @@ reference's BatchNorm formula.
 
 ``group_norm``, ``instance_norm``, ``rms_norm``, ``smooth_l1`` and
 ``ctc_loss`` are the reference's formulas in plain torch (CTC as optax's
-recursion). Not ported (they raise :class:`MXNetError` naming their
-ROADMAP item): deconvolution, the sequence ops, the vision and
-detection ops and control flow (A9, the rest of the op library); ``custom``
-(A10). Any other registered
-op is reachable by name through :func:`__getattr__`.
+recursion); so are ``deconvolution`` (torch's transposed convolution),
+``batch_dot``, the sequence ops, the vision and detection ops of
+:mod:`mxnet_tpu_torch.ops.vision`, and ``foreach`` / ``while_loop`` /
+``cond`` (:mod:`.control_flow`). ``custom`` is not ported (it raises
+:class:`MXNetError` naming ROADMAP A10). Any other registered op is
+reachable by name through :func:`__getattr__`.
 """
 from __future__ import annotations
 
@@ -98,6 +99,21 @@ def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     return _op("convolution", *args, kernel=tuple(kernel),
                stride=tuple(stride), dilate=tuple(dilate), pad=tuple(pad),
                num_filter=num_filter, num_group=num_group,
+               no_bias=no_bias_eff, layout=layout)
+
+
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, no_bias=False,
+                  layout=None, **kw):
+    """Transposed convolution, weight (in, out / groups, *k); torch's
+    (cuDNN on the card)."""
+    args = [_nd(data), _nd(weight)]
+    no_bias_eff = bias is None or no_bias
+    if not no_bias_eff:
+        args.append(_nd(bias))
+    return _op("deconvolution", *args, kernel=tuple(kernel),
+               stride=tuple(stride), dilate=tuple(dilate), pad=tuple(pad),
+               adj=tuple(adj), num_filter=num_filter, num_group=num_group,
                no_bias=no_bias_eff, layout=layout)
 
 
@@ -300,14 +316,98 @@ def slice_like(data, shape_like, axes=None):
     return d[tuple(key)]
 
 
-# the reference's ops outside ops/_core, ops/indexing and ops/nn's ported
-# subset: the rest of the op library (ROADMAP A9) and custom ops (A10)
-for _name in ("deconvolution", "sequence_mask", "sequence_reverse",
-              "sequence_last", "box_iou", "box_nms",
-              "box_encode", "box_decode", "roi_pooling", "roi_align",
-              "upsampling", "bilinear_resize_2d", "moments", "foreach",
-              "while_loop", "cond"):
-    globals()[_name] = _not_ported(_name, "A9")
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    return _op("batch_dot", _nd(lhs), _nd(rhs), transpose_a=transpose_a,
+               transpose_b=transpose_b)
+
+
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    if sequence_length is not None:
+        return _op("sequence_mask", _nd(data), _nd(sequence_length),
+                   use_sequence_length=True, value=value, axis=axis)
+    return _op("sequence_mask", _nd(data), use_sequence_length=False,
+               value=value, axis=axis)
+
+
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    if sequence_length is not None:
+        return _op("sequence_reverse", _nd(data), _nd(sequence_length),
+                   use_sequence_length=True, axis=axis)
+    return _op("sequence_reverse", _nd(data), use_sequence_length=False,
+               axis=axis)
+
+
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    if sequence_length is not None:
+        return _op("sequence_last", _nd(data), _nd(sequence_length),
+                   use_sequence_length=True, axis=axis)
+    return _op("sequence_last", _nd(data), use_sequence_length=False,
+               axis=axis)
+
+
+# -- detection / vision ops (ops/vision.py) ---------------------------------
+def box_iou(lhs, rhs, format="corner"):  # noqa: A002
+    return _op("box_iou", _nd(lhs), _nd(rhs), format=format)
+
+
+def box_nms(data, overlap_thresh=0.5, valid_thresh=0.0, topk=-1,
+            coord_start=2, score_index=1, id_index=-1, background_id=-1,
+            force_suppress=False, in_format="corner", out_format="corner"):
+    return _op("box_nms", _nd(data), overlap_thresh=overlap_thresh,
+               valid_thresh=valid_thresh, topk=topk, coord_start=coord_start,
+               score_index=score_index, id_index=id_index,
+               background_id=background_id, force_suppress=force_suppress,
+               in_format=in_format, out_format=out_format)
+
+
+def box_encode(samples, matches, anchors, refs,
+               means=(0.0, 0.0, 0.0, 0.0), stds=(0.1, 0.1, 0.2, 0.2)):
+    return _op("box_encode", _nd(samples), _nd(matches), _nd(anchors),
+               _nd(refs), means=tuple(means), stds=tuple(stds))
+
+
+def box_decode(data, anchors, std0=0.1, std1=0.1, std2=0.2, std3=0.2,
+               clip=-1.0, format="center"):  # noqa: A002
+    return _op("box_decode", _nd(data), _nd(anchors), std0=std0, std1=std1,
+               std2=std2, std3=std3, clip=clip, format=format)
+
+
+def roi_pooling(data, rois, pooled_size=(7, 7), spatial_scale=1.0):
+    return _op("roi_pooling", _nd(data), _nd(rois),
+               pooled_size=tuple(pooled_size), spatial_scale=spatial_scale)
+
+
+def roi_align(data, rois, pooled_size=(7, 7), spatial_scale=1.0,
+              sample_ratio=2, aligned=False):
+    return _op("roi_align", _nd(data), _nd(rois),
+               pooled_size=tuple(pooled_size), spatial_scale=spatial_scale,
+               sample_ratio=sample_ratio, aligned=aligned)
+
+
+def upsampling(data, scale=2, sample_type="nearest"):
+    return _op("upsampling", _nd(data), scale=scale, sample_type=sample_type)
+
+
+def bilinear_resize_2d(data, height=0, width=0, scale_height=None,
+                       scale_width=None, align_corners=True):
+    return _op("bilinear_resize_2d", _nd(data), height=height, width=width,
+               scale_height=scale_height, scale_width=scale_width,
+               align_corners=align_corners)
+
+
+def moments(data, axes=None, keepdims=False):
+    return _op("moments", _nd(data),
+               axes=tuple(axes) if axes is not None else None,
+               keepdims=keepdims)
+
+
+# control flow (numpy_extension/control_flow.py)
+from .control_flow import cond, foreach, while_loop  # noqa: E402,F401
+
+# custom ops are ROADMAP A10
 custom = _not_ported("custom", "A10")
 
 

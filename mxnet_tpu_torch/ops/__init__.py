@@ -1,11 +1,16 @@
 """Operators of the port: the registry and its one dispatch chokepoint
 (:mod:`.registry`), the core ops (:mod:`._core`), indexing
 (:mod:`.indexing`), the neural-network ops (:mod:`.nn`) over the
-hand-written CUDA kernels in :mod:`.cuda_kernels`, and the samplers
-(:mod:`.random_ops`)."""
+hand-written CUDA kernels in :mod:`.cuda_kernels`, the samplers
+(:mod:`.random_ops`), ``batch_dot``, the numpy stragglers and the CSR
+product (:mod:`.extra`), the lazy row-sparse updates
+(:mod:`.optimizer_ops`) and the detection and resize ops
+(:mod:`.vision`)."""
 from . import registry  # noqa: I001 — the registry first: the ops register in it
-from . import _core, cuda_kernels, indexing, nn, random_ops
+from . import (_core, cuda_kernels, extra, indexing, nn, optimizer_ops,
+               random_ops, vision)
 from .registry import apply_op, get_op, invoke, list_ops, register
 
-__all__ = ["registry", "cuda_kernels", "indexing", "nn", "random_ops",
+__all__ = ["registry", "cuda_kernels", "extra", "indexing", "nn",
+           "optimizer_ops", "random_ops", "vision",
            "apply_op", "get_op", "invoke", "list_ops", "register"]

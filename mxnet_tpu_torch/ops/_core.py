@@ -857,3 +857,13 @@ register("cov", lambda **a: lambda x: torch.cov(_float(x)))
 register("quantile", _quantile(1.0))
 register("percentile", _quantile(100.0))
 
+
+def last_wins(idx, n):
+    """For each position of ``idx`` (values in [0, n)), the position of the
+    last entry with the same value: gathering a per-entry source through it
+    makes every duplicate write the last one's value, whatever order the
+    device scatters in. On the device, no host read."""
+    pos = torch.arange(idx.numel(), device=idx.device)
+    last = torch.full((n,), -1, dtype=pos.dtype, device=idx.device)
+    last.scatter_reduce_(0, idx.long(), pos, reduce="amax")
+    return last[idx.long()]

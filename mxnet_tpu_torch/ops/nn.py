@@ -4,8 +4,9 @@ tensor-level doors.
 Counterpart of ``mxnet_tpu/ops/nn.py`` for the operators the GPT and
 ResNet training and serving paths call. Each op is registered in
 :mod:`.registry` under the reference's name and attributes
-(``fully_connected``, ``convolution``, ``pooling``,
-``adaptive_avg_pool2d``, ``batch_norm``, ``layer_norm``, ``group_norm``,
+(``fully_connected``, ``convolution``, ``deconvolution``, ``pooling``,
+``adaptive_avg_pool2d``, ``sequence_mask``, ``sequence_reverse``,
+``sequence_last``, ``batch_norm``, ``layer_norm``, ``group_norm``,
 ``instance_norm``, ``rms_norm``, ``smooth_l1``, ``ctc_loss``, ``embedding``,
 ``leaky_relu``, ``activation``, ``softmax``, ``log_softmax``,
 ``masked_softmax``, ``dropout``, ``pick``, ``multihead_attention``,
@@ -42,7 +43,8 @@ from . import cuda_kernels as _kern
 from ._core import fill_value, take_along_axis, wrap_fill_index
 from .registry import get_op, register
 
-__all__ = ["fully_connected", "matmul", "convolution", "pooling",
+__all__ = ["fully_connected", "matmul", "convolution", "deconvolution",
+           "pooling",
            "adaptive_avg_pool2d", "batch_norm", "layer_norm", "group_norm",
            "instance_norm", "rms_norm", "smooth_l1", "ctc_loss", "embedding",
            "leaky_relu", "activation", "dropout", "softmax", "log_softmax",
@@ -136,6 +138,43 @@ def _convolution(kernel=(), stride=(), dilate=(), pad=(), num_filter=0,
                        stride=_per_dim(stride, nsp, 1),
                        padding=_per_dim(pad, nsp, 0),
                        dilation=_per_dim(dilate, nsp, 1), groups=num_group)
+        return y if back is None else y.permute(back)
+
+    return f
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("deconvolution")
+def _deconvolution(kernel=(), stride=(), dilate=(), pad=(), adj=(),
+                   num_filter=0, num_group=1, no_bias=False, layout=None):
+    """Transposed convolution (reference :86-130), weight (in, out /
+    groups, *k) in every layout: out = (in - 1) s + d (k - 1) + 1 - 2 p +
+    adj. torch's own output padding must stay below the stride or the
+    dilation; past that the full product is cropped and padded to the
+    reference's extent instead (the extra cells have no input: zeros)."""
+    def f(x, w, *b):
+        nsp = x.dim() - 2
+        to, back = _channels_first(layout, x.dim())
+        if to is not None:
+            x = x.permute(to)
+        s, d = _per_dim(stride, nsp, 1), _per_dim(dilate, nsp, 1)
+        p, a = _per_dim(pad, nsp, 0), _per_dim(adj, nsp, 0)
+        bias = None if no_bias else b[0]
+        if all(0 <= a[i] < max(s[i], d[i]) for i in range(nsp)):
+            y = _CONV_T[nsp](x, w, bias, stride=s, padding=p,
+                             output_padding=a, groups=num_group, dilation=d)
+        else:
+            y = _CONV_T[nsp](x, w, None, stride=s, groups=num_group,
+                             dilation=d)
+            crops = []
+            for i in reversed(range(nsp)):
+                crops += [-p[i], a[i] - p[i]]
+            y = F.pad(y, crops)
+            if bias is not None:
+                y = y + bias.reshape((-1,) + (1,) * nsp)
         return y if back is None else y.permute(back)
 
     return f
@@ -372,6 +411,52 @@ def _embedding(input_dim=0, output_dim=0, sparse_grad=False):
         i, ok = wrap_fill_index(idx, weight.shape[0])
         return torch.where(ok.unsqueeze(-1), weight[i],
                            fill_value(weight.dtype))
+
+    return f
+
+
+@register("sequence_mask")
+def _sequence_mask(use_sequence_length=False, value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value``
+    (reference :426); the batch axis is the other of the first two."""
+    def f(x, *length):
+        if not use_sequence_length:
+            return x
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        idx = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+        lshape = [1] * x.dim()
+        lshape[1 - axis] = x.shape[1 - axis]
+        mask = idx < length[0].reshape(lshape)
+        return torch.where(mask, x, torch.tensor(value, dtype=x.dtype,
+                                                 device=x.device))
+
+    return f
+
+
+@register("sequence_reverse")
+def _sequence_reverse(use_sequence_length=False, axis=0):
+    """Each sequence's first ``length`` steps reversed, the rest kept
+    (reference :444; sequence axis 0)."""
+    def f(x, *length):
+        if not use_sequence_length:
+            return torch.flip(x, (axis,))
+        t = torch.arange(x.shape[0], device=x.device)[:, None]
+        ln = length[0][None, :].to(torch.int32)
+        src = torch.where(t < ln, ln - 1 - t, t)
+        return x[src, torch.arange(x.shape[1], device=x.device)[None, :]]
+
+    return f
+
+
+@register("sequence_last")
+def _sequence_last(use_sequence_length=False, axis=0):
+    """Each sequence's last valid step (reference :460)."""
+    def f(x, *length):
+        if not use_sequence_length:
+            return x.select(axis, x.shape[axis] - 1)
+        idx = length[0].to(torch.int32).long() - 1
+        return x[idx, torch.arange(x.shape[1], device=x.device)]
 
     return f
 
@@ -702,6 +787,7 @@ _DROPOUT = _Door("dropout")
 _SOFTMAX = _Door("softmax")
 _LOG_SOFTMAX = _Door("log_softmax")
 _MASKED_SOFTMAX = _Door("masked_softmax")
+_DECONVOLUTION = _Door("deconvolution")
 _PICK = _Door("pick")
 _ONE_HOT = _Door("one_hot")
 _MHA = _Door("multihead_attention")
@@ -729,6 +815,16 @@ def convolution(x, weight, bias=None, kernel=(), stride=(), dilate=(),
     f = _CONVOLUTION.fn(kernel=kernel, stride=stride, dilate=dilate, pad=pad,
                         num_filter=num_filter, num_group=num_group,
                         no_bias=bias is None, layout=layout)
+    return f(x, weight) if bias is None else f(x, weight, bias)
+
+
+def deconvolution(x, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, layout=None):
+    """The ``deconvolution`` op on tensors (reference :86)."""
+    f = _DECONVOLUTION.fn(kernel=kernel, stride=stride, dilate=dilate,
+                          pad=pad, adj=adj, num_filter=num_filter,
+                          num_group=num_group, no_bias=bias is None,
+                          layout=layout)
     return f(x, weight) if bias is None else f(x, weight, bias)
 
 

@@ -39,8 +39,17 @@ bfloat16/float16 weight is updated through a float32 master copy
 numbers on the per-parameter path and as tensors (float32 ``lr``/``wd``,
 float64 ``t``) on the fused paths; a bias correction ``1 - beta ** t`` is
 computed in double either way and rounded to float32 where it divides.
-``lazy_update`` is accepted; row-sparse gradients (and so the lazy
-updates) are not ported yet.
+
+A row-sparse gradient (a ``RowSparseNDArray``, reference :164-185) takes
+the optimizer's lazy path where it has one (``_apply_sparse``: SGD
+without momentum, Adam with ``lazy_update`` and bias correction, AdaGrad,
+Ftrl, GroupAdaGrad; :mod:`mxnet_tpu_torch.ops.optimizer_ops`): only the
+gradient's rows of the weight and of its states move, with
+``rescale_grad`` and the clip applied by the update itself. Under
+``multi_precision`` the float32 master is updated and its touched rows
+are rounded into the weight. The others (``lazy_update=False``, SGD with
+momentum, AdamW, the rest) densify the gradient and take the dense step,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ import math
 import torch
 
 from ..base import MXNetError
+from ..ops import optimizer_ops as _oo
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "Adamax", "Nadam",
            "RMSProp", "AdaGrad", "AdaDelta", "Ftrl", "FTML", "Signum",
@@ -193,9 +203,20 @@ class Optimizer:
     update_multi_precision = update
 
     def _update_one(self, index, weight, grad, state):
+        from ..ndarray.sparse import RowSparseNDArray
+
         t = self._update_count(index)
         lr = self._get_lr(index)
         wd = self._get_wd(index)
+        if isinstance(grad, RowSparseNDArray):
+            target = state.get("weight_fp32", weight)
+            if self._apply_sparse(target, grad, state, lr, wd, t):
+                if target is not weight:   # round the touched rows down
+                    idx = grad.indices._data.long()
+                    weight.index_copy_(0, idx, target.index_select(
+                        0, idx).to(weight.dtype))
+                return
+            grad = grad.todense()._data
         if self.rescale_grad != 1.0:
             grad = grad * self.rescale_grad
         if "weight_fp32" in state:
@@ -240,6 +261,17 @@ class Optimizer:
         else:
             weight.copy_(out)
 
+    def _apply_sparse(self, weight, grad, state, lr, wd, t):
+        """Lazy row-sparse update of ``weight`` (and ``state``) in place;
+        True when handled. The base has none: the caller densifies."""
+        return False
+
+    def _sparse_args(self, grad):
+        """(rows, indices, rescale_grad, clip) for the sparse cores; a
+        clip of -1 is off."""
+        return (grad.data._data, grad.indices._data, self.rescale_grad,
+                -1.0 if self.clip_gradient is None else self.clip_gradient)
+
     def _pre(self, g):
         """Clip the (rescaled) gradient; clip_gradient <= 0 is off."""
         if self.clip_gradient is not None and self.clip_gradient > 0:
@@ -283,6 +315,13 @@ class SGD(Optimizer):
             return {}
         return {"mom": torch.zeros(weight.shape, dtype=torch.float32,
                                    device=weight.device)}
+
+    def _apply_sparse(self, weight, grad, state, lr, wd, t):
+        if self.momentum != 0.0 or not self.lazy_update:
+            return False   # dense momentum, or dense semantics asked for
+        rows, idx, rescale, clip = self._sparse_args(grad)
+        _oo.sparse_sgd_(weight, rows, idx, lr, wd, rescale, clip)
+        return True
 
 
 @register
@@ -340,7 +379,7 @@ class _AdamBase(Optimizer):
         self.correct_bias = correct_bias
         self.lazy_update = lazy_update
         b1, b2, eps = beta1, beta2, epsilon
-        decoupled = adamw
+        decoupled = self._decoupled_wd = adamw
 
         def step(w, m, v, g, lr, wd, t):
             g = self._pre(g).float()
@@ -364,6 +403,20 @@ class _AdamBase(Optimizer):
 
     def create_state(self, index, weight):
         return _zeros(weight, "mean", "var")
+
+    def _apply_sparse(self, weight, grad, state, lr, wd, t):
+        """Lazy Adam (reference :446): the moments and the weight move on
+        the active rows only, bias-corrected by the shared step count.
+        AdamW's decoupled decay touches every row: dense."""
+        if self._decoupled_wd or not self.lazy_update or \
+                not self.correct_bias:
+            return False
+        rows, idx, rescale, clip = self._sparse_args(grad)
+        _oo.sparse_adam_(weight, state["mean"], state["var"], rows, idx, lr,
+                         wd, self.beta1, self.beta2, self.epsilon, rescale,
+                         clip, _oo._bc(self.beta1, t),
+                         _oo._bc(self.beta2, t))
+        return True
 
 
 @register
@@ -465,6 +518,7 @@ class AdaGrad(Optimizer):
 
     def __init__(self, learning_rate=0.01, epsilon=1e-7, **kwargs):
         super().__init__(learning_rate, **kwargs)
+        self._eps = epsilon
 
         def step(w, h, g, lr, wd):
             g = self._pre(g) + wd * w
@@ -475,6 +529,12 @@ class AdaGrad(Optimizer):
 
     def create_state(self, index, weight):
         return _zeros(weight, "history")
+
+    def _apply_sparse(self, weight, grad, state, lr, wd, t):
+        rows, idx, rescale, clip = self._sparse_args(grad)
+        _oo.sparse_adagrad_(weight, state["history"], rows, idx, lr, wd,
+                            self._eps, rescale, clip)
+        return True
 
 
 @register
@@ -504,6 +564,7 @@ class Ftrl(Optimizer):
 
     def __init__(self, learning_rate=0.1, lamda1=0.01, beta=1.0, **kwargs):
         super().__init__(learning_rate, **kwargs)
+        self._lamda1, self._beta = lamda1, beta
 
         def step(w, z, n, g, lr, wd):
             g = self._pre(g)
@@ -521,6 +582,12 @@ class Ftrl(Optimizer):
 
     def create_state(self, index, weight):
         return _zeros(weight, "z", "n")
+
+    def _apply_sparse(self, weight, grad, state, lr, wd, t):
+        rows, idx, rescale, clip = self._sparse_args(grad)
+        _oo.sparse_ftrl_(weight, state["z"], state["n"], rows, idx, lr,
+                         self._lamda1, self._beta, wd, rescale, clip)
+        return True
 
 
 @register
@@ -771,6 +838,7 @@ class GroupAdaGrad(Optimizer):
     def __init__(self, learning_rate=0.01, epsilon=1e-6, **kwargs):
         self._reject_wd(kwargs.get("wd"))
         super().__init__(learning_rate, **kwargs)
+        self._eps = epsilon
 
         def step(w, h, g, lr, wd):
             g = self._pre(g)
@@ -792,3 +860,12 @@ class GroupAdaGrad(Optimizer):
     def _apply(self, w, g, state, lr, wd, t):
         self._reject_wd(float(wd))
         super()._apply(w, g, state, lr, wd, t)
+
+    def _apply_sparse(self, weight, grad, state, lr, wd, t):
+        """Only the touched rows update (reference :895): rescale, then
+        clip, no weight decay."""
+        self._reject_wd(float(wd))
+        rows, idx, rescale, clip = self._sparse_args(grad)
+        _oo.sparse_group_adagrad_(weight, state["history"], rows, idx, lr,
+                                  self._eps, rescale, clip)
+        return True

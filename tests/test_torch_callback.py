@@ -13,8 +13,10 @@ iterators against the JAX package's.
   same numpy seed, several arrays by name), ``ResizeIter``,
   ``PrefetchingIter`` (its thread makes its NDArrays under the caller's
   ``with mx.cpu():``) and the legacy ``next()`` give the JAX package's
-  batches, pads and ``provide_data``; the iterators over native readers
-  raise naming ROADMAP A10 (3) or A4.
+  batches, pads and ``provide_data``; ``ImageRecordIter`` raises naming
+  ROADMAP A10 (3), and ``CSVIter`` / ``LibSVMIter`` (ported since, held
+  to the JAX package in ``tests/test_torch_sparse.py``) raise the file
+  system's error for a missing file.
 
 Tolerance: bitwise, except the graph's outputs across packages (1e-6
 relative: the two packages' matmuls sum in another order).
@@ -228,10 +230,13 @@ def test_io_iterators_match_jax():
 
 
 def test_io_native_iterators_are_not_ported():
-    for cls, item in ((tio.CSVIter, r"A10 \(3\)"), (tio.LibSVMIter, "A4"),
-                      (tio.ImageRecordIter, r"A10 \(3\)")):
-        with pytest.raises(MXNetError, match=item):
-            cls("x", (1,), batch_size=1)
+    """ImageRecordIter still names its ROADMAP item; the text iterators
+    are ported and read the file (here a missing one)."""
+    with pytest.raises(MXNetError, match=r"A10 \(3\)"):
+        tio.ImageRecordIter("x", (1,), batch_size=1)
+    for cls in (tio.CSVIter, tio.LibSVMIter):
+        with pytest.raises(OSError):
+            cls("no-such-file", (1,), batch_size=1)
 
 
 def test_io_records_its_batch_timer():
