@@ -425,10 +425,40 @@ Phases (any failure exits non-zero without the final line):
              (forward and backward ms),
              ``while_loop`` (``max_iterations``) and ``cond`` hybridized:
              one capture each, replays equal to eager.
+15. vision — A9's vision part, fp32 on the card: (i)
+             ``ssd_300_mobilenet(num_classes=20)`` at VOC's size (32, 3,
+             300, 300; 1944 anchors; labels (32, 8, 5) with 1-8 seeded boxes)
+             trained by tests/test_ssd_model.py's loop (``ssd_target``,
+             masked NLL plus ``smooth_l1``, SGD with momentum) 10 steps eager
+             and 10 hybridized (forward and backward one CUDA graph): the
+             losses fall and the two first-step losses agree; a step's wall
+             against device busy, img/s and the top device operations;
+             ``ssd_detect`` (nms_topk 400) ms at batch 32; at batch 2 the card
+             against the CPU: the three outputs, one step's parameter
+             gradients held to a float64 CPU twin (within 4x the CPU fp32
+             run's own distance from it: a batch-2 training step is
+             ill-conditioned in fp32), ``ssd_target`` and
+             ``multibox_detection`` on identical inputs (integers bitwise);
+             (ii) every name ``get_model`` registers for these families at
+             ImageNet input (``inceptionv3`` at 299), batch 32: the output's
+             shape, img/s eager and hybridized; one name of each family at
+             batch 2, predict and train mode card against CPU, gradients
+             against the float64 twin; (iii) the deformable convolution
+             layers (DCN's res5 3x3, (1, 512, 38, 63), dilation 2, deformable
+             groups 1 and 4), ``psroi_pooling`` and
+             ``deformable_psroi_pooling`` on R-FCN's score maps (300 ROIs),
+             ``correlation`` at FlowNetC's conv3 (441 displacements),
+             ``bilinear_sampler`` and ``grid_generator`` at (16, 64, 96, 96),
+             ``PixelShuffle2D`` through SRResNet's two sub-pixel layers
+             (bitwise) and ``PixelShuffle1D/3D``: forward and backward, card
+             against CPU, with their ms; (iv) the JAX package's STN example
+             (tests/torch_script_stn.py) at its own size, hybridized: STN
+             accuracy > 0.9 and 0.05 above the fixed warp. The phase's
+             seconds are checked against a limit.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
-``optim``, ``data``, ``sparse``; ``script`` runs phase 4 first, for its weights,
+``optim``, ``data``, ``sparse``, ``vision``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -443,7 +473,8 @@ traces, warm calls and captures; also the row's ``graph`` key), script
 and captures; also the row's ``optim`` key), data (phase 13 (ii): the
 compiled step's warm step and capture and the predict-mode forwards; also
 the row's ``data`` key), sparse (phase 14: no port kernel
-on it; also the row's ``sparse`` key); a row
+on it; also the row's ``sparse`` key), vision (phase 15: no port kernel on it;
+also the row's ``vision`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -7326,6 +7357,605 @@ def phase_sparse(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 15: A9's vision part — SSD-300, the zoo at ImageNet input, the warp
+# and deformable ops at the sizes of the models that use them, the STN
+VISION_SSD = dict(batch=32, image=300, classes=20, labels=8, steps=10,
+                  lr=0.01, momentum=0.9, anchors=1944)
+VISION_CHECK_BATCH = 2        # (i), (ii) card against CPU
+VISION_BATCH = 32             # (ii) the zoo's throughput batch
+VISION_RTOL = 1e-4            # card vs CPU outputs, fp32, TF32 off
+# card gradients against a float64 CPU twin, of the net's largest: within
+# VISION_GRAD_FACTOR times the CPU fp32 run's own distance from it, or
+# VISION_GRAD_RTOL, whichever is larger. At batch 2 an fp32 step lies 5e-3
+# to 3e-2 from float64 on the CPU itself (training-mode BatchNorm over two
+# images; a ReLU input or a max-pool's runner-up within rounding flips a
+# last-stage weight's gradient, a sum of 98 positions there), and two fp32
+# runs' distances differ by 0.07-2.3x across the families
+VISION_GRAD_RTOL = 1e-3
+VISION_GRAD_FACTOR = 4.0
+VISION_EXACT_RTOL = 1e-5      # (i) targets/detections' floats, same inputs
+VISION_ANCHOR_ATOL = 2.0 ** -22
+SSD_FIRST_LOSS_RTOL = 1e-5    # (i) eager vs hybridized first-step loss
+WARP_RTOL = 1e-4              # (iii) outputs and gradients, card vs CPU
+STN_MIN_ACC = 0.9             # (iv) the example's own assert
+STN_MARGIN = 0.05
+VISION_LIMIT_S = 150.0        # the phase's seconds, the build excluded
+VISION_ZOO = ("alexnet", "vgg11", "vgg13", "vgg16", "vgg19", "mlp",
+              "densenet121", "densenet161", "densenet169", "densenet201",
+              "mobilenet1.0", "mobilenet0.75", "mobilenet0.5",
+              "mobilenet0.25", "mobilenetv2_1.0", "mobilenetv2_0.5",
+              "squeezenet1.0", "squeezenet1.1", "inceptionv3",
+              "ssd_300_mobilenet", "ssd_256_lite")
+VISION_FAMILIES = ("alexnet", "vgg16", "densenet121", "mobilenet1.0",
+                   "mobilenetv2_1.0", "squeezenet1.1", "inceptionv3")
+DCN = dict(data=(1, 512, 38, 63), filters=512, kernel=3, pad=2, dilate=2)
+RFCN = dict(data=(1, 7 * 7 * 21, 38, 63), rois=300, scale=1.0 / 16,
+            classes=21, group=7, pooled=7, image=(600, 1000),
+            sample_per_part=4, trans_std=0.1)
+FLOWNET = dict(data=(4, 256, 48, 64), kernel_size=1, max_displacement=20,
+               stride1=1, stride2=2, pad_size=20)
+SAMPLER_SHAPE = (16, 64, 96, 96)
+SUBPIXEL = ((16, 256, 24, 24), (16, 256, 48, 48))   # SRResNet's two
+
+
+def _stn_script():
+    """``tests/torch_script_stn.py`` (the JAX package's
+    ``examples/stn_mnist.py``, imports changed)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_script_stn
+
+    return torch_script_stn
+
+
+def _drop_off(net):
+    """Every ``Dropout`` of ``net`` at rate 0: its masks come from each
+    device's own generator, so a card-against-CPU step runs without."""
+    from mxnet_tpu_torch.gluon import nn
+
+    for m in net.modules():
+        if isinstance(m, nn.Dropout):
+            m._rate = 0.0
+
+
+def _top_grad_gap(net_a, net_b):
+    """Largest |grad_a - grad_b| over the largest |grad_b|, of all of the
+    two nets' parameters (the same names), in float64."""
+    pa, pb = net_a.collect_params(), net_b.collect_params()
+    top = max(float(p.grad.abs().max()) for p in pb.values()
+              if p.grad is not None)
+    gap = max(float((pa[n].grad.cpu().double() -
+                     p.grad.cpu().double()).abs().max())
+              for n, p in pb.items() if p.grad is not None)
+    return gap / max(top, 1e-30)
+
+
+def _f64_twin(make, path):
+    """``make()`` on the CPU with the parameters of ``path`` in float64."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    with mx.cpu():
+        net = make()
+        net.load_parameters(path)
+    with torch.no_grad():
+        for p in net.collect_params().values():
+            p.data = p.data.double()
+    return net
+
+
+def _grad_check(tag, card, cpu, f64):
+    """The card's gradients against the float64 twin's, beside the CPU fp32
+    run's: (card gap, CPU gap, limit), each of the largest gradient."""
+    card_gap, cpu_gap = _top_grad_gap(card, f64), _top_grad_gap(cpu, f64)
+    limit = max(VISION_GRAD_FACTOR * cpu_gap, VISION_GRAD_RTOL)
+    check(card_gap <= limit, f"{tag}: gradients {card_gap:.3e} from "
+          f"float64 (the CPU's fp32 {cpu_gap:.3e})")
+    return card_gap, cpu_gap, limit
+
+
+def _ssd_labels(rng, b, m, classes):
+    """(b, m, 5) rows [cls, x1, y1, x2, y2], 1 to m boxes an image, the
+    rest -1."""
+    lab = -onp.ones((b, m, 5), "float32")
+    for i in range(b):
+        n = rng.randint(1, m + 1)
+        xy = rng.uniform(0.0, 0.75, (n, 2))
+        wh = rng.uniform(0.08, 0.4, (n, 2))
+        lab[i, :n, 0] = rng.randint(0, classes, n)
+        lab[i, :n, 1:3] = xy
+        lab[i, :n, 3:5] = onp.minimum(xy + wh, 1.0)
+    return lab
+
+
+def _ssd_loss(net, x, labels, targets=None):
+    """tests/test_ssd_model.py's loss: the masked NLL of the kept anchors
+    plus smooth L1 of the positives' boxes; ``targets`` given (another
+    device's) or from ``ssd_target``."""
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    cls_p, box_p, anchors = net(x)
+    lt, lm, ct = targets if targets is not None else \
+        vision.ssd_target(anchors, cls_p, labels)
+    keep = ct >= 0
+    logp = npx.log_softmax(cls_p, axis=-1)
+    nll = -npx.pick(logp, mnp.maximum(ct, 0), axis=-1) * keep
+    box_loss = npx.smooth_l1((box_p - lt) * lm, scalar=1.0).mean()
+    return nll.sum() / keep.sum() + box_loss, (cls_p, box_p, anchors)
+
+
+def _vision_ssd(smi_line, where):
+    """(i) SSD-300 at VOC's size: training eager and hybridized, the card
+    against the CPU, the matcher and the detector on identical inputs."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    cfg = VISION_SSD
+    b, s = cfg["batch"], cfg["image"]
+    rng = onp.random.RandomState(SEED + 15)
+    x = rng.rand(b, 3, s, s).astype("float32")
+    labels = _ssd_labels(rng, b, cfg["labels"], cfg["classes"])
+    path = os.path.join(where, "ssd300.params")
+    with mx.cpu():
+        cpu_net = vision.ssd_300_mobilenet(num_classes=cfg["classes"])
+        cpu_net.initialize(seed=SEED + 15)
+        cpu_net(mnp.array(x[:1]))
+        cpu_net.save_parameters(path)
+
+    def card_net(hybridize):
+        with mx.gpu():
+            net = vision.ssd_300_mobilenet(num_classes=cfg["classes"])
+            net.load_parameters(path)
+        if hybridize:
+            net.hybridize()
+        return net
+
+    runs = {}
+    for hyb in (False, True):
+        with mx.gpu():
+            net = card_net(hyb)
+            tr = gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": cfg["lr"],
+                                "momentum": cfg["momentum"]})
+            xd, ld = mnp.array(x), mnp.array(labels)
+
+            def step(net=net, tr=tr, xd=xd, ld=ld):
+                with autograd.record():
+                    loss, outs = _ssd_loss(net, xd, ld)
+                loss.backward()
+                tr.step(b)
+                return loss, outs
+
+            losses, walls = [], []
+            for _ in range(cfg["steps"]):
+                t = time.perf_counter()
+                loss, outs = step()
+                losses.append(float(loss.asnumpy()))
+                walls.append((time.perf_counter() - t) * 1e3)
+            check(outs[2].shape == (1, cfg["anchors"], 4) and
+                  outs[0].shape == (b, cfg["anchors"], cfg["classes"] + 1),
+                  f"(i) outputs {[o.shape for o in outs]}")
+            check(all(math.isfinite(v) for v in losses) and
+                  losses[-1] < losses[0], f"(i) losses {losses}")
+            runs[hyb] = (net, step, losses, walls, outs)
+    (_, _, le, we, _), (net, step, lh, wh, outs) = runs[False], runs[True]
+    gap = abs(le[0] - lh[0]) / abs(le[0])
+    log(f"[vision] (i) ssd_300_mobilenet(20) on ({b}, 3, {s}, {s}), "
+        f"{cfg['anchors']} anchors, labels ({b}, {cfg['labels']}, 5) with "
+        f"1-{cfg['labels']} boxes; SGD {cfg['lr']} momentum "
+        f"{cfg['momentum']}, {cfg['steps']} steps: eager loss "
+        f"{le[0]:.5f} -> {le[-1]:.5f}, hybridized {lh[0]:.5f} -> "
+        f"{lh[-1]:.5f}; first-step losses {gap:.3e} apart (limit "
+        f"{SSD_FIRST_LOSS_RTOL}); step wall (median of steps 3-10, with "
+        f"the loss read) eager {statistics.median(we[2:]):.2f} ms, "
+        f"hybridized {statistics.median(wh[2:]):.2f} ms")
+    check(gap <= SSD_FIRST_LOSS_RTOL, f"(i) first-step losses {gap:.3e}")
+    wall = _wall_ms(step, 5)
+    events = _gpu_trace(lambda: [step() for _ in range(3)])
+    busy = _busy_us(events) / 1e3 / 3
+    log(f"[vision] (i) a hybridized training step (forward and backward "
+        f"one CUDA graph; targets, loss and SGD eager): wall {wall:.2f} ms, "
+        f"device busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{b / wall * 1e3:.1f} img/s; card {smi_line}")
+    for name, us in _top_ops(events):
+        log(f"[vision] (i) top: {us / 1e3 / 3:8.3f} ms a step  {name[:100]}")
+    cls_p, box_p, anchors = outs
+    det_ms = time_ms(lambda: vision.ssd_detect(cls_p, box_p, anchors),
+                     reps=5, rounds=3)
+    det = vision.ssd_detect(cls_p, box_p, anchors).asnumpy()
+    kept = int((det[..., 0] >= 0).sum())
+    log(f"[vision] (i) ssd_detect (softmax, decode, per-class NMS, "
+        f"nms_topk 400) at batch {b}: {det_ms:.3f} ms, {kept} rows kept")
+    check(kept > 0 and det.shape == (b, cfg["anchors"], 6),
+          f"(i) detections {det.shape}, {kept} kept")
+    del runs, net, step, outs, cls_p, box_p, anchors
+    _release()
+
+    # the card against the CPU at batch 2, the CPU's targets on both
+    n2 = VISION_CHECK_BATCH
+    x2, l2 = x[:n2], labels[:n2]
+    with mx.cpu():
+        with autograd.record():
+            want_outs = cpu_net(mnp.array(x2))
+        cw = [o.asnumpy() for o in want_outs]
+        tgt = [o.asnumpy() for o in vision.ssd_target(
+            mnp.array(cw[2]), mnp.array(cw[0]), mnp.array(l2))]
+        with autograd.record():
+            loss_c, _ = _ssd_loss(cpu_net, mnp.array(x2), None,
+                                  [mnp.array(t) for t in tgt])
+        loss_c.backward()
+        f64 = _f64_twin(lambda: vision.ssd_300_mobilenet(
+            num_classes=cfg["classes"]), path)
+        with autograd.record():
+            loss_64, _ = _ssd_loss(f64, torch.from_numpy(x2).double(), None,
+                                   [torch.from_numpy(t).double()
+                                    for t in tgt])
+        loss_64.backward()
+        probs = npx.softmax(mnp.array(cw[0]), axis=-1).asnumpy()
+        det_c = npx.multibox_detection(
+            mnp.array(probs.transpose(0, 2, 1)), mnp.array(cw[1]),
+            mnp.array(cw[2]), nms_threshold=0.45, threshold=0.01,
+            nms_topk=400).asnumpy()
+        sd_c = vision.ssd_detect(*(mnp.array(o) for o in cw)).asnumpy()
+    with mx.gpu():
+        gnet = card_net(False)
+        with autograd.record():
+            loss_g, got_outs = _ssd_loss(gnet, mnp.array(x2), None,
+                                         [mnp.array(t) for t in tgt])
+        loss_g.backward()
+        cg = [o.asnumpy() for o in got_outs]
+        tgt_g = [o.asnumpy() for o in vision.ssd_target(
+            mnp.array(cw[2]), mnp.array(cw[0]), mnp.array(l2))]
+        probs_g = npx.softmax(mnp.array(cw[0]), axis=-1).asnumpy()
+        det_g = npx.multibox_detection(
+            mnp.array(probs.transpose(0, 2, 1)), mnp.array(cw[1]),
+            mnp.array(cw[2]), nms_threshold=0.45, threshold=0.01,
+            nms_topk=400).asnumpy()
+        sd_g = vision.ssd_detect(*(mnp.array(o) for o in cw)).asnumpy()
+    out_gap = max(_np_rel(cg[0], cw[0]), _np_rel(cg[1], cw[1]))
+    anc_gap = float(onp.abs(cg[2] - cw[2]).max())
+    loss_gap = abs(float(loss_g.asnumpy()) - float(loss_c.asnumpy())) / \
+        abs(float(loss_c.asnumpy()))
+    log(f"[vision] (i) card vs CPU at batch {n2} (train mode, the CPU's "
+        f"targets on both): cls/box outputs {out_gap:.3e} (limit "
+        f"{VISION_RTOL}), anchors {anc_gap:.3e} absolute (limit "
+        f"{VISION_ANCHOR_ATOL:.3e}), loss {loss_gap:.3e}; every parameter's "
+        f"gradient card vs CPU {_top_grad_gap(gnet, cpu_net):.3e} of the "
+        f"largest")
+    check(out_gap <= VISION_RTOL and loss_gap <= VISION_RTOL and
+          anc_gap <= VISION_ANCHOR_ATOL, "(i) SSD outputs card vs CPU")
+    card_gap, cpu_gap, limit = _grad_check("(i)", gnet, cpu_net, f64)
+    log(f"[vision] (i) gradients against the float64 CPU twin, of the "
+        f"largest: card {card_gap:.3e}, CPU fp32 {cpu_gap:.3e} (limit "
+        f"{limit:.3e})")
+    t_gap = _np_rel(tgt_g[0], tgt[0])
+    check(onp.array_equal(tgt_g[1], tgt[1]) and
+          onp.array_equal(tgt_g[2], tgt[2]) and t_gap <= VISION_EXACT_RTOL,
+          f"(i) ssd_target card vs CPU: loc {t_gap:.3e}")
+    d_gap = _np_rel(det_g, det_c)
+    check(onp.array_equal(det_g[..., 0], det_c[..., 0]) and
+          d_gap <= VISION_EXACT_RTOL, f"(i) multibox_detection {d_gap:.3e}")
+    p_gap = _np_rel(probs_g, probs)
+    same_rows = float((sd_g == sd_c).all(-1).mean())
+    log(f"[vision] (i) identical inputs, card vs CPU: ssd_target's masks "
+        f"and classes bitwise ({int((tgt[2] > 0).sum())} positives, "
+        f"{int((tgt[2] == 0).sum())} mined negatives), loc targets "
+        f"{t_gap:.3e}; multibox_detection on the CPU's probabilities: "
+        f"classes bitwise, rows {d_gap:.3e} ({int((det_c[..., 0] >= 0).sum())}"
+        f" kept); ssd_detect's softmax {p_gap:.3e}, and its rows equal on "
+        f"{same_rows:.4f} of them (near ties of the scores may swap)")
+    del gnet, cpu_net, f64
+    _release()
+
+
+def _vision_zoo(smi_line, where):
+    """(ii) every name get_model registers now, at ImageNet input."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    b = VISION_BATCH
+    for name in VISION_ZOO:
+        size = 299 if name == "inceptionv3" else 224
+        kw = {} if name.startswith("ssd") else {"classes": 1000}
+        with mx.gpu():
+            net = vision.get_model(name, **kw)
+            net.initialize(seed=SEED)
+        x = torch.rand(b, 3, size, size, device=DEV)
+        with torch.no_grad():
+            out = net(x)
+            if name.startswith("ssd"):
+                a = out[2].shape[1]
+                ok = (tuple(out[0].shape) == (b, a, 21) and
+                      tuple(out[1].shape) == (b, 4 * a))
+            else:
+                ok = tuple(out.shape) == (b, 1000)
+            check(ok, f"(ii) {name}: output shapes")
+            eager = time_ms(lambda: net(x), reps=3, rounds=3)
+            net.hybridize()
+            net(x)
+            hyb = time_ms(lambda: net(x), reps=3, rounds=3)
+        log(f"[vision] (ii) {name:18s} at ({b}, 3, {size}, {size}): eager "
+            f"{eager:8.2f} ms ({b / eager * 1e3:8.1f} img/s), hybridized "
+            f"{hyb:8.2f} ms ({b / hyb * 1e3:8.1f} img/s)")
+        del net, out, x
+        _release()
+    # one name of each family at batch 2: predict mode and one train-mode
+    # step (BatchNorm on the batch's statistics), card against CPU
+    rng = onp.random.RandomState(SEED + 152)
+    for name in VISION_FAMILIES:
+        size = 299 if name == "inceptionv3" else 224
+        xs = rng.rand(VISION_CHECK_BATCH, 3, size, size).astype("float32")
+        path = os.path.join(where, f"{name}.params")
+        nets, res = [], []
+        for ctx, dev, dt in ((mx.cpu(), "cpu", torch.float32),
+                             (mx.gpu(), DEV, torch.float32),
+                             (None, "cpu", torch.float64)):
+            if ctx is None:
+                net = _f64_twin(lambda: vision.get_model(name, classes=1000),
+                                path)
+            else:
+                with ctx:
+                    net = vision.get_model(name, classes=1000)
+                    if not nets:
+                        net.initialize(seed=SEED + 2)
+                        with torch.no_grad():
+                            net(torch.from_numpy(xs))
+                        net.save_parameters(path)
+                    else:
+                        net.load_parameters(path)
+            _drop_off(net)
+            xt = torch.from_numpy(xs).to(dev, dt)
+            with torch.no_grad():
+                pred = net(xt).cpu().numpy()
+            xg = xt.clone().requires_grad_(True)
+            with autograd.record():
+                y = net(xg)
+                c = torch.from_numpy(onp.random.RandomState(3).randn(
+                    *y.shape)).to(dev, dt)
+                (y * c).sum().backward()
+            res.append((pred, y.detach().cpu().numpy(),
+                        xg.grad.cpu().numpy()))
+            nets.append(net)
+        (p0, y0, d0), (p1, y1, d1), (_, _, d64) = res
+        gaps = (_np_rel(p1, p0), _np_rel(y1, y0))
+        card_gap, cpu_gap, limit = _grad_check(f"(ii) {name}", nets[1],
+                                               nets[0], nets[2])
+        # the input's gradient is printed, not held: where a max-pool
+        # window's two largest inputs lie within rounding of each other,
+        # each run sends the gradient to its own pick (VGG16: 4.2e-2 of the
+        # largest from float64 in every fp32 run, the CPU's too)
+        log(f"[vision] (ii) {name} card vs CPU at batch "
+            f"{VISION_CHECK_BATCH}: predict {gaps[0]:.3e}, train-mode "
+            f"output {gaps[1]:.3e} (limit {VISION_RTOL}); from the float64 "
+            f"twin: the parameters' gradients {card_gap:.3e} of the "
+            f"largest (CPU fp32 {cpu_gap:.3e}, limit {limit:.3e}), the "
+            f"input's {_np_rel(d1, d64):.3e} (CPU fp32 "
+            f"{_np_rel(d0, d64):.3e}; not held)")
+        check(max(gaps) <= VISION_RTOL, f"(ii) {name}: card vs CPU")
+        del nets, net
+        _release()
+    log(f"[vision] (ii) card {smi_line}")
+
+
+def _layer_both(make, x, where, tag):
+    """A layer built on the CPU from a seed, saved, loaded on the card:
+    (outputs, input gradient, parameter gradient gap) of each and the
+    card's forward and forward+backward ms."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+
+    path = os.path.join(where, f"{tag}.params")
+    res, nets = [], []
+    c = torch.from_numpy(onp.random.RandomState(4).randn(
+        *x.shape[:1], DCN["filters"], *x.shape[2:]).astype("float32"))
+    for ctx, dev in ((mx.cpu(), "cpu"), (mx.gpu(), DEV)):
+        with ctx:
+            layer = make()
+            if not nets:
+                layer.initialize(seed=SEED + 3)
+                with torch.no_grad():
+                    layer(torch.from_numpy(x))
+                layer.save_parameters(path)
+            else:
+                layer.load_parameters(path)
+            xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+            with autograd.record():
+                y = layer(xt)
+                (y * c.to(dev)).sum().backward()
+            res.append((y.detach().cpu().numpy(), xt.grad.cpu().numpy()))
+            nets.append(layer)
+    xd = torch.from_numpy(x).to(DEV)
+    with torch.no_grad():
+        fwd = time_ms(lambda: nets[1](xd), reps=5, rounds=3)
+    cd = c.to(DEV)
+
+    def both():
+        xg = xd.clone().requires_grad_(True)
+        with autograd.record():
+            (nets[1](xg) * cd).sum().backward()
+
+    full = time_ms(both, reps=3, rounds=3)
+    gaps = [_np_rel(res[1][i], res[0][i]) for i in range(2)]
+    return gaps + [_top_grad_gap(nets[1], nets[0])], fwd, full
+
+
+def _vision_warp(smi_line, where):
+    """(iii) the warp and deformable ops at their models' sizes."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.gluon import nn
+
+    rng = onp.random.RandomState(SEED + 153)
+    x = rng.randn(*DCN["data"]).astype("float32")
+    for cls in ("DeformableConvolution", "ModulatedDeformableConvolution"):
+        for dg in (1, 4):
+            def make(cls=cls, dg=dg):
+                return getattr(nn, cls)(
+                    DCN["filters"], DCN["kernel"], padding=DCN["pad"],
+                    dilation=DCN["dilate"], num_deformable_group=dg,
+                    in_channels=DCN["data"][1],
+                    offset_weight_initializer=mx.initializer.Normal(0.01))
+
+            gaps, fwd, full = _layer_both(make, x, where, f"{cls}{dg}")
+            log(f"[vision] (iii) {cls}(512, 3x3, pad 2, dilation 2, "
+                f"num_deformable_group {dg}) on {DCN['data']}: output "
+                f"{gaps[0]:.3e}, input gradient {gaps[1]:.3e}, parameters' "
+                f"gradients {gaps[2]:.3e} of the largest (limit "
+                f"{WARP_RTOL}); forward {fwd:.3f} ms, forward+backward "
+                f"{full:.3f} ms")
+            check(max(gaps) <= WARP_RTOL, f"(iii) {cls} dg {dg}")
+            _release()
+    r = RFCN
+    data = rng.randn(*r["data"]).astype("float32")
+    ih, iw = r["image"]
+    x1 = rng.uniform(0, iw - 64, (r["rois"], 1))
+    y1 = rng.uniform(0, ih - 64, (r["rois"], 1))
+    w = rng.uniform(32, 400, (r["rois"], 1))
+    h = rng.uniform(32, 400, (r["rois"], 1))
+    rois = onp.concatenate([onp.zeros_like(x1), x1, y1,
+                            onp.minimum(x1 + w, iw - 1),
+                            onp.minimum(y1 + h, ih - 1)], 1).astype("float32")
+    trans = rng.randn(r["rois"], 2, r["pooled"], r["pooled"]).astype(
+        "float32")
+    cases = [
+        ("psroi_pooling", lambda d, ro: npx.psroi_pooling(
+            d, ro, spatial_scale=r["scale"], output_dim=r["classes"],
+            pooled_size=r["pooled"], group_size=r["group"]),
+         [data, rois], (0,)),
+        ("deformable_psroi_pooling (trans)",
+         lambda d, ro, t: npx.deformable_psroi_pooling(
+             d, ro, t, spatial_scale=r["scale"], output_dim=r["classes"],
+             group_size=r["group"], pooled_size=r["pooled"],
+             part_size=r["pooled"], sample_per_part=r["sample_per_part"],
+             trans_std=r["trans_std"]), [data, rois, trans], (0, 2)),
+    ]
+    f = FLOWNET
+    d1 = rng.randn(*f["data"]).astype("float32")
+    d2 = rng.randn(*f["data"]).astype("float32")
+    cases.append(("correlation (FlowNetC)", lambda a, b_: npx.correlation(
+        a, b_, kernel_size=f["kernel_size"],
+        max_displacement=f["max_displacement"], stride1=f["stride1"],
+        stride2=f["stride2"], pad_size=f["pad_size"]), [d1, d2], (0, 1)))
+    n, ch, hh, ww = SAMPLER_SHAPE
+    img = rng.randn(*SAMPLER_SHAPE).astype("float32")
+    grid = rng.uniform(-1.05, 1.05, (n, 2, hh, ww)).astype("float32")
+    theta = (onp.array([1, 0, 0, 0, 1, 0]) + 0.2 * rng.randn(n, 6)).astype(
+        "float32")
+    flow = (2.0 * rng.randn(n, 2, hh, ww)).astype("float32")
+    cases += [
+        ("bilinear_sampler", lambda d, g: npx.bilinear_sampler(d, g),
+         [img, grid], (0, 1)),
+        ("grid_generator (affine)", lambda t: npx.grid_generator(
+            t, transform_type="affine", target_shape=(hh, ww)), [theta], (0,)),
+        ("grid_generator (warp)", lambda fl: npx.grid_generator(
+            fl, transform_type="warp"), [flow], (0,)),
+    ]
+    for tag, fn, inputs, grads in cases:
+        cpu, card, ms = _both_devices(fn, inputs, grads)
+        gaps = [_np_rel(g, w_) for g, w_ in zip(card[0] + card[1],
+                                                 cpu[0] + cpu[1])]
+        shape = tuple(card[0][0].shape)
+        log(f"[vision] (iii) {tag}: output {shape}, card vs CPU "
+            f"{['%.3e' % g for g in gaps]} (output, then each gradient; "
+            f"limit {WARP_RTOL}), {ms:.3f} ms a forward")
+        check(max(gaps) <= WARP_RTOL, f"(iii) {tag}: {max(gaps):.3e}")
+        _release()
+    check(shape == (n, 2, hh, ww), "(iii) warp grid shape")
+    for shape in SUBPIXEL:
+        xs = rng.randn(*shape).astype("float32")
+        cpu, card, ms = _both_devices(lambda a: nn.PixelShuffle2D(2)(a),
+                                      [xs], (0,))
+        check(all(onp.array_equal(g, w_) for g, w_ in
+                  zip(card[0] + card[1], cpu[0] + cpu[1])),
+              f"(iii) PixelShuffle2D {shape}")
+        log(f"[vision] (iii) PixelShuffle2D(2) {shape} -> "
+            f"{tuple(card[0][0].shape)}: output and gradient bitwise equal "
+            f"to the CPU's, {ms:.3f} ms a forward")
+    for cls, shape, factor in (("PixelShuffle1D", (4, 12, 9), 3),
+                               ("PixelShuffle3D", (2, 16, 3, 4, 5), 2)):
+        xs = rng.randn(*shape).astype("float32")
+        cpu, card, _ = _both_devices(
+            lambda a, cls=cls, factor=factor: getattr(nn, cls)(factor)(a),
+            [xs], (0,))
+        check(all(onp.array_equal(g, w_) for g, w_ in
+                  zip(card[0] + card[1], cpu[0] + cpu[1])), f"(iii) {cls}")
+    log(f"[vision] (iii) PixelShuffle1D(3) and PixelShuffle3D(2): bitwise "
+        f"equal to the CPU's; card {smi_line}")
+
+
+def _vision_stn(smi_line):
+    """(iv) the STN example at its own size on the card, hybridized."""
+    import mxnet_tpu_torch as mx
+
+    stn = _stn_script()
+    with mx.gpu():
+        mx.random.seed(SEED)
+        xs, ys = stn.make_translated_digits(512)
+        t = time.perf_counter()
+        acc_stn = stn.train(True, xs, ys)
+        t_stn = time.perf_counter() - t
+        t = time.perf_counter()
+        acc_fixed = stn.train(False, xs, ys)
+        t_fixed = time.perf_counter() - t
+    log(f"[vision] (iv) tests/torch_script_stn.py's train, 512 digits, 40 "
+        f"epochs of 8 batches, hybridized: STN train accuracy "
+        f"{acc_stn:.4f}, fixed warp {acc_fixed:.4f}; an epoch "
+        f"{t_stn / 40 * 1e3:.1f} ms with the STN, {t_fixed / 40 * 1e3:.1f} "
+        f"ms without (the model's setup and the accuracy pass included); "
+        f"card {smi_line}")
+    check(acc_stn > STN_MIN_ACC and acc_stn > acc_fixed + STN_MARGIN,
+          f"(iv) STN {acc_stn:.4f} against fixed {acc_fixed:.4f}")
+
+
+def phase_vision(smi_line):
+    """Phase 15: A9's vision part (see the module docstring). Returns the
+    path's launch counts (no port kernel on it)."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="vision-") as where:
+        t = time.perf_counter()
+        _vision_ssd(smi_line, where)
+        log(f"[vision] (i) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _vision_zoo(smi_line, where)
+        log(f"[vision] (ii) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _vision_warp(smi_line, where)
+        log(f"[vision] (iii) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _vision_stn(smi_line)
+    log(f"[vision] (iv) took {time.perf_counter() - t:.1f} s")
+    taken = read_counts("vision")
+    log(f"[vision] launches of the port's kernels on this path: {taken}")
+    took = time.perf_counter() - t_phase
+    log(f"[vision] phase took {took:.1f} s (limit {VISION_LIMIT_S})")
+    check(took <= VISION_LIMIT_S, f"phase 15 took {took:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
@@ -7333,7 +7963,7 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "bert_pretrain": phase_bert_pretrain, "graph": phase_graph,
            "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
            "optim": phase_optim, "data": phase_data,
-           "sparse": phase_sparse}
+           "sparse": phase_sparse, "vision": phase_vision}
 
 
 # ---------------------------------------------------------------------------
@@ -7402,6 +8032,7 @@ def main():
         phase_optim(smi_line)
         phase_data(smi_line)
         phase_sparse(smi_line)
+        phase_vision(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -7425,6 +8056,7 @@ def main():
         row["optim"] = by_path.get("optim", 0)
         row["data"] = by_path.get("data", 0)
         row["sparse"] = by_path.get("sparse", 0)
+        row["vision"] = by_path.get("vision", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -7436,7 +8068,7 @@ def main():
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
-    rtc_row["data"] = rtc_row["sparse"] = 0
+    rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Model zoo of the port: the GPT causal language model family, the BERT
-encoder family and the vision models (ResNet v1/v2)."""
+encoder family and the vision models (ResNet v1/v2, AlexNet, VGG, the MLP,
+DenseNet, MobileNet v1/v2, SqueezeNet, Inception v3 and SSD)."""
 from . import bert, vision
 from .bert import (BERTEncoder, BERTForPretraining, BERTModel,
                    TransformerEncoderLayer, bert_base, bert_large)

@@ -14,14 +14,24 @@ initializer; without ``in_channels`` its shape waits for the first forward
 their weight is (in_channels, channels / groups, *kernel), and
 ``output_padding`` is the reference's ``adj``.
 
-Not ported (they raise naming ROADMAP A9, which holds the deformable ops
-they need): the deformable convolutions and ``PixelShuffle1D/2D/3D``.
+``DeformableConvolution`` and ``ModulatedDeformableConvolution``
+(reference :249-310) predict their offsets (and, v2, their sigmoid masks)
+with an inner ``Conv2D`` named ``offset`` over the same input, then run the
+``deformable_convolution`` / ``modulated_deformable_convolution`` op of
+:mod:`mxnet_tpu_torch.ops.warp_ops` with ``weight`` and ``bias``.
+``PixelShuffle1D/2D/3D`` (:313-357) fold channel blocks into space by a
+reshape and a permutation.
 """
 from __future__ import annotations
 
-from ...base import MXNetError, to_dtype
+import math
+
+import torch
+
+from ...base import to_dtype
 from ...context import resolve_device
 from ...ops import nn as F
+from ...ops.nn import _Door
 from ..block import HybridBlock, new_parameter
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
@@ -246,18 +256,111 @@ class GlobalAvgPool3D(_GlobalPool):
         super().__init__(3, "avg", layout, **kwargs)
 
 
-def _not_ported(name):
-    class _Layer(HybridBlock):
-        def __init__(self, *args, **kwargs):
-            raise MXNetError(f"nn.{name} is not ported (ROADMAP A9)")
-
-    _Layer.__name__ = _Layer.__qualname__ = name
-    return _Layer
+_DEFORM = {False: _Door("deformable_convolution"),
+           True: _Door("modulated_deformable_convolution")}
 
 
-DeformableConvolution = _not_ported("DeformableConvolution")
-ModulatedDeformableConvolution = _not_ported(
-    "ModulatedDeformableConvolution")
-PixelShuffle1D = _not_ported("PixelShuffle1D")
-PixelShuffle2D = _not_ported("PixelShuffle2D")
-PixelShuffle3D = _not_ported("PixelShuffle3D")
+class DeformableConvolution(_Conv):
+    """Deformable convolution v1 (reference :249): an inner regular
+    convolution ``offset`` over the same input predicts the offsets, then
+    the deformable convolution applies ``weight`` and ``bias`` at the
+    offset taps."""
+
+    _modulated = False
+
+    def __init__(self, channels, kernel_size=(3, 3), strides=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), groups=1,
+                 num_deformable_group=1, use_bias=True, in_channels=0,
+                 activation=None, weight_initializer=None,
+                 bias_initializer="zeros", offset_weight_initializer="zeros",
+                 offset_bias_initializer="zeros", offset_use_bias=True,
+                 dtype="float32", device=None):
+        kernel_size = _tup(kernel_size, 2)
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, "NCHW", in_channels=in_channels,
+                         activation=activation, use_bias=use_bias,
+                         weight_initializer=weight_initializer,
+                         bias_initializer=bias_initializer, dtype=dtype,
+                         device=device)
+        k = kernel_size[0] * kernel_size[1]
+        per_pos = 3 if self._modulated else 2
+        self._split = 2 * k * num_deformable_group   # offsets, then masks
+        self._dg = num_deformable_group
+        self.offset = Conv2D(per_pos * k * num_deformable_group,
+                             kernel_size, strides, padding, dilation,
+                             groups=1, in_channels=in_channels,
+                             use_bias=offset_use_bias,
+                             weight_initializer=offset_weight_initializer,
+                             bias_initializer=offset_bias_initializer,
+                             dtype=dtype, device=device)
+
+    def forward(self, x):
+        if self.weight.is_deferred:
+            self.weight._finish_deferred_init(self._wshape(x.shape[1]))
+        offs = self.offset(x)
+        if self._modulated:
+            args = [x, offs[:, :self._split],
+                    torch.sigmoid(offs[:, self._split:])]
+        else:
+            args = [x, offs]
+        args.append(self.weight)
+        if self.bias is not None:
+            args.append(self.bias)
+        out = _DEFORM[self._modulated].fn(
+            kernel=self._kernel, stride=self._stride, dilate=self._dilate,
+            pad=self._pad, num_filter=self._channels, num_group=self._groups,
+            num_deformable_group=self._dg, no_bias=self.bias is None)(*args)
+        if self._activation is not None:
+            out = F.activation(out, act_type=self._activation)
+        return out
+
+
+class ModulatedDeformableConvolution(DeformableConvolution):
+    """Deformable convolution v2: the inner convolution also predicts a
+    sigmoid mask a tap."""
+
+    _modulated = True
+
+
+class _PixelShuffle(HybridBlock):
+    _tensor_body = True
+
+    def __init__(self, factor, ndim):
+        super().__init__()
+        self._f = _tup(factor, ndim)
+        self._ndim = ndim
+
+    def forward(self, x):
+        f, n = self._f, self._ndim
+        b, c = x.shape[0], x.shape[1]
+        spatial = tuple(x.shape[2:])
+        cf = math.prod(f)
+        # (B, C prod(f), *S) -> (B, C, *f, *S) -> (B, C, S1, f1, S2, f2, ..)
+        out = x.reshape((b, c // cf) + f + spatial)
+        perm = [0, 1]
+        for i in range(n):
+            perm += [2 + n + i, 2 + i]
+        out = out.permute(perm)
+        return out.reshape((b, c // cf) +
+                           tuple(s * fi for s, fi in zip(spatial, f)))
+
+
+class PixelShuffle1D(_PixelShuffle):
+    """(B, C f, W) -> (B, C, W f)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 1)
+
+
+class PixelShuffle2D(_PixelShuffle):
+    """(B, C f1 f2, H, W) -> (B, C, H f1, W f2)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 2)
+
+
+class PixelShuffle3D(_PixelShuffle):
+    """(B, C f1 f2 f3, D, H, W) -> (B, C, D f1, H f2, W f3)."""
+
+    def __init__(self, factor):
+        super().__init__(factor, 3)

@@ -1,8 +1,11 @@
 """The port's ops over ``mxnet_tpu/ops/extra.py``: ``batch_dot`` (:22),
-the window functions and numpy stragglers (``blackman``, ``hamming``,
-``hanning``, ``diagflat``, ``fill_diagonal``, ``rollaxis``, ``polyval``,
-``tril_indices``, :505-560) and the CSR x dense product ``dot_csr``
-(:563), in plain torch on the operands' device.
+``depth_to_space``/``space_to_depth`` (:108-133), ``bipartite_matching``
+(:326), the MultiBox trio ``multibox_prior``/``multibox_target``/
+``multibox_detection`` (:370-503), the window functions and numpy
+stragglers (``blackman``, ``hamming``, ``hanning``, ``diagflat``,
+``fill_diagonal``, ``rollaxis``, ``polyval``, ``tril_indices``, :505-560)
+and the CSR x dense product ``dot_csr`` (:563), in plain torch on the
+operands' device.
 
 ``dot_csr`` is a gather of the dense rows each stored entry touches, a
 multiply by the entry's value and a segment sum (``index_add``) into the
@@ -11,8 +14,25 @@ operand (and the values) their gradients through the gather's and the
 sum's own backward, again a scatter and a gather. On the card
 ``index_add`` adds with atomics, so its sums are not in the CPU's order.
 
-The rest of the reference's ``extra.py`` (interleaved matmuls, MultiBox,
-im2col, ...) is ROADMAP A9.
+``bipartite_matching``'s greedy sweep is a Python loop over the rows, a
+few device operations a row and no host read. ``multibox_prior`` makes the
+anchors in float32 on the device from ``arange`` (no host data, so a
+captured SSD body makes them in its program), a product and a sum each
+rounded; the reference's XLA program on the CPU contracts some of those
+multiply-adds into fused ones (one rounding), lane by lane as its code
+generator chooses, so its anchors lie within one ulp of the port's. ``multibox_target`` keeps the
+reference's two-stage match: every valid ground truth claims its best
+anchor, where the reference scatters ``best_gt.at[best_anchor].set(..)``.
+Two ground truths can share a best anchor (and a padded row, whose IoU
+column is all -1, names anchor 0 and writes back the value it read); XLA's
+scatter on the CPU keeps the last write in row order, and the port keeps
+the same one on every device by a scatter-max of the row positions (CUDA's
+``index_put_`` with repeated indices keeps an arbitrary one). Hard
+negative mining ranks by a stable ``argsort``, as ``jnp.argsort``, and
+compares the rank with the float32 budget ``ratio * sum(pos)``.
+
+The rest of the reference's ``extra.py`` (interleaved matmuls,
+``im2col``/``col2im``, ...) is ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -21,7 +41,8 @@ import math
 import torch
 
 from ..context import resolve_device
-from .registry import register
+from .registry import get_op, register
+from .vision import _pair_iou
 
 __all__ = []
 
@@ -32,6 +53,214 @@ def _batch_dot(transpose_a=False, transpose_b=False):
         x = a.transpose(-1, -2) if transpose_a else a
         y = b.transpose(-1, -2) if transpose_b else b
         return torch.matmul(x, y)
+
+    return f
+
+
+@register("depth_to_space")
+def _depth_to_space(block_size=2):
+    s = block_size
+
+    def f(x):
+        n, c, h, w = x.shape
+        r = x.reshape(n, s, s, c // (s * s), h, w)
+        return r.permute(0, 3, 4, 1, 5, 2).reshape(
+            n, c // (s * s), h * s, w * s)
+
+    return f
+
+
+@register("space_to_depth")
+def _space_to_depth(block_size=2):
+    s = block_size
+
+    def f(x):
+        n, c, h, w = x.shape
+        r = x.reshape(n, c, h // s, s, w // s, s)
+        return r.permute(0, 3, 5, 1, 2, 4).reshape(
+            n, c * s * s, h // s, w // s)
+
+    return f
+
+
+def _last_write(n, index, values, fill):
+    """``fill`` (n,) with ``values[j]`` written at ``index[j]`` in order, the
+    last write to a slot winning, as XLA's scatter on the CPU; the winner
+    is the largest position j a slot (a scatter-max, the same on every
+    device). Batched over leading dimensions."""
+    pos = torch.arange(index.shape[-1], device=index.device).expand_as(index)
+    win = torch.full(fill.shape[:-1] + (n,), -1, dtype=torch.long,
+                     device=index.device)
+    win = win.scatter_reduce(-1, index, pos, reduce="amax")
+    took = win >= 0
+    got = torch.gather(values, -1, win.clamp(min=0))
+    return torch.where(took, got, fill)
+
+
+@register("bipartite_matching", nout=2, differentiable=False)
+def _bipartite_matching(threshold=0.5, is_ascend=False, topk=-1):
+    """Greedy bipartite matching of a score matrix (N, M) or (B, N, M):
+    rows in order of their best score claim their best free column
+    (reference :326)."""
+
+    def f(score):
+        s3 = score if score.dim() == 3 else score[None]
+        b, n_row, n_col = s3.shape
+        dev = s3.device
+        best = s3.min(-1).values if is_ascend else -s3.max(-1).values
+        order = torch.argsort(best, dim=-1, stable=True)
+        row_match = torch.full((b, n_row), -1, dtype=torch.long, device=dev)
+        col_used = torch.zeros((b, n_col), dtype=torch.bool, device=dev)
+        fill = float("inf") if is_ascend else float("-inf")
+        bi = torch.arange(b, device=dev)
+        limit = n_row if topk <= 0 else min(topk, n_row)
+        for i in range(limit):
+            r = order[:, i]
+            row = s3[bi, r]                                  # (B, M)
+            s = torch.where(col_used, torch.full_like(row, fill), row)
+            c = s.argmin(-1) if is_ascend else s.argmax(-1)
+            sc = row.gather(-1, c[:, None])[:, 0]
+            ok = sc <= threshold if is_ascend else sc >= threshold
+            row_match[bi, r] = torch.where(ok, c, torch.full_like(c, -1))
+            col_used[bi, c] = col_used[bi, c] | ok
+        valid = row_match >= 0
+        rows = torch.arange(n_row, device=dev).expand(b, n_row)
+        col_match = _last_write(
+            n_col + 1, torch.where(valid, row_match, n_col),
+            torch.where(valid, rows, -1),
+            torch.full((b, n_col + 1), -1, dtype=torch.long,
+                       device=dev))[:, :n_col]
+        out = row_match.to(score.dtype), col_match.to(score.dtype)
+        return out if score.dim() == 3 else (out[0][0], out[1][0])
+
+    return f
+
+
+@register("multibox_prior", differentiable=False)
+def _multibox_prior(sizes=(1.0,), ratios=(1.0,), clip=False, steps=(-1, -1),
+                    offsets=(0.5, 0.5)):
+    """Anchors (1, h w A, 4) in corner form for a feature map (.., h, w):
+    A = len(sizes) + len(ratios) - 1 a position (reference :370), each
+    coordinate ``(i + offset) * step -+ half`` in float32, rounded after
+    the product and after the sum."""
+
+    def f(data):
+        h, w = data.shape[-2], data.shape[-1]
+        dev = data.device
+        step_y = steps[0] if steps[0] > 0 else 1.0 / h
+        step_x = steps[1] if steps[1] > 0 else 1.0 / w
+        cy = (torch.arange(h, dtype=torch.float32, device=dev) +
+              offsets[0]) * step_y
+        cx = (torch.arange(w, dtype=torch.float32, device=dev) +
+              offsets[1]) * step_x
+        yy, xx = torch.meshgrid(cy, cx, indexing="ij")
+        anchors = []
+        # (sizes[0], each ratio), then (each further size, ratios[0])
+        combos = [(sizes[0], r) for r in ratios] + \
+                 [(s, ratios[0]) for s in sizes[1:]]
+        for s, r in combos:
+            aw = s * (r ** 0.5) / 2
+            ah = s / (r ** 0.5) / 2
+            anchors.append(torch.stack([xx - aw, yy - ah, xx + aw, yy + ah],
+                                       -1))
+        out = torch.stack(anchors, 2).reshape(1, -1, 4)
+        return out.clamp(0.0, 1.0) if clip else out
+
+    return f
+
+
+@register("multibox_target", nout=3, differentiable=False)
+def _multibox_target(overlap_threshold=0.5, negative_mining_ratio=-1.0,
+                     variances=(0.1, 0.1, 0.2, 0.2)):
+    """Match anchors to labels: (loc_target (B, 4N), loc_mask (B, 4N),
+    cls_target (B, N)). anchors (1, N, 4); cls_preds (B, classes + 1, N);
+    label (B, M, 5) rows [cls, x1, y1, x2, y2], -1 padded (reference
+    :398)."""
+
+    def f(anchors, cls_preds, label):
+        anc = anchors.reshape(-1, 4)
+        dev, dt = anc.device, anc.dtype
+        var = torch.tensor(variances, dtype=dt, device=dev)
+        b, m = label.shape[0], label.shape[1]
+        n = anc.shape[0]
+        valid = label[..., 0] >= 0                           # (B, M)
+        gt = label[..., 1:5]
+        iou = _pair_iou(anc[None], gt)                       # (B, N, M)
+        iou = torch.where(valid[:, None, :], iou, torch.full_like(iou, -1.0))
+        best_iou, best_gt = iou.amax(-1), iou.argmax(-1)   # first maxima
+        pos = best_iou > overlap_threshold
+        # every valid ground truth claims its best anchor, then the
+        # threshold stage keeps the rest; a padded row writes back what
+        # it read
+        best_anchor = iou.argmax(1)                          # (B, M)
+        js = torch.arange(m, device=dev).expand(b, m)
+        best_gt = _last_write(
+            n, best_anchor,
+            torch.where(valid, js, best_gt.gather(1, best_anchor)), best_gt)
+        pos = _last_write(
+            n, best_anchor, valid | pos.gather(1, best_anchor), pos)
+        g = gt.gather(1, best_gt[..., None].expand(b, n, 4))
+        a_xy = (anc[:, :2] + anc[:, 2:]) / 2
+        a_wh = (anc[:, 2:] - anc[:, :2]).clamp(min=1e-9)
+        g_xy = (g[..., :2] + g[..., 2:]) / 2
+        g_wh = (g[..., 2:] - g[..., :2]).clamp(min=1e-9)
+        t = torch.cat([(g_xy - a_xy) / a_wh / var[:2],
+                       torch.log(g_wh / a_wh) / var[2:]], -1)
+        posf = pos[..., None]
+        loc_t = torch.where(posf, t, torch.zeros_like(t)).reshape(b, -1)
+        loc_m = torch.where(posf, torch.ones_like(t),
+                            torch.zeros_like(t)).reshape(b, -1)
+        cls_t = torch.where(pos, label[..., 0].gather(1, best_gt) + 1,
+                            torch.zeros_like(best_iou))
+        if negative_mining_ratio > 0:
+            # keep the ratio * num_pos hardest negatives, ranked by their
+            # largest non-background score; the others are ignored (-1)
+            conf = cls_preds[:, 1:, :].amax(1)               # (B, N)
+            neg_score = torch.where(pos, torch.full_like(conf, float("-inf")),
+                                    conf)
+            order = torch.argsort(-neg_score, dim=-1, stable=True)
+            rank = torch.empty_like(order).scatter_(
+                1, order, torch.arange(n, device=dev).expand(b, n))
+            budget = negative_mining_ratio * pos.sum(-1, keepdim=True).to(
+                torch.float32)
+            keep_neg = ~pos & (rank.to(torch.float32) < budget)
+            cls_t = torch.where(pos | keep_neg, cls_t,
+                                torch.full_like(cls_t, -1.0))
+        return loc_t, loc_m, cls_t
+
+    return f
+
+
+@register("multibox_detection", differentiable=False)
+def _multibox_detection(clip=True, threshold=0.01, nms_threshold=0.5,
+                        force_suppress=False, nms_topk=-1,
+                        variances=(0.1, 0.1, 0.2, 0.2)):
+    """Decode the predictions and run per-class NMS: (B, N, 6) rows [cls,
+    score, x1, y1, x2, y2], the others -1 (reference :461)."""
+    nms = get_op("box_nms").fn(
+        overlap_thresh=nms_threshold, valid_thresh=threshold, topk=nms_topk,
+        coord_start=2, score_index=1, id_index=0,
+        force_suppress=force_suppress)
+
+    def f(cls_prob, loc_pred, anchors):
+        b, _, n = cls_prob.shape
+        anc = anchors.reshape(-1, 4)
+        a_xy = (anc[:, :2] + anc[:, 2:]) / 2
+        a_wh = (anc[:, 2:] - anc[:, :2]).clamp(min=1e-9)
+        loc = loc_pred.reshape(b, n, 4)
+        v = torch.tensor(variances, dtype=loc.dtype, device=loc.device)
+        xy = loc[..., :2] * v[:2] * a_wh + a_xy
+        wh = torch.exp(loc[..., 2:] * v[2:]) * a_wh / 2
+        boxes = torch.cat([xy - wh, xy + wh], -1)
+        if clip:
+            boxes = boxes.clamp(0.0, 1.0)
+        score = cls_prob[:, 1:, :]                # the background row goes
+        best, cls_id = score.amax(1), score.argmax(1).to(cls_prob.dtype)
+        keep = best > threshold
+        neg = torch.full_like(best, -1.0)
+        rows = torch.cat([torch.where(keep, cls_id, neg)[..., None],
+                          torch.where(keep, best, neg)[..., None], boxes], -1)
+        return nms(rows)
 
     return f
 

@@ -24,6 +24,16 @@ _LEGACY_NAMES = {
     "SoftmaxOutput": "softmax",
     "Concat": "concatenate",
     "Flatten": "flatten",
+    # the warping and deformable tier (ops/warp_ops.py)
+    "BilinearSampler": "bilinear_sampler",
+    "GridGenerator": "grid_generator",
+    "SpatialTransformer": "spatial_transformer",
+    "Correlation": "correlation",
+    "_contrib_DeformableConvolution": "deformable_convolution",
+    "_contrib_ModulatedDeformableConvolution":
+        "modulated_deformable_convolution",
+    "_contrib_PSROIPooling": "psroi_pooling",
+    "_contrib_DeformablePSROIPooling": "deformable_psroi_pooling",
 }
 
 

@@ -282,14 +282,23 @@ class Symbol:
                     else:
                         ins.append((nodes[e[0]], e[1]))
                 attrs = _unjson_attrs(jn.get("attrs", {}))
-                nodes.append(SymNode(op=get_op(jn["op"]), attrs=attrs,
-                                     inputs=ins, name=jn.get("name")))
+                nodes.append(SymNode(op=get_op(_legacy(jn["op"])),
+                                     attrs=attrs, inputs=ins,
+                                     name=jn.get("name")))
         return Symbol([(nodes[i], j) for i, j in g["heads"]])
 
     @staticmethod
     def load(fname) -> "Symbol":
         with open(fname) as f:
             return Symbol.fromjson(f.read())
+
+
+def _legacy(op_name):
+    """The registered name of a JSON node's op, a legacy name (``Correlation``,
+    ``_contrib_PSROIPooling``, ...) resolved as ``mx.nd`` resolves it."""
+    from . import _LEGACY_NAMES
+
+    return _LEGACY_NAMES.get(op_name, op_name)
 
 
 def _const_list(t):
