@@ -455,10 +455,32 @@ Phases (any failure exits non-zero without the final line):
              (tests/torch_script_stn.py) at its own size, hybridized: STN
              accuracy > 0.9 and 0.05 above the fixed warp. The phase's
              seconds are checked against a limit.
+16. rnn — A9's RNN stack, fp32 on the card: (i) the PTB-medium LSTM
+             language model (``rnn_lm(vocab 10000, embed 650, hidden 650,
+             2 layers, dropout 0.5, tied)``, MXNet's word_language_model
+             "medium" setting) trained by tests/torch_script_word_lm.py's
+             loop (``adam``, ``clip_gradient`` 0.25, states detached
+             between batches) at B = 32, T = 35 on a Zipfian synthetic
+             stream from the seed, 20 steps eager and 20 hybridized (forward
+             and backward one CUDA graph each): the losses fall, the two
+             first-step losses agree; a step's wall against device busy,
+             the idle share, tokens/s, peak memory, device kernels and host
+             launch calls a step, the top device operations; at B = 2 with
+             dropout 0 the card's logits and states within 1e-5 of the
+             CPU's and each gradient within 1e-4 of its largest (else held
+             to a float64 twin); (ii) the ``rnn`` op alone at (35, 32, 650),
+             every mode, one and two layers, one and two directions: forward
+             and forward+backward ms eager and replayed from a CUDA graph,
+             beside cuDNN's (``torch.nn.LSTM``/``GRU``/``RNN`` holding the
+             same weights, a measurement only), outputs within 1e-5 of
+             cuDNN's; (iii) every cell's ``unroll`` card against CPU, and
+             tests/torch_script_word_lm.py at its defaults for one epoch:
+             its loss and perplexity. The phase's seconds are checked
+             against a limit.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
-``optim``, ``data``, ``sparse``, ``vision``; ``script`` runs phase 4 first, for its weights,
+``optim``, ``data``, ``sparse``, ``vision``, ``rnn``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -474,7 +496,8 @@ and captures; also the row's ``optim`` key), data (phase 13 (ii): the
 compiled step's warm step and capture and the predict-mode forwards; also
 the row's ``data`` key), sparse (phase 14: no port kernel
 on it; also the row's ``sparse`` key), vision (phase 15: no port kernel on it;
-also the row's ``vision`` key); a row
+also the row's ``vision`` key), rnn (phase 16: no port kernel on it; also
+the row's ``rnn`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -6049,22 +6072,26 @@ def _shm_segments():
         return set()
 
 
-def _mnist_module():
-    """``tests/torch_script_mnist.py``, imported by name with ``tests/`` on
-    the path, so spawned workers can import it to unpickle ``transform``."""
+def _tests_script(name):
+    """``tests/{name}.py`` (a JAX package example with its imports changed,
+    or a helper of the tests), imported by name with ``tests/`` on the
+    path, so spawned workers can import it too (to unpickle a
+    ``transform``)."""
+    import importlib
+
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import torch_script_mnist
-
-    return torch_script_mnist
+    return importlib.import_module(name)
 
 
-def _gpu_trace(fn):
+def _gpu_trace(fn, calls=None):
     """Run ``fn`` under ``torch.profiler`` and return its device events from
     the Chrome trace: (category, name, stream, start us, duration us,
-    bytes)."""
+    bytes). With a dict ``calls``, also count the host's launch calls into
+    it by runtime or driver function name (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...)."""
     import tempfile
 
     import torch
@@ -6083,6 +6110,9 @@ def _gpu_trace(fn):
     out = []
     for e in events:
         cat = e.get("cat", "")
+        if calls is not None and cat in ("cuda_runtime", "cuda_driver") \
+                and "Launch" in e.get("name", ""):
+            calls[e["name"]] = calls.get(e["name"], 0) + 1
         if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
             args = e.get("args", {})
             out.append((cat, e.get("name", ""), args.get("stream"),
@@ -6130,7 +6160,7 @@ def _data_mnist(smi_line):
     import functools
     import tempfile
 
-    sm = _mnist_module()
+    sm = _tests_script("torch_script_mnist")
     t0 = time.perf_counter()
     mnist = sm.MNIST
     with tempfile.TemporaryDirectory(prefix="mnist-") as where:
@@ -6570,18 +6600,6 @@ def _np_rel(got, want):
                  max(float(onp.abs(want).max(initial=0.0)), 1e-30))
 
 
-def _sparse_script():
-    """``tests/torch_script_sparse.py`` (the JAX package's
-    ``examples/sparse_linear.py``, imports changed)."""
-    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import torch_script_sparse
-
-    return torch_script_sparse
-
-
 def _avazu_synthetic(rows, feats, nnz, seed):
     """``make_synthetic``'s recipe at Avazu's size, vectorised: ``nnz``
     distinct sorted features a row, N(0, 1) values, the label 1 where a
@@ -6667,7 +6685,7 @@ def _sparse_linear(smi_line, where):
     from mxnet_tpu_torch import io as mio
     from mxnet_tpu_torch.io import _textparse
 
-    ss = _sparse_script()
+    ss = _tests_script("torch_script_sparse")
     F, B = SPARSE_FEATURES, SPARSE_BATCH
     path = os.path.join(where, "avazu_synthetic.libsvm")
     t0 = time.perf_counter()
@@ -7399,18 +7417,6 @@ SAMPLER_SHAPE = (16, 64, 96, 96)
 SUBPIXEL = ((16, 256, 24, 24), (16, 256, 48, 48))   # SRResNet's two
 
 
-def _stn_script():
-    """``tests/torch_script_stn.py`` (the JAX package's
-    ``examples/stn_mnist.py``, imports changed)."""
-    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import torch_script_stn
-
-    return torch_script_stn
-
-
 def _drop_off(net):
     """Every ``Dropout`` of ``net`` at rate 0: its masks come from each
     device's own generator, so a card-against-CPU step runs without."""
@@ -7905,7 +7911,7 @@ def _vision_stn(smi_line):
     """(iv) the STN example at its own size on the card, hybridized."""
     import mxnet_tpu_torch as mx
 
-    stn = _stn_script()
+    stn = _tests_script("torch_script_stn")
     with mx.gpu():
         mx.random.seed(SEED)
         xs, ys = stn.make_translated_digits(512)
@@ -7956,6 +7962,439 @@ def phase_vision(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 16: A9's RNN stack — the PTB-medium LSTM language model trained eager
+# and hybridized, the rnn op against cuDNN's, the cells and word_lm
+RNN_LM = dict(vocab=10000, embed=650, hidden=650, layers=2, dropout=0.5,
+              batch=32, bptt=35, steps=20, lr=1e-3, clip=0.25)
+RNN_FOLLOW = 0.3              # (i) the stream's share of fixed successors
+RNN_CHECK_BATCH = 2           # (i) card against CPU, dropout 0
+RNN_RTOL = 1e-5               # outputs and states: card vs CPU, op vs cuDNN
+RNN_GRAD_RTOL = 1e-4          # (i) each gradient card vs CPU, of its largest
+RNN_FIRST_LOSS_RTOL = 1e-5    # (i) eager vs hybridized first-step loss
+RNN_OP = dict(T=35, B=32, H=650)    # (ii) the op at PTB-medium's shape
+RNN_CELLS = dict(T=35, B=8, H=200)  # (iii) word_lm's own width
+RNN_CELL_NAMES = ("RNNCell", "LSTMCell", "GRUCell", "LSTMPCell",
+                  "SequentialRNNCell", "HybridSequentialRNNCell",
+                  "DropoutCell", "ZoneoutCell", "ResidualCell",
+                  "BidirectionalCell", "VariationalDropoutCell")
+RNN_LIMIT_S = 150.0           # the phase's seconds, the build excluded
+
+
+def _word_stream(n, vocab, seed):
+    """``n`` tokens standing in for PTB's text: Zipf(1.1) frequencies, as
+    words' in text, with RNN_FOLLOW of them the fixed successor of the
+    token before (31 t + 7 mod vocab), something for the recurrence to
+    learn. PTB is not in the repo and is not fetched."""
+    rng = onp.random.RandomState(seed)
+    draws = onp.minimum(rng.zipf(1.1, n), vocab) - 1
+    follow = rng.rand(n) < RNN_FOLLOW
+    out = onp.empty(n, "int32")
+    out[0] = draws[0]
+    for i in range(1, n):
+        out[i] = (out[i - 1] * 31 + 7) % vocab if follow[i] else draws[i]
+    return out
+
+
+def _grad_gaps(card, cpu):
+    """{name: |card grad - cpu grad| max over the CPU grad's largest}."""
+    pc = card.collect_params()
+    out = {}
+    for name, p in cpu.collect_params().items():
+        if p.grad is None:
+            continue
+        want = p.grad.detach().double()
+        got = pc[name].grad.detach().cpu().double()
+        out[name] = float((got - want).abs().max()) / \
+            max(float(want.abs().max()), 1e-30)
+    return out
+
+
+def _lm_step_once(net, tokens, targets, ctx):
+    """One word_lm forward and backward of ``net`` from zero states in the
+    context ``ctx``: (logits, states, loss) as tensors."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import np as mnp
+
+    with ctx:
+        states = net.begin_state(tokens.shape[0])
+        with autograd.record():
+            logits, states = net(mnp.array(tokens), states)
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                logits, mnp.array(targets)).mean()
+        loss.backward()
+    return logits._data, [s._data for s in states], loss._data
+
+
+def _rnn_lm(smi_line, where):
+    """(i) the PTB-medium LSTM LM: word_lm's loop eager and hybridized at
+    B = 32, T = 35, and one step card against CPU at B = 2."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch.gluon.model_zoo import rnn_lm
+
+    cfg = RNN_LM
+    b, t, vocab = cfg["batch"], cfg["bptt"], cfg["vocab"]
+    stream = _word_stream(b * (t * cfg["steps"] + 1), vocab,
+                          SEED + 16).reshape(b, -1)
+
+    def make(dropout):
+        return rnn_lm.rnn_lm(vocab_size=vocab, embed_size=cfg["embed"],
+                             hidden_size=cfg["hidden"],
+                             num_layers=cfg["layers"], dropout=dropout,
+                             tie_weights=True)
+
+    path = os.path.join(where, "ptb_medium.params")
+    with mx.cpu():
+        cpu_net = make(0.0)
+        cpu_net.initialize(mx.initializer.Xavier(), seed=SEED + 16)
+        cpu_net(mnp.array(stream[:1, :t]))      # the deferred input size
+        cpu_net.save_parameters(path)
+    n_params = sum(p.numel() for p in cpu_net.collect_params().values())
+
+    runs = {}
+    for hyb in (False, True):
+        tag = "hybridized" if hyb else "eager"
+        with mx.gpu():
+            net = make(cfg["dropout"])
+            net.load_parameters(path)
+            if hyb:
+                net.hybridize()
+            tr = gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": cfg["lr"],
+                                "clip_gradient": cfg["clip"]})
+            loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+            held = {"states": net.begin_state(b)}
+
+            def step(i, net=net, tr=tr, held=held, loss_fn=loss_fn):
+                data = mnp.array(stream[:, i:i + t])
+                target = mnp.array(stream[:, i + 1:i + 1 + t])
+                states = [s.detach() for s in held["states"]]
+                with autograd.record():
+                    logits, states = net(data, states)
+                    loss = loss_fn(logits, target).mean()
+                loss.backward()
+                tr.step(1)
+                held["states"] = states
+                return loss
+
+            mx.random.seed(SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_before = torch.cuda.memory_allocated() / 2 ** 20
+            losses, walls = [], []
+            for k in range(cfg["steps"]):
+                t0 = time.perf_counter()
+                losses.append(float(step(k * t).asnumpy()))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20 - held_before
+            check(all(math.isfinite(v) for v in losses) and
+                  losses[-1] < losses[0], f"(i) {tag} losses {losses}")
+            check(all(s._data.is_cuda for s in held["states"]),
+                  f"(i) {tag}: the detached states left the card")
+            wall = _wall_ms(lambda: step(0), 5)
+            calls = {}
+            events = _gpu_trace(lambda: [step(0) for _ in range(3)], calls)
+            busy = _busy_us(events) / 1e3 / 3
+            kernels = sum(1 for e in events if e[0] == "kernel") / 3
+            launches = {k: v / 3 for k, v in sorted(calls.items())}
+            log(f"[rnn] (i) {tag}: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+                f"in {cfg['steps']} steps; step wall (median of steps "
+                f"3-{cfg['steps']}, the loss read) "
+                f"{statistics.median(walls[2:]):.2f} ms; a step synchronised "
+                f"{wall:.3f} ms wall, device busy {busy:.3f} ms, idle share "
+                f"{1 - busy / wall:.3f}, {b * t / wall * 1e3:.1f} tokens/s; "
+                f"peak memory {peak:.1f} MiB above the {held_before:.1f} MiB "
+                f"held before the run; {kernels:.0f} device kernels "
+                f"and host launch calls {launches} a step; card {smi_line}")
+            for name, us in _top_ops(events):
+                log(f"[rnn] (i) {tag} top: {us / 1e3 / 3:8.3f} ms a step  "
+                    f"{name[:100]}")
+            if hyb:
+                stats = next(iter(net._cached.values()))[0].graph_stats()
+                log(f"[rnn] (i) hybridized programs: {stats}")
+            runs[hyb] = losses
+            del net, tr, held, step
+            _release()
+    gap = abs(runs[False][0] - runs[True][0]) / abs(runs[False][0])
+    log(f"[rnn] (i) rnn_lm(vocab {vocab}, embed {cfg['embed']}, hidden "
+        f"{cfg['hidden']}, {cfg['layers']} layers, dropout "
+        f"{cfg['dropout']}, tied), {n_params} parameters, B {b} x T {t}, "
+        f"adam {cfg['lr']} clip {cfg['clip']}: first-step losses eager "
+        f"{runs[False][0]:.6f}, hybridized {runs[True][0]:.6f}, "
+        f"{gap:.3e} apart (limit {RNN_FIRST_LOSS_RTOL})")
+    check(gap <= RNN_FIRST_LOSS_RTOL, f"(i) first-step losses {gap:.3e}")
+
+    # one step, the card against the CPU at B = 2, dropout 0
+    n2 = RNN_CHECK_BATCH
+    tok2, tgt2 = stream[:n2, :t], stream[:n2, 1:t + 1]
+    cl, cs, closs = _lm_step_once(cpu_net, tok2, tgt2, mx.cpu())
+    with mx.gpu():
+        card = make(0.0)
+        card.load_parameters(path)
+    gl, gs, gloss = _lm_step_once(card, tok2, tgt2, mx.gpu())
+    out_gap = max(_max_rel(gl, cl), *(_max_rel(g, c) for g, c in
+                                      zip(gs, cs)))
+    gaps = _grad_gaps(card, cpu_net)
+    worst = max(gaps, key=gaps.get)
+    log(f"[rnn] (i) card vs CPU at B {n2}, dropout 0: logits and states "
+        f"{out_gap:.3e} of the largest (limit {RNN_RTOL}), loss "
+        f"{float(gloss.detach()):.7f} / {float(closs.detach()):.7f}; "
+        f"gradients, each of its largest: worst {gaps[worst]:.3e} "
+        f"({worst}; limit {RNN_GRAD_RTOL})")
+    check(out_gap <= RNN_RTOL, f"(i) outputs card vs CPU {out_gap:.3e}")
+    check(gaps[worst] <= RNN_GRAD_RTOL,
+          f"(i) gradients card vs CPU {gaps[worst]:.3e} ({worst})")
+    del card, cpu_net
+    _release()
+
+
+def _rnn_weights(rng, mode, layers, ndir, n_in, n_h, device):
+    """The op's flat weights, uniform in +-1/sqrt(hidden) as cuDNN's
+    default."""
+    import torch
+
+    from mxnet_tpu_torch.ops.rnn import GATES
+
+    ng, k = GATES[mode], 1.0 / math.sqrt(n_h)
+    out = []
+    for layer in range(layers):
+        width = n_in if layer == 0 else n_h * ndir
+        for _ in range(ndir):
+            for shape in ((ng * n_h, width), (ng * n_h, n_h), (ng * n_h,),
+                          (ng * n_h,)):
+                out.append(torch.tensor(
+                    rng.uniform(-k, k, shape).astype("float32"),
+                    device=device, requires_grad=True))
+    return out
+
+
+def _cudnn_twin(mode, layers, ndir, n_h, weights):
+    """torch.nn.LSTM / GRU / RNN (cuDNN on the card) holding ``weights``;
+    gate orders are the reference's (i, f, g, o; r, z, n)."""
+    import torch
+
+    kw = dict(num_layers=layers, bidirectional=ndir == 2)
+    if mode == "lstm":
+        mod = torch.nn.LSTM(n_h, n_h, **kw)
+    elif mode == "gru":
+        mod = torch.nn.GRU(n_h, n_h, **kw)
+    else:
+        mod = torch.nn.RNN(n_h, n_h, nonlinearity=mode[4:], **kw)
+    mod = mod.cuda()
+    with torch.no_grad():
+        k = 0
+        for layer in range(layers):
+            for d in range(ndir):
+                sfx = f"l{layer}" + ("_reverse" if d else "")
+                for name in ("weight_ih", "weight_hh", "bias_ih",
+                             "bias_hh"):
+                    getattr(mod, f"{name}_{sfx}").copy_(weights[k])
+                    k += 1
+    return mod
+
+
+def _rnn_op_vs_cudnn(smi_line):
+    """(ii) the ``rnn`` op alone at (35, 32, 650), every mode, one and two
+    layers, one and two directions: forward and forward+backward ms eager
+    and replayed from a CUDA graph, beside cuDNN's (``torch.nn.LSTM`` /
+    ``GRU`` / ``RNN`` holding the same weights) and its outputs."""
+    import torch
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.rnn import MODES
+
+    T, B, H = RNN_OP["T"], RNN_OP["B"], RNN_OP["H"]
+    rng = onp.random.RandomState(SEED + 161)
+    for mode in MODES:
+        for layers in (1, 2):
+            for ndir in (1, 2):
+                n = layers * ndir
+                x = torch.tensor(rng.randn(T, B, H).astype("float32"),
+                                 device="cuda", requires_grad=True)
+                states = [torch.tensor((0.5 * rng.randn(n, B, H)).astype(
+                    "float32"), device="cuda") for _ in
+                    range(2 if mode == "lstm" else 1)]
+                ws = _rnn_weights(rng, mode, layers, ndir, H, H, "cuda")
+                f = get_op("rnn").fn(mode=mode, num_layers=layers,
+                                     hidden_size=H,
+                                     bidirectional=ndir == 2, dropout=0.0)
+                ref = _cudnn_twin(mode, layers, ndir, H, ws)
+                args = [x, *states, *ws]
+                gout = torch.tensor(rng.randn(T, B, H * ndir).astype(
+                    "float32"), device="cuda")
+                leaves = [x, *ws]
+                with torch.no_grad():
+                    got = f(*args)
+                    want = ref(x, tuple(states) if mode == "lstm"
+                               else states[0])
+                want = [want[0], *(want[1] if mode == "lstm"
+                                   else (want[1],))]
+                gap = max(_max_rel(g, w) for g, w in zip(got, want))
+                cudnn_params = list(ref.parameters())
+
+                def fwd():
+                    with torch.no_grad():
+                        f(*args)
+
+                def fwd_bwd():
+                    torch.autograd.grad(f(*args)[0], leaves, gout)
+
+                def ref_fwd():
+                    with torch.no_grad():
+                        ref(x, tuple(states) if mode == "lstm"
+                            else states[0])
+
+                def ref_fwd_bwd():
+                    out = ref(x, tuple(states) if mode == "lstm"
+                              else states[0])[0]
+                    torch.autograd.grad(out, [x, *cudnn_params], gout)
+
+                ms = {"fwd": time_ms(fwd, reps=3, rounds=3),
+                      "fwd+bwd": time_ms(fwd_bwd, reps=3, rounds=3),
+                      "fwd replayed": graph_ms(fwd, reps=1, rounds=3),
+                      "fwd+bwd replayed": graph_ms(fwd_bwd, reps=1,
+                                                   rounds=3),
+                      "cudnn fwd": time_ms(ref_fwd, reps=3, rounds=3),
+                      "cudnn fwd+bwd": time_ms(ref_fwd_bwd, reps=3,
+                                               rounds=3)}
+                log(f"[rnn] (ii) {mode} {layers} layer(s) "
+                    f"{'bi' if ndir == 2 else 'uni'} at ({T}, {B}, {H}): "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+                    + f"; outputs and states vs cuDNN {gap:.3e} (limit "
+                    f"{RNN_RTOL}); card {smi_line}")
+                check(gap <= RNN_RTOL,
+                      f"(ii) {mode} {layers} {ndir}: {gap:.3e} from cuDNN")
+                del x, states, ws, ref, args, leaves, cudnn_params
+    _release()
+
+
+def _rnn_cell(rnn, name, n_h, n_in):
+    if name == "RNNCell":
+        return rnn.RNNCell(n_h, input_size=n_in)
+    if name == "LSTMCell":
+        return rnn.LSTMCell(n_h, input_size=n_in)
+    if name == "GRUCell":
+        return rnn.GRUCell(n_h, input_size=n_in)
+    if name == "LSTMPCell":
+        return rnn.LSTMPCell(n_h, n_h // 2, input_size=n_in)
+    if name in ("SequentialRNNCell", "HybridSequentialRNNCell"):
+        cell = getattr(rnn, name)()
+        cell.add(rnn.LSTMCell(n_h, input_size=n_in))
+        cell.add(rnn.GRUCell(n_h, input_size=n_h))
+        return cell
+    if name == "DropoutCell":
+        cell = rnn.SequentialRNNCell()
+        cell.add(rnn.LSTMCell(n_h, input_size=n_in))
+        cell.add(rnn.DropoutCell(0.5))
+        return cell
+    if name == "ZoneoutCell":
+        return rnn.ZoneoutCell(rnn.LSTMCell(n_h, input_size=n_in), 0.5, 0.5)
+    if name == "ResidualCell":
+        return rnn.ResidualCell(rnn.GRUCell(n_in, input_size=n_in))
+    if name == "BidirectionalCell":
+        return rnn.BidirectionalCell(rnn.LSTMCell(n_h, input_size=n_in),
+                                     rnn.GRUCell(n_h, input_size=n_in))
+    return rnn.VariationalDropoutCell(rnn.LSTMCell(n_h, input_size=n_in),
+                                      0.5, 0.5, 0.5)
+
+
+def _rnn_cells(smi_line, where):
+    """(iii) every cell's ``unroll`` (NTC, ``valid_length``, predict mode)
+    on the card against the CPU on the same weights and inputs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch.gluon import rnn
+
+    T, B, H = RNN_CELLS["T"], RNN_CELLS["B"], RNN_CELLS["H"]
+    rng = onp.random.RandomState(SEED + 162)
+    x = rng.randn(B, T, H).astype("float32")
+    valid = rng.randint(1, T + 1, B).astype("int32")
+    rows = []
+    for k, name in enumerate(RNN_CELL_NAMES):
+        path = os.path.join(where, f"cell{k}.params")
+        with mx.cpu():
+            cpu = _rnn_cell(rnn, name, H, H)
+            cpu.initialize(mx.initializer.Uniform(0.1), seed=SEED + k)
+            want = cpu.unroll(T, mnp.array(x), merge_outputs=True,
+                              valid_length=mnp.array(valid))
+            cpu.save_parameters(path)
+        with mx.gpu():
+            card = _rnn_cell(rnn, name, H, H)
+            card.load_parameters(path)
+            xd, vd = mnp.array(x), mnp.array(valid)
+
+            def run(card=card, xd=xd, vd=vd):
+                return card.unroll(T, xd, merge_outputs=True,
+                                   valid_length=vd)
+
+            got = run()
+            ms = time_ms(run, reps=3, rounds=3)
+        gap = max(_max_rel(g._data, w._data) for g, w in
+                  zip([got[0], *got[1]], [want[0], *want[1]]))
+        rows.append(f"{name} {gap:.2e} ({ms:.2f} ms)")
+        check(gap <= RNN_RTOL, f"(iii) {name}: card vs CPU {gap:.3e}")
+    log(f"[rnn] (iii) unroll at B {B}, T {T}, {H} wide, valid lengths "
+        f"{valid.tolist()}, card vs CPU (limit {RNN_RTOL}; the card's eager "
+        f"unroll ms): " + "; ".join(rows) + f"; card {smi_line}")
+
+
+def _rnn_word_lm(smi_line):
+    """(iii) ``tests/torch_script_word_lm.py`` at its own defaults for one
+    epoch on the card."""
+    import contextlib
+    import io as _io
+
+    import mxnet_tpu_torch as mx
+
+    wl = _tests_script("torch_script_word_lm")
+    buf = _io.StringIO()
+    t = time.perf_counter()
+    with mx.gpu(), contextlib.redirect_stdout(buf):
+        epochs = wl.main(["--epochs", "1"])
+    took = time.perf_counter() - t
+    loss, ppl = epochs[0]
+    log(f"[rnn] (iii) tests/torch_script_word_lm.py --epochs 1 (its "
+        f"defaults: 100,000 synthetic tokens, vocab 64, hidden 200, 2 "
+        f"layers, B 32, bptt 35, adam 1e-3, clip 0.25, dropout 0.2, tied): "
+        f"{buf.getvalue().strip()}; loss {loss:.4f}, perplexity {ppl:.3f}, "
+        f"{took:.1f} s with the model's setup; card {smi_line}")
+    check(math.isfinite(loss) and ppl < 64,
+          f"(iii) word_lm loss {loss}, perplexity {ppl}")
+
+
+def phase_rnn(smi_line):
+    """Phase 16: A9's RNN stack (see the module docstring). Returns the
+    path's launch counts (no port kernel on it)."""
+    import tempfile
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="rnn-") as where:
+        t = time.perf_counter()
+        _rnn_lm(smi_line, where)
+        log(f"[rnn] (i) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _rnn_op_vs_cudnn(smi_line)
+        log(f"[rnn] (ii) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _rnn_cells(smi_line, where)
+    _rnn_word_lm(smi_line)
+    log(f"[rnn] (iii) took {time.perf_counter() - t:.1f} s")
+    taken = read_counts("rnn")
+    log(f"[rnn] launches of the port's kernels on this path: {taken}")
+    took = time.perf_counter() - t_phase
+    log(f"[rnn] phase took {took:.1f} s (limit {RNN_LIMIT_S})")
+    check(took <= RNN_LIMIT_S, f"phase 16 took {took:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
@@ -7963,7 +8402,8 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "bert_pretrain": phase_bert_pretrain, "graph": phase_graph,
            "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
            "optim": phase_optim, "data": phase_data,
-           "sparse": phase_sparse, "vision": phase_vision}
+           "sparse": phase_sparse, "vision": phase_vision,
+           "rnn": phase_rnn}
 
 
 # ---------------------------------------------------------------------------
@@ -8033,6 +8473,7 @@ def main():
         phase_data(smi_line)
         phase_sparse(smi_line)
         phase_vision(smi_line)
+        phase_rnn(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -8057,6 +8498,7 @@ def main():
         row["data"] = by_path.get("data", 0)
         row["sparse"] = by_path.get("sparse", 0)
         row["vision"] = by_path.get("vision", 0)
+        row["rnn"] = by_path.get("rnn", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -8069,6 +8511,7 @@ def main():
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
+    rtc_row["rnn"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -86,3 +86,7 @@ __all__ = ["MXNetError", "Context", "Device", "NDArray", "array", "cpu",
 
 def waitall():
     engine.wait_all()
+
+
+# the reference's alias names of ops that subpackages registered after ops
+ops.aliases._register_all()

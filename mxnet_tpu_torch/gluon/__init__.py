@@ -1,11 +1,11 @@
-"""gluon: blocks, layers, parameters, losses, the Trainer, the model zoo
-and the input pipeline (``gluon.data``), as ``torch.nn.Module``s and plain
-PyTorch."""
-from . import data, loss, model_zoo, nn
+"""gluon: blocks, layers, recurrent cells and layers (``gluon.rnn``),
+parameters, losses, the Trainer, the model zoo and the input pipeline
+(``gluon.data``), as ``torch.nn.Module``s and plain PyTorch."""
+from . import data, loss, model_zoo, nn, rnn
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Constant, DeferredInitializationError, Parameter
 from .trainer import Trainer
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "Constant",
            "DeferredInitializationError", "Trainer", "data", "loss", "nn",
-           "model_zoo"]
+           "rnn", "model_zoo"]

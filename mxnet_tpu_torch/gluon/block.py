@@ -135,7 +135,8 @@ class Block(torch.nn.Module):
     # NDArray arguments reach the body as tensors
     _tensor_body = False
 
-    def __init__(self):
+    def __init__(self, prefix=None, params=None):
+        # prefix and params: accepted and ignored, as the reference's
         super().__init__()
         self.train(False)
 
@@ -365,8 +366,8 @@ class HybridBlock(Block):
     """A block whose forward ``hybridize()`` turns into cached programs
     (see the module docstring)."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix, params)
         self._active = False
         self._cached = {}   # signature -> (CachedOp, out_tree, parameters)
         self._gpools = {}   # device -> the GraphPool of all its CachedOps

@@ -23,6 +23,10 @@ parameters nothing initialized computes with their zeros, as the port's
 layers always have (the reference raises there, in ``data()``, which the
 port's ``Parameter.data()`` does too).
 
+Every layer takes the reference's ``**kwargs`` and hands them to its base
+(``prefix`` and ``params``, which ``Block`` accepts and ignores, as the
+reference's does).
+
 Deferred shapes: ``Dense`` without ``in_units`` and the norms without
 ``in_channels`` hold placeholders (a 0 in the shape) that their first
 forward fills (``Parameter._finish_deferred_init``), as the reference's
@@ -106,8 +110,8 @@ class Dense(HybridBlock):
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0, device=None):
-        super().__init__()
+                 bias_initializer="zeros", in_units=0, device=None, **kwargs):
+        super().__init__(**kwargs)
         device = resolve_device(device)
         dtype = to_dtype(dtype)
         self._units = units
@@ -146,8 +150,8 @@ class Dropout(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, rate, axes=()):
-        super().__init__()
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
         self._rate = rate
         self._axes = axes
 
@@ -168,8 +172,8 @@ class Activation(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, activation):
-        super().__init__()
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
         self._act = activation
 
     def forward(self, x):
@@ -181,8 +185,8 @@ class LeakyReLU(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, alpha=0.01):
-        super().__init__()
+    def __init__(self, alpha=0.01, **kwargs):
+        super().__init__(**kwargs)
         self._alpha = alpha
 
     def forward(self, x):
@@ -196,8 +200,8 @@ class PReLU(HybridBlock):
     _tensor_body = True
 
     def __init__(self, alpha_initializer=init_mod.Constant(0.25),
-                 in_channels=1, device=None):
-        super().__init__()
+                 in_channels=1, device=None, **kwargs):
+        super().__init__(**kwargs)
         self.alpha = new_parameter((in_channels,), torch.float32,
                                    resolve_device(device), alpha_initializer)
 
@@ -210,8 +214,8 @@ class ELU(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, alpha=1.0):
-        super().__init__()
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
         self._alpha = alpha
 
     def forward(self, x):
@@ -233,8 +237,8 @@ class GELU(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, approximation="erf"):
-        super().__init__()
+    def __init__(self, approximation="erf", **kwargs):
+        super().__init__(**kwargs)
         self._act = "gelu" if approximation == "erf" else "gelu_tanh"
 
     def forward(self, x):
@@ -246,8 +250,8 @@ class Swish(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, beta=1.0):
-        super().__init__()
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
         self._beta = beta
 
     def forward(self, x):
@@ -274,8 +278,8 @@ class BatchNorm(HybridBlock):
                  scale=True, use_global_stats=False, beta_initializer="zeros",
                  gamma_initializer="ones", running_mean_initializer="zeros",
                  running_variance_initializer="ones", in_channels=0,
-                 dtype="float32", device=None):
-        super().__init__()
+                 dtype="float32", device=None, **kwargs):
+        super().__init__(**kwargs)
         device = resolve_device(device)
         dtype = to_dtype(dtype)
         self._axis = axis
@@ -339,8 +343,8 @@ class LayerNorm(HybridBlock):
 
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, dtype="float32", device=None):
-        super().__init__()
+                 in_channels=0, dtype="float32", device=None, **kwargs):
+        super().__init__(**kwargs)
         device = resolve_device(device)
         dtype = to_dtype(dtype)
         self._axis = axis
@@ -367,8 +371,8 @@ class _NormBase(HybridBlock):
     _tensor_body = True
 
     def __init__(self, in_channels, center, scale, gamma_initializer,
-                 beta_initializer, device):
-        super().__init__()
+                 beta_initializer, device, **kwargs):
+        super().__init__(**kwargs)
         device = resolve_device(device)
         shape = (in_channels or 0,)
         self.gamma = new_parameter(shape, torch.float32, device,
@@ -385,9 +389,9 @@ class GroupNorm(_NormBase):
 
     def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, device=None):
+                 in_channels=0, device=None, **kwargs):
         super().__init__(in_channels, center, scale, gamma_initializer,
-                         beta_initializer, device)
+                         beta_initializer, device, **kwargs)
         self._num_groups = num_groups
         self._eps = epsilon
 
@@ -404,9 +408,9 @@ class InstanceNorm(_NormBase):
 
     def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, device=None):
+                 in_channels=0, device=None, **kwargs):
         super().__init__(in_channels, center, scale, gamma_initializer,
-                         beta_initializer, device)
+                         beta_initializer, device, **kwargs)
         self._eps = epsilon
 
     def forward(self, x):
@@ -420,8 +424,9 @@ class RMSNorm(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, axis=-1, epsilon=1e-6, in_channels=0, device=None):
-        super().__init__()
+    def __init__(self, axis=-1, epsilon=1e-6, in_channels=0, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
         self._axis = axis
         self._eps = epsilon
         self.gamma = new_parameter((in_channels or 0,), torch.float32,
@@ -442,8 +447,8 @@ class ReflectionPad2D(HybridBlock):
 
     _tensor_body = True
 
-    def __init__(self, padding=0):
-        super().__init__()
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
         if isinstance(padding, (tuple, list)):
             p = tuple(int(v) for v in padding)
             if len(p) == 8:
@@ -463,13 +468,17 @@ class ReflectionPad2D(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Lookup table of shape (input_dim, output_dim)."""
+    """Lookup table of shape (input_dim, output_dim). ``sparse_grad`` is
+    accepted and ignored, as in the reference (reference :367): the
+    gradient is dense; a row-sparse one is handed over as
+    ``p.grad = RowSparseNDArray(...)``."""
 
     _tensor_body = True
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, device=None):
-        super().__init__()
+                 weight_initializer=None, sparse_grad=False, device=None,
+                 **kwargs):
+        super().__init__(**kwargs)
         device = resolve_device(device)
         self._input_dim = input_dim
         self._output_dim = output_dim
@@ -496,8 +505,8 @@ class Lambda(Block):
     """``function(*args)`` as a block (reference :383); a string names an
     ``mx.np`` or ``mx.npx`` function."""
 
-    def __init__(self, function):
-        super().__init__()
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
         self._func = _np_function(function) if isinstance(function, str) \
             else function
 
@@ -508,8 +517,8 @@ class Lambda(Block):
 class HybridLambda(HybridBlock):
     """A :class:`Lambda` that ``hybridize()`` captures (reference :396)."""
 
-    def __init__(self, function):
-        super().__init__()
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
         self._func = _np_function(function) if isinstance(function, str) \
             else function
 
@@ -521,8 +530,8 @@ class Concatenate(Sequential):
     """Runs every child on the same input and concatenates their outputs
     along ``axis`` (reference :409)."""
 
-    def __init__(self, axis=-1):
-        super().__init__()
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
         self._axis = axis
 
     def forward(self, x):

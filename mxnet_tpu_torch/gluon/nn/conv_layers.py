@@ -56,8 +56,8 @@ class _Conv(HybridBlock):
                  groups, layout, in_channels=0, activation=None, use_bias=True,
                  weight_initializer=None, bias_initializer="zeros",
                  dtype="float32", device=None, transpose=False,
-                 output_padding=0):
-        super().__init__()
+                 output_padding=0, **kwargs):
+        super().__init__(**kwargs)
         ndim = len(kernel_size)
         device = resolve_device(device)
         dtype = to_dtype(dtype)
@@ -158,8 +158,8 @@ class _Pool(HybridBlock):
     _tensor_body = True
 
     def __init__(self, pool_size, strides, padding, global_pool, pool_type,
-                 layout, count_include_pad=True, ceil_mode=False):
-        super().__init__()
+                 layout, count_include_pad=True, ceil_mode=False, **kwargs):
+        super().__init__(**kwargs)
         self._kernel = pool_size
         self._stride = _tup(strides if strides is not None else pool_size,
                             len(pool_size))
@@ -274,14 +274,14 @@ class DeformableConvolution(_Conv):
                  activation=None, weight_initializer=None,
                  bias_initializer="zeros", offset_weight_initializer="zeros",
                  offset_bias_initializer="zeros", offset_use_bias=True,
-                 dtype="float32", device=None):
+                 dtype="float32", device=None, **kwargs):
         kernel_size = _tup(kernel_size, 2)
         super().__init__(channels, kernel_size, strides, padding, dilation,
                          groups, "NCHW", in_channels=in_channels,
                          activation=activation, use_bias=use_bias,
                          weight_initializer=weight_initializer,
                          bias_initializer=bias_initializer, dtype=dtype,
-                         device=device)
+                         device=device, **kwargs)
         k = kernel_size[0] * kernel_size[1]
         per_pos = 3 if self._modulated else 2
         self._split = 2 * k * num_deformable_group   # offsets, then masks
@@ -325,8 +325,8 @@ class ModulatedDeformableConvolution(DeformableConvolution):
 class _PixelShuffle(HybridBlock):
     _tensor_body = True
 
-    def __init__(self, factor, ndim):
-        super().__init__()
+    def __init__(self, factor, ndim, **kwargs):
+        super().__init__(**kwargs)
         self._f = _tup(factor, ndim)
         self._ndim = ndim
 
@@ -348,19 +348,19 @@ class _PixelShuffle(HybridBlock):
 class PixelShuffle1D(_PixelShuffle):
     """(B, C f, W) -> (B, C, W f)."""
 
-    def __init__(self, factor):
-        super().__init__(factor, 1)
+    def __init__(self, factor, **kwargs):
+        super().__init__(factor, 1, **kwargs)
 
 
 class PixelShuffle2D(_PixelShuffle):
     """(B, C f1 f2, H, W) -> (B, C, H f1, W f2)."""
 
-    def __init__(self, factor):
-        super().__init__(factor, 2)
+    def __init__(self, factor, **kwargs):
+        super().__init__(factor, 2, **kwargs)
 
 
 class PixelShuffle3D(_PixelShuffle):
     """(B, C f1 f2 f3, D, H, W) -> (B, C, D f1, H f2, W f3)."""
 
-    def __init__(self, factor):
-        super().__init__(factor, 3)
+    def __init__(self, factor, **kwargs):
+        super().__init__(factor, 3, **kwargs)

@@ -568,9 +568,8 @@ def _reference_form(name="param", shape=None, dtype="float32", lr_mult=1.0,
     if grad_req not in _GRAD_REQS:
         raise MXNetError(
             f"grad_req must be one of {_GRAD_REQS}, got {grad_req!r}")
-    if stype != "default" or grad_stype != "default":
-        raise MXNetError("sparse parameters are not ported (ROADMAP A4): "
-                         "stype and grad_stype must be 'default'")
+    # stype and grad_stype: accepted and ignored, as the reference's (a
+    # row-sparse gradient is handed over as p.grad = RowSparseNDArray(...))
     dims = None if shape is None else tuple(
         0 if d is None or int(d) < 0 else int(d) for d in shape)
     tensor = torch.zeros(dims if dims is not None else (0,),

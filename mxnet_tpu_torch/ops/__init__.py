@@ -5,14 +5,18 @@ hand-written CUDA kernels in :mod:`.cuda_kernels`, the samplers
 (:mod:`.random_ops`), ``batch_dot``, the numpy stragglers and the CSR
 product (:mod:`.extra`), the lazy row-sparse updates
 (:mod:`.optimizer_ops`), the detection and resize ops
-(:mod:`.vision`) and the warping and deformable ops (:mod:`.warp_ops`);
-the layout ops, bipartite matching and the MultiBox trio are in
-:mod:`.extra`."""
+(:mod:`.vision`), the warping and deformable ops (:mod:`.warp_ops`) and
+the fused recurrent op ``rnn`` (:mod:`.rnn`); the layout ops, bipartite
+matching and the MultiBox trio are in :mod:`.extra`. The reference's alias
+table (:mod:`.aliases`) registers its names last."""
 from . import registry  # noqa: I001 — the registry first: the ops register in it
 from . import (_core, cuda_kernels, extra, indexing, nn, optimizer_ops,
-               random_ops, vision, warp_ops)
+               random_ops, rnn, vision, warp_ops)
+from . import aliases as _aliases
 from .registry import apply_op, get_op, invoke, list_ops, register
 
+_aliases._register_all()
+
 __all__ = ["registry", "cuda_kernels", "extra", "indexing", "nn",
-           "optimizer_ops", "random_ops", "vision", "warp_ops",
+           "optimizer_ops", "random_ops", "rnn", "vision", "warp_ops",
            "apply_op", "get_op", "invoke", "list_ops", "register"]

@@ -66,10 +66,10 @@ class Op:
     metadata (reference :55)."""
 
     __slots__ = ("name", "_make_fn", "_fn_cache", "needs_rng", "nout",
-                 "differentiable")
+                 "sym_nout", "differentiable")
 
     def __init__(self, name, make_fn, needs_rng: bool = False, nout=1,
-                 differentiable: bool = True):
+                 differentiable: bool = True, sym_nout=None):
         self.name = name
         self._make_fn = make_fn
         self._fn_cache: dict = {}
@@ -77,6 +77,11 @@ class Op:
         # device as its first argument (reference: the PRNG key operand)
         self.needs_rng = needs_rng
         self.nout = nout
+        # sym_nout: a function of the attributes giving the output entries
+        # of a Symbol node of this op, for an op whose count follows them
+        # (``rnn``: 3 for LSTM, else 2); None: one entry. The Symbol layer
+        # reads this, never ``nout``.
+        self.sym_nout = sym_nout
         # declared at registration (reference: presence of FGradient): a
         # non-differentiable op runs with grad mode off and never records
         self.differentiable = differentiable
@@ -101,7 +106,7 @@ class Op:
 
 
 def register(name, make_fn=None, *, needs_rng=False, nout=1,
-             differentiable=True):
+             differentiable=True, sym_nout=None):
     """Register an operator. Usable directly or as a decorator on
     ``make_fn``; a name registered twice raises :class:`MXNetError`."""
 
@@ -109,7 +114,7 @@ def register(name, make_fn=None, *, needs_rng=False, nout=1,
         if name in _OPS:
             raise MXNetError(f"op '{name}' already registered")
         op = Op(name, mf, needs_rng=needs_rng, nout=nout,
-                differentiable=differentiable)
+                differentiable=differentiable, sym_nout=sym_nout)
         _OPS[name] = op
         return op
 

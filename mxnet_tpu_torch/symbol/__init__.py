@@ -2,8 +2,12 @@
 
 Counterpart of ``mxnet_tpu/symbol/__init__.py``. Every registered op is a
 symbolic builder (``sym.exp(x)``, ``sym.matmul(a, b)``, the CamelCase
-legacy names such as ``sym.FullyConnected``), resolved lazily by module
-``__getattr__``.
+legacy names such as ``sym.FullyConnected`` or ``sym.RNN``), resolved
+lazily by module ``__getattr__``: through ``_LEGACY_NAMES`` (the
+reference's 13), else the registry, which holds the reference's alias
+table (``ops/aliases.py``). A builder makes one output entry, or the op's
+count where that follows its attributes (``sym.RNN``: three for LSTM, else
+two); ``nout=`` overrides it.
 """
 from .symbol import Literal, Symbol, SymNode, Variable, topo_sort, var
 
@@ -24,16 +28,6 @@ _LEGACY_NAMES = {
     "SoftmaxOutput": "softmax",
     "Concat": "concatenate",
     "Flatten": "flatten",
-    # the warping and deformable tier (ops/warp_ops.py)
-    "BilinearSampler": "bilinear_sampler",
-    "GridGenerator": "grid_generator",
-    "SpatialTransformer": "spatial_transformer",
-    "Correlation": "correlation",
-    "_contrib_DeformableConvolution": "deformable_convolution",
-    "_contrib_ModulatedDeformableConvolution":
-        "modulated_deformable_convolution",
-    "_contrib_PSROIPooling": "psroi_pooling",
-    "_contrib_DeformablePSROIPooling": "deformable_psroi_pooling",
 }
 
 
@@ -56,7 +50,7 @@ def fromjson(json_str):
 def _make_sym_op(op_name):
     def sym_op(*inputs, **attrs):
         name = attrs.pop("name", None)
-        nout = attrs.pop("nout", 1)
+        nout = attrs.pop("nout", None)
         out = Symbol.apply_op(op_name, *inputs, nout=nout, **attrs)
         if name is not None:
             out._entries[0][0].name = name

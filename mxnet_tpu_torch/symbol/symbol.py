@@ -111,11 +111,16 @@ class Symbol:
         return Literal(x)
 
     @classmethod
-    def apply_op(cls, op_name, *inputs, nout=1, **attrs):
+    def apply_op(cls, op_name, *inputs, nout=None, **attrs):
+        """One node of ``op_name`` over ``inputs`` with ``nout`` output
+        entries; by default one, or the op's count for ``attrs`` where that
+        follows them (``rnn``)."""
         from ..attribute import AttrScope
         from ..name import NameManager
 
         op = get_op(op_name)
+        if nout is None:
+            nout = _default_nout(op, attrs)
         entries = [cls._entry_of(x) for x in inputs]
         node = SymNode(op=op, attrs=attrs, inputs=entries, nout=nout,
                        name=NameManager.current().get(None, op_name),
@@ -282,9 +287,10 @@ class Symbol:
                     else:
                         ins.append((nodes[e[0]], e[1]))
                 attrs = _unjson_attrs(jn.get("attrs", {}))
-                nodes.append(SymNode(op=get_op(_legacy(jn["op"])),
-                                     attrs=attrs, inputs=ins,
-                                     name=jn.get("name")))
+                op = get_op(_legacy(jn["op"]))
+                nodes.append(SymNode(op=op, attrs=attrs, inputs=ins,
+                                     name=jn.get("name"),
+                                     nout=_default_nout(op, attrs)))
         return Symbol([(nodes[i], j) for i, j in g["heads"]])
 
     @staticmethod
@@ -293,9 +299,17 @@ class Symbol:
             return Symbol.fromjson(f.read())
 
 
+def _default_nout(op, attrs):
+    """A node's output count when nothing names it: ``op.sym_nout(attrs)``
+    where the op sets that hook, else one (the reference's)."""
+    return 1 if op.sym_nout is None else op.sym_nout(attrs)
+
+
 def _legacy(op_name):
-    """The registered name of a JSON node's op, a legacy name (``Correlation``,
-    ``_contrib_PSROIPooling``, ...) resolved as ``mx.nd`` resolves it."""
+    """The registered name of a JSON node's op: a name of
+    ``_LEGACY_NAMES`` (``SoftmaxOutput``, ``Concat``, ...) mapped as
+    ``mx.nd`` maps it; the alias table's names (``Correlation``, ``RNN``,
+    ...) are names of the registry already."""
     from . import _LEGACY_NAMES
 
     return _LEGACY_NAMES.get(op_name, op_name)
