@@ -477,10 +477,34 @@ Phases (any failure exits non-zero without the final line):
              tests/torch_script_word_lm.py at its defaults for one epoch:
              its loss and perplexity. The phase's seconds are checked
              against a limit.
+17. legacy — A9 (b)'s legacy tensor tier, fp32 on the card: (i) MXNet's
+             legacy-symbol AlexNet (example/image-classification/symbols/
+             alexnet.py with LRN after relu1 and relu2, its loss head
+             spelled out as MakeLoss; tests/torch_script_legacy_alexnet.py)
+             trained at batch 128, 224², 1000 classes through
+             ``simple_bind`` / ``forward(is_train=True)`` / ``backward`` /
+             ``get_updater(SGD)`` for 12 steps over four seeded batches:
+             the loss of the last pass over the batches below the first's;
+             a step's wall against device busy, the idle share, img/s,
+             peak memory, device kernels and host launch calls a step, the
+             top device operations; the predict-mode bind
+             (``SoftmaxActivation``) in img/s with rows summing to 1; at
+             batch 2 with dropout 0 the loss and probabilities within 1e-5
+             of the CPU's and each gradient held to a float64 twin; (ii)
+             every name of the tier (tests/torch_legacy_cases.py) card
+             against CPU, forward and gradients, and the data-dependent
+             names refused with ``MXNetError`` inside a CUDA graph
+             capture; (iii) LRN at AlexNet's two sites beside
+             ``F.local_response_norm`` (a measurement only), ``linalg_gemm2``,
+             ``potrf``, ``trsm``, ``potri`` and ``syevd`` on (256, 64, 64)
+             SPD against float64, ``rroi_align`` with 512 rotated ROIs,
+             ``boolean_mask`` of BERT's masked rows and ``unique`` of 2^20
+             token ids, card against CPU with their ms. The phase's seconds
+             are checked against a limit.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
-``optim``, ``data``, ``sparse``, ``vision``, ``rnn``; ``script`` runs phase 4 first, for its weights,
+``optim``, ``data``, ``sparse``, ``vision``, ``rnn``, ``legacy``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -497,7 +521,8 @@ compiled step's warm step and capture and the predict-mode forwards; also
 the row's ``data`` key), sparse (phase 14: no port kernel
 on it; also the row's ``sparse`` key), vision (phase 15: no port kernel on it;
 also the row's ``vision`` key), rnn (phase 16: no port kernel on it; also
-the row's ``rnn`` key); a row
+the row's ``rnn`` key), legacy (phase 17 (i): no port kernel on it; also
+the row's ``legacy`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -8395,6 +8420,378 @@ def phase_rnn(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 17: A9 (b)'s legacy tensor tier — MXNet's legacy-symbol AlexNet
+# trained through simple_bind, every name of the tier on the card against
+# the CPU, and the heavy ops at the sizes that use them
+LEGACY_ALEX = dict(batch=128, image=224, classes=1000, steps=12, batches=4,
+                   width=1)
+LEGACY_CHECK_BATCH = 2        # (i) card against CPU, dropout 0
+LEGACY_RTOL = 1e-5            # (i) loss and probabilities, card vs CPU
+LEGACY_GRAD_RTOL = 1e-4       # (i) gradients: the floor of the twin limit
+LEGACY_GRAD_FACTOR = 4.0      # (i) ... or this times the CPU fp32 run's gap
+LEGACY_LRN_SITES = ((128, 96, 54, 54), (128, 256, 26, 26))   # lrn1, lrn2
+LEGACY_LRN_RTOL = 1e-5        # (iii) LRN card vs CPU and vs F.lrn
+LEGACY_LINALG = (256, 64, 64)             # (iii) SPD batch, fp32
+LEGACY_LINALG_RTOL = 1e-4     # (iii) against float64 on the CPU
+LEGACY_RROI = dict(data=(2, 256, 50, 50), rois=512, pooled=(7, 7),
+                   scale=1.0 / 16)
+LEGACY_RROI_RTOL = 1e-4       # (iii) card vs CPU
+LEGACY_MASK = (32 * 512, 768, 0.15)       # (iii) BERT's masked positions
+LEGACY_UNIQUE = (1 << 20, 30522)          # (iii) token ids, BERT's vocab
+LEGACY_LIMIT_S = 120.0        # the phase's seconds, the build excluded
+
+
+def _legacy_grad_gaps(card, cpu, twin):
+    """{name: (card gap, CPU gap)} of each gradient from the float64
+    twin's, over the twin's largest entry."""
+    out = {}
+    for n, t in twin.items():
+        scale = max(float(abs(t).max()), 1e-30)
+        out[n] = (float(abs(card[n] - t).max()) / scale,
+                  float(abs(cpu[n] - t).max()) / scale)
+    return out
+
+
+def _legacy_alexnet(smi_line):
+    """(i) the legacy AlexNet at batch 128, 224^2, 1000 classes through
+    ``simple_bind`` / ``forward`` / ``backward`` / ``get_updater(SGD)``;
+    the predict-mode bind; and one batch-2 step card against CPU."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    alex = _tests_script("torch_script_legacy_alexnet")
+    cfg = LEGACY_ALEX
+    b, img, classes, wd = (cfg["batch"], cfg["image"], cfg["classes"],
+                           cfg["width"])
+    sym = alex.alexnet_symbol(mx, wd, classes, b)
+    weights = alex.init_weights(wd, img, classes, seed=SEED + 17)
+    batches = alex.synthetic_batches(cfg["batches"], b, img, classes,
+                                     seed=SEED + 17)
+    n_params = sum(w.size for w in weights.values())
+    ctx = mx.gpu()
+    with ctx:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated() / 2 ** 20
+        exe = alex.bind(mx, sym, weights, b, img, ctx)
+        check(all(a._data.is_cuda for a in exe.arg_dict.values()) and
+              all(a.grad._data.is_cuda for n, a in exe.arg_dict.items()
+                  if n in alex.param_names(sym)),
+              "(i) an argument or gradient of the Executor left the card")
+        t = time.perf_counter()
+        losses = alex.train(mx, exe, sym, batches, cfg["steps"], ctx)
+        train_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20 - held_before
+        nb = cfg["batches"]
+        first, last = statistics.mean(losses[:nb]), \
+            statistics.mean(losses[-nb:])
+        check(all(math.isfinite(v) for v in losses) and last < first,
+              f"(i) losses {losses}")
+        # the step alone, its batch staged on the card
+        data = mx.nd.array(batches[0][0], ctx=ctx)
+        label = mx.nd.array(batches[0][1], ctx=ctx)
+        opt = mx.optimizer.SGD(learning_rate=0.01, momentum=0.9, wd=5e-4)
+        updater = mx.optimizer.get_updater(opt)
+        names = alex.param_names(sym)
+
+        def step():
+            exe.forward(is_train=True, data=data, label=label)
+            exe.backward()
+            for i, n in enumerate(names):
+                w = exe.arg_dict[n]
+                updater(i, w.grad, w)
+
+        step()
+        wall = _wall_ms(step, 5)
+        calls = {}
+        events = _gpu_trace(lambda: [step() for _ in range(3)], calls)
+        busy = _busy_us(events) / 1e3 / 3
+        kernels = sum(1 for e in events if e[0] == "kernel") / 3
+        launches = {k: v / 3 for k, v in sorted(calls.items())}
+        stats = exe._cop.graph_stats()
+        log(f"[legacy] (i) AlexNet (legacy symbol, {n_params} parameters, "
+            f"LRN after relu1 and relu2) B {b} x 3 x {img} x {img}, "
+            f"{classes} classes, SGD 0.01 momentum 0.9 wd 5e-4, dropout "
+            f"0.5, {nb} batches cycled, {cfg['steps']} steps ({train_s:.2f} s "
+            f"with the captures): the mean loss of the first pass over the "
+            f"batches {first:.5f}, of the last {last:.5f}; losses "
+            f"{[round(v, 5) for v in losses]}")
+        log(f"[legacy] (i) a step (forward + backward replays, 16 SGD "
+            f"updates, the batch on the card) {wall:.3f} ms wall, device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+            f"{b / wall * 1e3:.1f} img/s; peak memory {peak:.1f} MiB above "
+            f"the {held_before:.1f} MiB held before; {kernels:.0f} device "
+            f"kernels and host launch calls {launches} a step; the "
+            f"Executor's programs {stats}; card {smi_line}")
+        top = _top_ops(events, 8)
+        for name, us in top:
+            log(f"[legacy] (i) top: {us / 1e3 / 3:8.3f} ms a step  "
+                f"{name[:100]}")
+        # the predict-mode bind
+        psym = alex.alexnet_symbol(mx, wd, classes, b, train=False)
+        pexe = alex.bind(mx, psym, weights, b, img, ctx, grad_req="null")
+        probs = pexe.forward(is_train=False, data=data)[0]
+        rows = probs.asnumpy().sum(-1)
+        check(probs.shape == (b, classes) and
+              float(abs(rows - 1).max()) <= 1e-5,
+              f"(i) predict rows sum to {rows.min()}..{rows.max()}")
+        pms = _wall_ms(lambda: pexe.forward(is_train=False, data=data), 5)
+        log(f"[legacy] (i) predict bind (SoftmaxActivation head, "
+            f"is_train=False): {pms:.3f} ms a batch, {b / pms * 1e3:.1f} "
+            f"img/s; rows sum to 1 within {float(abs(rows - 1).max()):.2e}")
+        del exe, pexe, data, label, probs
+        _release()
+
+    # one step at B = 2, dropout 0: the card against the CPU and float64
+    n2 = LEGACY_CHECK_BATCH
+    sym2 = alex.alexnet_symbol(mx, wd, classes, n2, dropout=0.0)
+    psym2 = alex.alexnet_symbol(mx, wd, classes, n2, train=False)
+    batch2 = (batches[0][0][:n2], batches[0][1][:n2])
+    res = {}
+    for name, ctx in (("cpu", mx.cpu()), ("gpu", mx.gpu())):
+        with ctx:
+            exe = alex.bind(mx, sym2, weights, n2, img, ctx)
+            out = exe.forward(is_train=True,
+                              data=mx.nd.array(batch2[0], ctx=ctx),
+                              label=mx.nd.array(batch2[1], ctx=ctx))
+            exe.backward()
+            pexe = alex.bind(mx, psym2, weights, n2, img, ctx,
+                             grad_req="null")
+            prob = pexe.forward(is_train=False,
+                                data=mx.nd.array(batch2[0], ctx=ctx))[0]
+            res[name] = (out[0].asnumpy(), prob.asnumpy(), {
+                n: exe.arg_dict[n].grad.asnumpy()
+                for n in alex.param_names(sym2)})
+            del exe, pexe
+    twin = alex.f64_grads(mx, sym2, weights, batch2)
+    loss_gap = _np_rel(res["gpu"][0], res["cpu"][0])
+    prob_gap = _np_rel(res["gpu"][1], res["cpu"][1])
+    gaps = _legacy_grad_gaps(res["gpu"][2], res["cpu"][2], twin)
+    worst = max(gaps, key=lambda n: gaps[n][0] /
+                max(LEGACY_GRAD_FACTOR * gaps[n][1], LEGACY_GRAD_RTOL))
+    g, c = gaps[worst]
+    limit = max(LEGACY_GRAD_FACTOR * c, LEGACY_GRAD_RTOL)
+    log(f"[legacy] (i) card vs CPU at B {n2}, dropout 0: loss "
+        f"{loss_gap:.3e} and probabilities {prob_gap:.3e} of the largest "
+        f"(limit {LEGACY_RTOL}); gradients from a float64 twin, each of its "
+        f"largest: card worst {max(v[0] for v in gaps.values()):.3e}, CPU "
+        f"fp32 worst {max(v[1] for v in gaps.values()):.3e}; nearest its "
+        f"limit {worst}: card {g:.3e}, CPU {c:.3e}, limit {limit:.3e}")
+    check(loss_gap <= LEGACY_RTOL and prob_gap <= LEGACY_RTOL,
+          f"(i) loss {loss_gap:.3e} / probabilities {prob_gap:.3e}")
+    check(g <= limit, f"(i) gradient {worst}: {g:.3e} > {limit:.3e}")
+    _release()
+    return busy
+
+
+def _legacy_sweep(smi_line):
+    """(ii) every name of the tier on the card against the CPU, on the CPU
+    tests' inputs; the data-dependent ones also refused inside a
+    capture."""
+    import torch
+
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    lc = _tests_script("torch_legacy_cases")
+    held, refused, failed, eig = 0, 0, {}, "runs"
+    for name in sorted(lc.ALL):
+        try:
+            lc.check_card(name)
+            held += 1
+        except MXNetError as e:
+            if lc.target(name) in ("linalg_eig", "linalg_eigvals") and \
+                    "torch.linalg.eig does not run" in str(e):
+                eig = f"refused: {e}"
+                held += 1
+            else:
+                failed[name] = repr(e)[:200]
+        except Exception as e:  # noqa: BLE001 — a failed name, reported
+            failed[name] = repr(e)[:200]
+    for name in lc.DATA_DEPENDENT:
+        ins = [torch.from_numpy(a).cuda() for a in lc.inputs(name, 0)]
+        f = get_op(name).fn(**lc.cases(name)[0][1])
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        torch.cuda.synchronize()
+        ok = False
+        with torch.cuda.stream(side):
+            with torch.cuda.graph(graph, stream=side):
+                try:
+                    f(*ins)
+                except MXNetError as e:
+                    ok = f"op '{name}'" in str(e)
+        torch.cuda.synchronize()
+        if ok:
+            refused += 1
+        else:
+            failed[name + " (capture)"] = "ran or failed otherwise"
+    log(f"[legacy] (ii) {len(lc.ALL)} names card vs CPU: {held} held; "
+        f"{refused} of {len(lc.DATA_DEPENDENT)} data-dependent names raised "
+        f"MXNetError inside a CUDA graph capture as expected; "
+        f"linalg_eig on the card: {eig}; failed: {failed or 'none'}; card "
+        f"{smi_line}")
+    check(not failed, f"(ii) names failed: {sorted(failed)}")
+
+
+def _legacy_heavy(smi_line, step_busy_ms):
+    """(iii) LRN at AlexNet's two sites beside F.local_response_norm, the
+    linalg family on a (256, 64, 64) SPD batch against float64,
+    rroi_align, boolean_mask and unique at the sizes that use them."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    rng = onp.random.RandomState(SEED + 17)
+    lrn = get_op("lrn").fn(alpha=1e-4, beta=0.75, knorm=2.0, nsize=5)
+    share = 0.0
+    for site, shape in zip(("lrn1", "lrn2"), LEGACY_LRN_SITES):
+        x = torch.from_numpy(onp.maximum(rng.randn(*shape), 0).astype(
+            "float32") * 4)
+        g = torch.from_numpy(rng.randn(*shape).astype("float32"))
+        xc = x.cuda().requires_grad_()
+        gc_ = g.cuda()
+        lib = F.local_response_norm(xc.detach(), 5, alpha=1e-4, beta=0.75,
+                                    k=2.0)
+        out = lrn(xc.detach())
+        xh = x.clone().requires_grad_()
+        cpu_out = lrn(xh)
+        (cpu_grad,) = torch.autograd.grad(cpu_out, xh, g)
+        (card_grad,) = torch.autograd.grad(lrn(xc), xc, gc_)
+        gaps = (_max_rel(out, cpu_out), _max_rel(card_grad, cpu_grad),
+                _max_rel(lib, out))
+        fwd = graph_ms(lambda: lrn(xc.detach()), reps=5)
+        lib_fwd = graph_ms(lambda: F.local_response_norm(
+            xc.detach(), 5, alpha=1e-4, beta=0.75, k=2.0), reps=5)
+
+        def both(f):
+            def run():
+                y = f(xc)
+                return torch.autograd.grad(y, xc, gc_)
+            return run
+
+        fb = time_ms(both(lrn), reps=5, rounds=3)
+        lib_fb = time_ms(both(lambda t: F.local_response_norm(
+            t, 5, alpha=1e-4, beta=0.75, k=2.0)), reps=5, rounds=3)
+        share += fb
+        log(f"[legacy] (iii) {site} LRN at {shape}: card vs CPU out "
+            f"{gaps[0]:.3e}, grad {gaps[1]:.3e}; F.local_response_norm vs "
+            f"the op {gaps[2]:.3e} (limit {LEGACY_LRN_RTOL}); forward "
+            f"{fwd:.3f} ms (F.local_response_norm {lib_fwd:.3f} ms), "
+            f"forward+backward {fb:.3f} ms (F.local_response_norm "
+            f"{lib_fb:.3f} ms); card {smi_line}")
+        check(max(gaps) <= LEGACY_LRN_RTOL, f"(iii) {site}: {gaps}")
+        del x, g, xc, gc_, lib, out, card_grad
+    log(f"[legacy] (iii) LRN's forward+backward at its two sites "
+        f"{share:.3f} ms, {share / step_busy_ms:.3f} of (i)'s step device "
+        f"busy {step_busy_ms:.3f} ms")
+
+    # the linalg family against float64 on the CPU
+    n = LEGACY_LINALG
+    a = rng.randn(*n)
+    spd = a @ onp.swapaxes(a, -1, -2) + n[-1] * onp.eye(n[-1])
+    rhs = rng.randn(*n)
+    spd32, rhs32 = (torch.from_numpy(v.astype("float32")).cuda()
+                    for v in (spd, rhs))
+    spd64, rhs64 = torch.from_numpy(spd), torch.from_numpy(rhs)
+    chol32 = get_op("linalg_potrf").fn()(spd32)
+    chol64 = get_op("linalg_potrf").fn()(spd64)
+    rows = []
+    for name, args32, args64 in (
+            ("linalg_gemm2", (spd32, rhs32), (spd64, rhs64)),
+            ("linalg_potrf", (spd32,), (spd64,)),
+            ("linalg_trsm", (chol32, rhs32), (chol64, rhs64)),
+            ("linalg_potri", (chol32,), (chol64,)),
+            ("linalg_syevd", (spd32,), (spd64,))):
+        f = get_op(name).fn()
+        got, want = f(*args32), f(*args64)
+        if name == "linalg_syevd":
+            u, w = got
+            recon = u.mT.double() @ (w.double()[..., None] * u.double())
+            gap = max(_max_rel(recon, spd64), _max_rel(w, want[1]))
+        else:
+            gap = _max_rel(got, want)
+        # eager: the factorizations check cuSOLVER's info on the host
+        ms = time_ms(lambda f=f, args32=args32: f(*args32), reps=3,
+                     rounds=3)
+        rows.append(f"{name} {gap:.3e} {ms:.3f} ms")
+        check(gap <= LEGACY_LINALG_RTOL, f"(iii) {name}: {gap:.3e}")
+    log(f"[legacy] (iii) linalg on {n} SPD fp32 against float64 on the CPU "
+        f"(syevd by U^T diag(w) U; limit {LEGACY_LINALG_RTOL}): "
+        + "; ".join(rows) + f"; card {smi_line}")
+
+    # rroi_align, boolean_mask, unique
+    cfg = LEGACY_RROI
+    data = rng.rand(*cfg["data"]).astype("float32")
+    size = cfg["data"][-1] / cfg["scale"]
+    rois = onp.zeros((cfg["rois"], 6), "float32")
+    rois[:, 0] = rng.randint(0, cfg["data"][0], cfg["rois"])
+    rois[:, 1:3] = rng.uniform(0, size, (cfg["rois"], 2))
+    rois[:, 3:5] = rng.uniform(16, size / 2, (cfg["rois"], 2))
+    rois[:, 5] = rng.uniform(-180, 180, cfg["rois"])
+    f = get_op("rroi_align").fn(pooled_size=cfg["pooled"],
+                                spatial_scale=cfg["scale"])
+    td, tr = torch.from_numpy(data), torch.from_numpy(rois)
+    dc, rc = td.cuda(), tr.cuda()
+    gap = _max_rel(f(dc, rc), f(td, tr))
+    ms = time_ms(lambda: f(dc, rc), reps=5, rounds=3)
+    log(f"[legacy] (iii) rroi_align {cfg['data']}, {cfg['rois']} rotated "
+        f"ROIs, {cfg['pooled']}: card vs CPU {gap:.3e} (limit "
+        f"{LEGACY_RROI_RTOL}), {ms:.3f} ms")
+    check(gap <= LEGACY_RROI_RTOL, f"(iii) rroi_align {gap:.3e}")
+    rows_n, width, frac = LEGACY_MASK
+    hidden = torch.from_numpy(rng.randn(rows_n, width).astype("float32"))
+    mask = torch.from_numpy((rng.rand(rows_n) < frac).astype("float32"))
+    f = get_op("boolean_mask").fn()
+    got, want = f(hidden.cuda(), mask.cuda()), f(hidden, mask)
+    check(torch.equal(got.cpu(), want), "(iii) boolean_mask card != CPU")
+    hc, mc = hidden.cuda(), mask.cuda()
+    ms = time_ms(lambda: f(hc, mc), reps=5, rounds=3)
+    log(f"[legacy] (iii) boolean_mask ({rows_n}, {width}) keeping "
+        f"{want.shape[0]} rows ({frac:.0%}): card == CPU bitwise, "
+        f"{ms:.3f} ms (eager, one device sync for the row count)")
+    n_ids, vocab = LEGACY_UNIQUE
+    ids = torch.from_numpy(rng.zipf(1.2, n_ids) % vocab)
+    f = get_op("unique").fn(return_index=True, return_inverse=True,
+                            return_counts=True)
+    got, want = f(ids.cuda()), f(ids)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "(iii) unique card != CPU")
+    ic = ids.cuda()
+    ms = time_ms(lambda: f(ic), reps=3, rounds=3)
+    log(f"[legacy] (iii) unique of {n_ids} int64 token ids ({want[0].shape[0]}"
+        f" distinct) with return_index/inverse/counts: card == CPU "
+        f"bitwise, {ms:.3f} ms; card {smi_line}")
+
+
+def phase_legacy(smi_line):
+    """Phase 17: A9 (b)'s legacy tensor tier (see the module docstring).
+    Returns the path's launch counts (no port kernel on it)."""
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    _release()
+    ck.reset_launch_counts()
+    t = time.perf_counter()
+    busy = _legacy_alexnet(smi_line)
+    log(f"[legacy] (i) took {time.perf_counter() - t:.1f} s")
+    taken = read_counts("legacy")
+    t = time.perf_counter()
+    _legacy_sweep(smi_line)
+    log(f"[legacy] (ii) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _legacy_heavy(smi_line, busy)
+    log(f"[legacy] (iii) took {time.perf_counter() - t:.1f} s")
+    _release()
+    log(f"[legacy] launches of the port's kernels on this path: {taken}")
+    took = time.perf_counter() - t_phase
+    log(f"[legacy] phase took {took:.1f} s (limit {LEGACY_LIMIT_S})")
+    check(took <= LEGACY_LIMIT_S, f"phase 17 took {took:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
@@ -8403,7 +8800,7 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
            "optim": phase_optim, "data": phase_data,
            "sparse": phase_sparse, "vision": phase_vision,
-           "rnn": phase_rnn}
+           "rnn": phase_rnn, "legacy": phase_legacy}
 
 
 # ---------------------------------------------------------------------------
@@ -8474,6 +8871,7 @@ def main():
         phase_sparse(smi_line)
         phase_vision(smi_line)
         phase_rnn(smi_line)
+        phase_legacy(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -8499,6 +8897,7 @@ def main():
         row["sparse"] = by_path.get("sparse", 0)
         row["vision"] = by_path.get("vision", 0)
         row["rnn"] = by_path.get("rnn", 0)
+        row["legacy"] = by_path.get("legacy", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -8511,7 +8910,7 @@ def main():
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
-    rtc_row["rnn"] = 0
+    rtc_row["rnn"] = rtc_row["legacy"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,10 +66,11 @@ class Op:
     metadata (reference :55)."""
 
     __slots__ = ("name", "_make_fn", "_fn_cache", "needs_rng", "nout",
-                 "sym_nout", "differentiable")
+                 "sym_nout", "differentiable", "eager_only")
 
     def __init__(self, name, make_fn, needs_rng: bool = False, nout=1,
-                 differentiable: bool = True, sym_nout=None):
+                 differentiable: bool = True, sym_nout=None,
+                 eager_only: bool = False):
         self.name = name
         self._make_fn = make_fn
         self._fn_cache: dict = {}
@@ -85,6 +86,10 @@ class Op:
         # declared at registration (reference: presence of FGradient): a
         # non-differentiable op runs with grad mode off and never records
         self.differentiable = differentiable
+        # eager_only: an op whose output shape follows its operands' values
+        # (reference: registered ``jit=False``); its function raises inside
+        # a compiled program (:func:`_eager_only`)
+        self.eager_only = eager_only
 
     def fn(self, **attrs):
         """The function of this op for ``attrs``, made once per set of
@@ -98,6 +103,8 @@ class Op:
             f = self._make_fn(**attrs)
             if amp_dt is not None:
                 f = _amp_wrap(f, amp_dt)
+            if self.eager_only:
+                f = _eager_only(f, self.name)
             self._fn_cache[key] = f
         return f
 
@@ -106,7 +113,7 @@ class Op:
 
 
 def register(name, make_fn=None, *, needs_rng=False, nout=1,
-             differentiable=True, sym_nout=None):
+             differentiable=True, sym_nout=None, eager_only=False):
     """Register an operator. Usable directly or as a decorator on
     ``make_fn``; a name registered twice raises :class:`MXNetError`."""
 
@@ -114,7 +121,8 @@ def register(name, make_fn=None, *, needs_rng=False, nout=1,
         if name in _OPS:
             raise MXNetError(f"op '{name}' already registered")
         op = Op(name, mf, needs_rng=needs_rng, nout=nout,
-                differentiable=differentiable, sym_nout=sym_nout)
+                differentiable=differentiable, sym_nout=sym_nout,
+                eager_only=eager_only)
         _OPS[name] = op
         return op
 
@@ -217,6 +225,24 @@ def apply_op(name: str, *inputs, **attrs):
     """Invoke a registered op by name (``out=`` as :func:`invoke`'s)."""
     out = attrs.pop("out", None)
     return invoke(get_op(name), inputs, attrs, out=out)
+
+
+def _eager_only(f, name):
+    """``f`` raising :class:`MXNetError` inside a compiled program (a
+    hybridized block's or an Executor's CachedOp body, or a CUDA graph
+    capture), where the reference's ``jit`` of the graph refuses an op whose
+    output shape follows its operands' values; eagerly, ``f`` itself."""
+    def guarded(*args):
+        from ..cached_op import is_inlined
+
+        if is_inlined():
+            raise MXNetError(
+                f"op '{name}' has an output shape that follows its operands' "
+                "values: it runs eagerly only, not inside a hybridized block, "
+                "an Executor or a CUDA graph capture")
+        return f(*args)
+
+    return guarded
 
 
 def _amp_wrap(f, dtype_name):

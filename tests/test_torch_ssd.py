@@ -59,12 +59,14 @@ def _batch():
     return x, labels
 
 
-def _loss(pkg, net, x, labels):
+def _loss(pkg, net, x, labels, targets=None):
     """tests/test_ssd_model.py's loss: masked NLL over the kept anchors plus
-    smooth L1 over the positives' boxes."""
+    smooth L1 over the positives' boxes; ``targets`` given (another run's)
+    or from ``ssd_target``."""
     np_, npx_ = pkg.np, pkg.npx
     cls_p, box_p, anchors = net(x)
-    lt, lm, ct = pkg.gluon.model_zoo.vision.ssd_target(anchors, cls_p, labels)
+    lt, lm, ct = targets if targets is not None else \
+        pkg.gluon.model_zoo.vision.ssd_target(anchors, cls_p, labels)
     keep = ct >= 0
     logp = npx_.log_softmax(cls_p, axis=-1)
     nll = -npx_.pick(logp, np_.maximum(ct, 0), axis=-1) * keep
@@ -312,7 +314,10 @@ def test_ssd_on_card(cuda, hybridize, tmp_path):
     """The same SSD on the card and on the CPU: outputs, one step's loss and
     gradients; targets and detections from the CPU's outputs given to the
     card, integers exactly; four steps lower the loss (hybridized: one
-    CUDA graph forward and backward)."""
+    CUDA graph forward and backward). The card's step takes the CPU's
+    targets, and its gradients are held to a float64 twin of the net on
+    the CPU (the fp32 CPU run lies within 1e-7 of it), within
+    ``CARD_RTOL`` of the twin's largest entry."""
     x, labels = _batch()
     with tmx.cpu():
         net = tvision.ssd_256_lite(num_classes=2)
@@ -323,24 +328,34 @@ def test_ssd_on_card(cuda, hybridize, tmp_path):
         with tag.record():
             loss0, outs0 = _loss(tmx, net, tnp.array(x), tnp.array(labels))
         loss0.backward()
-        g0 = {n: p.grad.numpy().copy()
-              for n, p in net.collect_params().items()}
         outs0 = [o.asnumpy() for o in outs0]
         tgt0 = [o.asnumpy() for o in tvision.ssd_target(
             *(tnp.array(outs0[i]) for i in (2, 0)), tnp.array(labels))]
         det0 = tvision.ssd_detect(*(tnp.array(o) for o in outs0)).asnumpy()
+        twin = tvision.ssd_256_lite(num_classes=2)
+        twin.load_parameters(path)
+        with torch.no_grad():
+            for p in twin.collect_params().values():
+                p.data = p.data.double()
+        with tag.record():
+            loss64, _ = _loss(tmx, twin, torch.from_numpy(x).double(), None,
+                              [torch.from_numpy(t).double() for t in tgt0])
+        loss64.backward()
+        g64 = {n: p.grad.numpy().copy()
+               for n, p in twin.collect_params().items()}
     with tmx.gpu():
         net = tvision.ssd_256_lite(num_classes=2)
         net.load_parameters(path)
         if hybridize:
             net.hybridize()
         with tag.record():
-            loss1, outs1 = _loss(tmx, net, tnp.array(x), tnp.array(labels))
+            loss1, outs1 = _loss(tmx, net, tnp.array(x), None,
+                                 [tnp.array(t) for t in tgt0])
         loss1.backward()
-        top = max(float(abs(g).max()) for g in g0.values())
+        top = max(float(abs(g).max()) for g in g64.values())
         for n, p in net.collect_params().items():
-            assert float(abs(p.grad.cpu().numpy() - g0[n]).max()) <= \
-                CARD_RTOL * top, n
+            assert float(abs(p.grad.cpu().double().numpy() - g64[n]).max()) \
+                <= CARD_RTOL * top, n
         for g, w in zip(outs1, outs0):
             assert _rel(g.asnumpy(), w) <= CARD_RTOL
         assert abs(float(loss1.asnumpy()) - float(loss0.asnumpy())) <= \
