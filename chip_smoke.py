@@ -501,10 +501,44 @@ Phases (any failure exits non-zero without the final line):
              ``boolean_mask`` of BERT's masked rows and ``unique`` of 2^20
              token ids, card against CPU with their ms. The phase's seconds
              are checked against a limit.
+18. interleaved — A9 (b)'s ``extra.py`` and ``optimizer_ops.py`` on the
+             card: (i) a GluonNLP-style BERT-Base (tests/
+             torch_script_interleaved_bert.py: 12 x 768, 12 heads, FFN 3072,
+             vocabulary 30522, time-major, one fused QKV ``FullyConnected``
+             a layer read by ``interleaved_matmul_selfatt_qk`` /
+             ``masked_softmax`` / ``interleaved_matmul_selfatt_valatt``,
+             ``arange_like`` positions, ``softmax_cross_entropy`` losses,
+             the registry's ``layer_norm`` on the LayerNorm kernel) at B 32
+             x T 128 with seeded valid lengths and masked positions, weights
+             from a seeded zoo ``.params`` file with ``attn_qkv`` permuted to
+             (H, 3, D): (a) the fp32 encoder against the zoo ``bert_base``
+             (its flash-attention route) on the same weights within 1e-4 of
+             the largest entry; (b) 10 bf16 steps (fp32 masters, ``amp_cast``
+             at the embedding output and the logits, ``autograd.record``,
+             ``multi_all_finite`` with a dynamic loss scale, one
+             ``multi_mp_lamb_update`` written back through ``out=``): the loss
+             falls, every step finite; a step's wall against device busy,
+             the idle share, tokens/s, peak memory, device kernels and host
+             launch calls a step, the top device operations and
+             ``multi_mp_lamb_update``'s share of the step, beside phase 9's
+             zoo BERT-Base step; (c) at B 2, fp32, the loss within 1e-4 of
+             the CPU's, every gradient held to a float64 twin, and the
+             masters after one ``multi_mp_lamb_update`` of the same
+             gradients within 1e-5; (d) the LayerNorm kernel's launches on
+             the steps (26 a step); (ii) every one of the 80 names
+             (tests/torch_extra_cases.py) card against CPU, and at model
+             sizes with their ms: the interleaved quartet at BERT-Base's
+             self-attention and Transformer-base's cross-attention,
+             ``im2col``/``col2im`` at a ResNet-50 stage (bitwise with
+             ``F.unfold``, beside ``F.fold``), ``multi_mp_lamb_update`` and
+             ``multi_mp_adamw_update`` over BERT-Base's tensors beside the
+             ``Learner``'s LAMB. The phase's seconds are checked against a
+             limit.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
-``optim``, ``data``, ``sparse``, ``vision``, ``rnn``, ``legacy``; ``script`` runs phase 4 first, for its weights,
+``optim``, ``data``, ``sparse``, ``vision``, ``rnn``, ``legacy``,
+``interleaved``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -522,7 +556,8 @@ the row's ``data`` key), sparse (phase 14: no port kernel
 on it; also the row's ``sparse`` key), vision (phase 15: no port kernel on it;
 also the row's ``vision`` key), rnn (phase 16: no port kernel on it; also
 the row's ``rnn`` key), legacy (phase 17 (i): no port kernel on it; also
-the row's ``legacy`` key); a row
+the row's ``legacy`` key), interleaved (phase 18 (i) (b)'s steps: the
+LayerNorm kernel; also the row's ``interleaved`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -4705,6 +4740,7 @@ def phase_bert_pretrain(smi_line):
     _take_counts(taken)
     nb = _bert_numbers("(ii) Base, B=32", "base", base, learner, peak,
                        smi_line)
+    BERT_BASE_STEP.update(nb)
     del learner
     _replay_vs_eager(smi_line)
     ck.reset_launch_counts()
@@ -8792,6 +8828,413 @@ def phase_legacy(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 18: A9 (b)'s extra.py and optimizer_ops.py — a GluonNLP-style
+# BERT-Base with interleaved attention and op-level LAMB trained, every name
+# of the two modules on the card against the CPU, the heavy ones at the
+# sizes that use them
+INTERLEAVED_SHAPE = (32, 128)     # (i) BERT's phase-1 batch x length
+INTERLEAVED_STEPS = 10            # (i) (b) bf16 LAMB steps, dropout 0.1
+INTERLEAVED_LR = 2e-3             # (i) LAMB's learning rate
+INTERLEAVED_ZOO_RTOL = 1e-4       # (i) (a) fp32 encoder vs the zoo's flash route
+INTERLEAVED_CHECK_BATCH = 2       # (i) (c) card against CPU, fp32, dropout 0
+INTERLEAVED_RTOL = 1e-4           # (i) (c) loss, card vs CPU
+INTERLEAVED_GRAD_RTOL = 1e-4      # (i) (c) gradients: the floor of the twin limit
+INTERLEAVED_GRAD_FACTOR = 4.0     # (i) (c) ... or this times the CPU fp32 run's gap
+INTERLEAVED_LN_A_STEP = 26        # LayerNorm launches a forward: 2 x 12 + 2
+INTERLEAVED_ATT = (("BERT-Base self-attention", "selfatt", 32, 12, 64, 128,
+                    128),
+                   ("Transformer-base cross-attention", "encdec", 64, 8, 64,
+                    128, 128))   # (ii) (kind, B, H, D, Tq, Tk)
+INTERLEAVED_IM2COL = dict(data=(32, 64, 56, 56), kernel=(3, 3), pad=(1, 1))
+INTERLEAVED_OP_RTOL = 1e-5        # (i) (c), (ii) ops card vs CPU, of the largest
+INTERLEAVED_BF16_STEP = 2.0 ** -8  # (ii) a bf16 output: one step of the largest
+INTERLEAVED_CPU_STRIDE = 4        # (ii) the CPU holds every 4th tensor's update
+INTERLEAVED_LIMIT_S = 120.0       # the phase's seconds, the build excluded
+BERT_BASE_STEP = {}               # phase 9 (ii)'s numbers, for (i) (b)
+
+
+def _interleaved_weights(sb, cfg, where):
+    """BERT-Base's seeded weights written as a zoo ``.params`` file under
+    ``where``; its path."""
+    path = os.path.join(where, "bert_base.params")
+    sb.save_params(path, sb.init_weights(cfg, seed=SEED + 18))
+    return path
+
+
+def _interleaved_vs_zoo(sb, mx, cfg, path, batch, ctx):
+    """(i) (a): the fp32 interleaved encoder against the zoo ``BERTModel``
+    (its flash-attention route) on the same weights."""
+    import torch
+
+    with ctx:
+        P = sb.load_params(mx, path, cfg, ctx)
+        data = sb.to_nd(mx, batch, cfg, ctx)
+        got = sb.encoder(mx, P, data, cfg)
+        torch.cuda.synchronize()
+        ms = _wall_ms(lambda: sb.encoder(mx, P, data, cfg), 3)
+        got = got.asnumpy().transpose(1, 0, 2)
+        zoo = sb.zoo_sequence(mx, path, cfg, batch, ctx)
+    gap = _np_rel(got, zoo)
+    log(f"[interleaved] (i) (a) fp32 interleaved encoder (B {batch['valid'].size}"
+        f", T {batch['tokens'].shape[1]}, valid lengths "
+        f"{int(batch['valid'].min())}-{int(batch['valid'].max())}) vs the zoo "
+        f"bert_base (multihead_attention, the flash kernels) on the same "
+        f"weights: {gap:.3e} of the largest entry (limit "
+        f"{INTERLEAVED_ZOO_RTOL}); the encoder's forward {ms:.3f} ms wall "
+        f"(eager, TF32 off)")
+    check(gap <= INTERLEAVED_ZOO_RTOL, f"(i) (a) encoder vs zoo {gap:.3e}")
+    del P, data
+    _release()
+
+
+def _interleaved_train(sb, mx, cfg, path, batch, ctx, smi_line):
+    """(i) (b): bf16 LAMB steps through the ops, eager; their numbers.
+    Returns the LayerNorm kernel's launches on the path."""
+    import torch
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    b, t = batch["tokens"].shape
+    with ctx:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 20
+        P = sb.load_params(mx, path, cfg, ctx, dtype="bfloat16")
+        state = sb.lamb_state(mx, P, ctx)
+        data = sb.to_nd(mx, batch, cfg, ctx)
+        check(all(w._data.is_cuda and w.grad._data.is_cuda
+                  for w in P.values()),
+              "(i) (b) a weight or gradient left the card")
+        scaler = sb.LossScaler()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = [sb.train_step(mx, P, state, data, cfg, scaler, INTERLEAVED_LR,
+                             i + 1, dropout=0.1)
+               for i in range(INTERLEAVED_STEPS)]
+        train_s = time.perf_counter() - t0
+        taken = read_counts("interleaved")
+        losses = [v for v, _ in run]
+        check(all(ok for _, ok in run), f"(i) (b) a step overflowed: {run}")
+        check(all(math.isfinite(v) for v in losses) and
+              statistics.mean(losses[-3:]) < losses[0],
+              f"(i) (b) losses {losses}")
+        want = INTERLEAVED_LN_A_STEP * INTERLEAVED_STEPS
+        check(taken["layer_norm"] == want,
+              f"(i) (d) LayerNorm launches {taken['layer_norm']} != {want}")
+        dts = {str(w.dtype) for w in P.values()}
+        check(dts == {"bfloat16", "float32"} and
+              all(str(s_["w32"].dtype) == "float32" for s_ in state.values()),
+              f"(i) (b) weight dtypes {dts}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20 - held
+        step_i = [INTERLEAVED_STEPS]
+
+        def step():
+            step_i[0] += 1
+            sb.train_step(mx, P, state, data, cfg, scaler, INTERLEAVED_LR,
+                          step_i[0], dropout=0.1)
+
+        wall = _wall_ms(step, 5)
+        calls = {}
+        events = _gpu_trace(lambda: [step() for _ in range(3)], calls)
+        busy = _busy_us(events) / 1e3 / 3
+        kernels = sum(1 for e in events if e[0] == "kernel") / 3
+        launches = {k: v / 3 for k, v in sorted(calls.items())}
+        upd_wall = _wall_ms(lambda: sb.update_mp_lamb(
+            mx, P, state, INTERLEAVED_LR, step_i[0], scaler.scale), 5)
+        upd_busy = _busy_us(_gpu_trace(lambda: sb.update_mp_lamb(
+            mx, P, state, INTERLEAVED_LR, step_i[0], scaler.scale))) / 1e3
+        n_params = sum(w.size for w in P.values())
+        log(f"[interleaved] (i) (b) BERT-Base ({n_params} parameters, "
+            f"{len(P)} tensors; bf16 Dense weights, fp32 tables, LayerNorms "
+            f"and masters), B {b} x T {t}, dropout 0.1, dynamic loss scale "
+            f"{scaler.scale:g}, LAMB {INTERLEAVED_LR} through one "
+            f"multi_mp_lamb_update a step, {INTERLEAVED_STEPS} steps "
+            f"({train_s:.2f} s): losses {[round(v, 4) for v in losses]}")
+        log(f"[interleaved] (i) (b) a step {wall:.3f} ms wall, device busy "
+            f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
+            f"{b * t / wall * 1e3:.1f} tokens/s; peak memory {peak:.1f} MiB "
+            f"above the {held:.1f} MiB held before; {kernels:.0f} device "
+            f"kernels and host launch calls {launches} a step; "
+            f"multi_mp_lamb_update alone {upd_wall:.3f} ms wall "
+            f"({upd_wall / wall:.3f} of the step), {upd_busy:.3f} ms busy "
+            f"({upd_busy / busy:.3f} of the step's busy); card {smi_line}")
+        for name, us in _top_ops(events, 8):
+            log(f"[interleaved] (i) (b) top: {us / 1e3 / 3:8.3f} ms a step  "
+                f"{name[:100]}")
+        if BERT_BASE_STEP:
+            z = BERT_BASE_STEP
+            log(f"[interleaved] (i) (b) beside phase 9 (ii)'s zoo BERT-Base "
+                f"step (Learner, one CUDA graph, AdamW, bf16, B 32 x T 128): "
+                f"{z['wall']:.3f} ms wall, {z['busy']:.3f} busy, idle "
+                f"{z['idle']:.3f}, {z['tokens_s']} tokens/s; this eager "
+                f"op-level step {wall:.3f} / {busy:.3f}, "
+                f"{b * t / wall * 1e3:.1f} tokens/s")
+        del P, state, data
+    _release()
+    return taken
+
+
+def _interleaved_vs_cpu(sb, mx, cfg, path, batch, smi_line):
+    """(i) (c): one fp32 step at batch 2 on the card and on the CPU: the
+    loss, every gradient against a float64 twin, and the masters after one
+    ``multi_mp_lamb_update`` of the same gradients (the CPU's, on both: a
+    first LAMB step is about the gradient's sign, so where a gradient is
+    near 0 the card's own gradient may step the other way)."""
+    import torch
+
+    res = {}
+    for name, ctx in (("cpu", mx.cpu()), ("gpu", mx.gpu())):
+        with ctx:
+            P = sb.load_params(mx, path, cfg, ctx)
+            state = sb.lamb_state(mx, P, ctx)
+            data = sb.to_nd(mx, batch, cfg, ctx)
+            loss = sb.backward(mx, P, data, cfg, 1.0, "float32")
+            grads = {n: w.grad.asnumpy() for n, w in P.items()}
+            own = dict(grads)
+            if name == "gpu":
+                for n, w in P.items():      # the CPU's gradients
+                    w.grad._data.copy_(torch.from_numpy(res["cpu"][1][n]))
+            sb.update_mp_lamb(mx, P, state, INTERLEAVED_LR, 1, 1.0)
+            res[name] = (loss.asnumpy(), own,
+                         {n: s_["w32"].asnumpy() for n, s_ in state.items()})
+            del P, state, data
+    twin = sb.f64_grads(mx, path, cfg, batch)
+    loss_gap = _np_rel(res["gpu"][0], res["cpu"][0])
+    gaps = _legacy_grad_gaps(res["gpu"][1], res["cpu"][1], twin)
+    worst = max(gaps, key=lambda n: gaps[n][0] /
+                max(INTERLEAVED_GRAD_FACTOR * gaps[n][1],
+                    INTERLEAVED_GRAD_RTOL))
+    g, c = gaps[worst]
+    limit = max(INTERLEAVED_GRAD_FACTOR * c, INTERLEAVED_GRAD_RTOL)
+    master_gap = max(_np_rel(res["gpu"][2][n], res["cpu"][2][n])
+                     for n in res["cpu"][2])
+    log(f"[interleaved] (i) (c) card vs CPU at B {batch['valid'].size}, fp32, "
+        f"dropout 0: loss {loss_gap:.3e} (limit {INTERLEAVED_RTOL}); "
+        f"gradients from a float64 twin, each of its largest: card worst "
+        f"{max(v[0] for v in gaps.values()):.3e}, CPU fp32 worst "
+        f"{max(v[1] for v in gaps.values()):.3e}; nearest its limit {worst}: "
+        f"card {g:.3e}, CPU {c:.3e}, limit {limit:.3e}; masters after one "
+        f"multi_mp_lamb_update of the CPU's gradients {master_gap:.3e} "
+        f"(limit {INTERLEAVED_OP_RTOL}); card {smi_line}")
+    check(loss_gap <= INTERLEAVED_RTOL, f"(i) (c) loss {loss_gap:.3e}")
+    check(g <= limit, f"(i) (c) gradient {worst}: {g:.3e} > {limit:.3e}")
+    check(master_gap <= INTERLEAVED_OP_RTOL,
+          f"(i) (c) masters {master_gap:.3e}")
+    _release()
+
+
+def _interleaved_sweep(smi_line):
+    """(ii) every name of the two modules on the card against the CPU, on
+    the CPU tests' inputs."""
+    ec = _tests_script("torch_extra_cases")
+    failed = {}
+    for name in sorted(ec.ALL):
+        try:
+            ec.check_card(name)
+        except Exception as e:  # noqa: BLE001 — a failed name, reported
+            failed[name] = repr(e)[:200]
+    log(f"[interleaved] (ii) {len(ec.ALL)} names ({len(ec.EXTRA)} of extra, "
+        f"{len(ec.OPTIM)} of optimizer_ops) card vs CPU: "
+        f"{len(ec.ALL) - len(failed)} held; failed: {failed or 'none'}; card "
+        f"{smi_line}")
+    check(not failed, f"(ii) names failed: {sorted(failed)}")
+
+
+def _interleaved_heavy(sb, mx, cfg, smi_line):
+    """(ii) the interleaved quartet at BERT-Base's and Transformer-base's
+    attention, ``im2col``/``col2im`` at a ResNet-50 stage beside
+    ``F.unfold``/``F.fold``, ``multi_mp_lamb_update`` and
+    ``multi_mp_adamw_update`` over BERT-Base's tensors beside the
+    ``Learner``'s LAMB: card against CPU, CUDA-event ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.parallel.learner import to_optax
+
+    rng = onp.random.RandomState(SEED + 18)
+    for tag, kind, b, h, d, tq, tk in INTERLEAVED_ATT:
+        c = h * d
+        if kind == "selfatt":
+            ins = [rng.randn(tq, b, 3 * c).astype("float32")]
+            qk = get_op("interleaved_matmul_selfatt_qk").fn(heads=h)
+            va = get_op("interleaved_matmul_selfatt_valatt").fn(heads=h)
+            first = (lambda x: qk(x[0]))
+            second = (lambda x, a: va(x[0], a))
+        else:
+            ins = [rng.randn(tq, b, c).astype("float32"),
+                   rng.randn(tk, b, 2 * c).astype("float32")]
+            qk = get_op("interleaved_matmul_encdec_qk").fn(heads=h)
+            va = get_op("interleaved_matmul_encdec_valatt").fn(heads=h)
+            first = (lambda x: qk(x[0], x[1]))
+            second = (lambda x, a: va(x[1], a))
+        cpu = [torch.from_numpy(a) for a in ins]
+        card = [a.cuda() for a in cpu]
+        att_cpu = torch.softmax(first(cpu), -1)
+        att_card = att_cpu.cuda()
+        gaps = (_max_rel(first(card), first(cpu)),
+                _max_rel(second(card, att_card), second(cpu, att_cpu)))
+        ms = (time_ms(lambda: first(card), reps=10, rounds=3),
+              time_ms(lambda: second(card, att_card), reps=10, rounds=3))
+        flops = 2 * b * h * tq * tk * d
+        log(f"[interleaved] (ii) {kind} qk / valatt at {tag} (B {b}, H {h}, "
+            f"D {d}, Tq {tq}, Tk {tk}), fp32, TF32 off: card vs CPU "
+            f"{gaps[0]:.3e} / {gaps[1]:.3e} (limit {INTERLEAVED_OP_RTOL}); "
+            f"{ms[0]:.3f} / {ms[1]:.3f} ms ({flops / ms[0] / 1e9:.1f} / "
+            f"{flops / ms[1] / 1e9:.1f} TFLOP/s); card {smi_line}")
+        check(max(gaps) <= INTERLEAVED_OP_RTOL, f"(ii) {kind}: {gaps}")
+        del cpu, card, att_cpu, att_card
+
+    cfg2 = INTERLEAVED_IM2COL
+    x = torch.from_numpy(rng.randn(*cfg2["data"]).astype("float32"))
+    xc = x.cuda()
+    im = get_op("im2col").fn(kernel=cfg2["kernel"], pad=cfg2["pad"])
+    col_card, col_cpu = im(xc), im(x)
+    lib = F.unfold(xc, cfg2["kernel"], padding=cfg2["pad"])
+    check(torch.equal(col_card.cpu(), col_cpu) and torch.equal(col_card, lib),
+          "(ii) im2col: card != CPU or != F.unfold")
+    ms, lib_ms = (time_ms(lambda: im(xc), reps=5, rounds=3),
+                  time_ms(lambda: F.unfold(xc, cfg2["kernel"],
+                                           padding=cfg2["pad"]),
+                          reps=5, rounds=3))
+    out_hw = cfg2["data"][2:]
+    co = get_op("col2im").fn(output_size=out_hw, kernel=cfg2["kernel"],
+                             pad=cfg2["pad"])
+    back_card, back_cpu = co(col_card), co(col_cpu)
+    back_lib = F.fold(col_card, out_hw, cfg2["kernel"], padding=cfg2["pad"])
+    gaps = (_max_rel(back_card, back_cpu), _max_rel(back_card, back_lib))
+    ms2, lib_ms2 = (time_ms(lambda: co(col_card), reps=5, rounds=3),
+                    time_ms(lambda: F.fold(col_card, out_hw, cfg2["kernel"],
+                                           padding=cfg2["pad"]),
+                            reps=5, rounds=3))
+    log(f"[interleaved] (ii) im2col {cfg2['data']} 3x3 pad 1 -> "
+        f"{tuple(col_card.shape)}: card == CPU == F.unfold bitwise, "
+        f"{ms:.3f} ms (F.unfold {lib_ms:.3f} ms); col2im back: card vs CPU "
+        f"{gaps[0]:.3e}, vs F.fold {gaps[1]:.3e} (limit "
+        f"{INTERLEAVED_OP_RTOL}), {ms2:.3f} ms (F.fold {lib_ms2:.3f} ms); "
+        f"card {smi_line}")
+    check(max(gaps) <= INTERLEAVED_OP_RTOL, f"(ii) col2im: {gaps}")
+    del x, xc, col_card, col_cpu, lib, back_card, back_cpu, back_lib
+    _release()
+
+    # the multi-tensor updates over BERT-Base's tensors: timed over all of
+    # them on the card; held card against CPU on every
+    # INTERLEAVED_CPU_STRIDE-th tensor (the CPU's passes over 110 M values
+    # would take tens of seconds on the host)
+    shapes = sb.param_shapes(cfg)
+    names = list(shapes)
+    r = onp.random.default_rng(SEED + 19)
+    host = {n: (r.standard_normal(shapes[n], dtype=onp.float32) * 0.02,
+                r.standard_normal(shapes[n], dtype=onp.float32) * 1e-3)
+            for n in names}
+
+    def tensors(dev, some):
+        out = []
+        for n in some:
+            w, g = (torch.from_numpy(a) for a in host[n])
+            low = torch.float32 if sb.is_fp32(n) else torch.bfloat16
+            out += [w.to(dev, low), g.to(dev, low),
+                    torch.zeros_like(w, device=dev),
+                    torch.zeros_like(w, device=dev), w.to(dev)]
+        return out
+
+    def ops(some):
+        k_ = len(some)
+        wds = tuple(sb.weight_decay(n) for n in some)
+        return (("multi_mp_lamb_update", get_op("multi_mp_lamb_update").fn(
+                    learning_rates=(1e-3,) * k_, wds=wds,
+                    step_count=(1,) * k_, num_tensors=k_, **sb.LAMB), []),
+                ("multi_mp_adamw_update", get_op("multi_mp_adamw_update").fn(
+                    lrs=(1e-3,) * k_, wds=wds, etas=(1.0,) * k_,
+                    num_weights=k_), [torch.tensor(1.0)]))
+
+    k = len(names)
+    held = names[::INTERLEAVED_CPU_STRIDE]
+    rows = []
+    for (op_name, fn, extra), (_, fn_held, _) in zip(ops(names), ops(held)):
+        cpu = tensors("cpu", held) + extra
+        want = fn_held(*cpu)
+        got = fn_held(*(tensors("cuda", held) + [e.cuda() for e in extra]))
+        # fp32 outputs within INTERLEAVED_OP_RTOL; the bf16 weights (the
+        # masters rounded) within one bf16 step of the largest entry, where
+        # a master 1e-7 apart rounds the other way
+        gap = max(_max_rel(g_, w_) / (INTERLEAVED_BF16_STEP
+                                      if g_.dtype == torch.bfloat16 else
+                                      INTERLEAVED_OP_RTOL)
+                  for g_, w_ in zip(got, want))
+        del cpu, want, got
+        card = tensors("cuda", names) + [e.cuda() for e in extra]
+        ms = time_ms(lambda: fn(*card), reps=3, rounds=3)
+        rows.append((op_name, gap, ms))
+        check(gap <= 1.0, f"(ii) {op_name}: {gap:.3f} of its limit")
+    params = [t for i, t in enumerate(card[:-1]) if i % 5 == 4]
+    grads = [t.float() for i, t in enumerate(card[:-1]) if i % 5 == 1]
+    tx = to_optax(mx.optimizer.LAMB(learning_rate=1e-3, wd=0.01))
+    tx_state = tx.init(params)
+
+    def learner_update():
+        tx.apply(params, tx.update([g_.clone() for g_ in grads], tx_state,
+                                   params))
+
+    lms = time_ms(learner_update, reps=3, rounds=3)
+    n_params = sum(int(onp.prod(s_)) for s_ in shapes.values())
+    log(f"[interleaved] (ii) over BERT-Base's {k} tensors ({n_params} "
+        f"values; bf16 Dense weights and gradients, fp32 masters and "
+        f"moments), card vs CPU on every {INTERLEAVED_CPU_STRIDE}th tensor "
+        f"({len(held)}), the largest gap as a share of its limit "
+        f"({INTERLEAVED_OP_RTOL} of an fp32 output's largest entry, "
+        f"{INTERLEAVED_BF16_STEP} of a bf16 one's): "
+        + "; ".join(f"{n} {gap:.3f}, {ms:.3f} ms" for n, gap, ms in rows)
+        + "; the Learner's LAMB (to_optax: "
+        f"chunked foreach passes, fp32) update of the same tensors "
+        f"{lms:.3f} ms; card {smi_line}")
+    del card, params, grads, tx_state
+    _release()
+
+
+def phase_interleaved(smi_line):
+    """Phase 18: A9 (b)'s extra.py and optimizer_ops.py (see the module
+    docstring). Returns the path's launch counts: the LayerNorm kernel's
+    launches of (i) (b)'s steps."""
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+
+    t_phase = time.perf_counter()
+    _release()
+    sb = _tests_script("torch_script_interleaved_bert")
+    cfg = sb.config()
+    b, t = INTERLEAVED_SHAPE
+    batch = sb.make_batch(cfg, b, t, seed=SEED + 18)
+    small = sb.make_batch(cfg, INTERLEAVED_CHECK_BATCH, t, seed=SEED + 18)
+    with tempfile.TemporaryDirectory(prefix="interleaved-") as where:
+        t0 = time.perf_counter()
+        path = _interleaved_weights(sb, cfg, where)
+        log(f"[interleaved] (i) BERT-Base's seeded weights written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _interleaved_vs_zoo(sb, mx, cfg, path, batch, mx.gpu())
+        log(f"[interleaved] (i) (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        taken = _interleaved_train(sb, mx, cfg, path, batch, mx.gpu(),
+                                   smi_line)
+        log(f"[interleaved] (i) (b) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _interleaved_vs_cpu(sb, mx, cfg, path, small, smi_line)
+        log(f"[interleaved] (i) (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _interleaved_sweep(smi_line)
+    _interleaved_heavy(sb, mx, cfg, smi_line)
+    log(f"[interleaved] (ii) took {time.perf_counter() - t0:.1f} s")
+    _release()
+    log(f"[interleaved] (i) (d) launches of the port's kernels on this path "
+        f"(the bf16 steps): {taken}")
+    took = time.perf_counter() - t_phase
+    log(f"[interleaved] phase took {took:.1f} s (limit {INTERLEAVED_LIMIT_S})")
+    check(took <= INTERLEAVED_LIMIT_S, f"phase 18 took {took:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
@@ -8800,7 +9243,8 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "script": lambda smi: phase_script(smi, *phase_train(smi)[1:]),
            "optim": phase_optim, "data": phase_data,
            "sparse": phase_sparse, "vision": phase_vision,
-           "rnn": phase_rnn, "legacy": phase_legacy}
+           "rnn": phase_rnn, "legacy": phase_legacy,
+           "interleaved": phase_interleaved}
 
 
 # ---------------------------------------------------------------------------
@@ -8872,6 +9316,7 @@ def main():
         phase_vision(smi_line)
         phase_rnn(smi_line)
         phase_legacy(smi_line)
+        phase_interleaved(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -8898,6 +9343,7 @@ def main():
         row["vision"] = by_path.get("vision", 0)
         row["rnn"] = by_path.get("rnn", 0)
         row["legacy"] = by_path.get("legacy", 0)
+        row["interleaved"] = by_path.get("interleaved", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -8910,7 +9356,7 @@ def main():
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
-    rtc_row["rnn"] = rtc_row["legacy"] = 0
+    rtc_row["rnn"] = rtc_row["legacy"] = rtc_row["interleaved"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,14 @@
 (:mod:`.registry`), the core ops (:mod:`._core`), indexing
 (:mod:`.indexing`), the neural-network ops (:mod:`.nn`) over the
 hand-written CUDA kernels in :mod:`.cuda_kernels`, the samplers
-(:mod:`.random_ops`), ``batch_dot``, the numpy stragglers and the CSR
-product (:mod:`.extra`), the lazy row-sparse updates
-(:mod:`.optimizer_ops`), the detection and resize ops
-(:mod:`.vision`), the warping and deformable ops (:mod:`.warp_ops`) and
-the fused recurrent op ``rnn`` (:mod:`.rnn`); the layout ops, bipartite
-matching and the MultiBox trio are in :mod:`.extra`. The legacy tensor
-tier: the scalar, creation, slice and legacy NN ops
+(:mod:`.random_ops`), the reference's ``extra.py`` (:mod:`.extra`: the
+interleaved attention products, ``im2col``/``col2im``, the AMP casts, the
+layout ops, bipartite matching, the MultiBox trio, the numpy stragglers
+and the CSR product), the optimizer update ops, dense, mixed-precision,
+multi-tensor and row-sparse (:mod:`.optimizer_ops`), the detection and
+resize ops (:mod:`.vision`), the warping and deformable ops
+(:mod:`.warp_ops`) and the fused recurrent op ``rnn`` (:mod:`.rnn`). The
+legacy tensor tier: the scalar, creation, slice and legacy NN ops
 (:mod:`.legacy_elemwise`), the ``linalg_*`` family (:mod:`.linalg_legacy`)
 and the dynamic-shape and contrib ops (:mod:`.npi_manip`). They register
 in the reference's order (``mxnet_tpu/ops/__init__.py``); its alias table

@@ -1,11 +1,40 @@
-"""The port's ops over ``mxnet_tpu/ops/extra.py``: ``batch_dot`` (:22),
-``depth_to_space``/``space_to_depth`` (:108-133), ``bipartite_matching``
-(:326), the MultiBox trio ``multibox_prior``/``multibox_target``/
-``multibox_detection`` (:370-503), the window functions and numpy
-stragglers (``blackman``, ``hamming``, ``hanning``, ``diagflat``,
+"""The port's ops over ``mxnet_tpu/ops/extra.py``, all of them: ``batch_dot``
+(:22), ``khatri_rao`` (:32), the four interleaved attention products
+(``interleaved_matmul_selfatt_qk``/``_valatt``,
+``interleaved_matmul_encdec_qk``/``_valatt``, :44-105),
+``depth_to_space``/``space_to_depth`` (:108-133), ``im2col``/``col2im``
+(:134-188), ``reverse``, ``batch_take``, ``argmax_channel``,
+``shape_array``, ``size_array``, ``arange_like``, ``allclose``,
+``index_copy``, ``quadratic``, ``softmin``, ``masked_log_softmax``,
+``softmax_cross_entropy``, ``amp_cast`` and ``amp_multicast`` (:190-323),
+``bipartite_matching`` (:326), the MultiBox trio ``multibox_prior``/
+``multibox_target``/``multibox_detection`` (:370-503), the window functions
+and numpy stragglers (``blackman``, ``hamming``, ``hanning``, ``diagflat``,
 ``fill_diagonal``, ``rollaxis``, ``polyval``, ``tril_indices``, :505-560)
 and the CSR x dense product ``dot_csr`` (:563), in plain torch on the
 operands' device.
+
+The interleaved products read a fused projection whose last axis is laid
+out per head as (H, 3, D) (self-attention: q, k, v) or (H, 2, D)
+(encoder-decoder: k, v), as MXNet's ``transformer.cc``; ``*_qk`` scales q by
+1/sqrt(D) in q's dtype before the product and returns (B H, Tq, Tk), and
+``*_valatt`` returns (Tq, B, H D). The products are ``torch.matmul`` in the
+operands' promoted dtype (the reference's ``jnp.einsum``, not a Pallas
+kernel). ``im2col``/``col2im`` are the reference's strided slices of the
+padded image, a stack and a sum of slices (overlaps add, so the card's
+``col2im`` sums in its own order). ``arange_like`` rounds ``start + step *
+i`` once to float32 (computed in double, where the float32 product is
+exact), as the reference's XLA program fuses the multiply-add, then casts to
+x's dtype. ``index_copy`` keeps the reference's winner where an index
+repeats: the last row given (XLA's scatter on the CPU), found by a
+scatter-max of the positions, the same on every device, where CUDA's
+``index_copy_`` keeps an arbitrary one; only the winning row takes the
+gradient. ``masked_log_softmax`` gives -inf at masked entries (a fully
+masked row all -inf, its gradient 0); ``softmax_cross_entropy`` returns the
+(1,)-shaped sum; ``shape_array``/``size_array`` int64, narrowed to the
+reference's int32 by ``invoke``; ``amp_multicast`` casts to the widest
+operand by item size (the narrowest under ``cast_narrow``), the first on a
+tie.
 
 ``dot_csr`` is a gather of the dense rows each stored entry touches, a
 multiply by the entry's value and a segment sum (``index_add``) into the
@@ -20,9 +49,10 @@ anchors in float32 on the device from ``arange`` (no host data, so a
 captured SSD body makes them in its program), a product and a sum each
 rounded; the reference's XLA program on the CPU contracts some of those
 multiply-adds into fused ones (one rounding), lane by lane as its code
-generator chooses, so its anchors lie within one ulp of the port's. ``multibox_target`` keeps the
-reference's two-stage match: every valid ground truth claims its best
-anchor, where the reference scatters ``best_gt.at[best_anchor].set(..)``.
+generator chooses, so its anchors lie within one ulp of the port's.
+``multibox_target`` keeps the reference's two-stage match: every valid
+ground truth claims its best anchor, where the reference scatters
+``best_gt.at[best_anchor].set(..)``.
 Two ground truths can share a best anchor (and a padded row, whose IoU
 column is all -1, names anchor 0 and writes back the value it read); XLA's
 scatter on the CPU keeps the last write in row order, and the port keeps
@@ -30,16 +60,15 @@ the same one on every device by a scatter-max of the row positions (CUDA's
 ``index_put_`` with repeated indices keeps an arbitrary one). Hard
 negative mining ranks by a stable ``argsort``, as ``jnp.argsort``, and
 compares the rank with the float32 budget ``ratio * sum(pos)``.
-
-The rest of the reference's ``extra.py`` (interleaved matmuls,
-``im2col``/``col2im``, ...) is ROADMAP A9.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as onp
 import torch
 
+from ..base import dtype_name, to_dtype
 from ..context import resolve_device
 from .registry import get_op, register
 from .vision import _pair_iou
@@ -53,6 +82,92 @@ def _batch_dot(transpose_a=False, transpose_b=False):
         x = a.transpose(-1, -2) if transpose_a else a
         y = b.transpose(-1, -2) if transpose_b else b
         return torch.matmul(x, y)
+
+    return f
+
+
+@register("khatri_rao")
+def _khatri_rao():
+    """Column-wise Kronecker product of (n_i, k) matrices (reference :32)."""
+    def f(*mats):
+        out = mats[0]
+        for m in mats[1:]:
+            out = (out[:, None, :] * m[None, :, :]).reshape(
+                out.shape[0] * m.shape[0], -1)
+        return out
+
+    return f
+
+
+def _bmm(a, b):
+    """``a @ b`` in the promoted dtype of the two (``jnp.einsum``'s; a
+    torch product refuses mixed dtypes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def _heads(x, heads, parts, part):
+    """Part ``part`` of ``x`` (T, B, parts * H * D) interleaved per head as
+    (H, parts, D): (B, H, T, D)."""
+    t, b, e = x.shape
+    d = e // (parts * heads)
+    return x.reshape(t, b, heads, parts, d)[..., part, :].permute(1, 2, 0, 3)
+
+
+@register("interleaved_matmul_selfatt_qk")
+def _imm_selfatt_qk(heads=1):
+    """q k^T / sqrt(D) of a fused (T, B, 3 H D) projection interleaved per
+    head as (H, 3, D) (reference :44): (B H, T, T). q is scaled before the
+    product, in its own dtype."""
+    def f(qkv):
+        t, b, e3 = qkv.shape
+        d = e3 // (3 * heads)
+        q, k = _heads(qkv, heads, 3, 0), _heads(qkv, heads, 3, 1)
+        out = _bmm(q * (1.0 / (d ** 0.5)), k.transpose(-1, -2))
+        return out.reshape(b * heads, t, t)
+
+    return f
+
+
+@register("interleaved_matmul_selfatt_valatt")
+def _imm_selfatt_valatt(heads=1):
+    """The attention (B H, T, T) applied to v of the fused projection
+    (reference :59): (T, B, H D)."""
+    def f(qkv, att):
+        t, b, _ = qkv.shape
+        v = _heads(qkv, heads, 3, 2)
+        out = _bmm(att.reshape(b, heads, t, t), v)
+        return out.permute(2, 0, 1, 3).reshape(t, b, -1)
+
+    return f
+
+
+@register("interleaved_matmul_encdec_qk")
+def _imm_encdec_qk(heads=1):
+    """q k^T / sqrt(D) of a query (Tq, B, H D) and a fused key-value
+    projection (Tk, B, 2 H D) interleaved as (H, 2, D) (reference :73):
+    (B H, Tq, Tk)."""
+    def f(q_proj, kv_proj):
+        tq, b, e = q_proj.shape
+        d = e // heads
+        q = q_proj.reshape(tq, b, heads, d).permute(1, 2, 0, 3)
+        k = _heads(kv_proj, heads, 2, 0)
+        out = _bmm(q * (1.0 / (d ** 0.5)), k.transpose(-1, -2))
+        return out.reshape(b * heads, tq, kv_proj.shape[0])
+
+    return f
+
+
+@register("interleaved_matmul_encdec_valatt")
+def _imm_encdec_valatt(heads=1):
+    """The attention (B H, Tq, Tk) applied to v of the fused key-value
+    projection (reference :90): (Tq, B, H D)."""
+    def f(kv_proj, att):
+        tk, b, _ = kv_proj.shape
+        v = _heads(kv_proj, heads, 2, 1)
+        tq = att.shape[1]
+        out = _bmm(att.reshape(b, heads, tq, tk), v)
+        return out.permute(2, 0, 1, 3).reshape(tq, b, -1)
 
     return f
 
@@ -79,6 +194,219 @@ def _space_to_depth(block_size=2):
         r = x.reshape(n, c, h // s, s, w // s, s)
         return r.permute(0, 3, 5, 1, 2, 4).reshape(
             n, c * s * s, h // s, w // s)
+
+    return f
+
+
+def _out_side(n, k, s, d, p):
+    return (n + 2 * p - d * (k - 1) - 1) // s + 1
+
+
+@register("im2col")
+def _im2col(kernel=(3, 3), stride=(1, 1), dilate=(1, 1), pad=(0, 0)):
+    """Convolution patches as columns (reference :134): (N, C, H, W) ->
+    (N, C kh kw, L), one strided slice of the padded input a kernel
+    position."""
+    kh, kw = kernel
+    sh, sw = stride
+    dh, dw = dilate
+    ph, pw = pad
+
+    def f(x):
+        n, c, h, w = x.shape
+        xp = torch.nn.functional.pad(x, (pw, pw, ph, ph))
+        oh, ow = _out_side(h, kh, sh, dh, ph), _out_side(w, kw, sw, dw, pw)
+        cols = [xp[:, :, i * dh:i * dh + oh * sh:sh,
+                   j * dw:j * dw + ow * sw:sw].reshape(n, c, oh * ow)
+                for i in range(kh) for j in range(kw)]
+        return torch.stack(cols, 2).reshape(n, c * kh * kw, oh * ow)
+
+    return f
+
+
+@register("col2im")
+def _col2im(output_size=(4, 4), kernel=(3, 3), stride=(1, 1), dilate=(1, 1),
+            pad=(0, 0)):
+    """Columns folded back into an image, overlaps summed (im2col's
+    adjoint, reference :162): (N, C kh kw, L) -> (N, C, H, W)."""
+    kh, kw = kernel
+    sh, sw = stride
+    dh, dw = dilate
+    ph, pw = pad
+    H, W = output_size
+
+    def f(col):
+        n = col.shape[0]
+        c = col.shape[1] // (kh * kw)
+        oh, ow = _out_side(H, kh, sh, dh, ph), _out_side(W, kw, sw, dw, pw)
+        colr = col.reshape(n, c, kh * kw, oh, ow)
+        out = torch.zeros((n, c, H + 2 * ph, W + 2 * pw), dtype=col.dtype,
+                          device=col.device)
+        for i in range(kh):
+            for j in range(kw):
+                out[:, :, i * dh:i * dh + oh * sh:sh,
+                    j * dw:j * dw + ow * sw:sw] += colr[:, :, i * kw + j]
+        return out[:, :, ph:ph + H, pw:pw + W]
+
+    return f
+
+
+@register("reverse")
+def _reverse(axis=0):
+    dims = [axis] if isinstance(axis, int) else list(axis)
+
+    def f(x):
+        return torch.flip(x, dims)
+
+    return f
+
+
+@register("batch_take")
+def _batch_take():
+    """``x[..., idx]`` a row (reference :200): x (..., n), idx (...)."""
+    def f(x, idx):
+        i = idx.long()
+        i = torch.where(i < 0, i + x.shape[-1], i)
+        return torch.gather(x, -1, i[..., None])[..., 0]
+
+    return f
+
+
+@register("argmax_channel")
+def _argmax_channel():
+    def f(x):
+        return torch.argmax(x, dim=1).to(x.dtype)
+
+    return f
+
+
+@register("shape_array", differentiable=False)
+def _shape_array():
+    def f(x):
+        return torch.tensor(x.shape, dtype=torch.int64, device=x.device)
+
+    return f
+
+
+@register("size_array", differentiable=False)
+def _size_array():
+    def f(x):
+        return torch.tensor([x.numel()], dtype=torch.int64, device=x.device)
+
+    return f
+
+
+@register("arange_like", differentiable=False)
+def _arange_like(start=0.0, step=1.0, axis=None):
+    """``start + step * arange(n)`` in float32, cast to x's dtype, over x's
+    shape (``axis`` None) or along ``axis`` (reference :224). The float32
+    value is rounded once from the exact one (the double's, whose product
+    of two float32 values is exact), as the reference's XLA program, which
+    fuses the multiply-add, gives it."""
+    st, sp = float(onp.float32(start)), float(onp.float32(step))
+
+    def f(x):
+        n = x.numel() if axis is None else x.shape[axis]
+        r = torch.arange(n, dtype=torch.float32, device=x.device)
+        r = (st + sp * r.double()).float().to(x.dtype)
+        return r.reshape(x.shape) if axis is None else r
+
+    return f
+
+
+@register("allclose", differentiable=False)
+def _allclose(rtol=1e-5, atol=1e-8, equal_nan=False):
+    """A 0-d bool (reference :236)."""
+    def f(a, b):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        return torch.isclose(a.to(dt), b.to(dt), rtol=rtol, atol=atol,
+                             equal_nan=equal_nan).all()
+
+    return f
+
+
+@register("index_copy")
+def _index_copy():
+    """Rows of ``new`` copied into ``old`` at ``index`` (reference :245).
+    Where an index repeats, the last of its rows wins, as XLA's scatter on
+    the CPU keeps it, on every device (a scatter-max of the positions,
+    where CUDA's ``index_copy_`` keeps an arbitrary one); the winner alone
+    takes the gradient."""
+    def f(old, index, new):
+        n = old.shape[0]
+        i = index.long()
+        i = torch.where(i < 0, i + n, i)
+        pos = torch.arange(i.numel(), device=i.device)
+        win = torch.full((n,), -1, dtype=pos.dtype, device=i.device)
+        win = win.scatter_reduce(0, i, pos, reduce="amax")
+        rows = new.index_select(0, win.clamp(min=0)).to(old.dtype)
+        took = (win >= 0).reshape((n,) + (1,) * (old.dim() - 1))
+        return torch.where(took, rows, old)
+
+    return f
+
+
+@register("quadratic")
+def _quadratic(a=0.0, b=0.0, c=0.0):
+    def f(x):
+        return a * x * x + b * x + c
+
+    return f
+
+
+@register("softmin")
+def _softmin(axis=-1):
+    def f(x):
+        return torch.softmax(-x, dim=axis)
+
+    return f
+
+
+@register("masked_log_softmax")
+def _masked_log_softmax(axis=-1):
+    """log_softmax over the unmasked entries, -inf at the masked ones (a
+    fully masked row all -inf, its gradient zero; reference :280)."""
+    def f(x, mask):
+        m = mask.bool()
+        ninf = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+        out = torch.log_softmax(torch.where(m, x, ninf), dim=axis)
+        return torch.where(m, out, ninf)
+
+    return f
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy():
+    """The summed cross entropy of (N, C) logits against (N,) labels, shape
+    (1,) (reference :291)."""
+    def f(data, label):
+        logp = torch.log_softmax(data, dim=-1)
+        picked = torch.gather(logp, -1, label.long()[:, None])
+        return -picked.sum().reshape((1,))
+
+    return f
+
+
+@register("amp_cast")
+def _amp_cast(dtype="float16"):
+    tgt = to_dtype(dtype_name(dtype))
+
+    def f(x):
+        return x.to(tgt)
+
+    return f
+
+
+@register("amp_multicast")
+def _amp_multicast(num_outputs=1, cast_narrow=False):
+    """Every operand cast to the widest operand's dtype by item size (the
+    narrowest under ``cast_narrow``), the first on a tie (reference
+    :312)."""
+    def f(*xs):
+        widths = [x.element_size() for x in xs]
+        pick = (min if cast_narrow else max)(range(len(xs)),
+                                             key=lambda i: widths[i])
+        return tuple(x.to(xs[pick].dtype) for x in xs)
 
     return f
 

@@ -175,8 +175,8 @@ def _device_of(datas, attrs):
 def invoke(op: Op, inputs, attrs=None, out=None):
     """Run ``op`` on ``inputs`` (NDArrays, tensors or Python scalars);
     returns an NDArray, or a tuple of them for an op with several outputs.
-    ``out`` (an NDArray or a sequence of them) receives the results by
-    rebinding, and is returned."""
+    ``out`` (an NDArray or a sequence of them, one a result) receives the
+    results by rebinding, and is returned."""
     if _dc._state.ctx is not None:
         # deferred compute: run with recording suspended, record one node
         attrs = amp_attrs(op, attrs)
@@ -211,13 +211,15 @@ def invoke(op: Op, inputs, attrs=None, out=None):
         NDArray(narrow(res))
     if out is None:
         return outputs
+    # rebind each destination (reference ``_write_out``): an array marked
+    # for gradients stays marked (a weight written back by an update op)
     if multi:
         for dst, src in zip(out, outputs):
-            dst._data = src._data
+            dst._set_data(src._data)
         return out
     if isinstance(out, (tuple, list)):
         out = out[0]
-    out._data = outputs._data
+    out._set_data(outputs._data)
     return out
 
 

@@ -296,9 +296,9 @@ class SGD(Optimizer):
         def step(w, mom, g, lr, wd):
             g = self._pre(g).float()
             wf = w.float()
-            g = g + wd * wf
-            mom = self.momentum * mom - lr * g
-            return (wf + mom).to(w.dtype), mom
+            w_new, mom = _oo.sgd_mom_step(wf, mom, g + wd * wf, lr,
+                                          self.momentum)
+            return w_new.to(w.dtype), mom
 
         def step_nomom(w, g, lr, wd):
             g = self._pre(g).float()
@@ -333,9 +333,8 @@ class NAG(Optimizer):
         self.momentum = momentum
 
         def step(w, mom, g, lr, wd):
-            g = self._pre(g) + wd * w
-            mom = self.momentum * mom + g
-            return w - lr * (g + self.momentum * mom), mom
+            return _oo.nag_mom_step(w, mom, self._pre(g) + wd * w, lr,
+                                    self.momentum)
 
         self._register_step(step, ("mom",))
 
@@ -348,17 +347,6 @@ def _zeros(weight, *keys):
     """float32 zero states of ``weight``'s shape, one a key."""
     return {k: torch.zeros(weight.shape, dtype=torch.float32,
                            device=weight.device) for k in keys}
-
-
-def _norm(x):
-    """The whole tensor's 2-norm (``jnp.linalg.norm`` of any shape), a
-    0-dim tensor of x's dtype on x's device. On the CPU it is summed in
-    float64: torch's CPU norm of float32 sums in float32 lanes, which is
-    6.8e-4 off at 2.4 M values near 1 (a trust ratio's update), where the
-    card's tree sum, and XLA's, are not."""
-    if x.device.type == "cpu":
-        return torch.linalg.vector_norm(x, dtype=torch.float64).to(x.dtype)
-    return torch.linalg.vector_norm(x)
 
 
 def _bias_correction(beta, t):
@@ -567,16 +555,7 @@ class Ftrl(Optimizer):
         self._lamda1, self._beta = lamda1, beta
 
         def step(w, z, n, g, lr, wd):
-            g = self._pre(g)
-            sigma = (torch.sqrt(n + g * g) - torch.sqrt(n)) / lr
-            z = z + g - sigma * w
-            n = n + g * g
-            w = torch.where(
-                z.abs() > lamda1,
-                -(z - torch.sign(z) * lamda1) /
-                ((beta + torch.sqrt(n)) / lr + wd),
-                torch.zeros_like(z))
-            return w, z, n
+            return _oo.ftrl_step(w, z, n, self._pre(g), lr, lamda1, beta, wd)
 
         self._register_step(step, ("z", "n"), elementwise=True)
 
@@ -600,12 +579,9 @@ class FTML(Optimizer):
         b1, b2, eps = beta1, beta2, epsilon
 
         def step(w, d, s, z, g, lr, wd, t):
-            g = self._pre(g) + wd * w
-            s = b2 * s + (1 - b2) * g * g
-            sigma_t = torch.sqrt(s / _bias_correction(b2, t)) + eps
-            d_new = _bias_correction(b1, t) / lr * sigma_t
-            z = b1 * z + (1 - b1) * g - (d_new - b1 * d) * w
-            return -z / d_new, d_new, s, z
+            return _oo.ftml_step(w, d, s, z, self._pre(g) + wd * w, lr, b1,
+                                 b2, eps, _bias_correction(b1, t),
+                                 _bias_correction(b2, t))
 
         self._register_step(step, ("d", "s", "z"), needs_t=True,
                             elementwise=True)
@@ -624,9 +600,8 @@ class Signum(Optimizer):
         self.momentum = momentum
 
         def step(w, mom, g, lr, wd):
-            g = self._pre(g) + wd * w
-            mom = self.momentum * mom - (1 - self.momentum) * g
-            return w + lr * torch.sign(mom), mom
+            return _oo.signum_step(w, mom, self._pre(g) + wd * w, lr,
+                                   self.momentum)
 
         def step_nomom(w, g, lr, wd):
             g = self._pre(g) + wd * w
@@ -670,14 +645,12 @@ class LAMB(Optimizer):
             else:
                 mhat, vhat = m, v
             r = mhat / (torch.sqrt(vhat) + eps) + wd * wf
-            w_norm = _norm(wf)
+            w_norm = _oo.norm(wf)
             if lower_bound is not None:
                 w_norm = w_norm.clamp(min=lower_bound)
             if upper_bound is not None:
                 w_norm = w_norm.clamp(max=upper_bound)
-            r_norm = _norm(r)
-            ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
-                                torch.ones_like(w_norm))
+            ratio = _oo.trust_ratio(w_norm, _oo.norm(r))
             return (wf - lr * ratio * r).to(w.dtype), m, v
 
         self._register_step(step, ("mean", "var"), needs_t=True)
@@ -699,8 +672,8 @@ class LARS(Optimizer):
 
         def step(w, mom, g, lr, wd):
             g = self._pre(g)
-            w_norm = _norm(w)
-            g_norm = _norm(g)
+            w_norm = _oo.norm(w)
+            g_norm = _oo.norm(g)
             trust = torch.where(
                 (w_norm > 0) & (g_norm > 0),
                 eta * w_norm / (g_norm + wd * w_norm + epsilon),
@@ -728,20 +701,17 @@ class LANS(Optimizer):
 
         def step(w, m, v, g, lr, wd, t):
             g = self._pre(g).float()
-            g = g / _norm(g).clamp(min=1e-12)
+            g = g / _oo.norm(g).clamp(min=1e-12)
             wf = w.float()
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
             mhat = m / _bias_correction(b1, t)
             vhat = v / _bias_correction(b2, t)
-            w_norm = _norm(wf)
+            w_norm = _oo.norm(wf)
 
             def trust(update):
                 r = update + wd * wf
-                r_norm = _norm(r)
-                ratio = torch.where((w_norm > 0) & (r_norm > 0),
-                                    w_norm / r_norm, torch.ones_like(r_norm))
-                return ratio * r
+                return _oo.trust_ratio(w_norm, _oo.norm(r)) * r
 
             r1 = trust(mhat / (torch.sqrt(vhat) + eps))
             r2 = trust(g / (torch.sqrt(vhat) + eps))

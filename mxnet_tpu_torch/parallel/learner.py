@@ -225,13 +225,13 @@ class _ScaleByTrustRatio:
     @staticmethod
     def _norms(ts):
         """The tensors' 2-norms, stacked, in their dtype: one multi-tensor
-        pass on the card; on the CPU the optimizers' ``_norm`` (summed in
+        pass on the card; on the CPU ``optimizer_ops.norm`` (summed in
         float64: torch's CPU ``_foreach_norm`` sums float32 in float32
         lanes)."""
         if ts[0].device.type == "cpu":
-            from ..optimizer.optimizer import _norm
+            from ..ops.optimizer_ops import norm
 
-            return torch.stack([_norm(t) for t in ts])
+            return torch.stack([norm(t) for t in ts])
         return torch.stack(torch._foreach_norm(ts))
 
     def update(self, updates, state, params):

@@ -23,6 +23,10 @@ that torch does not), ``"eigh"``,
 ``"lq"`` and ``"eig"`` (factors fixed up to sign or phase, compared by
 reconstruction). An alias maps to its target's name and is run under its
 own name on its target's cases.
+
+The runners take the table of cases they read (``table``, ``ALL`` by
+default), so ``tests/torch_extra_cases.py`` runs its own tables through
+them; ``dtype`` may name a dtype for each input by position.
 """
 import numpy as onp
 
@@ -522,25 +526,27 @@ MODULES = {"legacy_elemwise": LEGACY, "linalg_legacy": LINALG,
 ALL = {**LEGACY, **LINALG, **NPI}
 
 
-def cases(name):
-    """The cases of ``name``: its own, or its alias target's."""
-    c = ALL[name]
-    return ALL[c] if isinstance(c, str) else c
+def cases(name, table=None):
+    """The cases of ``name``: its own, or its alias target's. ``table``: a
+    table of cases of this form (``ALL`` by default)."""
+    table = ALL if table is None else table
+    c = table[name]
+    return table[c] if isinstance(c, str) else c
 
 
-def target(name):
-    c = ALL[name]
+def target(name, table=None):
+    c = (ALL if table is None else table)[name]
     return c if isinstance(c, str) else name
 
 
-def inputs(name, i, seed=0):
+def inputs(name, i, seed=0, table=None):
     """The numpy inputs of ``name``'s case ``i`` (64-bit narrowed to the
     reference's 32-bit dtypes), made from ``seed`` and the target's name."""
     import zlib
 
-    build = cases(name)[i][0]
-    rng = onp.random.RandomState(zlib.crc32(f"{target(name)}/{i}".encode())
-                                 + seed)
+    build = cases(name, table)[i][0]
+    rng = onp.random.RandomState(zlib.crc32(
+        f"{target(name, table)}/{i}".encode()) + seed)
     out = []
     for a in build(rng):
         a = onp.asarray(a)
@@ -577,23 +583,34 @@ def scalarize(outs, cots, kind):
     return total
 
 
-def run_port(name, i, device="cpu", attrs=None, dtype=None, seed=0):
+def _dtype_of(dtype, j):
+    """The dtype input ``j`` is cast to: ``dtype``, or its entry ``j`` where
+    it is a dict (None: as made)."""
+    return dtype.get(j) if isinstance(dtype, dict) else dtype
+
+
+def run_port(name, i, device="cpu", attrs=None, dtype=None, seed=0,
+             table=None, grad=None):
     """``name``'s case ``i`` on the port at ``device``: ``(outputs, grads)``
     as lists of CPU tensors (``grads`` None unless the case asks for them;
-    one per floating input). ``dtype`` casts the floating inputs."""
+    one per floating input). ``dtype`` casts the floating inputs (a dict:
+    the inputs it names by position). ``grad`` False: no gradients,
+    whatever the case asks."""
     import torch
 
     import mxnet_tpu_torch as tmx
     from mxnet_tpu_torch.base import narrow, to_dtype
     from mxnet_tpu_torch.ops.registry import get_op
 
-    _, cattrs, grad, kind = cases(name)[i]
+    _, cattrs, cgrad, kind = cases(name, table)[i]
     attrs = cattrs if attrs is None else attrs
+    grad = cgrad if grad is None else grad
     ins = []
-    for a in inputs(name, i, seed):
+    for j, a in enumerate(inputs(name, i, seed, table)):
         t = torch.from_numpy(a).to(device)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(to_dtype(dtype))
+        dt = _dtype_of(dtype, j)
+        if dt is not None and t.is_floating_point():
+            t = t.to(to_dtype(dt))
         ins.append(t)
     ctx = tmx.cpu() if device == "cpu" else tmx.gpu()
     with ctx:
@@ -621,7 +638,8 @@ def run_port(name, i, device="cpu", attrs=None, dtype=None, seed=0):
                 [g.cpu() for g in grads])
 
 
-def run_reference(name, i, attrs=None, dtype=None, seed=0):
+def run_reference(name, i, attrs=None, dtype=None, seed=0, table=None,
+                  grad=None):
     """``name``'s case ``i`` on the JAX package (CPU): ``(outputs, grads)``
     as lists of numpy arrays, as :func:`run_port` gives them, and the
     outputs' dtype names."""
@@ -630,12 +648,14 @@ def run_reference(name, i, attrs=None, dtype=None, seed=0):
 
     from mxnet_tpu.ops.registry import get_op
 
-    _, cattrs, grad, kind = cases(name)[i]
+    _, cattrs, cgrad, kind = cases(name, table)[i]
     attrs = cattrs if attrs is None else attrs
-    ins = [jnp.asarray(a) for a in inputs(name, i, seed)]
-    if dtype is not None:
-        ins = [x.astype(dtype) if jnp.issubdtype(x.dtype, jnp.floating)
-               else x for x in ins]
+    grad = cgrad if grad is None else grad
+    ins = [jnp.asarray(a) for a in inputs(name, i, seed, table)]
+    ins = [x.astype(_dtype_of(dtype, j))
+           if _dtype_of(dtype, j) is not None and
+           jnp.issubdtype(x.dtype, jnp.floating) else x
+           for j, x in enumerate(ins)]
     f = get_op(name).fn(**attrs)
     outs = f(*ins)
     outs = outs if isinstance(outs, (tuple, list)) else (outs,)
@@ -722,10 +742,16 @@ def _close(got, want, rtol):
                       onp.iscomplexobj(want) else "float64")
     want = onp.asarray(want, dtype=got.dtype)
     assert got.shape == want.shape, (got.shape, want.shape)
-    scale = max(float(abs(want).max(initial=0.0)), 1e-30)
     nan = onp.isnan(want)
     assert (onp.isnan(got) == nan).all()
-    err = float(abs(onp.where(nan, 0, got - want)).max(initial=0.0))
+    # infinities where the reference has them, the same ones; the scale
+    # and the error over the finite entries
+    inf = ~nan & ~onp.isfinite(want)
+    assert (got[inf] == want[inf]).all()
+    scale = max(float(abs(want[~inf & ~nan]).max(initial=0.0)), 1e-30)
+    with onp.errstate(invalid="ignore"):
+        err = float(abs(onp.where(nan | inf, 0, got - want)).max(
+            initial=0.0))
     assert err <= rtol * scale, (err, scale, rtol)
 
 
