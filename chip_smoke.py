@@ -534,11 +534,54 @@ Phases (any failure exits non-zero without the final line):
              ``multi_mp_adamw_update`` over BERT-Base's tensors beside the
              ``Learner``'s LAMB. The phase's seconds are checked against a
              limit.
+19. quantized — A9 (b)'s quantized tier, int8 inference after training:
+             (i) BERT-Base (``bert_base(dropout=0)``: 12 x 768, 12 heads,
+             FFN 3072, vocabulary 30522, max_length 512, weights from a
+             numpy seed) behind a one-argument block that unpacks tokens
+             and valid lengths, calibrated by ``contrib.quantization.
+             quantize_net(calib_mode="entropy")`` on 2 batches of 8 x 128
+             (its 49 ``Dense`` layers to int8 x int8 -> int32 products on
+             ``torch._int_mm``) and served at B 32 x T 128: (a) the same
+             calibration on the CPU, every layer's scale equal to the
+             card's within 1e-5 or, where the KL minimum fell on another
+             candidate threshold, within 0.1 (those layers listed); at B 2
+             the fp32 sequence outputs within 1e-4 of the largest entry, and
+             the CPU's int8 model with the card's scales: the sequence
+             output no farther from the CPU's than the CPU's int8 output is
+             from its fp32 one (a code that falls on the other side of a
+             half moves the next layer's inputs, and more codes fall over
+             layer after layer: the share of each layer's codes that differ
+             is printed), the first ``attn_qkv``'s input codes differing in
+             at most 1e-3 of the entries, every layer's int8 weights and its
+             int32 accumulators from the CPU's codes bitwise; (b) the int8
+             sequence output against
+             the fp32 model's on the card: the largest relative error and
+             the cosine, finite; (c) fp32 and int8 forwards eager and
+             hybridized (one CUDA graph; the int8 replay equal to eager):
+             wall against device busy, idle share, tokens/s, peak memory,
+             the int8 GEMMs' share of busy, the top device operations, and
+             ``torch._int_mm`` at (4096, 768) x (768, 3072) beside fp32 (TF32
+             off) and bf16 ``torch.matmul``; (d) the LayerNorm kernel's
+             launches on the int8 path non-zero (the flash forward's
+             printed); (ii) ResNet-50 v1 at 224^2 calibrated (``naive``) on
+             one batch of 32, its 53 convolutions through the reference's
+             route (codes in float32 through cuDNN) and its Dense in int8:
+             naive scales card vs CPU within 1e-5; at batch 2 the fp32 logits
+             within 1e-3 of the largest and the int8 logits with the card's
+             scales no farther from the CPU's than the CPU's int8 logits are
+             from its fp32 ones; img/s int8 beside fp32, eager; (iii)
+             the 43 names (tests/torch_quantized_cases.py) card against CPU,
+             integer outputs bitwise, and at model sizes with their ms:
+             ``quantized_conv`` at ResNet-50's stage-2 3x3 (32, 128, 28, 28)
+             x (128, 128, 3, 3) beside fp32 ``F.conv2d``,
+             ``quantized_fully_connected_v2`` and ``intgemm_fully_connected``
+             at BERT-Base's FFN (4096, 768) x (3072, 768), bitwise. The
+             phase's seconds are checked against a limit.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
 ``optim``, ``data``, ``sparse``, ``vision``, ``rnn``, ``legacy``,
-``interleaved``; ``script`` runs phase 4 first, for its weights,
+``interleaved``, ``quantized``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -557,7 +600,10 @@ on it; also the row's ``sparse`` key), vision (phase 15: no port kernel on it;
 also the row's ``vision`` key), rnn (phase 16: no port kernel on it; also
 the row's ``rnn`` key), legacy (phase 17 (i): no port kernel on it; also
 the row's ``legacy`` key), interleaved (phase 18 (i) (b)'s steps: the
-LayerNorm kernel; also the row's ``interleaved`` key); a row
+LayerNorm kernel; also the row's ``interleaved`` key), quantized (phase 19
+(i)'s int8 BERT-Base forwards, eager, and the hybridized warm call and
+capture: the flash forward and LayerNorm kernels; also the row's
+``quantized`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -9235,6 +9281,459 @@ def phase_interleaved(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 19: quantized (A9 (b)'s quantized tier: int8 after training)
+# ---------------------------------------------------------------------------
+QUANT_SERVE = (32, 128)           # (i) serving batch x length
+QUANT_CALIB = (2, 8, 128)         # (i) entropy calibration: batches x B x T
+QUANT_VALID = (16, 128)           # (i) valid lengths drawn in this range
+QUANT_CHECK_BATCH = 2             # (i) (a), (ii) card against CPU
+QUANT_SCALE_RTOL = 1e-5           # (i) (a), (ii) scales card vs CPU: equal
+QUANT_ENTROPY_RTOL = 0.1          # (i) (a) an entropy scale whose KL minimum
+                                  # moved to another candidate (see below)
+QUANT_FP32_RTOL = 1e-4            # (i) (a) fp32 sequence output, card vs CPU
+QUANT_FLIP_SHARE = 1.0            # (i) (a) int8 card vs CPU, of int8 vs fp32
+QUANT_FLIP_RATE = 1e-3            # (i) (a) first layer's codes that differ
+QUANT_RESNET_FP32_RTOL = 1e-3     # (ii) fp32 logits card vs CPU (phase 7's)
+QUANT_RESNET_BATCH = 32           # (ii) calibration and img/s
+QUANT_RESNET_IMAGE = 224          # (ii) ImageNet's input
+QUANT_CONV = ((32, 128, 28, 28), (128, 128, 3, 3))   # (iii) ResNet-50 stage 2
+QUANT_FFN = ((4096, 768), (3072, 768))               # (iii) BERT-Base's FFN
+QUANT_LIMIT_S = 75.0              # the phase's seconds, the build excluded
+
+
+def _quant_wrapper(bert):
+    """BERT over one packed int32 batch, tokens and each row's valid length
+    in the last column: ``calibrate_net`` passes a batch as one argument."""
+    from mxnet_tpu_torch import gluon
+
+    class _WithLengths(gluon.HybridBlock):
+        _tensor_body = True
+
+        def __init__(self, inner):
+            super().__init__()
+            self.bert = inner
+
+        def forward(self, packed):
+            return self.bert(packed[:, :-1], None, packed[:, -1])
+
+    return _WithLengths(bert)
+
+
+def _quant_packed(rng, b, t):
+    tok = rng.integers(0, 30522, (b, t), dtype="int32")
+    vl = rng.integers(QUANT_VALID[0], QUANT_VALID[1] + 1, (b, 1),
+                      dtype="int32")
+    return onp.concatenate([tok, vl], axis=1)
+
+
+def _quant_layers(net):
+    """``{path: QuantizedDense or _QuantizedConvCore}`` of a quantized net,
+    by the paths ``calibrate_net`` names."""
+    return {n[:-len("._q")]: m for n, m in net.named_modules()
+            if n.endswith("._q")}
+
+
+def _quant_run(tag, fn, tokens, reps, smi_line, int8_names=()):
+    """A forward's wall against device busy, idle share, tokens (or images)
+    a second and peak memory; the int8 GEMMs' share of busy."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 20
+    fn()
+    wall = _wall_ms(fn, reps)
+    events = _gpu_trace(lambda: [fn() for _ in range(3)])
+    busy = _busy_us(events) / 1e3 / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - held
+    i8 = sum(e[4] for e in events if e[0] == "kernel" and
+             e[1] in int8_names) / 1e3 / 3
+    row = dict(wall=wall, busy=busy, idle=max(0.0, 1 - busy / wall),
+               rate=tokens / wall * 1e3, peak=peak, i8=i8)
+    log(f"[quantized] {tag}: {wall:.3f} ms wall, device busy {busy:.3f} ms, "
+        f"idle share {row['idle']:.3f}, {row['rate']:.1f} a second, peak "
+        f"memory {peak:.1f} MiB above the {held:.1f} held"
+        + (f", int8 GEMMs {i8:.3f} ms ({i8 / busy:.3f} of busy)"
+           if int8_names else "") + f"; card {smi_line}")
+    return row, events
+
+
+def _quant_bert(smi_line):
+    """(i): BERT-Base calibrated (entropy) and served in int8; returns the
+    path's launch counts."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo import bert_base
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops.quantized_ops import _codes, _recip, int8_matmul
+
+    rng = onp.random.default_rng(SEED + 19)
+    b, t = QUANT_SERVE
+    nets = {dev: _quant_wrapper(bert_base(dropout=0.0, device=dev))
+            for dev in ("cuda", "cpu")}
+    arrays = numpy_weights({n: tuple(p.shape) for n, p in
+                            nets["cpu"].bert.collect_params().items()},
+                           SEED + 19)
+    for net in nets.values():
+        net.bert.load_dict(arrays)
+    del arrays
+    calib = [_quant_packed(rng, *QUANT_CALIB[1:])
+             for _ in range(QUANT_CALIB[0])]
+    serve = torch.from_numpy(_quant_packed(rng, b, t)).cuda()
+    small = _quant_packed(rng, QUANT_CHECK_BATCH, t)
+    net = nets["cuda"]
+    tokens = b * t
+
+    def fwd():
+        with torch.no_grad():
+            return net(serve)
+
+    small_fp32 = {}
+    with torch.no_grad():
+        small_fp32["card"] = net(torch.from_numpy(small).cuda())[0] \
+            .cpu().numpy()
+        with mx.cpu():
+            small_fp32["cpu"] = nets["cpu"](torch.from_numpy(small))[0] \
+                .numpy()
+    # (c) fp32 first, eager and hybridized, and its output for (b)
+    fp32_seq = fwd()[0].float()
+    rows = {}
+    rows["fp32 eager"], _ = _quant_run(
+        f"(i) (c) fp32 BERT-Base eager forward, B {b} x T {t}", fwd, tokens,
+        5, smi_line)
+    net.hybridize()
+    rows["fp32 hybridized"], _ = _quant_run(
+        f"(i) (c) fp32 hybridized (one CUDA graph), B {b} x T {t}", fwd,
+        tokens, 10, smi_line)
+    net.hybridize(False)
+    _release()
+
+    # calibration on the card (the path) and on the CPU, the same batches
+    t0 = time.perf_counter()
+    q.quantize_net(net, calib_data=iter(torch.from_numpy(c).cuda()
+                                        for c in calib),
+                   calib_mode="entropy", num_calib_batches=QUANT_CALIB[0])
+    calib_s = time.perf_counter() - t0
+    layers = _quant_layers(net)
+    check(len(layers) == 12 * 4 + 1 and all(
+        type(m).__name__ == "QuantizedDense" and m.qweight.is_cuda and
+        m.qweight.dtype == torch.int8 for m in layers.values()),
+        f"(i) quantized layers: {len(layers)}")
+    with mx.cpu():
+        t1 = time.perf_counter()
+        q.quantize_net(nets["cpu"], calib_data=iter(
+            torch.from_numpy(c) for c in calib), calib_mode="entropy",
+            num_calib_batches=QUANT_CALIB[0])
+        cpu_s = time.perf_counter() - t1
+    cpu_layers = _quant_layers(nets["cpu"])
+    # an entropy scale is the threshold of least KL divergence among ~120
+    # candidates; where two candidates' divergences lie closer than the
+    # card's and the CPU's histograms (a few counts apart) make them, the
+    # two pick different ones: those layers are listed with their gaps
+    gaps = {p: abs(m.act_scale - cpu_layers[p].act_scale) /
+            cpu_layers[p].act_scale for p, m in layers.items()}
+    moved = {p: round(g, 5) for p, g in gaps.items() if g > QUANT_SCALE_RTOL}
+    left = sum(p.numel() for p in net.parameters()) / 1e6
+    log(f"[quantized] (i) (a) BERT-Base ({left:.2f} M float parameters "
+        f"left) calibrated (entropy) on {QUANT_CALIB[0]} batches "
+        f"of {QUANT_CALIB[1]} x {QUANT_CALIB[2]}: {len(layers)} Dense layers "
+        f"to int8 in {calib_s:.2f} s on the card, {cpu_s:.2f} s on the CPU; "
+        f"scales card vs CPU: {len(gaps) - len(moved)} of {len(gaps)} "
+        f"within {QUANT_SCALE_RTOL}; KL minimum on another candidate: "
+        f"{moved or 'none'} (limit {QUANT_ENTROPY_RTOL} relative)")
+    check(max(gaps.values()) <= QUANT_ENTROPY_RTOL,
+          f"(i) (a) scales apart by {max(gaps.values()):.3e}")
+
+    # (a) the CPU's int8 model with the card's scales, at batch 2
+    for p, m in cpu_layers.items():
+        m.act_scale = layers[p].act_scale
+    first = "bert.encoder.layers.0.attn_qkv"
+    seen = {"cpu": {}, "card": {}}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, _p=p, _s=side: seen[_s].setdefault(
+            _p, args[0].detach().cpu().clone()))
+        for side, lay in (("cpu", cpu_layers), ("card", layers))
+        for p, m in lay.items()]
+    with torch.no_grad(), mx.cpu():
+        want = nets["cpu"](torch.from_numpy(small))[0].numpy()
+    with torch.no_grad():
+        got = net(torch.from_numpy(small).cuda())[0].cpu().numpy()
+    for h in hooks:
+        h.remove()
+    seq_gap = _np_rel(got, want)
+    noise = _np_rel(want, small_fp32["cpu"])
+    means = [float(onp.abs(a - want).mean() / onp.abs(want).mean())
+             for a in (got, small_fp32["cpu"])]
+    fp32_gap = _np_rel(small_fp32["card"], small_fp32["cpu"])
+    # every layer's input codes from each side's own activations, and its
+    # int32 accumulators from the CPU's codes on both sides
+    flips, exact = {}, True
+    for p, m in layers.items():
+        r = _recip(m.act_scale)
+        x = seen["cpu"][p]
+        codes = _codes(x.reshape(-1, x.shape[-1]) * r)
+        flips[p] = float((_codes(seen["card"][p].reshape(codes.shape) * r)
+                          != codes).sum()) / codes.numel()
+        qw = cpu_layers[p].qweight
+        exact = exact and torch.equal(m.qweight.cpu(), qw) and torch.equal(
+            int8_matmul(codes.cuda(), m.qweight).cpu(),
+            int8_matmul(codes, qw))
+    depth = [max(v for p, v in flips.items() if f"layers.{i}." in p)
+             for i in range(len(net.bert.encoder.layers))] + \
+        [flips["bert.pooler"]]
+    log(f"[quantized] (i) (a) card vs CPU at B {QUANT_CHECK_BATCH} x T {t}: "
+        f"fp32 sequence output {fp32_gap:.3e} of its largest entry; int8 "
+        f"(the card's scales on both) {seq_gap:.3e} (mean |diff| "
+        f"{means[0]:.3e} of the mean |output|), against the CPU's own int8 "
+        f"vs fp32 gap {noise:.3e} (mean {means[1]:.3e}), limit that gap "
+        f"times {QUANT_FLIP_SHARE}; the share of each layer's input codes "
+        f"that differ, largest of its four Dense, layers 0-11 and the "
+        f"pooler: {[f'{v:.1e}' for v in depth]} ({first}: limit "
+        f"{QUANT_FLIP_RATE}; a code on the other side of a half moves the "
+        f"next layer's inputs by a quantum's share, and more of them fall "
+        f"over); int8 weights and every layer's int32 accumulators from "
+        f"the CPU's codes ({len(layers)} products, K 768 and 3072, the "
+        f"pooler's 2 rows padded) bitwise: {exact}")
+    check(fp32_gap <= QUANT_FP32_RTOL, f"(i) (a) fp32 {fp32_gap:.3e}")
+    check(seq_gap <= QUANT_FLIP_SHARE * noise,
+          f"(i) (a) int8 sequence {seq_gap:.3e} against {noise:.3e}")
+    check(flips[first] <= QUANT_FLIP_RATE,
+          f"(i) (a) {flips[first]:.3e} of {first}'s codes differ")
+    check(exact, "(i) (a) int8 weights or accumulators differ")
+    del nets, cpu_layers, want, got, seen
+    _release()
+
+    # (b) int8 against fp32 on the card, the serving batch
+    int8_seq = fwd()[0].float()
+    check(bool(torch.isfinite(int8_seq).all()), "(i) (b) int8 not finite")
+    rel = float((int8_seq - fp32_seq).abs().max() / fp32_seq.abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        int8_seq.reshape(1, -1).double(), fp32_seq.reshape(1, -1).double()))
+    log(f"[quantized] (i) (b) int8 vs fp32 sequence output on the card, "
+        f"B {b} x T {t}: max relative error {rel:.4e} of the largest entry, "
+        f"cosine {cos:.6f}")
+    check(math.isfinite(rel) and math.isfinite(cos), "(i) (b) not finite")
+
+    # (c) the int8 path, eager and hybridized; its launches (d)
+    shapes = [(b * t, 768, 2304), (b * t, 768, 768), (b * t, 768, 3072),
+              (b * t, 3072, 768), (b, 768, 768)]
+    ops = [(torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                          device="cuda"),
+            torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                          device="cuda")) for m, k, n in shapes]
+    int8_names = {e[1] for e in _gpu_trace(
+        lambda: [int8_matmul(a, w) for a, w in ops]) if e[0] == "kernel"}
+    ck.reset_launch_counts()
+    rows["int8 eager"], _ = _quant_run(
+        f"(i) (c) int8 BERT-Base eager forward, B {b} x T {t}", fwd, tokens,
+        5, smi_line, int8_names)
+    net.hybridize()
+    rows["int8 hybridized"], events = _quant_run(
+        f"(i) (c) int8 hybridized (one CUDA graph), B {b} x T {t}", fwd,
+        tokens, 10, smi_line, int8_names)
+    taken = read_counts("quantized")
+    replay = fwd()[0].float()
+    check(torch.equal(replay, int8_seq), "(i) (c) replay != eager")
+    for name_, us in _top_ops(events, 6):
+        log(f"[quantized] (i) (c) top: {us / 1e3 / 3:8.3f} ms a forward  "
+            f"{name_[:100]}")
+    f, i = rows["fp32 hybridized"], rows["int8 hybridized"]
+    log(f"[quantized] (i) (c) hybridized int8 vs fp32: {i['wall']:.3f} / "
+        f"{f['wall']:.3f} ms wall ({f['wall'] / i['wall']:.2f}x), "
+        f"{i['busy']:.3f} / {f['busy']:.3f} ms busy, {i['rate']:.1f} / "
+        f"{f['rate']:.1f} tokens/s, peak {i['peak']:.1f} / {f['peak']:.1f} "
+        f"MiB; eager int8 {rows['int8 eager']['wall']:.3f} / fp32 "
+        f"{rows['fp32 eager']['wall']:.3f} ms; card {smi_line}")
+    a8 = torch.randint(-127, 128, (4096, 768), dtype=torch.int8,
+                       device="cuda")
+    w8 = torch.randint(-127, 128, (3072, 768), dtype=torch.int8,
+                       device="cuda")
+    a32, w32 = a8.float(), w8.float()
+    a16, w16 = a8.bfloat16(), w8.bfloat16()
+    mm = {"torch._int_mm int8": time_ms(lambda: torch._int_mm(a8, w8.t()),
+                                        reps=20, rounds=5),
+          "torch.matmul fp32 (TF32 off)": time_ms(
+              lambda: torch.matmul(a32, w32.t()), reps=20, rounds=5),
+          "torch.matmul bf16": time_ms(lambda: torch.matmul(a16, w16.t()),
+                                       reps=20, rounds=5)}
+    flops = 2 * 4096 * 768 * 3072
+    log("[quantized] (i) (c) (4096, 768) x (768, 3072): " + "; ".join(
+        f"{k} {v:.4f} ms ({flops / v / 1e9:.1f} T ops/s)"
+        for k, v in mm.items()) + f"; card {smi_line}")
+    log(f"[quantized] (i) (d) launches of the port's kernels on the int8 "
+        f"path (eager forwards, the warm call and the capture; replays move "
+        f"no counter): {taken}")
+    check(taken["layer_norm"] > 0, f"(i) (d) no LayerNorm launch: {taken}")
+    del net, serve, ops, a8, w8, a32, w32, a16, w16
+    _release()
+    return taken
+
+
+def _quant_resnet(smi_line):
+    """(ii): ResNet-50 v1 calibrated (naive) and run through the conv
+    route, card against CPU, img/s."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    arrays = resnet_weights(SEED + 19)
+    with mx.cpu():
+        cpu = _resnet_net(arrays)
+    card = _resnet_net(arrays)
+    rs = onp.random.default_rng(SEED + 20)
+    x = rs.standard_normal((QUANT_RESNET_BATCH, 3, QUANT_RESNET_IMAGE,
+                            QUANT_RESNET_IMAGE), dtype="float32")
+    xc = torch.from_numpy(x).cuda()
+
+    def fwd():
+        with torch.no_grad():
+            return card(xc)
+
+    fp32 = _quant_run(f"(ii) fp32 ResNet-50 v1 eager forward, batch "
+                      f"{QUANT_RESNET_BATCH}, {QUANT_RESNET_IMAGE}^2", fwd,
+                      QUANT_RESNET_BATCH, 5, smi_line)[0]
+    small = x[:QUANT_CHECK_BATCH]
+    with torch.no_grad():
+        fp32_card = card(xc[:QUANT_CHECK_BATCH]).cpu().numpy()
+        with mx.cpu():
+            fp32_cpu = cpu(torch.from_numpy(small)).numpy()
+    t0 = time.perf_counter()
+    q.quantize_net(card, calib_data=iter([xc]), calib_mode="naive",
+                   num_calib_batches=1)
+    calib_s = time.perf_counter() - t0
+    with mx.cpu():
+        q.quantize_net(cpu, calib_data=iter([torch.from_numpy(x)]),
+                       calib_mode="naive", num_calib_batches=1)
+    layers, cpu_layers = _quant_layers(card), _quant_layers(cpu)
+    convs = sum(type(m).__name__ == "_QuantizedConvCore"
+                for m in layers.values())
+    gap_s = max(abs(m.act_scale - cpu_layers[p].act_scale) /
+                cpu_layers[p].act_scale for p, m in layers.items())
+    for p, m in cpu_layers.items():
+        m.act_scale = layers[p].act_scale
+    with torch.no_grad(), mx.cpu():
+        want = cpu(torch.from_numpy(small)).numpy()
+    with torch.no_grad():
+        got = card(xc[:QUANT_CHECK_BATCH]).cpu().numpy()
+        int8_full = card(xc)
+    gap, noise = _np_rel(got, want), _np_rel(want, fp32_cpu)
+    fp32_gap = _np_rel(fp32_card, fp32_cpu)
+    check(bool(torch.isfinite(int8_full).all()), "(ii) int8 not finite")
+    int8 = _quant_run(f"(ii) int8 ResNet-50 v1 eager forward (the conv "
+                      f"route), batch {QUANT_RESNET_BATCH}", fwd,
+                      QUANT_RESNET_BATCH, 5, smi_line)[0]
+    log(f"[quantized] (ii) ResNet-50 v1: {convs} convolutions and "
+        f"{len(layers) - convs} Dense to int8 (naive, one batch of "
+        f"{QUANT_RESNET_BATCH}) in {calib_s:.2f} s; scales card vs CPU "
+        f"{gap_s:.3e} (limit {QUANT_SCALE_RTOL}); logits card vs CPU at "
+        f"batch {QUANT_CHECK_BATCH}: fp32 {fp32_gap:.3e} of the largest "
+        f"(limit {QUANT_RESNET_FP32_RTOL}), int8 with the card's scales on "
+        f"both {gap:.3e} against the CPU's own int8 vs fp32 gap "
+        f"{noise:.3e} (limit that gap times {QUANT_FLIP_SHARE}); "
+        f"{int8['rate']:.1f} img/s int8 against {fp32['rate']:.1f} fp32, "
+        f"eager; card {smi_line}")
+    check(len(layers) == 54 and convs == 53, f"(ii) layers {len(layers)}")
+    check(gap_s <= QUANT_SCALE_RTOL, f"(ii) scales {gap_s:.3e}")
+    check(fp32_gap <= QUANT_RESNET_FP32_RTOL, f"(ii) fp32 {fp32_gap:.3e}")
+    check(gap <= QUANT_FLIP_SHARE * noise,
+          f"(ii) int8 logits {gap:.3e} against {noise:.3e}")
+    del card, cpu, xc, int8_full
+    _release()
+
+
+def _quant_sweep(smi_line):
+    """(iii) every name card against CPU, then the heavy ones at model
+    sizes: integer outputs bitwise, with their ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.registry import get_op
+
+    qc = _tests_script("torch_quantized_cases")
+    failed = {}
+    for name in sorted(qc.ALL):
+        try:
+            qc.check_card(name)
+        except Exception as e:  # noqa: BLE001 — a failed name, reported
+            failed[name] = repr(e)[:200]
+    log(f"[quantized] (iii) {len(qc.ALL)} names "
+        f"({len(qc.ALL) - len(qc.CONTRIB)} of quantized_ops, "
+        f"{len(qc.CONTRIB)} of contrib.quantization) card vs CPU: "
+        f"{len(qc.ALL) - len(failed)} held; failed: {failed or 'none'}; "
+        f"card {smi_line}")
+    check(not failed, f"(iii) names failed: {sorted(failed)}")
+
+    rng = onp.random.default_rng(SEED + 21)
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape,
+                                             dtype="int8"))
+
+    rng_t = [torch.tensor(v, dtype=torch.float32)
+             for v in (-2.0, 1.5, -0.3, 0.31)]
+    xs, ws = QUANT_CONV
+    qx, qw = i8(*xs), i8(*ws)
+    conv = get_op("quantized_conv").fn(kernel=(3, 3), pad=(1, 1),
+                                       num_filter=ws[0])
+    card_in = [qx.cuda(), qw.cuda()] + [v.cuda() for v in rng_t]
+    same = torch.equal(conv(*card_in)[0].cpu(), conv(qx, qw, *rng_t)[0])
+    ms = time_ms(lambda: conv(*card_in), reps=5, rounds=3)
+    xf, wf = card_in[0].float(), card_in[1].float()
+    lib = time_ms(lambda: F.conv2d(xf, wf, padding=1), reps=5, rounds=3)
+    flops = 2 * xs[0] * xs[2] * xs[3] * ws[0] * ws[1] * 9
+    log(f"[quantized] (iii) quantized_conv {xs} x {ws} pad 1 (im2col of "
+        f"the codes, one torch._int_mm): card == CPU bitwise {same}, "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} T ops/s) beside F.conv2d fp32 "
+        f"(TF32 off) on the same values {lib:.3f} ms; card {smi_line}")
+    check(same, "(iii) quantized_conv card != CPU")
+    (m_, k_), (n_, _) = QUANT_FFN
+    qa, qb = i8(m_, k_), i8(n_, k_)
+    fc = get_op("quantized_fully_connected_v2").fn(no_bias=True,
+                                                   num_hidden=n_)
+    ig = get_op("intgemm_fully_connected").fn(no_bias=True)
+    scale = torch.tensor(3e-4)
+    rows = []
+    for tag, f, args in (("quantized_fully_connected_v2", fc,
+                          [qa, qb] + rng_t),
+                         ("intgemm_fully_connected", ig, [qa, qb, scale])):
+        card_args = [a.cuda() for a in args]
+        got, want = f(*card_args), f(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        ms = time_ms(lambda: f(*card_args), reps=10, rounds=3)
+        rows.append(f"{tag} card == CPU bitwise {same}, {ms:.4f} ms "
+                    f"({2 * m_ * k_ * n_ / ms / 1e9:.1f} T ops/s)")
+        check(same, f"(iii) {tag} card != CPU")
+    log(f"[quantized] (iii) at BERT-Base's FFN ({m_}, {k_}) x ({n_}, {k_}): "
+        + "; ".join(rows) + f"; card {smi_line}")
+    _release()
+
+
+def phase_quantized(smi_line):
+    """Phase 19: A9 (b)'s quantized tier (see the module docstring).
+    Returns the path's launch counts: the int8 BERT-Base's forwards."""
+    t_phase = time.perf_counter()
+    _release()
+    t0 = time.perf_counter()
+    taken = _quant_bert(smi_line)
+    log(f"[quantized] (i) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _quant_resnet(smi_line)
+    log(f"[quantized] (ii) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _quant_sweep(smi_line)
+    log(f"[quantized] (iii) took {time.perf_counter() - t0:.1f} s")
+    took = time.perf_counter() - t_phase
+    log(f"[quantized] phase took {took:.1f} s (limit {QUANT_LIMIT_S})")
+    check(took <= QUANT_LIMIT_S, f"phase 19 took {took:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
@@ -9244,7 +9743,7 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "optim": phase_optim, "data": phase_data,
            "sparse": phase_sparse, "vision": phase_vision,
            "rnn": phase_rnn, "legacy": phase_legacy,
-           "interleaved": phase_interleaved}
+           "interleaved": phase_interleaved, "quantized": phase_quantized}
 
 
 # ---------------------------------------------------------------------------
@@ -9317,6 +9816,7 @@ def main():
         phase_rnn(smi_line)
         phase_legacy(smi_line)
         phase_interleaved(smi_line)
+        phase_quantized(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -9344,6 +9844,7 @@ def main():
         row["rnn"] = by_path.get("rnn", 0)
         row["legacy"] = by_path.get("legacy", 0)
         row["interleaved"] = by_path.get("interleaved", 0)
+        row["quantized"] = by_path.get("quantized", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -9357,6 +9858,7 @@ def main():
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
     rtc_row["rnn"] = rtc_row["legacy"] = rtc_row["interleaved"] = 0
+    rtc_row["quantized"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,6 +48,13 @@ arrays of ``mx.nd.sparse`` (CSR and row-sparse, on the device; ``sparse.dot``
 and the optimizers' lazy row-sparse updates) are the reference's, as are
 the sequence, detection, ROI and resize ops of ``mx.npx``, the transposed
 convolutions and ``npx.foreach`` / ``while_loop`` / ``cond``.
+
+Int8 inference after training is ``mx.contrib.quantization``'s:
+``quantize_net`` calibrates a trained net (absmax or KL entropy) and swaps
+its ``Dense`` layers for int8 x int8 -> int32 products (cuBLASLt's int8
+GEMM on the card) and its 2-D convolutions for the reference's quantized
+route; the registry holds the reference's quantized op family and the
+intgemm protocol (:mod:`mxnet_tpu_torch.ops.quantized_ops`).
 """
 from . import (amp, attribute, autograd, base, callback, context, convert,
                engine, executor, gluon, initializer, io, lr_scheduler, metric,
@@ -57,6 +64,7 @@ from . import (amp, attribute, autograd, base, callback, context, convert,
 from . import numpy as np
 from . import numpy_extension as npx
 from . import nd
+from . import contrib
 from .attribute import AttrScope
 from .base import MXNetError
 from .name import NameManager
@@ -81,7 +89,7 @@ __all__ = ["MXNetError", "Context", "Device", "NDArray", "array", "cpu",
            "telemetry", "train_step", "tune", "sym", "symbol", "Symbol",
            "var", "executor", "subgraph", "attribute", "name", "AttrScope",
            "NameManager", "visualization", "viz", "metric", "callback",
-           "model", "io"]
+           "model", "io", "contrib"]
 
 
 def waitall():
@@ -89,4 +97,5 @@ def waitall():
 
 
 # the reference's alias names of ops that subpackages registered after ops
+# (contrib.quantization's quantize and dequantize)
 ops.aliases._register_all()

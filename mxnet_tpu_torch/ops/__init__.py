@@ -11,12 +11,15 @@ resize ops (:mod:`.vision`), the warping and deformable ops
 (:mod:`.warp_ops`) and the fused recurrent op ``rnn`` (:mod:`.rnn`). The
 legacy tensor tier: the scalar, creation, slice and legacy NN ops
 (:mod:`.legacy_elemwise`), the ``linalg_*`` family (:mod:`.linalg_legacy`)
-and the dynamic-shape and contrib ops (:mod:`.npi_manip`). They register
-in the reference's order (``mxnet_tpu/ops/__init__.py``); its alias table
+and the dynamic-shape and contrib ops (:mod:`.npi_manip`); the quantized
+int8 family and the intgemm protocol (:mod:`.quantized_ops`, integer
+products on cuBLASLt's int8 GEMM on the card). They register in the
+reference's order (``mxnet_tpu/ops/__init__.py``); its alias table
 (:mod:`.aliases`) registers its names last."""
 from . import registry  # noqa: I001 — the registry first: the ops register in it
 from . import _core, nn, indexing, rnn, vision, extra, linalg_legacy
-from . import optimizer_ops, legacy_elemwise, random_ops, npi_manip
+from . import optimizer_ops, legacy_elemwise, random_ops, quantized_ops
+from . import npi_manip
 from . import cuda_kernels, warp_ops
 from . import aliases as _aliases
 from .registry import apply_op, get_op, invoke, list_ops, register
@@ -24,6 +27,6 @@ from .registry import apply_op, get_op, invoke, list_ops, register
 _aliases._register_all()
 
 __all__ = ["registry", "cuda_kernels", "extra", "indexing", "legacy_elemwise",
-           "linalg_legacy", "nn", "npi_manip", "optimizer_ops", "random_ops",
-           "rnn", "vision", "warp_ops",
+           "linalg_legacy", "nn", "npi_manip", "optimizer_ops", "quantized_ops",
+           "random_ops", "rnn", "vision", "warp_ops",
            "apply_op", "get_op", "invoke", "list_ops", "register"]

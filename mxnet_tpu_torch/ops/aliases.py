@@ -5,10 +5,11 @@ entry, and the same rule. The reference names a kernel several ways at once
 (a CamelCase legacy name such as ``RNN`` or ``Cast``, ``_npi_``/``_npx_``
 numpy-internal names, ``_contrib_`` names); each entry here is a true rename
 whose attributes are the target op's. An alias is registered only where its
-target exists and the alias itself is not yet a name of the registry, so the
-entries whose targets the port lacks (ROADMAP A9 (b)) wait for those ops;
+target exists and the alias itself is not yet a name of the registry;
 :func:`_register_all` runs at the end of the ops' import and again at the
-end of the package's, as the reference's does.
+end of the package's, as the reference's does, for the targets that
+``contrib.quantization`` registers in between (``_contrib_quantize``,
+``_contrib_dequantize``).
 """
 from .registry import register_alias
 

@@ -63,15 +63,15 @@ def _reference_names(module):
 def test_names_are_the_references():
     """The table holds exactly the reference's ``extra`` names that earlier
     slices left (its own and their aliases), 29; the port now registers
-    every name of the module, and the alias table 214 of its 217
-    entries."""
+    every name of the module, and the alias table all 217 of its entries
+    (the last three since the quantized tier)."""
     names = _reference_names("extra")
     assert set(ec.EXTRA) == names - EARLIER, sorted(set(ec.EXTRA) ^
                                                     (names - EARLIER))
     assert len(ec.EXTRA) == 29 and EARLIER <= names
     assert names <= set(treg.list_ops())
     have = [a for a in taliases.ALIASES if a in treg._OPS]
-    assert len(have) == 214 and len(taliases.ALIASES) == 217
+    assert len(have) == 217 and len(taliases.ALIASES) == 217
 
 
 def test_cases_follow_the_sweep():
