@@ -577,11 +577,47 @@ Phases (any failure exits non-zero without the final line):
              ``quantized_fully_connected_v2`` and ``intgemm_fully_connected``
              at BERT-Base's FFN (4096, 768) x (3072, 768), bitwise. The
              phase's seconds are checked against a limit.
+20. image — A10 (3)'s image pipeline and ``ops/graph_image_ops.py``: (i)
+             1,280 seeded photo-like JPEGs (300-499 px a side, quality 95,
+             labels in [0, 1000)) packed by the port's ``recordio`` into an
+             indexed ``.rec`` (tests/torch_image_cases.py), read by
+             ``io.ImageRecordIter`` at MXNet's ImageNet recipe (224 crops of
+             the shorter edge resized to 256, random crop and mirror, the
+             ImageNet mean and std, batch 128, shuffled): img/s of the
+             iterator alone at 1, 4 and 8 decode threads beside the host's
+             cores, batches of 1 and 8 threads bitwise equal, one image's
+             stages on one thread (the draws, PIL's decode, the whole
+             decode and augmentation), a batch landed on the card equal to
+             the host's; then ResNet-50 v1 (full width and depth, weights
+             from a numpy seed) through phase 7's AMP ``compile_step``, 8
+             steps fed by the iterator (at the thread count that read
+             fastest) and the same 8 on pre-staged batches: step wall, device busy, idle share,
+             img/s and peak memory of each, losses finite, one capture;
+             (ii) 256 VOC-sized (500 x 375) JPEGs with 1-6 boxes in the
+             reference's detection label layout, read through
+             ``ImageRecordDataset`` and GluonCV's SSD training transform as
+             ``gluon.contrib.data.vision`` blocks (expand, crop with
+             constraints, flip, resize 300) by ``ImageBboxDataLoader``
+             (batch 32, 4 spawned workers, Python's ``random`` seeded a
+             sample): the pool's start seconds and batches/s, the workers'
+             first batch equal to a serial loader's, and 4 steps of phase
+             15's hybridized ``ssd_300_mobilenet(20)`` fed by it with each
+             step's wall, busy and idle share; (iii) the 40 names card
+             against CPU: ``sldwin_atten_score`` -> ``_context`` forward and
+             backward at (1, 512, 12, 64), w 128, dilations 1-4 by head,
+             symmetric and causal, within 1e-5; their ms and peak memory at
+             Longformer-base's (1, 4096, 12, 64), w 256, beside a dense
+             masked ``torch.matmul`` attention's ms (a reference point, not
+             a bound); the DGL ops on a seeded CSR of 20,000 vertices and
+             200,000 edges (the adjacency of a 2,000-vertex subgraph) and the
+             image and cv ops on a 500 x 375 image, bitwise. No port kernel
+             lies on the path: the launch counters stay 0. The phase's
+             seconds are checked against a limit.
 
 ``python3 chip_smoke.py kernels bert_pretrain`` (or any of ``kernels``,
 ``resnet``, ``predictor``, ``bert_pretrain``, ``graph``, ``script``,
 ``optim``, ``data``, ``sparse``, ``vision``, ``rnn``, ``legacy``,
-``interleaved``, ``quantized``; ``script`` runs phase 4 first, for its weights,
+``interleaved``, ``quantized``, ``image``; ``script`` runs phase 4 first, for its weights,
 batches and losses, and ``optim`` phase 9's AdamW Large bench) runs the
 build and the named phases only, and prints no result line. The lines before the last give the card's name and
 power limit and a JSON object of every kernel's numbers with its launches on
@@ -603,7 +639,8 @@ the row's ``legacy`` key), interleaved (phase 18 (i) (b)'s steps: the
 LayerNorm kernel; also the row's ``interleaved`` key), quantized (phase 19
 (i)'s int8 BERT-Base forwards, eager, and the hybridized warm call and
 capture: the flash forward and LayerNorm kernels; also the row's
-``quantized`` key); a row
+``quantized`` key), image (phase 20 (i) and (ii)'s training: no port kernel
+on it; also the row's ``image`` key); a row
 counts the launches of its dtype instance: fp32 x, or bf16 x for a ``:bf16``
 row); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -9734,6 +9771,491 @@ def phase_quantized(smi_line):
     return taken
 
 
+# ---------------------------------------------------------------------------
+# phase 20: image — A10 (3)'s image pipeline and graph_image_ops.py
+# ---------------------------------------------------------------------------
+IMAGE_NET = dict(records=1280, side=(300, 500), classes=1000)  # (i) JPEGs
+IMAGE_ITER = dict(data_shape=(3, 224, 224), batch_size=128, resize=256,
+                  rand_crop=True, rand_mirror=True, shuffle=True,
+                  mean_r=123.68, mean_g=116.779, mean_b=103.939,
+                  std_r=58.393, std_g=57.12, std_b=57.375, seed=SEED)
+IMAGE_THREADS = (1, 4, 8)     # (i) preprocess_threads timed
+IMAGE_RATE_BATCHES = 3        # (i) batches an iterator rate
+IMAGE_STEPS = 8               # (i) fed and pre-staged ResNet-50 steps
+IMAGE_DET = dict(records=256, size=(500, 375), boxes=(1, 6), classes=20,
+                 batch=32, workers=4, steps=4)   # (ii) VOC-sized detection
+IMAGE_BAND = dict(B=1, L=512, H=12, D=64, w=128)  # (iii) card vs CPU
+IMAGE_BAND_RTOL = 1e-5
+IMAGE_LONGFORMER = dict(B=1, L=4096, H=12, D=64, w=256)  # attention_window 512
+IMAGE_GRAPH = dict(vertices=20000, edges=200000, adjacency=2000, pairs=1000)
+IMAGE_LIMIT_S = 90.0          # the phase's seconds, the build excluded
+
+
+def _image_rates(smi_line, path):
+    """(i) The iterator alone on the host at each thread count: img/s, the
+    batches of 1 and 8 threads (the same seed) held equal, and one image's
+    stages on one thread. Returns the first batch of 8 threads and the
+    thread count that read fastest."""
+    import mxnet_tpu_torch as mx
+
+    cores = len(os.sched_getaffinity(0))
+    kept, rates, secs_of = {}, [], {}
+    with mx.cpu():
+        for threads in IMAGE_THREADS:
+            it = mx.io.ImageRecordIter(path, preprocess_threads=threads,
+                                       **IMAGE_ITER)
+            t = time.perf_counter()
+            got = [next(it).data[0].asnumpy()
+                   for _ in range(IMAGE_RATE_BATCHES)]
+            secs = secs_of[threads] = time.perf_counter() - t
+            rates.append(f"{threads} threads "
+                         f"{len(got) * IMAGE_ITER['batch_size'] / secs:.1f}")
+            kept[threads] = got
+            del it
+    log(f"[image] (i) ImageRecordIter alone (decode, resize 256, random "
+        f"crop 224, mirror, normalize; {IMAGE_RATE_BATCHES} batches of "
+        f"{IMAGE_ITER['batch_size']} a rate): img/s " + ", ".join(rates)
+        + f"; host cores {os.cpu_count()} ({cores} usable); card "
+        f"{smi_line}")
+    same = all(onp.array_equal(a, b) for a, b in zip(kept[1], kept[8]))
+    log(f"[image] (i) batches at 1 and 8 threads bitwise equal: {same}")
+    check(same, "(i) ImageRecordIter batches differ between 1 and 8 threads")
+    # where one image's time goes, on one thread: the iterator's own steps
+    from mxnet_tpu_torch.recordio import MXIndexedRecordIO, unpack_img
+
+    rec = MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx", path, "r")
+    payloads = [rec.read_idx(k)
+                for k in rec.keys[:IMAGE_ITER["batch_size"]]]
+    rec.close()
+    with mx.cpu():
+        it = mx.io.ImageRecordIter(path, preprocess_threads=1, **IMAGE_ITER)
+    stages = {"draws (caller's thread)": lambda p: it._draws(p),
+              "decode (PIL)": unpack_img,
+              "decode, resize, crop, mirror, normalize":
+              lambda p: it._decode_one(p, 0, 0, True)}
+    per = {}
+    for name, fn in stages.items():
+        t = time.perf_counter()
+        for p in payloads:
+            fn(p)
+        per[name] = (time.perf_counter() - t) * 1e3 / len(payloads)
+    del it
+    log("[image] (i) one image on one thread, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per.items()))
+    best = max(IMAGE_THREADS, key=lambda n: len(kept[n]) / secs_of[n])
+    return kept[8][0], best
+
+
+def _image_resnet(smi_line, path, host_first, arrays, threads):
+    """(i) ResNet-50 v1 (weights ``arrays``) through the AMP
+    ``compile_step``, fed by the iterator (``threads`` decode threads) and
+    on pre-staged batches."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, optimizer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    batch = IMAGE_ITER["batch_size"]
+    it = mx.io.ImageRecordIter(path, preprocess_threads=8, **IMAGE_ITER)
+    first = next(it)
+    check(first.data[0]._data.device.type == torch.device(DEV).type,
+          "(i) batch not on the card")
+    same = onp.array_equal(first.data[0].asnumpy(), host_first)
+    log(f"[image] (i) the iterator's first batch on the card equals the "
+        f"host's bitwise: {same}; the fed run reads with {threads} threads, "
+        f"the fastest above")
+    check(same, "(i) a landed batch differs from the host's")
+    del it
+    it = mx.io.ImageRecordIter(path, preprocess_threads=threads,
+                               **IMAGE_ITER)
+    first = next(it)
+    amp.init("bfloat16")
+    try:
+        net = _resnet_net(arrays)
+        trainer = gluon.Trainer(net.collect_params(), optimizer.SGD(
+            learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM))
+        step = trainer.compile_step(net, SoftmaxCrossEntropyLoss())
+        t = time.perf_counter()
+        for _ in range(2):   # the warm step and the capture
+            step(first.data[0], first.label[0])
+        torch.cuda.synchronize()
+        log(f"[image] (i) warm step and capture {time.perf_counter() - t:.1f}"
+            f" s")
+
+        def fed():
+            """IMAGE_STEPS steps, each on the iterator's next batch."""
+            out = []
+            for _ in range(IMAGE_STEPS):
+                b = next(it)
+                out.append((b, step(b.data[0], b.label[0])))
+            return out
+
+        def staged():
+            """The same steps on the fed run's batches, already on the
+            card."""
+            return [(b, step(b.data[0], b.label[0])) for b in batches]
+
+        runs = {}
+        for tag, run in (("fed", fed), ("pre-staged", staged)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / IMAGE_STEPS
+            peak = torch.cuda.max_memory_allocated()
+            if tag == "fed":
+                batches = [b for b, _ in res]
+                it.reset()
+                next(it)     # the traced run takes the same place an epoch
+            busy = _busy_us(_gpu_trace(run)) / 1e3 / IMAGE_STEPS
+            runs[tag] = (wall, busy, [v for _, v in res], peak)
+        for tag, (wall, busy, losses, peak) in runs.items():
+            vals = [float(v.asnumpy()) for v in losses]
+            log(f"[image] (i) ResNet-50 v1 AMP compile_step, {tag} "
+                f"({IMAGE_STEPS} steps of {batch}): step wall {wall:.2f} ms,"
+                f" device busy {busy:.2f} ms, idle share "
+                f"{max(0.0, 1 - busy / wall):.3f}, "
+                f"{batch / wall * 1e3:.1f} img/s, peak "
+                f"{peak / 2**20:.0f} MiB; losses "
+                + " ".join(f"{v:.4f}" for v in vals) + f"; card {smi_line}")
+            check(all(math.isfinite(v) for v in vals), f"(i) {tag} loss")
+        log(f"[image] (i) captures {step._traces}")
+        check(step._traces == 1, "(i) a capture after the warm step")
+    finally:
+        amp.disable()
+    del it, step, trainer, net, batches, first, runs
+    _release()
+
+
+def _image_detection(smi_line, loader, serial, pool_s, pool_t0):
+    """(ii) SSD-300 trained from ``ImageBboxDataLoader``'s workers, whose
+    pool was started at ``pool_t0`` (``pool_s`` seconds to start)."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    cfg = IMAGE_DET
+    t = time.perf_counter()
+    batches = iter(loader)
+    first = next(batches)
+    start_s = time.perf_counter() - t
+    ready_s = time.perf_counter() - pool_t0
+    t = time.perf_counter()
+    got = [first] + list(batches)
+    rate = (len(got) - 1) / (time.perf_counter() - t)
+    log(f"[image] (ii) ImageBboxDataLoader ({cfg['workers']} spawned "
+        f"workers; expand, crop with constraints, flip, resize 300): pool "
+        f"start {pool_s:.2f} s, first batch {ready_s:.2f} s after it (its "
+        f"wait here {start_s:.2f} s, (i) ran between), then {rate:.2f} "
+        f"batches/s "
+        f"({rate * cfg['batch']:.1f} img/s); {len(got)} batches, boxes "
+        f"{[tuple(b[1].shape) for b in got[:3]]}...; card {smi_line}")
+    with mx.cpu():
+        want = next(iter(serial))
+    same = onp.array_equal(got[0][1].asnumpy(), want[1].asnumpy()) and \
+        onp.array_equal(got[0][0].asnumpy(), want[0].asnumpy())
+    log(f"[image] (ii) the workers' first batch (images and boxes) equals "
+        f"the serial loader's bitwise: {same}")
+    check(same, "(ii) worker batch differs from the serial loader's")
+
+    def inputs(b):
+        x = b[0]._data.permute(0, 3, 1, 2).float().div(255.0).contiguous()
+        box = b[1]._data
+        lab = torch.cat([box[..., 4:5], box[..., :4] / 300.0], -1)
+        lab = torch.where(box[..., 4:5] < 0, torch.full_like(lab, -1.0), lab)
+        return NDArray(x), NDArray(lab)
+
+    with mx.gpu():
+        net = vision.ssd_300_mobilenet(num_classes=cfg["classes"])
+        net.initialize(seed=SEED + 22)
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": VISION_SSD["lr"],
+                        "momentum": VISION_SSD["momentum"]})
+
+    def step(b):
+        x, lab = inputs(b)
+        with autograd.record():
+            loss, _ = _ssd_loss(net, x, lab)
+        loss.backward()
+        tr.step(cfg["batch"])
+        return loss
+
+    for b in got[:2]:    # the warm call and the capture
+        step(b)
+    rows = []
+    for i, b in enumerate(got[1:1 + cfg["steps"]]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        busy = _busy_us(_gpu_trace(lambda: step(b))) / 1e3
+        val = float(loss.asnumpy())
+        check(math.isfinite(val), f"(ii) step {i} loss {val}")
+        rows.append(f"step {i + 1}: wall {wall:.2f} ms, busy {busy:.2f} ms, "
+                    f"idle {max(0.0, 1 - busy / wall):.3f}, loss {val:.4f}")
+    log("[image] (ii) hybridized ssd_300_mobilenet(20) fed by the loader: "
+        + "; ".join(rows) + f"; card {smi_line}")
+    del net, tr, got, first
+    _release()
+
+
+def _band_case(fn_s, fn_c, q, k, v, dil, g_s, g_c):
+    """Score, context and the gradients of q, k, v through both ops."""
+    import torch
+
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    s = fn_s(qq, kk, dil)
+    c = fn_c(s, vv, dil)
+    torch.autograd.backward([s, c], [g_s, g_c])
+    return [s.detach(), c.detach(), qq.grad, kk.grad, vv.grad]
+
+
+def _image_ops(smi_line):
+    """(iii) The 40 names on the card against the CPU, and sldwin's times
+    at Longformer-base's shape."""
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry as reg
+
+    rng = onp.random.RandomState(SEED + 23)
+    cfg = IMAGE_BAND
+    B, L, H, D, w = (cfg[k] for k in ("B", "L", "H", "D", "w"))
+    dil = onp.tile(onp.arange(1, 5), H // 4).astype("int32")
+    errs = []
+    for sym in (True, False):
+        W = 2 * w + 1 if sym else w + 1
+        host = [torch.from_numpy(rng.randn(*s).astype("float32")) for s in
+                ((B, L, H, D),) * 3 + ((B, L, H, W), (B, L, H, D))]
+        fs = reg.get_op("sldwin_atten_score").fn(w=w, symmetric=sym)
+        fc = reg.get_op("sldwin_atten_context").fn(w=w, symmetric=sym)
+        want = _band_case(fs, fc, *host[:3], torch.from_numpy(dil),
+                          *host[3:])
+        got = _band_case(fs, fc, *(t.to(DEV) for t in host[:3]),
+                         torch.from_numpy(dil).to(DEV),
+                         *(t.to(DEV) for t in host[3:]))
+        for name, g, wv in zip(("score", "context", "dq", "dk", "dv"), got,
+                               want):
+            errs.append((f"{'symmetric' if sym else 'causal'} {name}",
+                         _max_rel(g, wv)))
+    worst = max(e for _, e in errs)
+    log(f"[image] (iii) sldwin score -> context forward and backward at "
+        f"(B {B}, L {L}, H {H}, D {D}, w {w}), dilations {dil.tolist()}, "
+        f"card vs CPU max |diff| / largest: "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs)
+        + f" (limit {IMAGE_BAND_RTOL})")
+    check(worst <= IMAGE_BAND_RTOL, f"(iii) sldwin card vs CPU {worst:.2e}")
+
+    cfg = IMAGE_LONGFORMER
+    B, L, H, D, w = (cfg[k] for k in ("B", "L", "H", "D", "w"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 24)
+    q, k, v = (torch.randn((B, L, H, D), generator=gen, device=DEV)
+               for _ in range(3))
+    dil1 = torch.ones(H, dtype=torch.int32, device=DEV)
+    fs = reg.get_op("sldwin_atten_score").fn(w=w, symmetric=True)
+    fc = reg.get_op("sldwin_atten_context").fn(w=w, symmetric=True)
+    scale = 1.0 / math.sqrt(D)
+    mask = reg.get_op("sldwin_atten_mask_like").fn(w=w, symmetric=True)(
+        fs(q, k, dil1), dil1, torch.full((B,), L, device=DEV))
+
+    def forward(q=q, k=k, v=v):
+        s = fs(q, k, dil1) * scale
+        p = torch.softmax(s.masked_fill(mask == 0, float("-inf")), -1)
+        return fc(p, v, dil1)
+
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    g = torch.randn((B, L, H, D), generator=gen, device=DEV)
+
+    def both():
+        out = forward(qq, kk, vv)
+        out.backward(g)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fwd_ms = time_ms(forward, reps=3, rounds=3)
+    fwd_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    both_ms = time_ms(both, reps=3, rounds=3)
+    both_peak = torch.cuda.max_memory_allocated() - base
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(L, device=DEV)
+    band = (pos[:, None] - pos[None, :]).abs() <= w
+
+    def dense():
+        s = (qt @ kt.transpose(-1, -2)) * scale
+        return torch.softmax(s.masked_fill(~band, float("-inf")), -1) @ vt
+
+    dense_ms = time_ms(dense, reps=3, rounds=3)
+    err = _max_rel(dense().transpose(1, 2), forward())
+    log(f"[image] (iii) sldwin attention (score, band softmax, context) at "
+        f"Longformer-base's (B {B}, L {L}, H {H}, D {D}), w {w}, dilation "
+        f"1, fp32: forward {fwd_ms:.3f} ms, forward and backward "
+        f"{both_ms:.3f} ms, peak above the operands {fwd_peak / 2**20:.0f} / "
+        f"{both_peak / 2**20:.0f} MiB (the reference's whole-band gather "
+        f"would be {B * H * L * (2 * w + 1) * D * 4 / 2**30:.2f} GiB); a "
+        f"dense masked torch.matmul attention at the same shape, a reference"
+        f" point and not a bound: {dense_ms:.3f} ms (outputs "
+        f"{err:.2e} apart); card {smi_line}")
+    check(err <= 1e-4, f"(iii) band attention vs dense {err:.2e}")
+    del q, k, v, qq, kk, vv, g, mask, qt, kt, vt, band
+    _release()
+
+    # the DGL ops on a seeded CSR
+    cfg = IMAGE_GRAPH
+    n, e = cfg["vertices"], cfg["edges"]
+    deg = rng.multinomial(e, onp.ones(n) / n)
+    indptr = onp.concatenate([[0], onp.cumsum(deg)]).astype("int64")
+    indices = rng.randint(0, n, e).astype("int64")
+    vids = rng.choice(n, cfg["adjacency"], replace=False).astype("int64")
+    sub = reg.get_op("dgl_subgraph").fn()(torch.from_numpy(indptr),
+                                          torch.from_numpy(indices),
+                                          torch.from_numpy(vids))
+    cases = [
+        ("dgl_subgraph", {"return_mapping": True}, [indptr, indices, vids]),
+        ("dgl_adjacency", {}, [sub[0].numpy(), sub[1].numpy()]),
+        ("dgl_graph_compact", {}, [indptr, indices, onp.concatenate(
+            [vids[:500], -onp.ones(12, "int64")])]),
+        ("edge_id", {}, [indptr, indices,
+                         rng.randint(0, n, cfg["pairs"]),
+                         indices[rng.randint(0, e, cfg["pairs"])]]),
+        ("dgl_csr_neighbor_uniform_sample",
+         dict(num_hops=2, num_neighbor=5, max_num_vertices=2000),
+         [indptr, indices, vids[:64]]),
+        ("dgl_csr_neighbor_non_uniform_sample",
+         dict(num_hops=2, num_neighbor=5, max_num_vertices=2000),
+         [indptr, indices, rng.rand(n).astype("float32"), vids[:64]]),
+        ("getnnz", {"axis": 0}, [(indices.reshape(-1, 100) % 7)]),
+    ]
+    img = rng.randint(0, 256, (375, 500, 3)).astype("uint8")
+    import io as _pyio
+
+    from PIL import Image
+
+    buf = _pyio.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=95)
+    cases += [
+        ("image_to_tensor", {}, [img]),
+        ("image_normalize", {"mean": (0.485, 0.456, 0.406),
+                             "std": (0.229, 0.224, 0.225)},
+         [(img.transpose(2, 0, 1) / 255.0).astype("float32")]),
+        ("image_resize", {"size": (300, 300)}, [img]),
+        ("image_resize", {"size": 256, "keep_ratio": True}, [img]),
+        ("image_crop", {"x": 10, "y": 20, "width": 224, "height": 200},
+         [img]),
+        ("image_random_crop", {"size": (224, 224)}, [img]),
+        ("image_random_resized_crop", {"size": 224}, [img]),
+        ("cvimresize", {"w": 320, "h": 240}, [img]),
+        ("cvcopyMakeBorder", {"top": 4, "bot": 4, "left": 8, "right": 8,
+                              "value": 127.0}, [img]),
+        ("cvimdecode", {}, [onp.frombuffer(buf.getvalue(), "uint8")]),
+    ]
+    rows = []
+    for name, attrs, arrays in cases:
+        fn = reg.get_op(name).fn(**attrs)
+        outs, ms = [], None
+        for dev in ("cpu", DEV):
+            mx.random.seed(SEED + 25)
+            args = [torch.from_numpy(onp.array(a)).to(dev) for a in arrays]
+            t = time.perf_counter()
+            got = fn(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            check(all(o.device.type == torch.device(dev).type for o in got),
+                  f"(iii) {name} output off its operands' device")
+            outs.append([o.cpu() for o in got])
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        rows.append(f"{name} {'bitwise' if same else 'DIFFERS'} "
+                    f"({ms:.2f} ms)")
+        check(same, f"(iii) {name} card != CPU")
+    log(f"[image] (iii) DGL ops on a seeded CSR of {n} vertices and {e} "
+        f"edges (adjacency of the {cfg['adjacency']}-vertex subgraph), "
+        f"getnnz, and the image and cv ops on a 500 x 375 image, card "
+        f"against CPU (the card's wall ms, eager host ops included): "
+        + "; ".join(rows))
+    _release()
+
+
+def phase_image(smi_line):
+    """Phase 20: A10 (3)'s image pipeline and ``ops/graph_image_ops.py``
+    (see the module docstring). Returns the path's launch counts: (i)'s and
+    (ii)'s training, no port kernel on it."""
+    import tempfile
+
+    from mxnet_tpu_torch.gluon.contrib.data import vision as cv
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    ic = _tests_script("torch_image_cases")
+    t_phase = time.perf_counter()
+    _release()
+    with tempfile.TemporaryDirectory(prefix="image-") as where:
+        t = time.perf_counter()
+        det = ic.pack_detection(os.path.join(where, "voc"),
+                                IMAGE_DET["records"], SEED + 21,
+                                size=IMAGE_DET["size"],
+                                boxes=IMAGE_DET["boxes"],
+                                classes=IMAGE_DET["classes"])
+        det_s = time.perf_counter() - t
+        dataset = ic.SeededDetection(ImageRecordDataset(det), SEED + 21)
+        blocks = [cv.ImageBboxRandomExpand(fill=(124, 116, 104)),
+                  cv.ImageBboxRandomCropWithConstraints(),
+                  cv.ImageBboxRandomFlipLeftRight(),
+                  cv.ImageBboxResize(300, 300)]
+        loader = cv.ImageBboxDataLoader(
+            dataset, IMAGE_DET["batch"], bbox_transforms=blocks,
+            num_workers=IMAGE_DET["workers"], last_batch="discard")
+        serial = cv.ImageBboxDataLoader(
+            dataset, IMAGE_DET["batch"], bbox_transforms=blocks,
+            last_batch="discard")
+        pool_t0 = time.perf_counter()
+        loader._ensure_pool()   # the workers import torch meanwhile
+        pool_s = time.perf_counter() - pool_t0
+        t = time.perf_counter()
+        rec = ic.pack_classification(os.path.join(where, "imagenet"),
+                                     IMAGE_NET["records"], SEED + 20,
+                                     side=IMAGE_NET["side"],
+                                     classes=IMAGE_NET["classes"])
+        log(f"[image] packed {IMAGE_NET['records']} JPEGs of "
+            f"{IMAGE_NET['side'][0]}-{IMAGE_NET['side'][1] - 1} px a side "
+            f"(quality 95, {os.path.getsize(rec) / 2**20:.1f} MiB) in "
+            f"{time.perf_counter() - t:.2f} s and {IMAGE_DET['records']} "
+            f"VOC-sized ones ({os.path.getsize(det) / 2**20:.1f} MiB) in "
+            f"{det_s:.2f} s, 8 threads")
+        arrays = resnet_weights(SEED + 20)
+        # (iii) first: the loader's workers finish their imports meanwhile,
+        # and leave the host's cores to (i)'s timings
+        t = time.perf_counter()
+        _image_ops(smi_line)
+        log(f"[image] (iii) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        host_first, threads = _image_rates(smi_line, rec)
+        ck.reset_launch_counts()
+        _image_resnet(smi_line, rec, host_first, arrays, threads)
+        del arrays
+        log(f"[image] (i) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        _image_detection(smi_line, loader, serial, pool_s, pool_t0)
+        taken = read_counts("image")
+        log(f"[image] (ii) took {time.perf_counter() - t:.1f} s; kernel "
+            f"counters after (i) and (ii): {taken}")
+        check(not any(taken.values()),
+              f"image: a port kernel launched on the image path: {taken}")
+        del loader, serial, dataset
+    took = time.perf_counter() - t_phase
+    log(f"[image] phase took {took:.1f} s (limit {IMAGE_LIMIT_S})")
+    check(took <= IMAGE_LIMIT_S, f"phase 20 took {took:.1f} s")
+    return taken
+
+
 # phases a partial run may name (``python3 chip_smoke.py predictor``): the
 # build, then those phases; it prints no result line
 PARTIAL = {"kernels": lambda smi: phase_kernels(),
@@ -9743,7 +10265,8 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "optim": phase_optim, "data": phase_data,
            "sparse": phase_sparse, "vision": phase_vision,
            "rnn": phase_rnn, "legacy": phase_legacy,
-           "interleaved": phase_interleaved, "quantized": phase_quantized}
+           "interleaved": phase_interleaved, "quantized": phase_quantized,
+           "image": phase_image}
 
 
 # ---------------------------------------------------------------------------
@@ -9817,6 +10340,7 @@ def main():
         phase_legacy(smi_line)
         phase_interleaved(smi_line)
         phase_quantized(smi_line)
+        phase_image(smi_line)
         log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — every failure ends the run non-zero
         traceback.print_exc()
@@ -9845,6 +10369,7 @@ def main():
         row["legacy"] = by_path.get("legacy", 0)
         row["interleaved"] = by_path.get("interleaved", 0)
         row["quantized"] = by_path.get("quantized", 0)
+        row["image"] = by_path.get("image", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
@@ -9858,7 +10383,7 @@ def main():
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
     rtc_row["rnn"] = rtc_row["legacy"] = rtc_row["interleaved"] = 0
-    rtc_row["quantized"] = 0
+    rtc_row["quantized"] = rtc_row["image"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,7 @@ from . import numpy as np
 from . import numpy_extension as npx
 from . import nd
 from . import contrib
+from . import image, recordio
 from .attribute import AttrScope
 from .base import MXNetError
 from .name import NameManager
@@ -89,7 +90,7 @@ __all__ = ["MXNetError", "Context", "Device", "NDArray", "array", "cpu",
            "telemetry", "train_step", "tune", "sym", "symbol", "Symbol",
            "var", "executor", "subgraph", "attribute", "name", "AttrScope",
            "NameManager", "visualization", "viz", "metric", "callback",
-           "model", "io", "contrib"]
+           "model", "io", "contrib", "image", "recordio"]
 
 
 def waitall():

@@ -10,8 +10,8 @@ into eager materialization. The views and ``transform_first``'s wrapper
 are picklable when the base dataset and the function are, so a transformed
 dataset goes to spawned ``DataLoader`` workers.
 
-``RecordFileDataset`` reads RecordIO through the reference's native
-reader, which the port has not ported: it raises, naming ROADMAP A10 (3).
+``RecordFileDataset`` reads an indexed RecordIO file through the native
+engine of ``src/io_native/recordio.cc`` (:mod:`mxnet_tpu_torch.recordio`).
 """
 from __future__ import annotations
 
@@ -153,11 +153,47 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Raw records of a RecordIO .rec file (reference:
-    gluon/data/dataset.py RecordFileDataset:390). Not ported: the reader is
-    the reference's native RecordIO engine (ROADMAP A10 (3))."""
+    """Raw records of a RecordIO ``.rec`` file (reference:
+    gluon/data/dataset.py RecordFileDataset:390): each sample is a record's
+    bytes, in the order of the ``.idx`` sidecar with the same stem, which
+    is required.
+
+    Picklable for spawned ``DataLoader`` workers: ``__getstate__`` closes
+    the open reader (its native handle) and leaves it out, and the worker
+    opens its own at its first sample.
+    """
 
     def __init__(self, filename):
-        raise MXNetError(
-            "RecordFileDataset is not ported: RecordIO reads go through the "
-            "reference's native reader (src/io_native), ROADMAP A10 (3)")
+        import os
+
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        if not os.path.exists(self.idx_file):
+            raise MXNetError(
+                f"RecordFileDataset: index sidecar {self.idx_file!r} not "
+                "found: a silent empty dataset would train on nothing")
+        self._record = None
+        if len(self._reader().keys) == 0:
+            raise MXNetError(
+                f"RecordFileDataset: {filename!r} has no indexed records")
+
+    def _reader(self):
+        if self._record is None:
+            from ...recordio import MXIndexedRecordIO
+
+            self._record = MXIndexedRecordIO(self.idx_file, self.filename,
+                                             "r")
+        return self._record
+
+    def __getstate__(self):
+        if self._record is not None:
+            self._record.close()
+            self._record = None
+        return self.__dict__.copy()
+
+    def __getitem__(self, idx):
+        rec = self._reader()
+        return rec.read_idx(rec.keys[idx])
+
+    def __len__(self):
+        return len(self._reader().keys)

@@ -7,11 +7,10 @@ formats), and otherwise fall back to the reference's DETERMINISTIC synthetic
 sample set (``_synthetic_images``, the same seeds) with the same
 shapes/dtypes/label space, flagged by ``.synthetic``; each package's
 synthetic set is bitwise the other's. ``ImageFolderDataset`` reads ``.npy``
-files with numpy and PNG/JPEG files through PIL, raising PIL's ImportError
-where it is missing (as on the card's machine). ``ImageRecordDataset`` and
-``ImageListDataset`` decode through the reference's RecordIO reader and
-``mx.image``, which the port has not ported: they raise, naming ROADMAP
-A10 (3).
+files with numpy and PNG/JPEG files through PIL. ``ImageRecordDataset``
+reads an indexed ``.rec`` file of ``recordio.pack_img`` records and
+``ImageListDataset`` a ``.lst`` file or a list of its entries; both decode
+through ``mx.image``, to (H, W, C) NDArrays on the host.
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ import struct
 
 import numpy as onp
 
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
 from ....base import MXNetError
 
 __all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
@@ -203,24 +202,67 @@ class ImageFolderDataset(Dataset):
         return len(self.items)
 
 
-class ImageRecordDataset(Dataset):
+class ImageRecordDataset(RecordFileDataset):
     """(image, label) samples from a packed RecordIO file (reference:
-    vision/datasets.py ImageRecordDataset:238). Not ported: RecordIO and
-    ``mx.image`` are ROADMAP A10 (3)."""
+    vision/datasets.py ImageRecordDataset:238): the records are
+    ``recordio.pack_img``'s, decoded by ``mx.image.imdecode``."""
 
     def __init__(self, filename, flag=1, transform=None):
-        raise MXNetError(
-            "ImageRecordDataset is not ported: it reads RecordIO through the "
-            "reference's native reader and decodes with mx.image, ROADMAP "
-            "A10 (3)")
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ....image import imdecode
+        from ....recordio import unpack
+
+        header, img_bytes = unpack(super().__getitem__(idx))
+        img = imdecode(img_bytes, self._flag)
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class ImageListDataset(Dataset):
-    """(image, label) samples from an .lst file or an in-memory list
-    (reference: vision/datasets.py ImageListDataset). Not ported: its images
-    decode through ``mx.image``, ROADMAP A10 (3)."""
+    """(image, label) samples from an ``.lst`` file or an in-memory list
+    (reference: vision/datasets.py ImageListDataset): entries are
+    ``key\\tlabel...\\tpath`` lines or ``[label..., path]`` lists."""
 
     def __init__(self, root=".", imglist=None, flag=1):
-        raise MXNetError(
-            "ImageListDataset is not ported: it decodes through mx.image "
-            "(imread), ROADMAP A10 (3)")
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._items = []  # (label array, path)
+        if isinstance(imglist, str):
+            with open(os.path.join(self._root, imglist)) as fin:
+                for line in fin:
+                    parts = line.strip().split("\t")
+                    if len(parts) < 3:
+                        continue
+                    label = onp.asarray([float(v) for v in parts[1:-1]],
+                                        "float32")
+                    self._items.append(
+                        (label, os.path.join(self._root, parts[-1])))
+        elif isinstance(imglist, (list, tuple)):
+            for entry in imglist:
+                if not isinstance(entry[-1], str):
+                    raise MXNetError(
+                        "imglist entries must end with the image path")
+                label = onp.asarray(
+                    entry[:-1] if len(entry) > 2 else [entry[0]],
+                    "float32").reshape(-1)
+                self._items.append(
+                    (label, os.path.join(self._root, entry[-1])))
+        else:
+            raise MXNetError(
+                f"imglist must be a filename or list, got {type(imglist)}")
+
+    def __getitem__(self, idx):
+        from ....image import imread
+
+        label, path = self._items[idx]
+        img = imread(path, self._flag)
+        return img, label[0] if label.size == 1 else label
+
+    def __len__(self):
+        return len(self._items)

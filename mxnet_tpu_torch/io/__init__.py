@@ -15,16 +15,18 @@ host's C++ compiler at first use (:mod:`._textparse`). ``LibSVMIter``
 yields dense batches, or with ``sparse=True`` ``CSRNDArray`` batches on the
 current context that feed ``mx.nd.sparse.dot`` without densifying; a
 batch's entries are gathered with a few numpy calls, not one per row.
-``ImageRecordIter`` reads through the reference's native RecordIO engine
-and ``mx.image``, which the port has not ported: it raises, naming ROADMAP
-A10 (3).
+``ImageRecordIter`` streams a ``.rec`` file through the native RecordIO
+engine of ``src/io_native/recordio.cc`` (:mod:`._native`) and decodes and
+augments its images on a thread pool, with the reference's keywords.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as onp
 
+from .. import recordio as _recordio
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray.ndarray import NDArray
@@ -350,15 +352,175 @@ class LibSVMIter(DataIter):
 
 
 class ImageRecordIter(DataIter):
-    """Not ported: it reads through the reference's native RecordIO engine
-    (src/io_native/recordio.cc) and decodes with mx.image, ROADMAP A10
-    (3)."""
+    """Batches of images from a ``.rec`` file of ``recordio.pack_img``
+    records (reference: src/io/iter_image_recordio_2.cc:887 and
+    ``mxnet_tpu/io/__init__.py:346-488``).
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("io.ImageRecordIter is not ported: it reads "
-                         "through the reference's native RecordIO engine "
-                         "(src/io_native/recordio.cc) and decodes with "
-                         "mx.image, ROADMAP A10 (3)")
+    The native engine's prefetch thread (``src/io_native/recordio.cc``)
+    streams each batch's records; a pool of ``preprocess_threads`` threads
+    decodes them with PIL and augments them with numpy: the shorter edge
+    resized to ``resize``, a crop of ``data_shape`` (random with
+    ``rand_crop``, else central), a mirror with ``rand_mirror``, then
+    ``(x - mean) / std`` per channel, in (C, H, W) float32. Each batch moves
+    to the current context once.
+
+    The crop offsets and mirror flips are drawn from one
+    ``RandomState(seed)`` in record order, on the caller's thread, before
+    the decodes are dispatched (each image's size is read from its header
+    first), so any thread count gives the batches of one thread. The
+    reference draws inside its pool threads, where more than one thread
+    races; its one-thread batches are the port's.
+    """
+
+    _KNOWN_KWARGS = frozenset({"preprocess_threads", "label_name",
+                               "data_name", "prefetch_buffer", "ctx",
+                               "dtype", "verbose", "num_parts", "part_index",
+                               "path_imgidx"})
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, rand_crop=False, rand_mirror=False,
+                 mean_r=0.0, mean_g=0.0, mean_b=0.0, std_r=1.0, std_g=1.0,
+                 std_b=1.0, resize=-1, round_batch=True, seed=0, **kwargs):
+        import concurrent.futures
+
+        from ._native import get_lib
+
+        super().__init__(batch_size)
+        self._prefetch = self._reader = self._pool = None
+        unknown = set(kwargs) - self._KNOWN_KWARGS
+        if unknown:
+            import warnings
+
+            warnings.warn(f"ImageRecordIter: ignoring unknown options "
+                          f"{sorted(unknown)}", stacklevel=2)
+        self._round_batch = round_batch
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self._shuffle = shuffle
+        self._rand_crop = rand_crop
+        self._rand_mirror = rand_mirror
+        self._resize = resize
+        self._mean = onp.array([mean_r, mean_g, mean_b],
+                               dtype="float32").reshape(3, 1, 1)
+        self._std = onp.array([std_r, std_g, std_b],
+                              dtype="float32").reshape(3, 1, 1)
+        self._rng = onp.random.RandomState(seed)
+        self._lib = get_lib()
+        self._path = path_imgrec
+        self._reader = self._lib.rio_reader_open(path_imgrec.encode())
+        if not self._reader:
+            raise MXNetError(f"cannot open record file {path_imgrec}")
+        self._count = self._lib.rio_reader_count(self._reader)
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=int(kwargs.get("preprocess_threads", 4)))
+        self.reset()
+
+    @property
+    def num_records(self):
+        return self._count
+
+    def reset(self):
+        if self._prefetch:
+            self._lib.rio_prefetch_free(self._prefetch)
+            self._prefetch = None
+        order = onp.arange(self._count, dtype=onp.uint64)
+        if self._shuffle:
+            self._rng.shuffle(order)
+        arr = (ctypes.c_uint64 * len(order))(*order.tolist())
+        self._prefetch = self._lib.rio_prefetch_create(
+            self._reader, arr, len(order), self.batch_size)
+
+    def _resized(self, ih, iw):
+        """The (height, width) of an (ih, iw) image after its shorter edge
+        is resized to ``resize`` (when positive), and after that is
+        stretched up to ``data_shape`` where smaller (reference
+        :404-420)."""
+        _, h, w = self.data_shape
+        if self._resize > 0:
+            ih, iw = (self._resize, int(iw * self._resize / ih)) \
+                if ih < iw else (int(ih * self._resize / iw), self._resize)
+        return (ih, iw), (max(h, ih), max(w, iw))
+
+    def _draws(self, payload):
+        """One record's crop offsets and flip, drawn in the reference's
+        order: the row offset, the column offset, then the mirror's
+        uniform."""
+        import io as _pyio
+
+        from PIL import Image
+
+        _, h, w = self.data_shape
+        iw, ih = Image.open(_pyio.BytesIO(_recordio.unpack(payload)[1])).size
+        _, (ih, iw) = self._resized(ih, iw)
+        if self._rand_crop and (ih > h or iw > w):
+            y0 = self._rng.randint(0, ih - h + 1)
+            x0 = self._rng.randint(0, iw - w + 1)
+        else:
+            y0, x0 = (ih - h) // 2, (iw - w) // 2
+        flip = bool(self._rand_mirror and self._rng.rand() < 0.5)
+        return y0, x0, flip
+
+    def _decode_one(self, payload, y0, x0, flip):
+        from ..gluon.data.vision.transforms import _resize_np
+
+        header, img = _recordio.unpack_img(payload)
+        _, h, w = self.data_shape
+        (rh, rw), (sh, sw) = self._resized(img.shape[0], img.shape[1])
+        if self._resize > 0:
+            img = _resize_np(img, (rw, rh))
+        if (sh, sw) != (rh, rw):
+            img = _resize_np(img, (sw, sh))
+        img = img[y0:y0 + h, x0:x0 + w]
+        if flip:
+            img = img[:, ::-1]
+        chw = img.astype("float32").transpose(2, 0, 1)
+        chw = (chw - self._mean) / self._std
+        label = header.label if header.flag else float(header.label)
+        return chw, label
+
+    def __next__(self):
+        data_p = ctypes.c_char_p()
+        off_p = ctypes.POINTER(ctypes.c_uint64)()
+        nbytes = ctypes.c_uint64()
+        n = self._lib.rio_prefetch_next(self._prefetch,
+                                        ctypes.byref(data_p),
+                                        ctypes.byref(off_p),
+                                        ctypes.byref(nbytes))
+        if n <= 0:
+            raise StopIteration
+        blob = ctypes.string_at(data_p, nbytes.value)
+        offsets = [off_p[i] for i in range(n + 1)]
+        self._lib.rio_prefetch_release(self._prefetch)
+        payloads = [blob[offsets[i]:offsets[i + 1]] for i in range(n)]
+        draws = [self._draws(p) for p in payloads]
+        futures = [self._pool.submit(self._decode_one, p, *d)
+                   for p, d in zip(payloads, draws)]
+        imgs = onp.empty((self.batch_size,) + self.data_shape, "float32")
+        labels = onp.zeros((self.batch_size, self.label_width), "float32")
+        for i, fut in enumerate(futures):
+            imgs[i], labels[i] = fut.result()
+        pad = self.batch_size - n
+        if pad and not self._round_batch:
+            imgs, labels = imgs[:n], labels[:n]  # short final batch
+            pad = 0
+        elif pad:
+            imgs[n:] = imgs[:1]
+            labels[n:] = labels[:1]
+        lab = labels[:, 0] if self.label_width == 1 else labels
+        return DataBatch([NDArray(imgs)], [NDArray(lab)], pad=pad)
+
+    def __del__(self):
+        # the prefetch thread is joined before its reader is freed, and the
+        # decode pool's threads end with it
+        if getattr(self, "_prefetch", None):
+            self._lib.rio_prefetch_free(self._prefetch)
+            self._prefetch = None
+        if getattr(self, "_reader", None):
+            self._lib.rio_reader_free(self._reader)
+            self._reader = None
+        if getattr(self, "_pool", None) is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
 
 class ResizeIter(DataIter):

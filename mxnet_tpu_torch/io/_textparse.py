@@ -1,13 +1,10 @@
 """ctypes binding of the native text parsers (``src/io_native/textparse.cc``).
 
-The port's copy of ``mxnet_tpu/io/_textparse.py`` and of the build helper
-it uses (``mxnet_tpu/io/_cbuild.py``): the framework-neutral C++ source
-beside the two packages is compiled with the host's C++ compiler (``CXX``,
-default ``g++``) at first use into ``mxnet_tpu_torch/_build/`` (named by a
-digest of the source, written under a temporary name and renamed, so
-processes building at once do not race) and loaded with ctypes. A build
-that fails raises :class:`MXNetError` with the compiler's output: there is
-no silent fallback. The strict numpy parse runs only where the native
+The port's copy of ``mxnet_tpu/io/_textparse.py``: the framework-neutral
+C++ source beside the two packages is built at first use by
+:class:`._cbuild.NativeLib`, whose failed build raises
+:class:`MXNetError` with the compiler's output: there is no silent
+fallback. The strict numpy parse runs only where the native
 scanner rejects the input (a ragged row, a token that is not a number),
 and reports the error as numpy does.
 
@@ -16,23 +13,11 @@ and reports the error as numpy does.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as onp
 
-from ..base import MXNetError
+from ._cbuild import NativeLib
 
-_SRC = Path(__file__).resolve().parents[2] / "src" / "io_native" / \
-    "textparse.cc"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
-
-_lock = threading.Lock()
-_lib = None
 _counts = {"libsvm_native": 0, "libsvm_numpy": 0, "csv_native": 0,
            "csv_numpy": 0}
 
@@ -60,36 +45,13 @@ def _configure(lib):
     lib.tp_free_i64.argtypes = [ctypes.POINTER(ctypes.c_int64)]
 
 
+_NATIVE = NativeLib("textparse.cc", "native text parser", _configure)
+
+
 def get_lib():
     """The parser library, built on first use; raises :class:`MXNetError`
     when the source is missing or does not build."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if not _SRC.exists():
-            raise MXNetError(f"native text parser source {_SRC} is missing")
-        digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-        so = _BUILD_DIR / f"textparse-{digest}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cxx = os.environ.get("CXX", "g++")
-            try:
-                res = subprocess.run([cxx, *_FLAGS, "-o", str(tmp),
-                                      str(_SRC)], capture_output=True,
-                                     text=True, timeout=300)
-            except (OSError, subprocess.SubprocessError) as e:
-                raise MXNetError(f"building the native text parser with "
-                                 f"{cxx} failed: {e}") from e
-            if res.returncode != 0:
-                raise MXNetError(f"building the native text parser with "
-                                 f"{cxx} failed:\n{res.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        _configure(lib)
-        _lib = lib
-        return _lib
+    return _NATIVE.get()
 
 
 def parse_csv(path: str, delimiter: str = ",") -> onp.ndarray:

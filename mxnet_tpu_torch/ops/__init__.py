@@ -13,20 +13,22 @@ legacy tensor tier: the scalar, creation, slice and legacy NN ops
 (:mod:`.legacy_elemwise`), the ``linalg_*`` family (:mod:`.linalg_legacy`)
 and the dynamic-shape and contrib ops (:mod:`.npi_manip`); the quantized
 int8 family and the intgemm protocol (:mod:`.quantized_ops`, integer
-products on cuBLASLt's int8 GEMM on the card). They register in the
+products on cuBLASLt's int8 GEMM on the card); sliding-window attention, the
+DGL graph ops and the image and cv ops (:mod:`.graph_image_ops`). They register in the
 reference's order (``mxnet_tpu/ops/__init__.py``); its alias table
 (:mod:`.aliases`) registers its names last."""
 from . import registry  # noqa: I001 — the registry first: the ops register in it
 from . import _core, nn, indexing, rnn, vision, extra, linalg_legacy
 from . import optimizer_ops, legacy_elemwise, random_ops, quantized_ops
-from . import npi_manip
+from . import graph_image_ops, npi_manip
 from . import cuda_kernels, warp_ops
 from . import aliases as _aliases
 from .registry import apply_op, get_op, invoke, list_ops, register
 
 _aliases._register_all()
 
-__all__ = ["registry", "cuda_kernels", "extra", "indexing", "legacy_elemwise",
+__all__ = ["registry", "cuda_kernels", "extra", "graph_image_ops",
+           "indexing", "legacy_elemwise",
            "linalg_legacy", "nn", "npi_manip", "optimizer_ops", "quantized_ops",
            "random_ops", "rnn", "vision", "warp_ops",
            "apply_op", "get_op", "invoke", "list_ops", "register"]

@@ -13,10 +13,10 @@ iterators against the JAX package's.
   same numpy seed, several arrays by name), ``ResizeIter``,
   ``PrefetchingIter`` (its thread makes its NDArrays under the caller's
   ``with mx.cpu():``) and the legacy ``next()`` give the JAX package's
-  batches, pads and ``provide_data``; ``ImageRecordIter`` raises naming
-  ROADMAP A10 (3), and ``CSVIter`` / ``LibSVMIter`` (ported since, held
-  to the JAX package in ``tests/test_torch_sparse.py``) raise the file
-  system's error for a missing file.
+  batches, pads and ``provide_data``; so does ``ImageRecordIter`` on a
+  file of the reference's, and ``CSVIter`` / ``LibSVMIter`` (held to the
+  JAX package in ``tests/test_torch_sparse.py``) raise the file system's
+  error for a missing file.
 
 Tolerance: bitwise, except the graph's outputs across packages (1e-6
 relative: the two packages' matmuls sum in another order).
@@ -229,11 +229,29 @@ def test_io_iterators_match_jax():
         tio.NDArrayIter(onp.zeros(3), last_batch_handle="nope")
 
 
-def test_io_native_iterators_are_not_ported():
-    """ImageRecordIter still names its ROADMAP item; the text iterators
-    are ported and read the file (here a missing one)."""
-    with pytest.raises(MXNetError, match=r"A10 \(3\)"):
-        tio.ImageRecordIter("x", (1,), batch_size=1)
+def test_io_native_iterators_are_not_ported(tmp_path):
+    """Ported since: ``ImageRecordIter`` gives the JAX package's batches
+    from a file of the reference's ``recordio``
+    (``tests/test_torch_image.py`` holds it further); the text iterators
+    read the file (here a missing one)."""
+    from mxnet_tpu import recordio as jrio
+
+    rs = onp.random.RandomState(2)
+    rec = jrio.MXIndexedRecordIO(str(tmp_path / "x.idx"),
+                                 str(tmp_path / "x.rec"), "w")
+    for i in range(5):
+        img = rs.randint(0, 256, (12, 10 + i, 3)).astype("uint8")
+        rec.write_idx(i, jrio.pack_img(jrio.IRHeader(0, float(i), i), img))
+    rec.close()
+    kw = dict(data_shape=(3, 8, 8), batch_size=2, rand_crop=True,
+              rand_mirror=True, shuffle=True, mean_r=1.0, std_b=2.0, seed=1)
+    got = list(tio.ImageRecordIter(str(tmp_path / "x.rec"), **kw))
+    want = list(_jax().io.ImageRecordIter(str(tmp_path / "x.rec"),
+                                          preprocess_threads=1, **kw))
+    assert [b.pad for b in got] == [b.pad for b in want] == [0, 0, 1]
+    for b, jb in zip(got, want):
+        assert onp.array_equal(b.data[0].asnumpy(), jb.data[0].asnumpy())
+        assert onp.array_equal(b.label[0].asnumpy(), jb.label[0].asnumpy())
     for cls in (tio.CSVIter, tio.LibSVMIter):
         with pytest.raises(OSError):
             cls("no-such-file", (1,), batch_size=1)

@@ -20,8 +20,10 @@
   without a GPU, ``iter(loader)`` raises.
 - ``vision``: the synthetic MNIST, FashionMNIST, CIFAR-10 and CIFAR-100
   bitwise equal to the JAX package's; idx files (plain and gz), CIFAR
-  batches and an ``ImageFolderDataset`` of ``.npy`` files read the same;
-  the RecordIO datasets raise naming ROADMAP A10 (3).
+  batches and an ``ImageFolderDataset`` of ``.npy`` files read the same,
+  and so do ``RecordFileDataset``, ``ImageRecordDataset`` and
+  ``ImageListDataset`` over one file of the reference's
+  (``tests/test_torch_image.py`` holds the rest of the image pipeline).
 - ``tests/torch_script_mnist.py`` (``examples/gluon_mnist.py`` with its
   imports changed) trains one epoch on the CPU with two spawned workers.
 - On the card (``cuda``-marked): ``pin_memory=True`` batches, serial and
@@ -124,14 +126,34 @@ def test_datasets_and_views_match_jax():
     _same(pickle.loads(pickle.dumps(view))[3], view[3])
 
 
-def test_record_file_datasets_are_not_ported():
+def test_record_file_datasets_are_not_ported(tmp_path):
+    """Ported since: the three RecordIO datasets give the JAX package's
+    samples from one file, written by the reference's ``recordio``."""
+    from mxnet_tpu import recordio as jrio
     from mxnet_tpu_torch.gluon.data import vision
+    from PIL import Image
 
-    for make in (lambda: tdata.RecordFileDataset("x.rec"),
-                 lambda: vision.ImageRecordDataset("x.rec"),
-                 lambda: vision.ImageListDataset(".", [[0, "a.png"]])):
-        with pytest.raises(MXNetError, match=r"A10 \(3\)"):
-            make()
+    jv = _jdata().vision
+    rs = onp.random.RandomState(1)
+    rec = jrio.MXIndexedRecordIO(str(tmp_path / "x.idx"),
+                                 str(tmp_path / "x.rec"), "w")
+    for i in range(4):
+        img = rs.randint(0, 256, (9 + i, 11, 3)).astype("uint8")
+        rec.write_idx(i, jrio.pack_img(jrio.IRHeader(0, float(i), i), img,
+                                       img_fmt=".png"))
+        Image.fromarray(img).save(str(tmp_path / f"{i}.png"))
+    rec.close()
+    path = str(tmp_path / "x.rec")
+    imglist = [[float(i), f"{i}.png"] for i in range(4)]
+    for got, want in ((tdata.RecordFileDataset(path),
+                       _jdata().RecordFileDataset(path)),
+                      (vision.ImageRecordDataset(path),
+                       jv.ImageRecordDataset(path)),
+                      (vision.ImageListDataset(str(tmp_path), imglist),
+                       jv.ImageListDataset(str(tmp_path), imglist))):
+        assert len(got) == len(want) == 4
+        for i in range(4):
+            _same(got[i], want[i])
 
 
 # -- samplers -----------------------------------------------------------------------
