@@ -50,7 +50,27 @@ Phases (any failure exits non-zero without the final line):
              softmax block_rows in {1, 2, 4, 8, 16, 32} at (2000, 768)) at
              the same tolerances; kernel, plain and library (SDPA with a
              boolean mask, its autograd backward, F.layer_norm,
-             torch.softmax) times, medians of CUDA-event timings;
+             torch.softmax) times, medians of CUDA-event timings; then the
+             float16, float8_e4m3fn and float8_e5m2 instances of the three
+             flash kernels (rows ``name:fp16``, ``:e4m3``, ``:e5m2``) at
+             (4*12, 1024, 64) causal, BERT-Base's (32*12, 128, 64)
+             non-causal with key-padding ids and a row that sees no key,
+             and every legal tile at (4*12, 512, 64) causal + ids, the
+             forward against ``attention_tiled_plain`` (the reference
+             kernel's roundings) at the kernel's key tile, the backward
+             against ``attention_bwd_plain``, within
+             tests/torch_flash_limits.py's limits (2u/(1-u) |want| + the
+             format's subnormal step + twice each element's own bound on
+             the two values' distance before rounding); at the (4*12,
+             1024, 64) shape the faults of that file planted in the
+             kernels (a key tile hidden, V's or G's tiles reversed,
+             outputs zero past the first tile), each of which must land
+             over the limit; beside SDPA's float16 times on the same
+             values, bounds at the fp16 or fp8 tensor-core rate;
+             LayerNorm with float16 x (fp32 gamma/beta, and float16: 8u, the
+             plain version rounds five times) at (4096, 768) and softmax
+             at float16, narrow and wide, within one fp16 step, at every
+             row tile (``layer_norm:fp16``, ``softmax:fp16``);
 3. serve   — GPT-2 small (12 x 768, 12 heads, vocab 50257, max_length
              1024, fp32, weights from a numpy seed loaded through
              ``params_from_mxnet_tpu``) served by ``DecodeEngine`` (8 slots,
@@ -131,6 +151,36 @@ Phases (any failure exits non-zero without the final line):
              training tokens/s and peak memory beside the card's name and
              power limit. bf16 GEMMs sum in fp32
              (``allow_bf16_reduced_precision_reduction`` off, as the MXU);
+4e. amp16 — GPT-2 small under ``amp.autocast("float16")`` (also
+             ``python3 chip_smoke.py amp16``, from the seed's batches):
+             (i) one eager step at B=2, T=16 (the CPU's float16
+             products are slow) through ``scale_loss`` (a static 2^12)
+             and ``unscale``: logits and loss float16,
+             gradients float32 within 1e-2 of the CPU's largest entry, 12
+             float16 launches of each flash kernel and 25 fp32 LayerNorm;
+             (ii) three compiled against three eager steps at B=4, T=1024
+             within phase 4b (i)'s bound; (iii) 30 compiled steps on phase
+             4b (ii)'s batches, weights and dropout seed with a
+             DynamicLossScaler (2^16, window 10) and the scale forced past
+             float16's range at step 21: the overflowing steps skipped with
+             every weight bitwise and the scale halved, the scale doubled
+             after 10 clean steps, num_update the clean steps, the loss
+             below half its first value, one capture of the float16
+             instances; (iv) ``convert_hybrid_block(net, "float16")`` with
+             multi-precision AdamW: 25 float16-x LayerNorm launches a step;
+             (v) DecodeEngines (128-token prompts, no prefix cache) built
+             under ``autocast("float16")`` and ``("bfloat16")`` and over a
+             converted bf16 model: a float32 KV cache as the reference's,
+             the prefill's flash launches of the AMP dtype's instance alone,
+             tokens equal to ``generate(use_cache=False)`` under the same
+             state up to the first near tie (top-2 margin below eight steps
+             of the format at the largest logit); (vi) the flash op forward
+             and backward under ``autocast("float8_e4m3fn")`` and
+             ``("float8_e5m2")`` at (4*12, 1024, 64) causal: one launch of
+             each fp8 instance, gradients float32 and finite, within
+             tests/torch_flash_limits.py's limits of the plain versions. No plain flash or softmax
+             version runs on the card and no library lowering is taken
+             (a spy counts them); the phase within 60 s;
 4d. nd    — the NDArray layer (``mx.np``, ``mx.npx``, the op registry)
              on the card: (i) GPT-2 small from phase 4's weights and
              batches at B=4, T=1024 (the last row right-padded by 128),
@@ -661,7 +711,8 @@ import numpy as onp
 SEED = 0
 PEAK_FP32_FLOPS = 67e12    # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM tensor cores, TF32, dense
-PEAK_BF16_FLOPS = 989e12   # H100 SXM tensor cores, bf16, dense
+PEAK_BF16_FLOPS = 989e12   # H100 SXM tensor cores, bf16 and fp16, dense
+PEAK_FP8_FLOPS = 1979e12   # H100 SXM tensor cores, fp8, dense
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FLASH_TOL = 1e-4
 LN_TOL = 1e-5
@@ -786,12 +837,15 @@ def bound_ms(n_bytes, n_flops, peak=PEAK_FP32_FLOPS):
 def attention_bound_ms(n_bytes, n_flops, dtype):
     """The least time for attention at its dtype's accuracy: fp32-accurate
     products on the tensor cores take three TF32 products each (3xTF32),
-    bf16 one bf16 product. Returns (ms, "bytes" or "operations", the
-    CUDA-core bound of the same work at the fp32 rate)."""
+    bf16 and fp16 one product at their rate, fp8 one at fp8's. Returns
+    (ms, "bytes" or "operations", the CUDA-core bound of the same work at
+    the fp32 rate)."""
     import torch
 
     if dtype == torch.float32:
         ms, by = bound_ms(n_bytes, 3 * n_flops, PEAK_TF32_FLOPS)
+    elif dtype.itemsize == 1:
+        ms, by = bound_ms(n_bytes, n_flops, PEAK_FP8_FLOPS)
     else:
         ms, by = bound_ms(n_bytes, n_flops, PEAK_BF16_FLOPS)
     return ms, by, bound_ms(n_bytes, n_flops)[0]
@@ -842,7 +896,7 @@ def phase_build():
     info = {}
     t0 = time.perf_counter()
     libs = _build.build()
-    log(f"[build] {len(_build.SOURCES)} kernels in "
+    log(f"[build] {len(_build.SOURCES)} libraries in "
         f"{time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
     for name, cmd, secs, report in _build.build_log:
         log(f"[build] {name}: {secs:.2f} s: {' '.join(cmd)}")
@@ -962,15 +1016,19 @@ def _sdpa_mask_args(mask, causal, seg, Tq, Tk):
     return {"attn_mask": mask[:, None]}
 
 
-def _bf16_row(row, numbers, err):
-    """The JSON row of a kernel's bf16 instance at the AMP training shape:
-    ``row``'s name with ``:bf16``, its source and what it replaces, and
-    ``numbers``."""
-    out = {"name": row["name"] + ":bf16", "route": row["route"],
+def _dtype_row(row, suffix, dtype, numbers, err):
+    """The JSON row of a kernel's ``dtype`` instance: ``row``'s name with
+    ``:suffix``, its source and what it replaces, and ``numbers``."""
+    out = {"name": f"{row['name']}:{suffix}", "route": row["route"],
            "source": row["source"], "replaces": row["replaces"],
-           "max_abs_err": err, "dtype": "bfloat16"}
+           "max_abs_err": err, "dtype": dtype}
     out.update(numbers)
     return out
+
+
+def _bf16_row(row, numbers, err):
+    """The JSON row of a kernel's bf16 instance at the AMP training shape."""
+    return _dtype_row(row, "bf16", "bfloat16", numbers, err)
 
 
 def dkv_float64(q, k, v, g, qs, ks, scale, causal):
@@ -1066,6 +1124,7 @@ def phase_kernels():
     for (name, dtype), more in _flash_bwd_bert_tiles(rng, dev).items():
         row = results[name if dtype == torch.float32 else name + ":bf16"]
         row.setdefault("more", []).extend(more)
+    _low_precision_rows(rng, dev, results)
     return results
 
 
@@ -1258,7 +1317,7 @@ def _flash_fwd_rows(rng, dev):
                 log(f"[kernels] flash_fwd {dtype} T={Tq} causal: SDPA "
                     f"(is_causal) device {lib_dev} ms")
     row = {"name": "flash_fwd", "route": "cuda",
-           "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+           "source": "mxnet_tpu_torch/csrc/flash_fwd.cuh",
            "replaces": "mxnet_tpu/ops/pallas_kernels.py:163",
            "max_abs_err": err, "design": FWD_DESIGN}
     row.update(rows[(512, f32)])
@@ -1773,8 +1832,8 @@ def _flash_bwd_rows(rng, dev):
             rows[("flash_bwd_dkv", Tq, dtype)]["float64_max_abs_err"] = exact
     results = {}
     for name, src, line in (
-            ("flash_bwd_dkv", "flash_bwd.cu", 529),
-            ("flash_bwd_dq", "flash_bwd_dq.cu", 587)):
+            ("flash_bwd_dkv", "flash_bwd.cuh", 529),
+            ("flash_bwd_dq", "flash_bwd_dq.cuh", 587)):
         results[name] = {
             "name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{src}",
@@ -1787,6 +1846,360 @@ def _flash_bwd_rows(rng, dev):
         results[name + ":bf16"] = _bf16_row(
             results[name], rows[(name, 1024, bf16)], err_bf16[name])
     return results
+
+
+# -- the float16 and fp8 instances (AMP's other dtypes) ----------------------
+# dtype of each instance row's name suffix ("flash_fwd:fp16", ...)
+SUFFIX_DTYPE = {"": "float32", "bf16": "bfloat16", "fp16": "float16",
+                "e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2"}
+LOW_SUFFIXES = ("fp16", "e4m3", "e5m2")
+# unit roundoff of each low-precision format
+LOW_U = {"float16": 2.0 ** -11, "float8_e4m3fn": 2.0 ** -4,
+         "float8_e5m2": 2.0 ** -3}
+LOW_DESIGN = ("the bf16 instance's tile code: fp16 exact in TF32 (one "
+              "product); fp8 K/V (Q/G in dK/dV) tiles widened to fp16 as "
+              "they are staged, by 8-byte loads; P rounded to v's dtype "
+              "before P V; outputs stored with XLA's overflow (fp8 "
+              "__NV_NOSAT)")
+
+
+def low_excess(got, want, dtype, steps=4):
+    """max over the elements of |got - want| / (steps u (|want| + max |want|
+    / 8)), u the format's unit roundoff (<= 1 passes): both sides round one
+    fp32 value to the format; the float16 row kernels' limit
+    (tests/test_torch_amp16.py). The flash instances are held to
+    tests/torch_flash_limits.py's limits instead."""
+    w = want.float()
+    lim = steps * LOW_U[dtype] * (w.abs() + w.abs().max() / 8)
+    return float(((got.float() - w).abs() / lim.clamp_min(1e-30)).max())
+
+
+def _by_kernel(ex):
+    """{"out", "dq", "dk", "dv"} excesses by the kernel that writes each."""
+    return {"flash_fwd": ex["out"], "flash_bwd_dq": ex["dq"],
+            "flash_bwd_dkv": max(ex["dk"], ex["dv"])}
+
+
+def _low_inputs(rng, dev, dtype, *shapes):
+    """Tensors of ``shapes`` from the seed, cast to ``dtype`` as XLA casts."""
+    import torch
+
+    from mxnet_tpu_torch.base import cast
+
+    return [cast(torch.from_numpy(rng.randn(*s).astype("float32")).to(dev),
+                 dtype) for s in shapes]
+
+
+def _low_flash(rng, dev, dtype, B, H, T, D, causal, kv_valid=None,
+               tiles=False):
+    """The three flash kernels' ``dtype`` instances at (B*H, T, D): the
+    forward against ``attention_tiled_plain`` at the kernel's key tile and
+    the backward (from the kernel's out and lse) against
+    ``attention_bwd_plain``, within tests/torch_flash_limits.py's limits
+    (each element's own near-zero term); ``kv_valid``: key-padding ids (kv
+    ids 1 below each row's valid length, q ids 1). With ``tiles``, every
+    legal tile; else the default tile, the faults of
+    ``torch_flash_limits.FAULTS`` planted in the kernels where causal (each
+    must land over its limit), timed beside SDPA's fp16 forward and
+    backward on the same values in fp16 (SDPA takes no fp8). Returns
+    {kernel: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    fl = _tests_script("torch_flash_limits")
+    scale = 1.0 / D ** 0.5
+    q, k, v, g = _low_inputs(rng, dev, dtype, *[(B, H, T, D)] * 4)
+    qs = ks = None
+    if kv_valid is not None:
+        ks = torch.from_numpy((onp.arange(T)[None] < kv_valid[:, None])
+                              .astype("int32")).to(dev)
+        qs = torch.ones_like(ks)
+    what = (f"({B}*{H}, {T}, {D}) {dtype} "
+            f"{'causal' if causal else 'non-causal'}"
+            f"{' + key-padding ids' if ks is not None else ''}")
+    worst = {}
+    grid = [(bq, bk) for bq in ck.FLASH_BLOCKS for bk in ck.FLASH_BLOCKS] \
+        if tiles else [(ck.flash_block_q(), ck.flash_block_k())]
+    out_delta = fl.forward_delta(q, k, v, scale, causal, qs, ks, dtype)
+    for bq, bk in grid:
+        out, lse = ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal, bq, bk)
+        grads = ck.flash_bwd_cuda(q, k, v, out, lse, g, qs, ks, scale,
+                                  causal, bq, bk)
+        torch.cuda.synchronize()
+        ex = fl.flash_excess(q, k, v, g, out, lse, grads, qs, ks, scale,
+                             causal, bk, dtype, out_delta)
+        e_lse = ex.pop("lse")
+        check(max(ex.values()) <= 1.0 and e_lse <= FLASH_TOL and all(
+            t.dtype == q.dtype for t in (out, *grads)),
+              f"flash {what} tile ({bq}, {bk}): over the {dtype} limit by "
+              f"{ex} (<= 1 passes), lse {e_lse:.3g}, dtypes "
+              f"{[t.dtype for t in (out, *grads)]}")
+        if kv_valid is not None and kv_valid[-1] == 0:
+            check(float(out[-1].float().abs().max()) == 0.0 and
+                  float(grads[0][-1].float().abs().max()) == 0.0,
+                  f"flash {what}: the row that sees no key is not zero")
+        for n, e in ex.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        worst["lse"] = max(worst.get("lse", 0.0), e_lse)
+    if tiles:
+        log(f"[kernels] flash {what}: all {len(grid)} tiles within the "
+            f"{dtype} limit (worst |diff| / limit {worst})")
+        return _by_kernel(worst)
+    ref = ck.attention_tiled_plain(q, k, v, scale, causal, qs, ks, bk)[0]
+    want = ck.attention_bwd_plain(q, k, v, out, lse, g, qs, ks, scale,
+                                  causal)
+    formula = ck.attention_plain(q, k, v, scale, causal, qs, ks)[0]
+    errs = {"flash_fwd": float((out.float() - ref.float()).abs().max()),
+            "flash_bwd_dq": float((grads[0].float() - want[0].float())
+                                  .abs().max()),
+            "flash_bwd_dkv": max(float((a.float() - b.float()).abs().max())
+                                 for a, b in zip(grads[1:], want[1:]))}
+    formula_diff = float((out.float() - formula.float()).abs().max())
+    log(f"[kernels] flash forward {what}: max|diff| to the reference "
+        f"formula's plain version (p normalized, then rounded) "
+        f"{formula_diff:.4g}, to the kernel's roundings' "
+        f"{errs['flash_fwd']:.4g}; mean |out| "
+        f"{float(out.float().abs().mean()):.4g}")
+    faults = None
+    if causal and ks is None:
+        faults = fl.planted_faults(
+            lambda q_, k_, v_, a, b: ck.flash_fwd_cuda(
+                q_, k_, v_, a, b, scale, causal, bq, bk),
+            lambda q_, k_, v_, o, l_, g_, a, b: ck.flash_bwd_cuda(
+                q_, k_, v_, o, l_, g_, a, b, scale, causal, bq, bk),
+            q, k, v, g, scale, causal, bq, bk, dtype)
+        missed = fl.faults_missed(faults)
+        log(f"[kernels] flash {what} tile ({bq}, {bk}): |diff| / limit of "
+            f"the sound outputs and of each planted fault (over 1 fails) "
+            f"{json.dumps(faults)}")
+        check(not missed, f"flash {what}: planted faults within the limit "
+              f"(the limit cannot tell them from a sound kernel): {missed}")
+    mask, pairs = _visible_pairs(qs, ks, B, H, T, T, causal)
+    sdpa_args = _sdpa_mask_args(mask, causal, ks is not None, T, T)
+    q16, k16, v16, g16 = (t.to(torch.float16) for t in (q, k, v, g))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q16, k16, v16))
+
+    def sdpa():
+        F.scaled_dot_product_attention(q16, k16, v16, scale=scale,
+                                       **sdpa_args)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, scale=scale,
+                                           **sdpa_args)
+        torch.autograd.grad(o, (qg, kg, vg), g16)
+
+    es = q.element_size()
+    ids = 4 * (qs.numel() + ks.numel()) if ks is not None else 0
+    delta = (g.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, g, lse, delta, qs, ks, scale, causal)
+    lib_fwd = (time_ms(sdpa), graph_ms(sdpa), device_total_ms(sdpa))
+    both = (time_ms(sdpa_fwd_bwd, reps=20), graph_ms(sdpa_fwd_bwd),
+            device_total_ms(sdpa_fwd_bwd))
+    lib_bwd = (both[0] - lib_fwd[0], both[1] - lib_fwd[1],
+               both[2] - lib_fwd[2] if both[2] and lib_fwd[2] else None)
+    bwd_plain = time_ms(lambda: ck.attention_bwd_plain(
+        q, k, v, out, lse, g, qs, ks, scale, causal), reps=10)
+    numbers = {}
+    excess = _by_kernel(worst)
+    for name, fn, n_bytes, flops, lib, plain_ms in (
+            ("flash_fwd",
+             lambda: ck.flash_fwd_cuda(q, k, v, qs, ks, scale, causal),
+             es * 4 * q.numel() + 4 * lse.numel() + ids, 4 * D * pairs,
+             lib_fwd, time_ms(lambda: ck.attention_plain(
+                 q, k, v, scale, causal, qs, ks))),
+            ("flash_bwd_dkv", lambda: ck.flash_bwd_dkv_cuda(*args),
+             es * 6 * q.numel() + 8 * lse.numel() + ids, 8 * D * pairs,
+             lib_bwd, bwd_plain),
+            ("flash_bwd_dq", lambda: ck.flash_bwd_dq_cuda(*args),
+             es * 5 * q.numel() + 8 * lse.numel() + ids, 6 * D * pairs,
+             lib_bwd, bwd_plain)):
+        ms, g_ms = time_ms(fn), graph_ms(fn)
+        dev_ms = device_ms(fn, name + "_kernel")
+        bms, by, core_ms = attention_bound_ms(n_bytes, flops, q.dtype)
+        numbers[name] = {
+            "ms": ms, "graph_ms": g_ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": lib[0],
+            "library_graph_ms": lib[1], "library_device_ms": lib[2],
+            "bound_ms": bms, "bound_by": by, "cuda_core_bound_ms": core_ms,
+            "max_abs_err": errs[name], "limit_excess": excess[name],
+            "shape": f"q/k/v{'' if name == 'flash_fwd' else '/g'} {what}; "
+                     f"library: SDPA on the same values in float16"
+                     f"{'' if name == 'flash_fwd' else ' (its backward: autograd through it less its forward; plain and library cover dq, dk and dv together)'}"}
+        if faults is not None and name == "flash_fwd":
+            # the outputs of all three kernels, on the forward's row
+            numbers[name]["planted_faults"] = faults
+        if name == "flash_fwd":
+            numbers[name]["reference_formula_max_abs_diff"] = formula_diff
+        log(f"[kernels] {name} {what}: |diff| / limit {excess[name]:.3g}, "
+            f"max|diff| {errs[name]:.3g}; kernel {ms:.4f} ms (graph "
+            f"{g_ms:.4f}, profiler {dev_ms}), plain {plain_ms:.4f} ms, SDPA "
+            f"fp16 {lib[0]:.4f} ms (graph {lib[1]:.4f}, profiler {lib[2]}), "
+            f"bound {bms:.4f} ms ({by}, {dtype} tensor cores, "
+            f"{100 * bms / g_ms:.1f} % reached; CUDA-core bound "
+            f"{core_ms:.4f} ms), {pairs} visible pairs")
+    return numbers
+
+
+def _low_row_kernels(rng, dev):
+    """LayerNorm with float16 x (gamma/beta float32, as
+    ``convert_hybrid_block(net, "float16")`` runs it, and float16) at
+    (4096, 768) and softmax at float16, narrow (4096, 768) and wide
+    (64, 50257), against the plain versions, then at every row tile at
+    (2000, 768); times beside ``F.layer_norm`` and ``torch.softmax`` on the
+    same float16 input. Returns (layer_norm row numbers, softmax row
+    numbers), each with "more"."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    f16 = torch.float16
+    d = 768
+    ln = []
+    for gdt in (torch.float32, f16):
+        rows = 4096
+        x = torch.from_numpy((rng.randn(rows, d) * 2 + 0.5)
+                             .astype("float32")).to(dev, f16)
+        gam = torch.from_numpy(rng.randn(d).astype("float32")).to(dev, gdt)
+        bet = torch.from_numpy(rng.randn(d).astype("float32")).to(dev, gdt)
+        out = ck.layer_norm_cuda(x, gam, bet, 1e-5)
+        ref = ck.layer_norm_plain(x, gam, bet, 1e-5)
+        torch.cuda.synchronize()
+        # float16 gamma/beta: the plain version (the reference's formula in
+        # x's dtype) rounds five times in a chain, the kernel once
+        steps = 4 if gdt == torch.float32 else 8
+        ex = low_excess(out, ref, "float16", steps)
+        gname = str(gdt).replace("torch.", "")
+        check(ex <= 1.0 and out.dtype == f16,
+              f"layer_norm fp16 x, {gname} gamma/beta: over the limit by "
+              f"{ex:.3g} (<= 1 passes), dtype {out.dtype}")
+        g16, b16 = gam.to(f16), bet.to(f16)
+
+        def kernel():
+            ck.layer_norm_cuda(x, gam, bet, 1e-5)
+
+        def library():
+            F.layer_norm(x, (d,), g16, b16, 1e-5)
+
+        bms, by = bound_ms(2 * 2 * rows * d + gam.element_size() * 2 * d,
+                           8 * rows * d)
+        n = {"ms": time_ms(kernel), "graph_ms": graph_ms(kernel),
+             "device_ms": device_ms(kernel, "layer_norm_kernel"),
+             "plain_ms": time_ms(lambda: ck.layer_norm_plain(
+                 x, gam, bet, 1e-5)),
+             "library_ms": time_ms(library),
+             "library_graph_ms": graph_ms(library),
+             "library_device_ms": device_total_ms(library),
+             "bound_ms": bms, "bound_by": by,
+             "max_abs_err": float((out.float() - ref.float()).abs().max()),
+             "dtype": f"float16 x, {gname} gamma/beta",
+             "shape": f"x ({rows}, {d}) float16, gamma/beta ({d},) {gname};"
+                      f" library F.layer_norm with float16 gamma/beta"}
+        log(f"[kernels] layer_norm {n['shape']}: |diff| / limit {ex:.3g}; "
+            f"kernel {n['ms']:.4f} ms (graph {n['graph_ms']:.5f}, profiler "
+            f"{n['device_ms']}), plain {n['plain_ms']:.4f} ms, F.layer_norm "
+            f"{n['library_ms']:.4f} ms (graph {n['library_graph_ms']:.5f}, "
+            f"profiler {n['library_device_ms']}), bound {bms:.5f} ms ({by})")
+        ln.append(n)
+    sm = []
+    for rows, dd, offset in ((4096, 768, 0), (64, 50257, 0), (64, 50257, 1),
+                             (7, 4103, 3), (1001, 768, 0)):
+        buf = torch.empty(rows * dd + offset, dtype=f16, device=dev)
+        x = buf[offset:].view(rows, dd)
+        x.copy_(torch.from_numpy(rng.randn(rows, dd).astype("float32") * 4))
+        out = ck.softmax_cuda(x)
+        ref = ck.softmax_plain(x)
+        torch.cuda.synchronize()
+        # one fp16 step of the value; subnormal outputs within the smallest
+        over = float(((out.float() - ref.float()).abs() - 2 * LOW_U[
+            "float16"] * ref.float().abs()).max())
+        what = f"softmax ({rows}, {dd}) float16 offset {offset}"
+        check(over <= 2.0 ** -24, f"{what}: |diff| exceeds one fp16 step of "
+              f"the value by {over:.3g}")
+        if offset or (rows, dd) == (1001, 768) or (rows, dd) == (7, 4103):
+            log(f"[kernels] {what}: within one fp16 step")
+            continue
+
+        def kernel():
+            ck.softmax_cuda(x)
+
+        def library():
+            torch.softmax(x, dim=-1)
+
+        bms, by = bound_ms(2 * 2 * rows * dd, 4 * rows * dd)
+        n = {"ms": time_ms(kernel), "graph_ms": graph_ms(kernel),
+             "device_ms": device_ms(kernel, "softmax"),
+             "plain_ms": time_ms(lambda: ck.softmax_plain(x)),
+             "library_ms": time_ms(library),
+             "library_graph_ms": graph_ms(library),
+             "library_device_ms": device_ms(library, "softmax"),
+             "bound_ms": bms, "bound_by": by,
+             "max_abs_err": float((out.float() - ref.float()).abs().max()),
+             "dtype": "float16",
+             "shape": f"x ({rows}, {dd}) float16, "
+                      f"{'one cluster of 8 blocks' if dd >= 4096 else 'one warp'}"
+                      f" a row"}
+        log(f"[kernels] {what}: kernel {n['ms']:.4f} ms (graph "
+            f"{n['graph_ms']:.5f}, profiler {n['device_ms']}), plain "
+            f"{n['plain_ms']:.4f} ms, torch.softmax {n['library_ms']:.4f} "
+            f"ms (graph {n['library_graph_ms']:.5f}, profiler "
+            f"{n['library_device_ms']}), bound {bms:.5f} ms ({by}, "
+            f"{100 * bms / n['graph_ms']:.1f} % reached)")
+        sm.append(n)
+    x = torch.from_numpy(rng.randn(2000, d).astype("float32")).to(dev, f16)
+    gam = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
+    bet = torch.from_numpy(rng.randn(d).astype("float32")).to(dev)
+    ln_ref = ck.layer_norm_plain(x, gam, bet, 1e-5)
+    sm_ref = ck.softmax_plain(x)
+    for br in ck.ROW_BLOCKS:
+        e_ln = low_excess(ck.layer_norm_cuda(x, gam, bet, 1e-5, br), ln_ref,
+                          "float16")
+        e_sm = low_excess(ck.softmax_cuda(x, br), sm_ref, "float16")
+        check(max(e_ln, e_sm) <= 1.0, f"float16 row tile block_rows={br}: "
+              f"over the limit by layer_norm {e_ln:.3g}, softmax "
+              f"{e_sm:.3g}")
+    log(f"[kernels] float16 LayerNorm and softmax at all "
+        f"{len(ck.ROW_BLOCKS)} row tiles at (2000, 768): within the limit")
+    return ln, sm
+
+
+def _low_precision_rows(rng, dev, results):
+    """Rows ``name:fp16``, ``name:e4m3``, ``name:e5m2`` of the three flash
+    kernels at the AMP training shape (4*12, 1024, 64) causal, with
+    BERT-Base's (32*12, 128, 64) non-causal key-padding shape under "more",
+    every instance at every legal tile at (4*12, 512, 64) causal + ids;
+    ``layer_norm:fp16`` and ``softmax:fp16``. Adds them to ``results``."""
+    import torch
+
+    for suffix in LOW_SUFFIXES:
+        dtype = SUFFIX_DTYPE[suffix]
+        gpt = _low_flash(rng, dev, dtype, 4, 12, 1024, 64, True)
+        valid = rng.randint(16, 129, size=32)
+        valid[-1] = 0
+        bert = _low_flash(rng, dev, dtype, 32, 12, 128, 64, False,
+                          kv_valid=valid)
+        seg = rng.randint(64, 513, size=4)
+        tiles = _low_flash(rng, dev, dtype, 4, 12, 512, 64, True,
+                           kv_valid=seg, tiles=True)
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            numbers = dict(gpt[name])
+            err = numbers.pop("max_abs_err")
+            row = _dtype_row(results[name], suffix, dtype, numbers, err)
+            row["design"] = LOW_DESIGN
+            row["more"] = [bert[name]]
+            row["tiles_worst_excess"] = tiles[name]
+            results[f"{name}:{suffix}"] = row
+    ln, sm = _low_row_kernels(rng, dev)
+    for name, numbers in (("layer_norm", ln), ("softmax", sm)):
+        first = dict(numbers[0])
+        err = first.pop("max_abs_err")
+        row = _dtype_row(results[name], "fp16", first.pop("dtype"), first,
+                         err)
+        row["more"] = numbers[1:]
+        results[name + ":fp16"] = row
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -2949,6 +3362,479 @@ def phase_train_amp(smi_line, fp32_run):
         f"{[round(runs[t][0][-1], 3) for t in ('A1', 'A2')]}, AMP "
         f"{[round(runs[t][0][-1], 3) for t in ('B1', 'B2')]}; card "
         f"{smi_line}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: GPT-2 small under float16 AMP, fp8 attention, served under AMP
+# ---------------------------------------------------------------------------
+F16 = ("float16",)
+AMP16_WANT = {("flash_fwd", F16): 12, ("flash_bwd_dkv", F16): 12,
+              ("flash_bwd_dq", F16): 12,
+              ("layer_norm", ("float32", "float32")): 25}
+CONVERTED16_WANT = {**AMP16_WANT, ("layer_norm", ("float32", "float32")): 0,
+                    ("layer_norm", ("float16", "float32")): 25}
+AMP16_GRAD_RTOL = 1e-2     # fp16's roundoff 4.9e-4, GEMM orders, 12 layers
+AMP16_CHECK_SCALE = 2.0 ** 12   # (i)'s static scale: 10.8 x 4096 < 65504
+AMP16_CHECK_SHAPE = (2, 16)     # (i): float16 products on the card's host
+                                # CPU ran ~0.4 s a token (110 s at (2, 128))
+AMP16_WINDOW = 10          # (iii): clean steps before the scale doubles
+AMP16_FORCED = 20          # (iii): the step whose scale is forced past
+AMP16_FORCED_SCALE = 2.0 ** 24  # float16's range
+AMP16_SERVE = dict(max_prompt_len=128, prefill_batch=2, prefix_cache=False)
+AMP16_PROMPTS = 4
+AMP16_NEW = 16
+AMP16_LIMIT_S = 60.0       # the phase's seconds, the build excluded
+
+
+class _PlainSpy:
+    """Counts the flash and softmax plain versions' calls on CUDA tensors
+    while installed (the path must launch the kernels instead)."""
+
+    NAMES = ("attention_plain", "attention_bwd_plain", "softmax_plain")
+
+    def __init__(self):
+        from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+        self.ck, self.calls, self.saved = ck, 0, {}
+
+    def __enter__(self):
+        for n in self.NAMES:
+            fn = self.saved[n] = getattr(self.ck, n)
+
+            def spy(*a, _fn=fn, **kw):
+                if getattr(a[0], "is_cuda", False):
+                    self.calls += 1
+                return _fn(*a, **kw)
+
+            setattr(self.ck, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.ck, n, fn)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The originals back in place: calls that check the path."""
+        self.__exit__()
+        try:
+            yield
+        finally:
+            self.__enter__()
+
+
+def _amp_tokens_agree(model, dtype, prompt, got, max_new, under_amp):
+    """``got`` against ``generate(use_cache=False)`` on the card, under
+    ``autocast(dtype)`` where ``under_amp`` (else the model as converted),
+    up to the first step whose top-2 margin is below eight steps of the
+    format at the largest logit (a nearer tie may fall either way between
+    the engine's paged attention and the full forward). Returns the steps
+    compared."""
+    import contextlib
+
+    import torch
+
+    from mxnet_tpu_torch import amp
+
+    with amp.autocast(dtype) if under_amp else contextlib.nullcontext():
+        want = model.generate(prompt, max_new_tokens=max_new,
+                              use_cache=False,
+                              window=len(prompt) + max_new)[len(prompt):]
+        seq = torch.tensor([prompt + want], dtype=torch.int32,
+                           device=model.device)
+        with torch.inference_mode():
+            logits = model(seq)[0, len(prompt) - 1:len(prompt) + max_new - 1]
+    logits = logits.float()
+    u = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -11
+    near = 8 * u * float(logits.abs().max())
+    top = torch.topk(logits, 2, dim=-1).values
+    n = next((j for j, m in enumerate((top[:, 0] - top[:, 1]).tolist())
+              if m < near), max_new)
+    check(got[:n] == want[:n], f"{dtype} engine tokens {got} differ from "
+          f"naive generation {want} before the first near tie at {n}")
+    return n
+
+
+def phase_amp16(smi_line, fp32_run):
+    """GPT-2 small under ``amp.autocast("float16")``: (i) one eager step's
+    gradients against the CPU's, (ii) three compiled steps against three
+    eager ones, (iii) 30 compiled steps with a DynamicLossScaler on phase
+    4b (ii)'s batches, weights and dropout seed (``fp32_run``; None: made
+    here from the seed), with a forced overflow, (iv) a block converted by
+    ``amp.convert_hybrid_block(net, "float16")`` with multi-precision AdamW,
+    (v) DecodeEngines built under ``autocast("float16")`` and
+    ``("bfloat16")`` and over a converted bf16 model, their tokens against
+    naive generation, (vi) the flash op forward and backward under
+    ``autocast`` at float8_e4m3fn and float8_e5m2. Returns the path's
+    launches by dtype."""
+    import torch
+
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.base import cast
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import gpt2_small
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    t_phase = time.perf_counter()
+    B, T = TRAIN_SHAPE
+    loss_fn = SoftmaxCrossEntropyLoss()
+    rng = onp.random.RandomState(SEED + 26)
+    path = {}
+
+    def take(keep=True):
+        """The launches by dtype since the last take, added to the path's
+        unless they only checked the path (``keep`` False)."""
+        got = ck.dtype_counts()
+        for k, n in got.items():
+            if keep:
+                path[k] = path.get(k, 0) + n
+        ck.reset_launch_counts()
+        return got
+
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(tag):
+        """Seconds since the last lap, kept under ``tag``."""
+        now = time.perf_counter()
+        laps[tag] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
+    spy = _PlainSpy().__enter__()
+    try:
+        # -- (i) one float16 step's gradients: the card against the CPU ----
+        _release()
+        model, arrays = _train_model(None, 0.0)
+        cpu = gpt2_small(dropout=0.0, device="cpu")
+        cpu.load_dict(arrays)
+        lap("(i) models")
+        toks = torch.from_numpy(rng.randint(
+            0, model.vocab_size, AMP16_CHECK_SHAPE).astype("int32"))
+        tgt = torch.from_numpy(rng.randint(
+            0, model.vocab_size, AMP16_CHECK_SHAPE).astype("int32"))
+        T1 = AMP16_CHECK_SHAPE[1]
+        valid = torch.tensor([T1, T1 - 5], dtype=torch.int32)
+        ck.reset_launch_counts()
+        for net, dev in ((model, DEV), (cpu, "cpu")):
+            tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+            amp.attach_loss_scaler(tr, amp.StaticLossScaler(
+                AMP16_CHECK_SCALE))
+            with amp.autocast("float16"):
+                with autograd.record():
+                    logits = net(toks.to(dev), valid.to(dev))
+                    loss = loss_fn(logits, tgt.to(dev))
+                    with amp.scale_loss(loss, tr) as scaled:
+                        pass
+                autograd.backward(scaled)
+            amp.unscale(tr)
+            check(logits.dtype == loss.dtype == torch.float16,
+                  f"[{dev}] float16 AMP logits {logits.dtype}, loss "
+                  f"{loss.dtype}")
+            if dev == DEV:
+                dts = take()
+            lap(f"(i) {dev} step")
+        worst, worst_name = 0.0, None
+        cpu_params = cpu.collect_params()
+        for name, p in model.collect_params().items():
+            want = cpu_params[name].grad
+            check(p.grad.dtype == want.dtype == torch.float32 and
+                  bool(torch.isfinite(p.grad).all()),
+                  f"{name}: gradient {p.grad.dtype} on the card, "
+                  f"{want.dtype} on the CPU, or not finite")
+            rel = float((p.grad.cpu() - want).abs().max()
+                        / want.abs().max().clamp_min(1e-30))
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"[amp16] (i) one float16 AMP step at B=2, T={T1} (row 1 "
+            f"right-padded to {T1 - 5}), loss scaled by "
+            f"{AMP16_CHECK_SCALE:g} "
+            f"and unscaled: logits and loss float16, gradients float32; "
+            f"all {len(cpu_params)} card vs CPU, worst relative max |diff| "
+            f"{worst:.3g} ({worst_name}; limit {AMP16_GRAD_RTOL}); launches "
+            f"by dtype {dts}")
+        check(worst <= AMP16_GRAD_RTOL, f"float16 AMP card vs CPU gradients "
+              f"differ: {worst:.3g} at {worst_name}")
+        check(dts == AMP16_WANT, f"float16 AMP step launches by dtype {dts}"
+              f" != {AMP16_WANT}")
+        del model, cpu, cpu_params, net, loss, logits, scaled, tr
+        lap("(i) checks")
+
+        # -- (ii) three compiled float16 steps against three eager ones ----
+        _release()
+        comp, _ = _train_model(arrays, 0.0)
+        eager, _ = _train_model(arrays, 0.0)
+        vocab = comp.vocab_size
+
+        def device_batches(n):
+            return [(torch.from_numpy(x).to(DEV),
+                     torch.from_numpy(y).to(DEV))
+                    for x, y in cyclic_batches(rng, vocab, B, T, n)]
+
+        tr_c, tr_e = make_trainer(comp), make_trainer(eager)
+        step = tr_c.compile_step(comp, loss_fn)
+        worst = {"loss": 0.0, "weight": 0.0}
+        bitwise = True
+
+        def excess(got, want):
+            return float(((got.float() - want.float()).abs()
+                          / (COMPILED_ATOL + COMPILED_RTOL
+                             * want.float().abs())).max())
+
+        with amp.autocast("float16"):
+            for x, y in device_batches(3):
+                lc = step(x, y)
+                with autograd.record():
+                    le = loss_fn(eager(x), y).mean()
+                autograd.backward(le)
+                tr_e.step(1)
+                bitwise &= bool(torch.equal(lc, le.detach().float()))
+                worst["loss"] = max(worst["loss"], excess(lc, le.detach()))
+        for p, q in zip(comp.collect_params().values(),
+                        eager.collect_params().values()):
+            bitwise &= bool(torch.equal(p, q))
+            worst["weight"] = max(worst["weight"], excess(p.detach(),
+                                                          q.detach()))
+        take()
+        log(f"[amp16] (ii) 3 compiled vs 3 eager float16 AMP AdamW steps "
+            f"at B={B} T={T}: worst |diff| / ({COMPILED_ATOL} + "
+            f"{COMPILED_RTOL} |eager|) {worst} (limit 1); bit-equal "
+            f"{bitwise}; captures {step._traces}; captured launches by "
+            f"dtype {step.captured_dtypes}")
+        check(max(worst.values()) <= 1.0, f"compiled vs eager float16 steps "
+              f"differ: {worst}")
+        check(step._traces == 1 and step.captured_dtypes == AMP16_WANT,
+              f"(ii): {step._traces} captures, captured launches "
+              f"{step.captured_dtypes} != {AMP16_WANT}")
+        del comp, eager, tr_c, tr_e, step, lc, le
+        _release()
+        lap("(ii)")
+
+        # -- (iii) 30 compiled float16 steps with a DynamicLossScaler ------
+        if fp32_run is None:
+            batches = device_batches(TRAIN_STEPS)
+        else:
+            batches = fp32_run[0]
+        mxrandom.seed(SEED)
+        model, _ = _train_model(arrays, 0.1)
+        trainer = make_trainer(model)
+        scaler = amp.attach_loss_scaler(trainer, amp.DynamicLossScaler(
+            scale_window=AMP16_WINDOW))
+        losses, scales, updates, ms = [], [], [], []
+        snap = None
+        with amp.autocast("float16"):
+            step = trainer.compile_step(model, loss_fn)
+            for i, (x, y) in enumerate(batches):
+                if i == AMP16_FORCED:
+                    kept = scaler.loss_scale
+                    scaler.loss_scale = AMP16_FORCED_SCALE
+                    snap = [p.detach().clone()
+                            for p in model.collect_params().values()]
+                t0 = time.perf_counter()
+                loss = step(x, y)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(loss))
+                scales.append(scaler.loss_scale)
+                updates.append(trainer.optimizer.num_update)
+                if i == AMP16_FORCED:
+                    moved = [n for (n, p), s in zip(
+                        model.collect_params().items(), snap)
+                        if not torch.equal(p.detach(), s)]
+                    check(not moved, f"(iii) the forced overflow moved "
+                          f"{moved}")
+                    scaler.loss_scale = kept    # back to the run's scale
+        counts = take()
+        skipped = [i for i in range(len(updates))
+                   if updates[i] == (updates[i - 1] if i else 0)]
+        log(f"[amp16] (iii) gpt2_small B={B} T={T} AdamW, dropout 0.1, "
+            f"{TRAIN_STEPS} compiled float16 AMP steps on phase 4b (ii)'s "
+            f"batches, weights and dropout seed, DynamicLossScaler (init "
+            f"2**16, window {AMP16_WINDOW}), scale forced to "
+            f"{AMP16_FORCED_SCALE:g} at step {AMP16_FORCED + 1}: loss by "
+            f"step {[round(v, 3) for v in losses]}; scale after each step "
+            f"{scales}; skipped steps {[i + 1 for i in skipped]}; "
+            f"num_update {updates[-1]}; step "
+            f"{statistics.median(ms[2:]):.2f} ms (median of steps 3-"
+            f"{TRAIN_STEPS}); captures {step._traces}; captured launches by "
+            f"dtype {step.captured_dtypes}; card {smi_line}")
+        trained = [losses[i] for i in range(len(losses)) if i not in skipped]
+        check(all(onp.isfinite(losses)), "(iii) a float16 loss is not "
+              "finite")
+        check(0 in skipped and AMP16_FORCED in skipped,
+              f"(iii) the overflowing steps were not skipped: {skipped}")
+        check(all(scales[i] == (scales[i - 1] if i else 2.0 ** 16) / 2
+                  for i in skipped if i != AMP16_FORCED) and
+              scales[AMP16_FORCED] == AMP16_FORCED_SCALE / 2,
+              f"(iii) a skip did not halve the scale: {scales}")
+        check(any(scales[i] == 2 * scales[i - 1] for i in range(1, len(
+            scales))), f"(iii) the scale never grew: {scales}")
+        check(updates[-1] == len(losses) - len(skipped),
+              f"(iii) num_update {updates[-1]} for "
+              f"{len(losses) - len(skipped)} clean steps")
+        check(trained[-1] < 0.5 * losses[0],
+              f"(iii) the float16 run's loss did not fall below half its "
+              f"first value: {losses[0]:.3f} -> {trained[-1]:.3f}")
+        check(step._traces == 1 and step.captured_dtypes == AMP16_WANT,
+              f"(iii): {step._traces} captures, captured launches "
+              f"{step.captured_dtypes} != {AMP16_WANT}")
+        check(counts == {k: 2 * n for k, n in AMP16_WANT.items()},
+              f"(iii) launches outside the warm step and the capture: "
+              f"{counts}")
+        del step, model, trainer, batches, loss, snap
+        _release()
+        lap("(iii)")
+
+        # -- (iv) convert_hybrid_block(net, "float16"), multi-precision ----
+        model, _ = _train_model(arrays, 0.0)
+        amp.convert_hybrid_block(model, "float16")
+        trainer = make_trainer(model, multi_precision=True)
+        scaler = amp.attach_loss_scaler(trainer, amp.StaticLossScaler(
+            AMP16_CHECK_SCALE))
+        bad = [n for n, p in model.collect_params().items() if p.dtype != (
+            torch.float32 if n.endswith(("gamma", "beta")) else
+            torch.float16)]
+        check(not bad, f"convert_hybrid_block(float16) left {bad}")
+        conv_losses, per_step = [], []
+        for x, y in device_batches(3):
+            with autograd.record():
+                loss = loss_fn(model(x), y)
+                with amp.scale_loss(loss, trainer) as scaled:
+                    pass
+            autograd.backward(scaled)
+            check(not scaler.has_overflow(trainer._params),
+                  "(iv) the converted block's gradients overflowed")
+            amp.unscale(trainer)
+            trainer.step(B)
+            conv_losses.append(float(loss.detach().float().mean()))
+            per_step.append(take())
+        masters = [st["weight_fp32"] for st in trainer._states
+                   if st is not None and "weight_fp32" in st]
+        n16 = sum(p.dtype == torch.float16 for p in model.parameters())
+        log(f"[amp16] (iv) converted float16 block (norms fp32), AdamW "
+            f"multi_precision, loss scaled by {AMP16_CHECK_SCALE:g}: losses "
+            f"{[round(v, 3) for v in conv_losses]}; {len(masters)} fp32 "
+            f"masters for {n16} float16 weights; launches by dtype a step "
+            f"{per_step[-1]}")
+        check(all(onp.isfinite(conv_losses)), "(iv) a loss is not finite")
+        check(len(masters) == n16 and all(m.dtype == torch.float32
+                                          for m in masters),
+              f"(iv) {len(masters)} masters for {n16} float16 weights")
+        want16 = {k: n for k, n in CONVERTED16_WANT.items() if n}
+        check(all(ps == want16 for ps in per_step),
+              f"(iv) launches by dtype {per_step} != {CONVERTED16_WANT}")
+        del model, trainer, masters, loss, scaled
+        _release()
+        lap("(iv)")
+
+        # -- (v) engines under AMP against naive generation ----------------
+        model, _ = serve_model()
+        prompts = [[int(t) for t in rng.randint(0, model.vocab_size,
+                                               size=n)]
+                   for n in rng.randint(16, 121, size=AMP16_PROMPTS)]
+        for mode in ("autocast:float16", "autocast:bfloat16",
+                     "convert:bfloat16"):
+            how, dtype = mode.split(":")
+            if how == "convert":
+                amp.convert_hybrid_block(model, dtype)
+                eng, info = warm_engine(model, f"amp16 {mode}",
+                                        **AMP16_SERVE)
+            else:
+                with amp.autocast(dtype):
+                    eng, info = warm_engine(model, f"amp16 {mode}",
+                                            **AMP16_SERVE)
+            warm = take()
+            t = time.perf_counter()
+            streams = [eng.submit(p, max_new_tokens=AMP16_NEW)
+                       for p in prompts]
+            outs = [s.result(timeout=300) for s in streams]
+            serve_s = time.perf_counter() - t
+            moved = take()
+            cache_dt = eng.programs.cache_dtype
+            eng.close()
+            del eng
+            agreed = [_amp_tokens_agree(model, dtype, p, o, AMP16_NEW,
+                                        how == "autocast")
+                      for p, o in zip(prompts, outs)]
+            take(keep=False)   # naive generation checked the engine
+            flash = {k: n for k, n in warm.items() if k[0] == "flash_fwd"}
+            log(f"[amp16] (v) engine {mode}: {info['captures']} captures; "
+                f"launches by dtype at warmup (captures and warm calls) "
+                f"{warm}; {len(prompts)} prompts of "
+                f"{[len(p) for p in prompts]} tokens, {AMP16_NEW} new each, "
+                f"in {serve_s:.2f} s; tokens equal to naive generation up to "
+                f"the first near tie: steps {agreed}; KV cache {cache_dt}")
+            check(cache_dt == "float32", f"(v) {mode}: KV cache {cache_dt}, "
+                  f"not the model's float32")
+            check(set(flash) == {("flash_fwd", (dtype,))},
+                  f"(v) {mode}: prefill flash launches {flash}, not the "
+                  f"{dtype} instance alone")
+            check(not moved, f"(v) {mode}: counters moved while serving "
+                  f"(a capture after warmup): {moved}")
+            lap(f"(v) {mode}")
+        del model
+        _release()
+
+        # -- (vi) the flash op under fp8 AMP: forward and backward ---------
+        Bh, H, Tf, D = 4, 12, 1024, 64
+        for dtype in ("float8_e4m3fn", "float8_e5m2"):
+            q, k, v, g = (torch.from_numpy(rng.randn(Bh, H, Tf, D).astype(
+                "float32")).to(DEV) for _ in range(4))
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            with amp.autocast(dtype):
+                with autograd.record():
+                    out = tnn.flash_attention(*ins, causal=True)
+                torch.autograd.backward(out.float(), g)
+            (bq, bk), = [t for (n, t) in ck.tile_counts()
+                         if n == "flash_fwd"]
+            got = take()
+            want_dt = {(n, (dtype,)): 1 for n in ("flash_fwd",
+                                                  "flash_bwd_dkv",
+                                                  "flash_bwd_dq")}
+            check(got == want_dt, f"(vi) {dtype} launches {got} != "
+                  f"{want_dt}")
+            # the kernel's out against the plain version with its
+            # roundings at its key tile, the fp8 gradients (exact in the
+            # fp32 ones the casts hand back) against the plain backward from
+            # the kernel's out and lse (these calls check the path, they
+            # are not on it)
+            cq, ck_, cv, gd = (cast(t, dtype) for t in (q, k, v, g))
+            fl = _tests_script("torch_flash_limits")
+            with spy.paused():
+                _, lse = ck.attention_tiled_plain(cq, ck_, cv, 1 / 8, True,
+                                                  None, None, bk)
+                e = fl.flash_excess(cq, ck_, cv, gd, out.detach(), lse,
+                                    [cast(t.grad, dtype) for t in ins],
+                                    None, None, 1 / 8, True, bk, dtype)
+            e.pop("lse")
+            ex = [e["out"], e["dq"], e["dk"], e["dv"]]
+            fin = all(bool(torch.isfinite(t.grad).all()) for t in ins)
+            log(f"[amp16] (vi) flash op under autocast({dtype}) at ({Bh}*"
+                f"{H}, {Tf}, {D}) causal: out {out.dtype}, gradients "
+                f"{[t.grad.dtype for t in ins]} finite {fin}; |diff| / "
+                f"limit against the plain versions out, dq, dk, dv {ex}")
+            check(out.dtype == getattr(torch, dtype) and fin and
+                  all(t.grad.dtype == torch.float32 for t in ins),
+                  f"(vi) {dtype}: out {out.dtype}, gradients finite {fin}")
+            check(max(ex) <= 1.0, f"(vi) {dtype}: over the limit {ex}")
+            del q, k, v, g, ins, out
+        lap("(vi)")
+    finally:
+        spy.__exit__()
+    lib = ck.library_counts()
+    took = time.perf_counter() - t_phase
+    log(f"[amp16] the path's launches by dtype {path}; plain flash/softmax "
+        f"calls on the card {spy.calls}; library lowerings {lib}; phase "
+        f"took {took:.1f} s (limit {AMP16_LIMIT_S}; seconds by part "
+        f"{laps}); card {smi_line}")
+    check(spy.calls == 0, f"a plain version ran on the card {spy.calls} "
+          f"times on the amp16 path")
+    check(not any(lib.values()), f"a library lowering ran: {lib}")
+    PATH_DTYPES["amp16"] = path
+    check(took <= AMP16_LIMIT_S, f"phase amp16 took {took:.1f} s")
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -10266,7 +11152,8 @@ PARTIAL = {"kernels": lambda smi: phase_kernels(),
            "sparse": phase_sparse, "vision": phase_vision,
            "rnn": phase_rnn, "legacy": phase_legacy,
            "interleaved": phase_interleaved, "quantized": phase_quantized,
-           "image": phase_image}
+           "image": phase_image,
+           "amp16": lambda smi: phase_amp16(smi, None)}
 
 
 # ---------------------------------------------------------------------------
@@ -10323,6 +11210,7 @@ def main():
         _, arrays, batches, train_losses = phase_train(smi_line)
         _, fp32_run = phase_train_compiled(smi_line)
         phase_train_amp(smi_line, fp32_run)
+        phase_amp16(smi_line, fp32_run)
         phase_nd(smi_line, arrays, batches)
         phase_tune(agree)
         rtc_row = phase_rtc()
@@ -10348,13 +11236,13 @@ def main():
         return 1
     log(smi_line)
     for name, row in kernels.items():
-        # a row counts the launches of its dtype instance: x in bf16 for a
-        # ":bf16" row (LayerNorm's gamma and beta in either dtype), else x
-        # in fp32
+        # a row counts the launches of its dtype instance: x in the dtype
+        # its name's suffix names (":bf16", ":fp16", ":e4m3", ":e5m2"; no
+        # suffix fp32), LayerNorm's gamma and beta in either dtype
         kernel, _, low = name.partition(":")
         by_path = {path: sum(n for (k, dts), n in counts.items()
                              if k == kernel and
-                             (dts[0] == "bfloat16") == bool(low))
+                             dts[0] == SUFFIX_DTYPE[low])
                    for path, counts in PATH_DTYPES.items()}
         by_path["rtc"] = 0
         row["launches"] = sum(by_path.values())
@@ -10370,20 +11258,24 @@ def main():
         row["interleaved"] = by_path.get("interleaved", 0)
         row["quantized"] = by_path.get("quantized", 0)
         row["image"] = by_path.get("image", 0)
+        row["amp16"] = by_path.get("amp16", 0)
         if name in build_info:
             row["build"] = build_info[name]
         for more in row.get("more", ()):
-            if more.get("dtype") == "bfloat16 x, bfloat16 gamma/beta":
+            # LayerNorm's other gamma/beta dtype under the same x
+            x_dt, _, g_dt = more.get("dtype", "").partition(" x, ")
+            if g_dt.endswith(" gamma/beta"):
                 more["launches"] = sum(
                     n for counts in PATH_DTYPES.values()
                     for (k, dts), n in counts.items()
-                    if k == kernel and tuple(dts) == ("bfloat16",) * 2)
+                    if k == kernel and tuple(dts) == (
+                        x_dt, g_dt[:-len(" gamma/beta")]))
     rtc_row["launches_by_path"] = {**{p: 0 for p in PATH_DTYPES},
                                    "rtc": rtc_row["launches"]}
     rtc_row["graph"] = rtc_row["script"] = rtc_row["optim"] = 0
     rtc_row["data"] = rtc_row["sparse"] = rtc_row["vision"] = 0
     rtc_row["rnn"] = rtc_row["legacy"] = rtc_row["interleaved"] = 0
-    rtc_row["quantized"] = rtc_row["image"] = 0
+    rtc_row["quantized"] = rtc_row["image"] = rtc_row["amp16"] = 0
     log(json.dumps({"kernels": list(kernels.values()) + [rtc_row]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,17 @@ scalers serve float16 (:106-130). ``convert_hybrid_block`` casts a block's
 parameters to the low-precision dtype and keeps the norm parameters in
 fp32 (:132). Dtype names map to torch dtypes through
 :func:`mxnet_tpu_torch.base.to_dtype`; the fp8 names to
-``torch.float8_e4m3fn`` / ``torch.float8_e5m2``. The CUDA kernels of the
-port take float32 and bfloat16 only, so float16 and fp8 under AMP run on
-the CPU's plain versions and raise in the kernels' wrappers on the card.
+``torch.float8_e4m3fn`` / ``torch.float8_e5m2``. Every cast is the
+reference's ``astype`` (:func:`mxnet_tpu_torch.base.cast`): a value past
+float8_e4m3fn's range becomes NaN, and float16 and float8_e5m2 overflow to
+inf, so an overflow reaches the loss scaler. The CUDA kernels have
+instances of all four ``AMP_DTYPES``: the three flash kernels take bf16,
+float16, float8_e4m3fn and float8_e5m2 operands, LayerNorm bf16 or float16
+x (with fp32 norm parameters, as a converted block keeps them), softmax
+bf16 or float16. A decode engine built under ``autocast`` serves under that
+state. GPT's whole step under an fp8 dtype does not run in either package
+(fp8 takes no implicit promotion), so fp8 reaches the kernels through the
+attention ops alone.
 """
 from __future__ import annotations
 

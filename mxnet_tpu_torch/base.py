@@ -6,7 +6,7 @@ carried: :class:`MXNetError`, the exception every layer of the port raises,
 :func:`warn_once` (reference :30), :class:`Registry` (reference :116, the
 name -> class store behind ``metric.create``), :func:`to_dtype` and the
 reference's dtype aliases with :func:`canonical_dtype` / :func:`dtype_name`
-(:77-110).
+(:77-110), and :func:`cast`, a dtype conversion with XLA's results.
 
 The reference runs JAX with 64-bit types off, so its arrays are never
 int64, uint64 or float64: a request for one gives int32, uint32 or
@@ -25,7 +25,7 @@ import warnings
 import torch
 
 __all__ = ["MXNetError", "Registry", "to_dtype", "canonical_dtype",
-           "dtype_name", "narrow", "warn_once", "collector_paused"]
+           "dtype_name", "narrow", "cast", "warn_once", "collector_paused"]
 
 # process-level dedup of degradation warnings: a hot path may meet the same
 # unsupported configuration every step, and the useful signal is "this run
@@ -114,6 +114,44 @@ def to_dtype(dtype):
         return _DTYPES[str(dtype)]
     except KeyError:
         raise MXNetError(f"unsupported dtype {dtype!r}") from None
+
+
+# float8_e4m3fn's largest finite value is 448 and it has no inf: a value
+# whose magnitude exceeds 464, halfway to the next step, rounds past it
+_E4M3_NAN_ABOVE = 464.0
+
+
+class _CastE4M3(torch.autograd.Function):
+    """A floating tensor cast to float8_e4m3fn as XLA (and ml_dtypes) cast:
+    NaN where |x| > 464 or x is inf, where ``Tensor.to`` saturates to
+    +-448; round to nearest even below. Differentiable as ``to``: the
+    gradient is cast back to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.src = x.dtype
+        out = x.to(torch.float8_e4m3fn)
+        over = (x.abs() > _E4M3_NAN_ABOVE).to(torch.uint8) * 0x7f
+        # exponent and mantissa all ones: the format's NaN, sign kept
+        return (out.view(torch.uint8) | over).view(torch.float8_e4m3fn)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.src)
+
+
+def cast(t, dtype):
+    """``t`` converted to ``dtype`` (a torch dtype or its name) with XLA's
+    results, as the reference's ``astype``: ``Tensor.to``, except that a
+    floating tensor cast to ``float8_e4m3fn`` gives NaN past the format's
+    range where torch saturates (every other conversion of the two agrees:
+    float16 and float8_e5m2 overflow to inf, float -> int saturates in
+    neither). Differentiable as ``Tensor.to``."""
+    dt = to_dtype(dtype)
+    if dt is torch.float8_e4m3fn and t.is_floating_point() and \
+            t.dtype is not dt:
+        return _CastE4M3.apply(t)
+    return t.to(dt)
 
 
 # the reference's aliases (mxnet_tpu/base.py:80-87)

@@ -6,8 +6,10 @@
 //
 // Row-wise over the last axis: fp32 mean and population variance (two
 // passes, as the reference), out = (x - mean) * rsqrt(var + eps) * gamma
-// + beta, cast back to x's dtype. gamma/beta may be float32 while x is
-// bfloat16.
+// + beta, cast back to x's dtype (float32, bfloat16 or float16; fp16 with
+// inf on overflow, as XLA's cast). gamma/beta may be float32 while x is
+// bfloat16 or float16 (amp.convert_hybrid_block keeps the norm parameters
+// fp32), or of x's dtype.
 //
 // What bounds it on this card: device memory. It does ~8 FLOPs per element
 // against 2 * sizeof(x) bytes moved (read x, write out), far below the
@@ -94,7 +96,9 @@ cudaError_t dispatch(const void* x, const void* gamma, const void* beta,
 
 }  // namespace
 
-// x, out: (rows, d) contiguous in x_dtype; gamma, beta: (d,) in p_dtype;
+// x, out: (rows, d) contiguous in x_dtype; gamma, beta: (d,) in p_dtype
+// (x float32 or bfloat16 with p float32 or bfloat16; x float16 with p
+// float32 or float16);
 // block_rows: rows a block, 1, 2, 4, 8, 16 or 32.
 // Launches on ``stream`` and returns cudaGetLastError() (0 on success).
 extern "C" int mxtt_layer_norm_fwd(const void* x, const void* gamma,
@@ -114,5 +118,9 @@ extern "C" int mxtt_layer_norm_fwd(const void* x, const void* gamma,
     return dispatch<bf16, bf16>(x, gamma, beta, out, rows, d, eps, br, s);
   if (x_dtype == mxtt::kFloat32 && p_dtype == mxtt::kBFloat16)
     return dispatch<float, bf16>(x, gamma, beta, out, rows, d, eps, br, s);
+  if (x_dtype == mxtt::kFloat16 && p_dtype == mxtt::kFloat32)
+    return dispatch<__half, float>(x, gamma, beta, out, rows, d, eps, br, s);
+  if (x_dtype == mxtt::kFloat16 && p_dtype == mxtt::kFloat16)
+    return dispatch<__half, __half>(x, gamma, beta, out, rows, d, eps, br, s);
   return cudaErrorInvalidValue;
 }

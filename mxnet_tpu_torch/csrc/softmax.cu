@@ -5,9 +5,10 @@
 // _fused_softmax_impl (:998-1015).
 //
 // Row-wise over the last axis, in fp32: m = max_c x_c, s = sum_c
-// exp(x_c - m), out_c = exp(x_c - m) / s, cast back to x's dtype (float32
-// or bfloat16). The reference drops to jax.nn.softmax when d % 128 != 0;
-// that is the same function, so this kernel takes every width.
+// exp(x_c - m), out_c = exp(x_c - m) / s, cast back to x's dtype (float32,
+// bfloat16 or float16). The reference drops to jax.nn.softmax when
+// d % 128 != 0; that is the same function, so this kernel takes every
+// width.
 //
 // What bounds it on this card: device memory. It does ~4 operations per
 // element (one of them an exp) against 2 * sizeof(x) bytes moved (read x,
@@ -142,7 +143,7 @@ bool legal_block_rows(int br) {
   return br == 1 || br == 2 || br == 4 || br == 8 || br == 16 || br == 32;
 }
 
-// 16 bytes of T (4 fp32 or 8 bf16 values) as floats, and back
+// 16 bytes of T (4 fp32, 8 bf16 or 8 fp16 values) as floats, and back
 __device__ __forceinline__ void load16(const float* p, float* f) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   f[0] = v.x;
@@ -160,6 +161,16 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
     f[2 * i + 1] = t.y;
   }
 }
+__device__ __forceinline__ void load16(const __half* p, float* f) {
+  uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
 __device__ __forceinline__ void store16(float* p, const float* f) {
   *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
 }
@@ -168,6 +179,13 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* f) {
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store16(__half* p, const float* f) {
+  uint4 u;
+  __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
 
@@ -338,7 +356,7 @@ cudaError_t dispatch_wide(const void* x, void* out, long long rows, int d,
 
 }  // namespace
 
-// x, out: (rows, d) contiguous, float32 or bfloat16 (dtype code);
+// x, out: (rows, d) contiguous, float32, bfloat16 or float16 (dtype code);
 // block_rows: rows a block of the narrow path, 1, 2, 4, 8, 16 or 32 (the
 // wide path, d >= 4096, checks it and runs one cluster a row).
 // Launches on ``stream`` and returns cudaGetLastError() (0 on success).
@@ -355,5 +373,8 @@ extern "C" int mxtt_softmax_fwd(const void* x, void* out, long long rows,
   if (dtype == mxtt::kBFloat16)
     return wide ? dispatch_wide<__nv_bfloat16>(x, out, rows, d, s)
                 : dispatch<__nv_bfloat16>(x, out, rows, d, block_rows, s);
+  if (dtype == mxtt::kFloat16)
+    return wide ? dispatch_wide<__half>(x, out, rows, d, s)
+                : dispatch<__half>(x, out, rows, d, block_rows, s);
   return cudaErrorInvalidValue;
 }

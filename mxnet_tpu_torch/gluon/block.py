@@ -113,7 +113,7 @@ def new_parameter(shape, dtype, device, init=None, grad_req="write"):
     a load or a write fills it (a 0 in ``shape`` defers it); ``init`` is its
     own initializer (the block's default applies when None)."""
     p = Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                  grad_req=grad_req, init=init_mod.create(init))
+                  grad_req=grad_req, init=init_mod._create(init))
     p._initialized = False
     p._v0 = p._version
     return p
@@ -182,7 +182,7 @@ class Block(torch.nn.Module):
         before holds them). A parameter of unknown shape records its
         initializer, the generator and its name, and is drawn at its first
         forward. ``verbose`` is accepted, as in the reference."""
-        default = init_mod.create(init) or init_mod.Uniform(0.07)
+        default = init_mod._create(init) or init_mod.Uniform(0.07)
         gen = torch.Generator()
         if seed is None:
             gen.seed()
@@ -413,25 +413,32 @@ class HybridBlock(Block):
         two file names. The graph is the block's first program's, traced at
         that program's signature with the inputs it holds (the rewritten one
         after ``optimize_for``); the AMP cast attribute ``__amp__`` is left
-        out (``remove_amp_cast``). Raises before a hybridized forward, and
-        for bfloat16 parameters (no package of the card's machine reads
-        numpy's bfloat16)."""
+        out (``remove_amp_cast``). bfloat16 parameters are written as the
+        reference writes them (``np.savez`` of its bfloat16 arrays): their
+        raw bits as 2-byte void (``|V2``) entries. Raises before a
+        hybridized forward, and for fp8 parameters."""
         import json
 
         if not self._cached:
             raise MXNetError("hybridize() and run a forward pass before "
                              "export()")
+        params = {}
+        for name, p in self.collect_params().items():
+            t = p.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                params[name] = t.view(torch.int16).numpy().view("V2")
+            elif t.dtype.itemsize == 1 and t.dtype.is_floating_point:
+                raise MXNetError(
+                    f"export: parameter {name} is {t.dtype}: fp8 "
+                    "parameters are not exported (a .params.npz keeps no "
+                    "fp8 type name)")
+            else:
+                params[name] = t.numpy()
         cop = next(iter(self._cached.values()))[0]
         graph = json.loads(cop.sym.tojson())
         if remove_amp_cast:
             for node in graph["nodes"]:
                 node.get("attrs", {}).pop("__amp__", None)
-        params = {}
-        for name, p in self.collect_params().items():
-            if p.dtype == torch.bfloat16:
-                raise MXNetError(f"export: parameter {name} is bfloat16; "
-                                 "bfloat16 graphs are not exported")
-            params[name] = p.detach().cpu().numpy()
         sym_file = f"{path}-symbol.json"
         with open(sym_file, "w") as f:
             json.dump(graph, f, indent=1)
@@ -686,8 +693,9 @@ class SymbolBlock(HybridBlock):
 def _host_array(name, a):
     """A loaded value as a tensor: a tensor or an NDArray as it is, a numpy
     array copied (the JAX package's bfloat16 and fp8 arrays through
-    float32). A file's bfloat16 array that numpy cannot read (no
-    ``ml_dtypes``: raw bytes) raises."""
+    float32). A 2-byte void array is a bfloat16 entry of an exported
+    ``.params.npz`` (what ``np.savez`` writes for bfloat16, in either
+    package): its raw bits become the tensor's. Other raw bytes raise."""
     if isinstance(a, NDArray):
         a = a._data
     if isinstance(a, torch.Tensor):
@@ -696,7 +704,9 @@ def _host_array(name, a):
     if a.dtype.name in _LOW_PRECISION:
         return torch.from_numpy(a.astype("float32")).to(
             to_dtype(a.dtype.name))
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(onp.array(a.view("int16"))).view(
+            torch.bfloat16)
     if a.dtype.kind not in "fiub":
-        raise MXNetError(f"parameter {name}: dtype {a.dtype} is not read "
-                         "(bfloat16 files are not supported)")
+        raise MXNetError(f"parameter {name}: dtype {a.dtype} is not read")
     return torch.from_numpy(onp.array(a, copy=True))

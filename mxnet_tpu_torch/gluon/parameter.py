@@ -100,6 +100,7 @@ import torch
 
 from .. import initializer as init_mod
 from ..base import MXNetError, dtype_name, to_dtype
+from ..base import cast as _cast
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
 from ..ndarray.sparse import RowSparseNDArray
@@ -183,7 +184,7 @@ class Parameter(torch.nn.Parameter):
         self._grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
-        self.mx_init = init_mod.create(init)
+        self.mx_init = init_mod._create(init)
         self.allow_deferred_init = allow_deferred_init
         self._initialized = initialized
         self._v0 = self._version
@@ -396,8 +397,8 @@ class Parameter(torch.nn.Parameter):
             self.reset_ctx(ctx)
         if self._ready() and not force_reinit:
             return
-        initializer = init_mod.create(init) or self.mx_init or \
-            init_mod.create(default_init) or init_mod.Uniform(0.07)
+        initializer = init_mod._create(init) or self.mx_init or \
+            init_mod._create(default_init) or init_mod.Uniform(0.07)
         if self.is_deferred:
             if not self.allow_deferred_init:
                 raise DeferredInitializationError(
@@ -479,7 +480,7 @@ class Parameter(torch.nn.Parameter):
         gradient of the new dtype (reference :211). The data moves to new
         memory, so a compiled train step that captured the old address
         captures anew at its next call."""
-        _DATA.__set__(self, _DATA.__get__(self).to(to_dtype(dtype)))
+        _DATA.__set__(self, _cast(_DATA.__get__(self), dtype))
         _GRAD.__set__(self, None)
         self._attach_grad()
 

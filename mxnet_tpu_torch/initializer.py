@@ -3,13 +3,20 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (:25-297): ``Zero``, ``One``,
 ``Constant``, ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
 ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``InitDesc``, ``Load`` and
-``Mixed``. An initializer fills a tensor in place from a
-``torch.Generator``. ``init_array(name, tensor, generator)`` is the
-reference's fill by name (:57-66): a parameter whose
-name ends in ``bias``, ``beta``, ``running_mean`` or ``moving_mean`` gets
-zeros, one ending in ``gamma``, ``running_var`` or ``moving_var`` ones,
-whatever the initializer; any other gets the initializer's own draw
-(``_init_weight``).
+``Mixed``, with ``register`` and ``create``. An initializer fills a tensor
+in place from a ``torch.Generator``. ``init_array(name, tensor, generator)``
+is the reference's fill by name (:57-66): a parameter whose name ends in
+``bias``, ``beta``, ``running_mean`` or ``moving_mean`` gets zeros, one
+ending in ``gamma``, ``running_var`` or ``moving_var`` ones, whatever the
+initializer; any other gets the initializer's own draw (``_init_weight``).
+
+The user's surface is the reference's: an initializer is called on an
+``NDArray`` (``Constant(0.5)("fc_weight", arr)``) or a tensor and fills it
+in place; a subclass may override the reference's two-argument
+``_init_weight(self, name, arr)``, which gets an ``NDArray`` over the
+tensor, so ``arr[:] = ...`` writes the parameter;
+``@register`` makes a subclass known to ``create`` by its lower-cased name;
+``create(None)`` is ``Uniform(0.07)``, the reference's default.
 
 The two packages draw different random numbers from the same seed, so
 parity between them carries weights across
@@ -19,6 +26,7 @@ moments.
 """
 from __future__ import annotations
 
+import inspect
 import logging
 import math
 import re
@@ -30,7 +38,7 @@ from .base import MXNetError
 
 __all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
            "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
-           "LSTMBias", "Load", "Mixed", "create"]
+           "LSTMBias", "Load", "Mixed", "register", "create"]
 
 _ZEROS = ("bias", "beta", "running_mean", "moving_mean")
 _ONES = ("gamma", "running_var", "moving_var")
@@ -48,28 +56,62 @@ class InitDesc(str):
         return ret
 
 
+def _user_form(method):
+    """Whether ``method`` (a bound ``_init_weight``) takes the reference's
+    two arguments (name, arr) rather than the port's three."""
+    try:
+        params = inspect.signature(method).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    if any(p.kind is p.VAR_POSITIONAL for p in params):
+        return False
+    return sum(p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+               for p in params) == 2
+
+
+def _fill_by(method, name, tensor, generator):
+    """Call an ``_init_weight`` on ``tensor``: a two-argument one (the
+    reference's form) with an NDArray over the tensor, whose writes
+    (``arr[:] = ...``) land in it; the port's own with the tensor and the
+    generator."""
+    if not _user_form(method):
+        method(name, tensor, generator)
+        return
+    from .ndarray.ndarray import NDArray
+
+    arr = NDArray(tensor)
+    method(name, arr)
+    if arr._data is not tensor:      # rebound, not written in place
+        tensor.copy_(arr._data)
+
+
 class Initializer:
     """Base initializer; subclasses implement ``_init_weight(name, tensor,
-    generator)``."""
+    generator)``, or the reference's ``_init_weight(name, arr)`` on an
+    ``NDArray``."""
 
     def __call__(self, name, tensor=None, generator=None):
-        """Fill ``tensor`` for ``name`` (reference :42); ``init(tensor)``
-        fills it with no name. An :class:`InitDesc` name's ``__init__``
-        attribute, else its ``global_init``, fills it instead."""
+        """Fill ``tensor`` (an ``NDArray`` or a tensor, in place) for
+        ``name`` (reference :42); ``init(tensor)`` fills it with no name.
+        An :class:`InitDesc` name's ``__init__`` attribute, else its
+        ``global_init``, fills it instead."""
         if tensor is None:
             tensor, name = name, ""
-        if isinstance(name, InitDesc):
-            spec = name.attrs.get("__init__")
-            if spec:
-                create(spec).init_array(str(name), tensor, generator)
-                return
-            if name.global_init is not None and \
-                    name.global_init is not self:
-                name.global_init.init_array(str(name), tensor, generator)
-                return
-        self.init_array(str(name or ""), tensor, generator)
+        tensor = getattr(tensor, "_data", tensor)   # an NDArray's tensor
+        with torch.no_grad():
+            if isinstance(name, InitDesc):
+                spec = name.attrs.get("__init__")
+                if spec:
+                    create(spec).init_array(str(name), tensor, generator)
+                    return
+                if name.global_init is not None and \
+                        name.global_init is not self:
+                    name.global_init.init_array(str(name), tensor,
+                                                generator)
+                    return
+            self.init_array(str(name or ""), tensor, generator)
 
-    def init_array(self, name, tensor, generator):
+    def init_array(self, name, tensor, generator=None):
         """Fill ``tensor`` for the parameter ``name``: by name first (the
         reference's rule), else by this initializer's draw."""
         name = name.lower()
@@ -78,7 +120,7 @@ class Initializer:
         elif name.endswith(_ONES):
             tensor.fill_(1.0)
         else:
-            self._init_weight(name, tensor, generator)
+            _fill_by(self._init_weight, name, tensor, generator)
 
     def _init_weight(self, name, tensor, generator):
         raise NotImplementedError
@@ -284,8 +326,8 @@ class Mixed(Initializer):
             "'.*' fallback pattern")
 
 
-# the reference's registered names (lower-cased class names and aliases)
-# that these classes cover
+# the registered names (lower-cased class names and aliases): the
+# reference's, and those a user adds with ``register``
 _NAMES = {"zero": Zero, "zeros": Zero, "one": One, "ones": One,
           "constant": Constant, "uniform": Uniform, "normal": Normal,
           "orthogonal": Orthogonal, "xavier": Xavier,
@@ -293,11 +335,30 @@ _NAMES = {"zero": Zero, "zeros": Zero, "one": One, "ones": One,
           "lstmbias": LSTMBias, "load": Load, "mixed": Mixed}
 
 
+def register(klass=None, name=None):
+    """Register an initializer class for :func:`create` under ``name`` (its
+    class name by default), lower-cased; usable as ``@register`` (reference
+    :23, ``base.Registry.register``). Returns the class."""
+    def do(k):
+        _NAMES[(name or k.__name__).lower()] = k
+        return k
+
+    return do if klass is None else do(klass)
+
+
+def _create(spec, **kwargs):
+    """:func:`create` for the blocks and parameters: ``None`` stays
+    ``None`` (no initializer of its own, so the block's default applies)."""
+    return None if spec is None else create(spec, **kwargs)
+
+
 def create(spec, **kwargs):
-    """An initializer from an instance, ``None`` (none of its own), or a
-    registered name (``"xavier"``, ``"zeros"``, ...; any case) built with
-    ``kwargs``."""
-    if spec is None or isinstance(spec, Initializer):
+    """An initializer from an instance, a registered name (``"xavier"``,
+    ``"zeros"``, ...; any case) built with ``kwargs``, or ``None``, which
+    gives ``Uniform(0.07)`` as in the reference (:26)."""
+    if spec is None:
+        return Uniform(0.07)
+    if isinstance(spec, Initializer):
         return spec
     if isinstance(spec, str) and spec.lower() in _NAMES:
         return _NAMES[spec.lower()](**kwargs)

@@ -47,7 +47,7 @@ import torch
 
 from .. import autograd as _ag
 from .. import engine
-from ..base import MXNetError, canonical_dtype, dtype_name, narrow
+from ..base import MXNetError, canonical_dtype, cast, dtype_name, narrow
 from ..context import Context, context_of, resolve_device
 from ..ops.registry import apply_op
 
@@ -337,9 +337,8 @@ class NDArray:
         if isinstance(other, NDArray):
             if other is self:
                 raise MXNetError("cannot copy an array onto itself")
-            other._set_data(self._data.detach().to(
-                device=other._data.device, dtype=other._data.dtype,
-                copy=True))
+            other._set_data(cast(self._data.detach().to(
+                device=other._data.device, copy=True), other._data.dtype))
             return other
         if isinstance(other, Context):
             return self.as_in_ctx(other)
@@ -667,9 +666,9 @@ def _host_tensor(host, dt, dev):
             if host.dtype.name != "bfloat16" else \
             torch.from_numpy(host.astype(onp.float32)).to(torch.bfloat16)
         return narrow(t).to(dev)
-    return torch.tensor(host.astype(onp.float32)
-                        if host.dtype.name == "bfloat16" else host,
-                        device=dev).to(dt)
+    return cast(torch.tensor(host.astype(onp.float32)
+                             if host.dtype.name == "bfloat16" else host,
+                             device=dev), dt)
 
 
 class _Consts(threading.local):

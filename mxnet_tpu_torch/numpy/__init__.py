@@ -25,6 +25,7 @@ import numpy as _onp
 import torch as _torch
 
 from ..base import canonical_dtype as _canon
+from ..base import cast as _cast
 from ..base import dtype_name as _dname
 from ..context import resolve_device as _resolve
 from ..ndarray.ndarray import NDArray, array
@@ -527,7 +528,7 @@ def _made(make, ctx=None, device=None, dtype=None):
     current context), 64-bit dtypes narrowed."""
     dev = _resolve(device or ctx)
     t = make(dev)
-    return NDArray(t if dtype is None else t.to(dtype))
+    return NDArray(t if dtype is None else _cast(t, dtype))
 
 
 def zeros(shape, dtype="float32", order="C", ctx=None, device=None):
@@ -554,12 +555,18 @@ def full(shape, fill_value, dtype=None, ctx=None, device=None, out=None):
     if isinstance(fill_value, NDArray):
         fill_value = fill_value.item()
     dt = _canon(dtype) or _fill_dtype(fill_value)
+
+    def make(d):
+        if dt.itemsize == 1 and dt.is_floating_point:
+            # an fp8 fill is the reference's cast of the value (NaN past
+            # float8_e4m3fn's range), where torch.full refuses it
+            return _cast(_torch.full(_shape(shape), fill_value, device=d), dt)
+        return _torch.full(_shape(shape), fill_value, dtype=dt, device=d)
+
     if out is not None:
-        out._set_data(_torch.full(_shape(shape), fill_value, dtype=dt,
-                                  device=out._data.device))
+        out._set_data(make(out._data.device))
         return out
-    return _made(lambda d: _torch.full(_shape(shape), fill_value, dtype=dt,
-                                       device=d), ctx, device)
+    return _made(make, ctx, device)
 
 
 def empty(shape, dtype="float32", order="C", ctx=None, device=None):

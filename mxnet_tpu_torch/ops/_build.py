@@ -7,6 +7,9 @@ hold several kernels, each with its own C entry point. A library's file
 name carries a digest of its source, the shared headers and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. Several
 sources build in parallel: one ``nvcc`` per source, all started together.
+A flash kernel's instances live in a header and build from three sources,
+one a group of element dtypes (``flash_fwd``, ``flash_fwd_f16``,
+``flash_fwd_f8``, ...), so that they compile in parallel.
 
 :func:`compile_source` builds CUDA C given at run time (``rtc.CudaModule``)
 the same way, cached by a digest of the text and the flags.
@@ -42,13 +45,20 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # kernel name -> (source file, C symbol, ctypes argtypes)
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
+_FWD = [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]
+_DKV = [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]
+_DQ = [_P] * 9 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]
 SOURCES = {
-    "flash_fwd": ("flash_fwd.cu", "mxtt_flash_fwd",
-                  [_P] * 7 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
-    "flash_bwd_dkv": ("flash_bwd.cu", "mxtt_flash_bwd_dkv",
-                      [_P] * 10 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
-    "flash_bwd_dq": ("flash_bwd_dq.cu", "mxtt_flash_bwd_dq",
-                     [_P] * 9 + [_I] * 5 + [_F, _I, _I, _I, _I, _P]),
+    # each flash kernel: float32 and bfloat16; float16 (_f16); fp8 (_f8)
+    "flash_fwd": ("flash_fwd.cu", "mxtt_flash_fwd", _FWD),
+    "flash_fwd_f16": ("flash_fwd_f16.cu", "mxtt_flash_fwd", _FWD),
+    "flash_fwd_f8": ("flash_fwd_f8.cu", "mxtt_flash_fwd", _FWD),
+    "flash_bwd_dkv": ("flash_bwd.cu", "mxtt_flash_bwd_dkv", _DKV),
+    "flash_bwd_dkv_f16": ("flash_bwd_f16.cu", "mxtt_flash_bwd_dkv", _DKV),
+    "flash_bwd_dkv_f8": ("flash_bwd_f8.cu", "mxtt_flash_bwd_dkv", _DKV),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", "mxtt_flash_bwd_dq", _DQ),
+    "flash_bwd_dq_f16": ("flash_bwd_dq_f16.cu", "mxtt_flash_bwd_dq", _DQ),
+    "flash_bwd_dq_f8": ("flash_bwd_dq_f8.cu", "mxtt_flash_bwd_dq", _DQ),
     "layer_norm": ("layer_norm.cu", "mxtt_layer_norm_fwd",
                    [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P]),
     "softmax": ("softmax.cu", "mxtt_softmax_fwd",

@@ -21,7 +21,7 @@ import numpy as onp
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError, canonical_dtype
+from ..base import MXNetError, canonical_dtype, cast
 from .registry import register, register_alias
 
 _FILL_DT = {torch.bool: True}
@@ -74,6 +74,21 @@ def _bin(f):
         return f(a, b)
 
     return g
+
+
+def promoted(*ts):
+    """The tensors in their promoted dtype, as JAX promotes arrays of any
+    rank (torch's products refuse operands of mixed dtypes, and torch
+    would keep a 0-dim tensor's dtype below a wider one's)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t if t.dtype == dt else t.to(dt) for t in ts]
+
+
+def _matmul(a, b):
+    """``jnp.matmul``: operands of mixed dtypes promoted first."""
+    return torch.matmul(*promoted(a, b))
 
 
 def _float(x):
@@ -217,7 +232,7 @@ _BINARY = {
     "bitwise_xor": torch.bitwise_xor,
     "left_shift": torch.bitwise_left_shift,
     "right_shift": torch.bitwise_right_shift,
-    "matmul": torch.matmul,
+    "matmul": _matmul,
     "dot": _dot,
     "copysign": lambda a, b: torch.copysign(_float(a), b),
     "gcd": torch.gcd,
@@ -667,7 +682,7 @@ register("roll", lambda shift=0, axis=None:
 register("rot90", lambda k=1, axes=(0, 1):
          (lambda x: torch.rot90(x, k, axes)))
 register("astype", lambda dtype="float32":
-         (lambda x: x.to(canonical_dtype(dtype))))
+         (lambda x: cast(x, canonical_dtype(dtype))))
 register("flatten", lambda **a: (lambda x: x.reshape(x.shape[0], -1)))
 register("clip", _clip)
 register("round", lambda decimals=0: _rounding(

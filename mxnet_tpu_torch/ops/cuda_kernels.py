@@ -3,10 +3,12 @@
 Counterpart of ``mxnet_tpu/ops/pallas_kernels.py`` for its five TPU kernels:
 
 - :func:`flash_attention` — the flash-attention forward
-  (``csrc/flash_fwd.cu``, replacing ``_flash_fwd_kernel``, :163) and, as
-  its autograd backward, the two backward kernels (``csrc/flash_bwd.cu``,
-  replacing ``_flash_bwd_dkv_kernel``, :529, and ``csrc/flash_bwd_dq.cu``,
-  replacing ``_flash_bwd_dq_kernel``, :587);
+  (``csrc/flash_fwd.cuh``, replacing ``_flash_fwd_kernel``, :163) and, as
+  its autograd backward, the two backward kernels (``csrc/flash_bwd.cuh``,
+  replacing ``_flash_bwd_dkv_kernel``, :529, and ``csrc/flash_bwd_dq.cuh``,
+  replacing ``_flash_bwd_dq_kernel``, :587), each built from three sources
+  (``flash_fwd.cu``: float32 and bfloat16, ``flash_fwd_f16.cu``,
+  ``flash_fwd_f8.cu``; likewise for the other two);
 - :func:`fused_layer_norm` — row-wise LayerNorm (``csrc/layer_norm.cu``,
   replacing ``_ln_kernel``, :866);
 - :func:`fused_softmax` — last-axis softmax (``csrc/softmax.cu``, replacing
@@ -16,7 +18,9 @@ Each wrapper takes its plain version (:func:`attention_plain`,
 :func:`attention_bwd_plain`, :func:`layer_norm_plain`,
 :func:`softmax_plain`, ports of ``_attention_reference``, the backward
 identities at :519-527, ``_ln_reference`` and ``_softmax_kernel``'s math)
-only for tensors that lie on the CPU. For CUDA tensors it launches its
+only for tensors that lie on the CPU. :func:`attention_tiled_plain` is the
+forward with the flash kernels' own roundings, which the kernels are held
+to at float16 and fp8. For CUDA tensors it launches its
 kernel or raises: nothing falls back from a failed build or launch. Each
 launch adds one to the kernel's counter (``flash_fwd_launches``,
 ``flash_bwd_dkv_launches``, ``flash_bwd_dq_launches``,
@@ -24,6 +28,16 @@ launch adds one to the kernel's counter (``flash_fwd_launches``,
 (:func:`tile_counts`) and to the count of its operands' dtypes
 (:func:`dtype_counts`), so a run can show that its path went through the
 kernels, with which tiles and at which dtype instances.
+
+Element dtypes: the flash kernels take float32, bfloat16, float16,
+float8_e4m3fn and float8_e5m2 operands (the reference's fp32 and its four
+``AMP_DTYPES``, whose Pallas kernels take whatever dtype flows in); the
+LayerNorm kernel x in float32 or bfloat16 with gamma/beta in either, or x in
+float16 with gamma/beta in float32 or float16; the softmax kernel float32,
+bfloat16 or float16. Outputs are written in the operands' dtype with XLA's
+rounding and overflow (:func:`mxnet_tpu_torch.base.cast`: float8_e4m3fn
+gives NaN past its range, float16 and float8_e5m2 inf), on the card and in
+the plain versions alike, so an overflow reaches the loss scaler.
 
 Tiles are call parameters, as in the reference (:39-132). ``None`` resolves
 per call through the tuning tier (:mod:`mxnet_tpu_torch.tune`): with tuning
@@ -45,13 +59,13 @@ import os
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, cast
 from ..tune import cache as _tune
 from . import _build
 
 __all__ = ["flash_attention", "fused_layer_norm", "fused_softmax",
-           "attention_plain", "attention_bwd_plain", "layer_norm_plain",
-           "softmax_plain", "flash_fwd_cuda", "flash_bwd_cuda",
+           "attention_plain", "attention_tiled_plain", "attention_bwd_plain",
+           "layer_norm_plain", "softmax_plain", "flash_fwd_cuda", "flash_bwd_cuda",
            "flash_bwd_dkv_cuda", "flash_bwd_dq_cuda", "layer_norm_cuda",
            "softmax_cuda", "flash_block_q", "flash_block_k", "FLASH_BLOCKS",
            "ROW_BLOCKS", "DEFAULT_BLOCK_ROWS", "launch_counts",
@@ -59,7 +73,19 @@ __all__ = ["flash_attention", "fused_layer_norm", "fused_softmax",
            "library_counts"]
 
 _NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# element dtype -> its code at the C entry points (csrc/common.cuh)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+_FLASH_DTYPES = tuple(_DTYPE_CODE)
+# a flash kernel's library of each dtype (ops/_build.py SOURCES)
+_LIBRARY = {torch.float32: "", torch.bfloat16: "", torch.float16: "_f16",
+            torch.float8_e4m3fn: "_f8", torch.float8_e5m2: "_f8"}
+_SOFTMAX_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# (x, gamma/beta) pairs the LayerNorm kernel has instances of
+_LN_DTYPES = {(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16),
+              (torch.float16, torch.float32), (torch.float16, torch.float16)}
 _MAX_HEAD_DIM = 128
 
 # the legal tiles: query rows / keys of a flash tile, rows of a row-kernel
@@ -98,8 +124,9 @@ def tile_counts():
 
 def dtype_counts():
     """Launches since the last reset by (kernel, dtypes): the operands'
-    dtype names, ``("bfloat16",)`` for the flash kernels and the softmax,
-    (x's, gamma's) for LayerNorm, e.g. ``("bfloat16", "float32")``."""
+    dtype names, e.g. ``("bfloat16",)``, ``("float16",)`` or
+    ``("float8_e4m3fn",)`` for the flash kernels and the softmax, (x's,
+    gamma's) for LayerNorm, e.g. ``("float16", "float32")``."""
     return dict(_dtypes)
 
 
@@ -250,11 +277,22 @@ def _visible(tq, tk, causal, q_seg, k_seg, device):
     return masked
 
 
+def _p_times_v(p, v):
+    """The reference's ``einsum(p.astype(v.dtype), v)``: p rounded to v's
+    dtype, the product summed in fp32 and rounded once to v's dtype (torch
+    has no CPU product of fp8 operands, and the fp16 one may round other
+    than the card's fp32 sums)."""
+    if v.dtype in (torch.float32, torch.bfloat16):
+        return torch.matmul(p.to(v.dtype), v)
+    return cast(torch.matmul(cast(p, v.dtype).float(), v.float()), v.dtype)
+
+
 def attention_plain(q, k, v, scale, causal, q_seg=None, k_seg=None):
     """Plain version of the flash-attention forward: the reference's
     ``_attention_reference`` (pallas_kernels.py:138-157) over (B, H, T, D)
-    operands, plus the fp32 log-sum-exp (B, H, Tq, 1) the kernel returns.
-    A fully masked query row yields zeros."""
+    operands of one dtype, plus the fp32 log-sum-exp (B, H, Tq, 1) the
+    kernel returns: fp32 scores, p rounded to v's dtype before p v, the
+    output in v's dtype. A fully masked query row yields zeros."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     masked = _visible(s.shape[-2], s.shape[-1], causal, q_seg, k_seg,
                       s.device)
@@ -266,8 +304,38 @@ def attention_plain(q, k, v, scale, causal, q_seg=None, k_seg=None):
         e = torch.where(masked, e, torch.zeros_like(e))
     l = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     p = e / l
-    out = torch.matmul(p.to(v.dtype), v)
-    return out, m + torch.log(l)
+    return _p_times_v(p, v), m + torch.log(l)
+
+
+def attention_tiled_plain(q, k, v, scale, causal, q_seg=None, k_seg=None,
+                          block_k=32):
+    """Plain version of the flash-attention forward with the kernel's own
+    roundings: the reference kernel's online softmax (pallas_kernels.py
+    :163-224) over key tiles of ``block_k`` in order. p is taken against
+    the running max and rounded to v's dtype before p v; l sums the
+    unrounded p; out is rounded once to v's dtype at the end. At float16 and
+    fp8 this differs from :func:`attention_plain`, which rounds the
+    normalized p (a long row's p lies below fp8's normal range there), so
+    the kernels are held to this one. Returns (out, lse (B, H, Tq, 1))."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    masked = _visible(s.shape[-2], s.shape[-1], causal, q_seg, k_seg,
+                      s.device)
+    if masked is not None:
+        s = torch.where(masked, s, torch.full_like(s, -math.inf))
+    m = torch.full(s.shape[:-1] + (1,), _NEG_INF, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (v.shape[-1],), device=s.device)
+    for kb in range(0, s.shape[-1], block_k):
+        st = s[..., kb:kb + block_k]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(
+            cast(p, v.dtype).float(), v[..., kb:kb + block_k, :].float())
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return cast(acc / l, v.dtype), m + torch.log(l)
 
 
 def attention_bwd_plain(q, k, v, out, lse, g, q_seg, k_seg, scale, causal):
@@ -278,7 +346,8 @@ def attention_bwd_plain(q, k, v, out, lse, g, q_seg, k_seg, scale, causal):
         p = exp(s - lse), 0 where hidden;   Δ = rowsum(g ∘ out)
         dv = pᵀg;  ds = p (g vᵀ - Δ) scale;  dq = ds k;  dk = dsᵀq
 
-    Returns (dq, dk, dv) in the operands' dtype."""
+    Returns (dq, dk, dv) in the operands' dtype (XLA's rounding and
+    overflow, :func:`~mxnet_tpu_torch.base.cast`)."""
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse)
@@ -291,7 +360,7 @@ def attention_bwd_plain(q, k, v, out, lse, g, q_seg, k_seg, scale, causal):
     ds = p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta) * scale
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return cast(dq, q.dtype), cast(dk, k.dtype), cast(dv, v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -310,11 +379,12 @@ def _check_attention(name, q, k, v, q_seg, k_seg, *more):
         raise MXNetError(
             f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} do not agree")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise MXNetError(
-            f"{name}: operands must share float32 or bfloat16, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}")
+            f"{name}: operands must share one of float32, bfloat16, "
+            f"float16, float8_e4m3fn, float8_e5m2, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
     if D > _MAX_HEAD_DIM or B * H > 65535:
         raise MXNetError(
             f"{name}: head dim {D} > {_MAX_HEAD_DIM} or B*H "
@@ -336,7 +406,8 @@ def _seg_ptrs(q_seg, k_seg):
 def flash_fwd_cuda(q, k, v, q_seg, k_seg, scale, causal, block_q=None,
                    block_k=None):
     """Launch ``csrc/flash_fwd.cu`` on contiguous (B, H, T, D) CUDA operands
-    (float32 or bfloat16, D <= 128) with optional int32 (B, T) segment ids,
+    of one dtype (float32, bfloat16, float16, float8_e4m3fn or
+    float8_e5m2; D <= 128) with optional int32 (B, T) segment ids,
     at the tile (``block_q`` query rows a block, ``block_k`` keys a
     shared-memory tile; None: the env defaults). Returns (out (B, H, Tq, D)
     in q's dtype, lse (B, H, Tq, 1) float32)."""
@@ -348,7 +419,7 @@ def flash_fwd_cuda(q, k, v, q_seg, k_seg, scale, causal, block_q=None,
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    fn = _build.load("flash_fwd")
+    fn = _build.load("flash_fwd" + _LIBRARY[q.dtype])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *_seg_ptrs(q_seg, k_seg),
             out.data_ptr(), lse.data_ptr(), B * H, H, Tq, Tk, D,
             float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], bq, bk,
@@ -376,8 +447,8 @@ def _check_bwd_stats(name, q, g, lse, delta):
 def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale,
                        causal, block_q=None, block_k=None):
     """Launch the dK/dV kernel of ``csrc/flash_bwd.cu``. q, g (B, H, Tq, D)
-    and k, v (B, H, Tk, D) contiguous on one CUDA device, one dtype
-    (float32 or bfloat16, D <= 128); the forward's lse and Δ =
+    and k, v (B, H, Tk, D) contiguous on one CUDA device, one dtype (as
+    :func:`flash_fwd_cuda`, D <= 128); the forward's lse and Δ =
     rowsum(g ∘ out), float32 with B*H*Tq values; optional int32 (B, T)
     segment ids. A block owns ``block_k`` keys and loops over tiles of
     ``block_q`` queries (None: the env defaults). Returns (dk, dv) in k's
@@ -391,7 +462,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale,
     dv = torch.empty_like(v)
     if dk.numel() == 0 or Tq == 0:
         return dk.zero_(), dv.zero_()
-    fn = _build.load("flash_bwd_dkv")
+    fn = _build.load("flash_bwd_dkv" + _LIBRARY[q.dtype])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *_seg_ptrs(q_seg, k_seg),
             dk.data_ptr(), dv.data_ptr(), B * H, H, Tq, Tk, D, float(scale),
@@ -417,7 +488,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, delta, q_seg, k_seg, scale, causal,
     dq = torch.empty_like(q)
     if dq.numel() == 0 or Tk == 0:
         return dq.zero_()
-    fn = _build.load("flash_bwd_dq")
+    fn = _build.load("flash_bwd_dq" + _LIBRARY[q.dtype])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *_seg_ptrs(q_seg, k_seg),
             dq.data_ptr(), B * H, H, Tq, Tk, D, float(scale),
@@ -615,9 +686,10 @@ def layer_norm_plain(x, gamma, beta, eps):
 
 def layer_norm_cuda(x, gamma, beta, eps, block_rows=None):
     """Launch ``csrc/layer_norm.cu``: row LayerNorm over x's last axis,
-    ``block_rows`` rows a block (None: 4). x contiguous float32/bfloat16 on
-    CUDA; gamma/beta (d,) float32 or bfloat16. Returns a new tensor of x's
-    shape and dtype."""
+    ``block_rows`` rows a block (None: 4). x contiguous on CUDA, float32 or
+    bfloat16 with gamma/beta (d,) float32 or bfloat16, or float16 with
+    gamma/beta float32 or float16. Returns a new tensor of x's shape and
+    dtype."""
     global layer_norm_launches
     _check_cuda("fused_layer_norm", x, gamma, beta)
     br = _row_tile("fused_layer_norm", block_rows)
@@ -627,7 +699,7 @@ def layer_norm_cuda(x, gamma, beta, eps, block_rows=None):
         raise MXNetError(
             f"fused_layer_norm: x {tuple(x.shape)} needs gamma/beta of "
             f"shape ({d},), got {tuple(gamma.shape)}, {tuple(beta.shape)}")
-    if x.dtype not in _DTYPE_CODE or gamma.dtype not in _DTYPE_CODE or \
+    if (x.dtype, gamma.dtype) not in _LN_DTYPES or \
             beta.dtype != gamma.dtype:
         raise MXNetError(
             f"fused_layer_norm: unsupported dtypes x {x.dtype}, gamma "
@@ -721,15 +793,16 @@ def softmax_plain(x):
 
 def softmax_cuda(x, block_rows=None):
     """Launch ``csrc/softmax.cu``: softmax over x's last axis,
-    ``block_rows`` rows a block (None: 4). x contiguous float32/bfloat16 on
-    CUDA, any width. Returns a new tensor of x's shape and dtype."""
+    ``block_rows`` rows a block (None: 4). x contiguous float32, bfloat16
+    or float16 on CUDA, any width. Returns a new tensor of x's shape and
+    dtype."""
     global softmax_launches
     _check_cuda("fused_softmax", x)
     br = _row_tile("fused_softmax", block_rows)
-    if x.dtype not in _DTYPE_CODE or x.dim() < 1:
+    if x.dtype not in _SOFTMAX_DTYPES or x.dim() < 1:
         raise MXNetError(
-            f"fused_softmax: x must be float32 or bfloat16 with at least "
-            f"one axis, got {x.dtype} {tuple(x.shape)}")
+            f"fused_softmax: x must be float32, bfloat16 or float16 with at "
+            f"least one axis, got {x.dtype} {tuple(x.shape)}")
     out = torch.empty_like(x)
     rows, d = _rows_of(x)
     if rows == 0:

@@ -68,7 +68,7 @@ import math
 import numpy as onp
 import torch
 
-from ..base import dtype_name, to_dtype
+from ..base import cast, dtype_name, to_dtype
 from ..context import resolve_device
 from .registry import get_op, register
 from .vision import _pair_iou
@@ -392,7 +392,7 @@ def _amp_cast(dtype="float16"):
     tgt = to_dtype(dtype_name(dtype))
 
     def f(x):
-        return x.to(tgt)
+        return cast(x, tgt)
 
     return f
 
@@ -406,7 +406,7 @@ def _amp_multicast(num_outputs=1, cast_narrow=False):
         widths = [x.element_size() for x in xs]
         pick = (min if cast_narrow else max)(range(len(xs)),
                                              key=lambda i: widths[i])
-        return tuple(x.to(xs[pick].dtype) for x in xs)
+        return tuple(cast(x, xs[pick].dtype) for x in xs)
 
     return f
 

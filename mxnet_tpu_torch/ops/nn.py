@@ -40,7 +40,7 @@ from .. import autograd as _ag
 from .. import random as _random
 from ..base import MXNetError
 from . import cuda_kernels as _kern
-from ._core import fill_value, take_along_axis, wrap_fill_index
+from ._core import fill_value, promoted, take_along_axis, wrap_fill_index
 from .registry import get_op, register
 
 __all__ = ["fully_connected", "matmul", "convolution", "deconvolution",
@@ -92,6 +92,9 @@ def _fc(no_bias=False, flatten=True, num_hidden=0):
     def f(x, w, *b):
         if flatten and x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
+        # jnp.matmul promotes mixed operands (a converted layer fed from an
+        # fp32 cache row)
+        x, w = promoted(x, w)
         y = torch.matmul(x, w.t())
         if not no_bias:
             y = y + b[0]
@@ -692,6 +695,10 @@ def _multihead_attention(num_heads=1, dropout=0.0, causal=False, scale=None,
             f"{num_heads}, got {num_kv_heads}")
 
     def f(q, k, v, *mask):
+        # the reference's einsums promote mixed operands (a converted
+        # model's bf16 query against the engine's fp32 KV cache attends in
+        # fp32); the kernels take one dtype
+        q, k, v = promoted(q, k, v)
         B, Tq, E = q.shape
         Tk = k.shape[1]
         D = E // num_heads
@@ -716,7 +723,10 @@ def _multihead_attention(num_heads=1, dropout=0.0, causal=False, scale=None,
                                         kv_segment_ids=seg)
         else:
             logits = torch.matmul(qh, kh.transpose(-1, -2)) * s
-            neg = torch.full_like(logits, _NEG_INF)
+            # the reference's where(..., -1e30) in the logits' dtype: -inf
+            # in fp16, whose range ends at 65504
+            neg = torch.full_like(logits, _NEG_INF, dtype=torch.float32) \
+                .to(logits.dtype)
             if causal:
                 cm = torch.ones((Tq, Tk), dtype=torch.bool,
                                 device=q.device).tril(Tk - Tq)
@@ -736,6 +746,7 @@ def _flash_attention(num_heads=1, causal=False, scale=None):
     restored. Optional 4th/5th inputs: (B, Tq)/(B, Tk) segment ids (one
     id given is used for both sides)."""
     def f(q, k, v, *segments):
+        q, k, v = promoted(q, k, v)
         ndim = q.dim()
         if ndim == 2:
             qq, kk, vv = (a[None, None] for a in (q, k, v))

@@ -59,6 +59,7 @@ import numpy as onp
 import torch
 
 from ._core import last_wins
+from ._core import promoted as _like
 from .registry import register, register_alias
 
 __all__ = ["sparse_sgd_", "sparse_adagrad_", "sparse_adam_",
@@ -306,15 +307,6 @@ def _clip(g, c):
 
 def _wd_grad(weight, grad, wd, rescale_grad, clip_gradient):
     return _clip(grad * rescale_grad, clip_gradient) + wd * weight
-
-
-def _like(*ts):
-    """The tensors in their promoted dtype, as JAX promotes arrays of any
-    rank (torch would keep a 0-dim tensor's dtype below a wider one's)."""
-    dt = ts[0].dtype
-    for t in ts[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return [t.to(dt) for t in ts]
 
 
 def _fp32(x):

@@ -41,7 +41,7 @@ import torch
 from .. import amp as _amp
 from .. import autograd as _ag
 from .. import random as _random
-from ..base import MXNetError, narrow, to_dtype
+from ..base import MXNetError, cast, narrow, to_dtype
 from ..context import resolve_device
 
 __all__ = ["Op", "register", "register_alias", "get_op", "list_ops",
@@ -251,11 +251,13 @@ def _amp_wrap(f, dtype_name):
     """``f`` with every float32 tensor operand cast to the AMP dtype
     ``dtype_name`` at entry; other operands (ints, bools, masks of other
     dtypes, None, scalars) as they are (reference :283-297). The casts are
-    differentiable: gradients of float32 inputs come back float32."""
+    the reference's ``astype`` (:func:`~mxnet_tpu_torch.base.cast`: NaN past
+    float8_e4m3fn's range) and differentiable: gradients of float32 inputs
+    come back float32."""
     tgt = to_dtype(_amp.resolve_dtype(dtype_name))
 
     def wrapped(*args):
-        return f(*[a.to(tgt) if isinstance(a, torch.Tensor) and
+        return f(*[cast(a, tgt) if isinstance(a, torch.Tensor) and
                    a.dtype == torch.float32 else a for a in args])
 
     return wrapped

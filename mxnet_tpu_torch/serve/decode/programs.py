@@ -43,6 +43,13 @@ family, and the tick):
   to eager execution. Tuned tiles resolve while capturing and stay frozen
   in the graph (``warmup`` preloads the tuning cache first).
 
+The bodies run, and capture, under the AMP state of the thread that made
+the table (:mod:`mxnet_tpu_torch.amp`, on or off and its dtype), as the
+reference traces its programs under it when the engine is built: an engine
+built inside ``amp.autocast("float16")`` serves fp16 products and runs the
+flash kernels' fp16 instances on its own scheduler thread. The KV pools keep
+the model's dtype, as the reference's (:262-273).
+
 On the CPU the same body runs eagerly each run, from the same static
 operands. Warmup manifests (``manifest_dict``, :func:`load_decode_manifest`)
 record the reference's geometry and program signatures. ``export`` and
@@ -57,6 +64,7 @@ import time
 import numpy as onp
 import torch
 
+from ... import amp as _amp
 from ... import cached_op as _cached_op
 from ...base import MXNetError
 from ...context import env_signature
@@ -183,7 +191,7 @@ class _Program:
         Hybridized blocks of the model run inline: the program is the
         graph."""
         family = getattr(self.progs, "_" + self.kind)
-        with _cached_op.inlined():
+        with _cached_op.inlined(), _amp._scoped(self.progs.amp_state):
             return family(*self.inputs, kp, vp)[0]
 
     def current(self, kp, vp):
@@ -271,6 +279,9 @@ class DecodePrograms:
                                            max_prompt_len))
         self._model = model
         self.device = model.device
+        # the AMP state the bodies run and capture under (see the module
+        # docstring)
+        self.amp_state = _amp._snapshot()
         head_dim = model._units // model._num_heads
         self.cache_shape = (self.kv_pages, model._num_layers,
                             model._num_heads, self.page_tokens, head_dim)

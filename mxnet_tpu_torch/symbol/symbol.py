@@ -13,8 +13,8 @@ loads the other's files: ``{"nodes", "heads", "mxnet_tpu_version": 1}``,
 ``"op": "null"`` for variables, ``"_const"`` nodes holding ``value`` as a
 list and ``dtype`` as a string, literal inputs as ``{"literal": v}`` and
 tuple attributes as ``{"__tuple__": [...]}``. A const node holds a tensor.
-bfloat16 constants are refused both ways: no package of the card's
-machine reads numpy's bfloat16.
+A bfloat16 constant crosses as the reference writes it: its values as a
+list of floats (each exact in float32) beside ``"dtype": "bfloat16"``.
 """
 from __future__ import annotations
 
@@ -316,16 +316,16 @@ def _legacy(op_name):
 
 
 def _const_list(t):
+    t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        raise MXNetError("a bfloat16 constant cannot be written to the "
-                         "Symbol JSON: bfloat16 graphs are not exported")
-    return t.detach().cpu().numpy().tolist()
+        return t.float().tolist()     # exact: bf16 is a prefix of fp32
+    return t.numpy().tolist()
 
 
 def _const_tensor(jn):
     if jn["dtype"] == "bfloat16":
-        raise MXNetError(f"const node {jn.get('name')}: bfloat16 constants "
-                         "in the Symbol JSON are not read")
+        return torch.tensor(jn["value"], dtype=torch.float32).to(
+            torch.bfloat16)
     return torch.tensor(jn["value"], dtype=to_dtype(jn["dtype"]))
 
 

@@ -625,18 +625,24 @@ def test_converted_block_runs_bf16_layer_norm_on_card(cuda):
 
 @pytest.mark.cuda
 def test_float16_raises_in_the_kernels_on_card(cuda):
-    """The kernels take fp32 and bf16 only: fp16 raises, also through an
-    op under ``autocast("float16")``."""
+    """What no kernel instance takes raises, and float16 no longer does.
+
+    Raises: operands of mixed dtypes, LayerNorm with float16 x and bfloat16
+    gamma/beta, an fp8 softmax. Runs: the float16 flash instance through
+    an op under ``autocast("float16")`` (every float16 instance is held to
+    its plain version in ``tests/test_torch_amp16.py``)."""
     q = torch.randn(1, 2, 16, 64, device=cuda, dtype=torch.float16)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        tk.flash_fwd_cuda(q, q, q, None, None, 0.125, True)
+    with pytest.raises(MXNetError, match="must share one of"):
+        tk.flash_fwd_cuda(q, q.float(), q, None, None, 0.125, True)
     x = torch.randn(4, 64, device=cuda, dtype=torch.float16)
-    g = torch.ones(64, device=cuda, dtype=torch.float16)
+    g = torch.ones(64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(MXNetError, match="unsupported dtypes"):
         tk.layer_norm_cuda(x, g, g, 1e-5)
-    with pytest.raises(MXNetError, match="float32 or bfloat16"):
-        tk.softmax_cuda(x)
+    with pytest.raises(MXNetError, match="float32, bfloat16 or float16"):
+        tk.softmax_cuda(x.to(torch.float8_e4m3fn))
     qf = q.float()
+    tk.reset_launch_counts()
     with tamp.autocast("float16"):
-        with pytest.raises(MXNetError, match="float32 or bfloat16"):
-            tnn.flash_attention(qf, qf, qf, causal=True)
+        out = tnn.flash_attention(qf, qf, qf, causal=True)
+    assert out.dtype == torch.float16
+    assert tk.dtype_counts() == {("flash_fwd", ("float16",)): 1}

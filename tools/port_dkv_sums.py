@@ -25,15 +25,19 @@ sys.path.insert(0, str(ROOT))
 
 
 def build_variant(_build, out_dir):
-    """Compile flash_bwd.cu with ``tile_sums`` false into ``out_dir``;
-    returns (Popen, library path)."""
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    """Compile flash_bwd.cu (its float32 and bfloat16 instances) with
+    ``tile_sums`` false in flash_bwd.cuh into ``out_dir``; returns (Popen,
+    library path)."""
+    src = (_build.CSRC / "flash_bwd.cuh").read_text()
     on = "  return std::is_same<T, float>::value;\n}"
     if src.count(on) != 1:
-        raise SystemExit("tile_sums<T>() not found in flash_bwd.cu")
+        raise SystemExit("tile_sums<T>() not found in flash_bwd.cuh")
     out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "flash_bwd_register_sums.cuh").write_text(
+        src.replace(on, "  return false;\n}"))
     cu = out_dir / "flash_bwd_register_sums.cu"
-    cu.write_text(src.replace(on, "  return false;\n}"))
+    cu.write_text((_build.CSRC / "flash_bwd.cu").read_text().replace(
+        '"flash_bwd.cuh"', '"flash_bwd_register_sums.cuh"'))
     lib = out_dir / "libflash_bwd_register_sums.so"
     cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
            str(_build.CSRC), "-o", str(lib), str(cu)]
